@@ -1,0 +1,182 @@
+"""Nonnegative sparse coding via row-wise projected gradient descent.
+
+PyTorch counterpart of ``onmf_ontf_ndl_tpu/ops/coder.py``. For a fixed
+dictionary ``W`` (d, r) and data ``X`` (d, n) it solves
+
+    H* = argmin_{H >= 0}  0.5 * |X - W H|_F^2 + alpha * |H|_1
+
+by Gauss-Seidel sweeps over the r rows of ``H`` with the step
+``1 / (sqrt(i + 10) * (A_kk + 1))`` (``A = W^T W``), optionally inside a
+spectral trust region of ``radius`` around ``H0``.
+
+Execution modes, as in the JAX module:
+
+- ``stopping_diff=None``: exactly ``sub_iter`` sweeps;
+- ``stopping_diff=float``: sweeps until the relative spectral-norm change
+  of the whole batch drops to ``stopping_diff`` (the reference rule).
+
+On a CUDA tensor without a radius, both modes run the hand-written kernels
+of ``ops/kernels/coder_kernel.py``; the early-stop kernel applies the rule
+per column tile (see that module). Everything else is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["nonneg_code", "nonneg_code_gram"]
+
+_FISTA_TODO = ("method='fista'/'fista_bf16' is not ported yet "
+               "(ROADMAP.md A2 `_fista_impl` and B4 `fista_sweeps`)")
+
+
+def _spectral_norm(M: torch.Tensor) -> torch.Tensor:
+    """2-norm (largest singular value) of a matrix, as
+    ``sqrt(lambda_max)`` of the smaller Gram matrix."""
+    r, n = M.shape
+    G = M @ M.T if r <= n else M.T @ M
+    lam = torch.linalg.eigvalsh(G)[-1]
+    return torch.sqrt(torch.clamp_min(lam, 0.0))
+
+
+def _sweep(H, A, B, alpha, rsqrt_i):
+    """One Gauss-Seidel sweep over all r rows of H, in place.
+
+    rsqrt_i = 1/sqrt(i + 10) where i is the outer-iteration index.
+    """
+    steps = rsqrt_i / (torch.diagonal(A) + 1.0)
+    for k in range(A.shape[0]):
+        grad = A[k, :] @ H - B[k, :] + alpha
+        H[k, :] = torch.clamp_min(H[k, :] - steps[k] * grad, 0.0)
+    return H
+
+
+def _sweep_radius(H, H_anchor, A, B, alpha, rsqrt_i, radius):
+    """Sweep with a spectral trust region of ``radius`` re-anchored after
+    every row by value (PARITY.md deviation #7: the reference's aliasing
+    re-anchor would disable the projection after the first row)."""
+    steps = rsqrt_i / (torch.diagonal(A) + 1.0)
+    for k in range(A.shape[0]):
+        grad = A[k, :] @ H - B[k, :] + alpha
+        H = H.clone()
+        H[k, :] = torch.clamp_min(H[k, :] - steps[k] * grad, 0.0)
+        d = _spectral_norm(H - H_anchor)
+        scale = radius / torch.clamp_min(d, radius)
+        H = H_anchor + scale * (H - H_anchor)
+        H_anchor = H
+    return H, H_anchor
+
+
+def _code_impl(A, B, H0, alpha, stopping_diff, radius, sub_iter: int,
+               use_stopping: bool, use_radius: bool) -> torch.Tensor:
+    """The plain coder: fixed, early-stop and radius paths."""
+    H, anchor = H0.clone(), H0
+
+    def one_iter(i, H, anchor):
+        rsqrt_i = 1.0 / math.sqrt(i + 10.0)
+        if use_radius:
+            return _sweep_radius(H, anchor, A, B, alpha, rsqrt_i, radius)
+        return _sweep(H, A, B, alpha, rsqrt_i), anchor
+
+    if not use_stopping:
+        for i in range(sub_iter):
+            H, anchor = one_iter(i, H, anchor)
+        return H
+    i, dist = 0, math.inf
+    # no 1e-30 guard, as in the JAX loop: a zero H_old gives NaN, and
+    # NaN > stopping_diff is False, so the loop stops
+    while i < sub_iter and dist > stopping_diff:
+        H_old = H.clone()
+        H, anchor = one_iter(i, H, anchor)
+        dist = float(_spectral_norm(H - H_old) / _spectral_norm(H_old))
+        i += 1
+    return H
+
+
+def nonneg_code_gram(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    H0: torch.Tensor,
+    *,
+    alpha: float = 0.0,
+    sub_iter: int = 10,
+    stopping_diff: float | None = 0.01,
+    radius: float | None = None,
+    backend: str = "auto",
+    method: str = "bcd",
+) -> torch.Tensor:
+    """Nonnegative LASSO code update from precomputed Gram matrices.
+
+    Args:
+      A: (r, r) Gram matrix ``W^T W``.
+      B: (r, n) projection ``W^T X``.
+      H0: (r, n) initial code iterate.
+      alpha: L1 penalty.
+      sub_iter: max number of full row sweeps.
+      stopping_diff: relative spectral-change early stop; ``None`` runs
+        exactly ``sub_iter`` sweeps.
+      radius: optional spectral trust-region radius around ``H0``.
+      backend: "auto" | "torch" | "cuda" (see ``ops.kernels``).
+      method: "bcd" only; the FISTA coder is not ported yet.
+
+    Returns:
+      (r, n) nonnegative code matrix.
+    """
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
+
+    use_stopping = stopping_diff is not None
+    use_radius = radius is not None
+    if method in ("fista", "fista_bf16"):
+        raise NotImplementedError(_FISTA_TODO)
+    if method != "bcd":
+        raise ValueError(
+            f"method must be 'bcd', 'fista' or 'fista_bf16', got {method!r}")
+    resolved = resolve_backend(backend, B)
+    if use_radius and backend == "cuda":
+        raise ValueError(
+            "the trust-region (radius) coder has no kernel; use "
+            "backend='torch' or 'auto'")
+    if not use_radius and resolved == "cuda":
+        from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
+            coder_sweeps, coder_sweeps_earlystop)
+
+        if use_stopping:
+            return coder_sweeps_earlystop(A, B, H0, alpha, stopping_diff,
+                                          sub_iter=int(sub_iter))
+        return coder_sweeps(A, B, H0, alpha, sub_iter=int(sub_iter))
+    return _code_impl(A, B, H0, alpha, stopping_diff, radius,
+                      int(sub_iter), use_stopping, use_radius)
+
+
+def nonneg_code(
+    X: torch.Tensor,
+    W: torch.Tensor,
+    H0: torch.Tensor | None = None,
+    *,
+    generator: torch.Generator | None = None,
+    alpha: float = 0.0,
+    sub_iter: int = 10,
+    stopping_diff: float | None = 0.01,
+    radius: float | None = None,
+    backend: str = "auto",
+    method: str = "bcd",
+) -> torch.Tensor:
+    """Sparse-code a data batch ``X`` (d, n) against dictionary ``W`` (d, r).
+
+    ``H0=None`` draws the initial iterate uniformly from [0, 1) with
+    ``generator`` (the reference's ``np.random.rand`` initialization).
+    """
+    A = W.T @ W
+    B = W.T @ X
+    if H0 is None:
+        if generator is None:
+            raise ValueError("nonneg_code: provide H0 or generator")
+        H0 = torch.rand((W.shape[1], X.shape[1]), generator=generator,
+                        dtype=W.dtype, device=W.device)
+    return nonneg_code_gram(
+        A, B, H0, alpha=alpha, sub_iter=sub_iter,
+        stopping_diff=stopping_diff, radius=radius, backend=backend,
+        method=method,
+    )

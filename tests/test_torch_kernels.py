@@ -1,0 +1,135 @@
+"""The three sweep kernels of onmf_ontf_ndl_tpu_torch.ops.kernels.
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+in float32 against the JAX Pallas kernels run with ``interpret=True`` (as
+tests/test_pallas_kernels.py runs them), at the Pallas kernels' own
+tolerance rtol 2e-4 / atol 2e-5 (float32 summation order). The real
+kernels are held against these plain versions on the card by
+tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from onmf_ontf_ndl_tpu.ops.coder import _code_impl as jax_code_impl
+from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import (
+    coder_sweeps as jax_coder_sweeps,
+    coder_sweeps_earlystop as jax_coder_sweeps_earlystop,
+    dict_update_sweep as jax_dict_update_sweep,
+)
+from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel as ck
+from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
+
+torch.set_num_threads(1)
+
+RNG = np.random.default_rng(31)
+TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def make(d=48, r=25, n=200, seed=None):
+    rng = RNG if seed is None else np.random.default_rng(seed)
+    W = rng.random((d, r)).astype(np.float32)
+    X = rng.random((d, n)).astype(np.float32)
+    H0 = rng.random((r, n)).astype(np.float32)
+    return W.T @ W, W.T @ X, H0, W, X
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+@pytest.mark.parametrize("alpha", [0.0, 1.0])
+@pytest.mark.parametrize("n", [64, 200, 513])
+def test_coder_sweeps_plain_matches_pallas(alpha, n):
+    A, B, H0, _, _ = make(n=n)
+    got = ck.coder_sweeps(_t(A), _t(B), _t(H0), alpha, sub_iter=10).numpy()
+    want = np.asarray(jax_coder_sweeps(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), alpha, sub_iter=10,
+        interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("stop", [0.01, 0.05, 0.2])
+@pytest.mark.parametrize("n", [64, ck.TN])
+def test_earlystop_plain_matches_pallas_single_tile(stop, n):
+    # n <= TN here and <= the Pallas tile: both decide on one tile, so the
+    # iterates agree to float32 tolerance (same sweep count)
+    A, B, H0, _, _ = make(n=n)
+    got = ck.coder_sweeps_earlystop(_t(A), _t(B), _t(H0), 0.1, stop,
+                                    sub_iter=10).numpy()
+    want = np.asarray(jax_coder_sweeps_earlystop(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), 0.1, stop,
+        sub_iter=10, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _one_more_sweep_change(A, B, H):
+    """Relative spectral change of one more full-matrix sweep."""
+    one_more = np.asarray(jax_code_impl(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H), jnp.float32(0.0),
+        jnp.float32(0.0), jnp.float32(0.0), 1, False, False))
+    return np.linalg.norm(one_more - H, 2) / np.linalg.norm(H, 2)
+
+
+def test_earlystop_plain_multi_tile_converged():
+    # four TN-column tiles, each freezing on its own test: every tile's
+    # final iterate must satisfy the convergence guarantee of the global
+    # rule. Slack over stop=0.05 as in test_pallas_kernels.py: the probe
+    # sweep uses the i=0 step 1/sqrt(10), larger than each tile's last.
+    A, B, H0, _, _ = make(n=4 * ck.TN)
+    g = ck.coder_sweeps_earlystop(_t(A), _t(B), _t(H0), 0.0, 0.05,
+                                  sub_iter=50).numpy()
+    assert (g >= 0).all()
+    assert _one_more_sweep_change(A, B, g) <= 0.1
+
+
+def test_dict_update_plain_matches_pallas_symmetric():
+    d, r = 75, 25
+    W = RNG.random((d, r)).astype(np.float32)
+    H = RNG.random((r, 40)).astype(np.float32)
+    X = (W @ H + 0.01 * RNG.random((d, 40))).astype(np.float32)
+    A, B = H @ H.T, H @ X.T
+    got = ck.dict_update_sweep(_t(W), _t(A), _t(B)).numpy()
+    want = np.asarray(jax_dict_update_sweep(
+        jnp.asarray(W), jnp.asarray(A), jnp.asarray(B), interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_dict_update_plain_matches_pallas_asymmetric():
+    d, r = 40, 9
+    W = RNG.random((d, r)).astype(np.float32)
+    A = RNG.random((r, r)).astype(np.float32)
+    B = RNG.random((r, d)).astype(np.float32)
+    got = ck.dict_update_sweep(_t(W), _t(A), _t(B)).numpy()
+    want = np.asarray(jax_dict_update_sweep(
+        jnp.asarray(W), jnp.asarray(A), jnp.asarray(B), interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_cpu_wrappers_take_the_plain_path_without_launching():
+    ck.reset_launches()
+    A, B, H0, W, X = make(n=30)
+    ck.coder_sweeps(_t(A), _t(B), _t(H0))
+    ck.coder_sweeps_earlystop(_t(A), _t(B), _t(H0))
+    ck.dict_update_sweep(_t(W), _t(A), _t(H0 @ X.T))
+    assert ck.LAUNCHES == {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
+                           "dict_update_sweep": 0}
+
+
+def test_argument_checks():
+    A, B, H0, _, _ = make(r=ck.MAX_RANK + 1, n=8)
+    with pytest.raises(ValueError, match=f"r <= {ck.MAX_RANK}"):
+        ck._check_coder("coder_sweeps", _t(A), _t(B), _t(H0), ck.MAX_RANK)
+    A, B, H0, _, _ = make(r=6, n=8)
+    with pytest.raises(ValueError, match="do not agree"):
+        ck._check_coder("coder_sweeps", _t(A), _t(B), _t(H0[:, :5]), 128)
+    with pytest.raises(TypeError, match="float32"):
+        ck._check_coder("coder_sweeps", _t(A).double(), _t(B), _t(H0), 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck._check_coder("coder_sweeps", _t(A).T, _t(B), _t(H0), 128)
+    with pytest.raises(ValueError, match="different devices"):
+        ck._on_cpu(_t(A), _t(B).to("meta"))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        resolve_backend("cuda", _t(A))
