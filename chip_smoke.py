@@ -4,20 +4,34 @@
 
 Phases, each printing its findings on a line of its own:
 
-1. build   - nvcc builds the three sweep kernels from ``csrc/`` (sm_90a);
-             the card's name and power limit.
+1. build   - nvcc builds the kernel library from ``csrc/*.cu`` (sm_90a), one
+             compiler per source at once; the card's name and power limit.
 2. kernels - each kernel against its plain PyTorch version on the card at
-             the slice's shapes (r in {25, 100}; n in {TN, 131072 + 37};
-             d = 300), rtol 2e-4 / atol 2e-5, with CUDA-event times of both.
+             the slices' shapes, with CUDA-event times of both: the sweep
+             kernels and FISTA (fixed, stop 0.01, bf16) at r in {25, 100},
+             n in {TN, 131072 + 37}, d = 300, rtol 2e-4 / atol 2e-5; bf16
+             FISTA over one iteration at that tolerance and over ten at
+             atol 1.5e-3, each outside the f32 tolerance of the f32 plain
+             version; the checkerboard sampler at n in {200, 4096}, 100
+             sweeps, equal site for site, and two physics checks at
+             n = 4096.
 3. main    - ``OnlineNMF(...).train_dict()`` on synthetic sparse-dictionary
              data (trained W within 10% of the ground-truth W's score),
              then ``init_state`` + ``train_dict`` at d = 300, r = 25,
-             batch 16384 (patches/s, fixed sweeps and early stop). Every
-             kernel must have launched in this phase. Then a short run
-             against the same run on the CPU in float64 with the same draws.
+             batch 16384 (patches/s: fixed sweeps, early stop, FISTA).
+             Then a short run against the same run on the CPU in float64
+             with the same draws.
 4. image   - ``ImageReconstructor`` on a 1024x1024x3 synthetic image, colour
              reconstruction, and a checkpoint written and resumed.
+5. tensor  - ``ImageReconstructorTensor`` (r = 100, patch 20, joint mode 2,
+             d = 1200; ``benchmarks/run_all.py``'s configuration) on the
+             same image, colour reconstruction, and a short card/CPU run.
+6. ising   - ``IsingReconstructor`` (r = 100, lattice 200, 20 rounds,
+             T = 5; ``benchmarks/run_all.py``'s configuration), config
+             reconstruction, and a short card/CPU run.
 
+Phases 3, 5 and 6 each drive one path of the port with the launch counts
+set to 0 before it, and fail unless every kernel of that path launched.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -35,12 +49,32 @@ import numpy as np
 import torch
 
 TOL = dict(rtol=2e-4, atol=2e-5)
-SOURCE = "onmf_ontf_ndl_tpu_torch/ops/kernels/csrc/onmf_kernels.cu"
-REPLACES = {
-    "coder_sweeps": "onmf_ontf_ndl_tpu/ops/pallas/coder_kernel.py:192",
-    "coder_sweeps_earlystop":
-        "onmf_ontf_ndl_tpu/ops/pallas/coder_kernel.py:455",
-    "dict_update_sweep": "onmf_ontf_ndl_tpu/ops/pallas/coder_kernel.py:629",
+# bf16 FISTA over ten iterations: a float32 sum in another order carries a
+# few iterates across a bf16 rounding boundary. About 3x the largest
+# kernel-vs-plain error measured on an H100 (4.7e-4 at r = 25,
+# n = 131109), and below the gap between the f32 and bf16 plain versions on
+# these inputs (2.2e-3 at r = 100, n = 128, to 9.3e-3 at r = 25, n = 131109).
+BF16_TOL = dict(rtol=0.0, atol=1.5e-3)
+CSRC = "onmf_ontf_ndl_tpu_torch/ops/kernels/csrc/"
+PALLAS = "onmf_ontf_ndl_tpu/ops/pallas/"
+# kernel -> (source, the TPU kernel it replaces, the path whose run counts
+# its launches)
+KERNELS = {
+    "coder_sweeps": ("onmf_kernels.cu", "coder_kernel.py:192", "main"),
+    "coder_sweeps_earlystop": ("onmf_kernels.cu", "coder_kernel.py:455",
+                               "main"),
+    "fista_sweeps": ("onmf_kernels.cu", "coder_kernel.py:579", "tensor"),
+    "dict_update_sweep": ("onmf_kernels.cu", "coder_kernel.py:629", "main"),
+    "checkerboard_sweeps": ("ising_kernels.cu", "ising_kernel.py:64",
+                            "ising"),
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "main": ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
+             "dict_update_sweep"),
+    "tensor": ("fista_sweeps", "dict_update_sweep"),
+    "ising": ("checkerboard_sweeps", "coder_sweeps_earlystop",
+              "coder_sweeps", "dict_update_sweep"),
 }
 HEADLINE_N = 131072 + 37   # a ragged last tile
 
@@ -63,12 +97,39 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, want):
+def timed_once(fn):
+    """(result, milliseconds) of one call, from CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare(name, got, want, tol=TOL):
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite output")
-    torch.testing.assert_close(got, want, **TOL, msg=lambda m: f"{name}: {m}")
+    torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{name}: {m}")
     return float((got - want).abs().max())
+
+
+def check_launches(ck, path):
+    """The launch counts of the path just driven; fail unless each of its
+    kernels launched."""
+    launches = dict(ck.LAUNCHES)
+    emit(path, launches=launches)
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    return launches
+
+
+def rel_err(a, b):
+    return float((a.double().cpu() - b.double().cpu()).norm()
+                 / b.double().cpu().norm())
 
 
 def phase_build(ck):
@@ -88,7 +149,8 @@ def phase_kernels(ck, dev):
     from onmf_ontf_ndl_tpu_torch.ops.coder import _spectral_norm, _sweep
 
     gen = torch.Generator().manual_seed(0)
-    summary = {name: {"max_abs_err": 0.0} for name in REPLACES}
+    summary = {name: {"max_abs_err": 0.0} for name in KERNELS
+               if name != "checkerboard_sweeps"}
     d = 300
     for r in (25, 100):
         for n in (ck.TN, HEADLINE_N):
@@ -99,27 +161,54 @@ def phase_kernels(ck, dev):
             A, B = W.T @ W, W.T @ X
             Hs, Xs = H0[:, :4096], X[:, :4096]
             A_agg, B_agg = Hs @ Hs.T, Hs @ Xs.T
-            cases = {
-                "coder_sweeps": (ck.coder_sweeps, ck.coder_sweeps_plain,
-                                 (A, B, H0, 0.1)),
-                "coder_sweeps_earlystop": (
-                    ck.coder_sweeps_earlystop,
-                    ck.coder_sweeps_earlystop_plain, (A, B, H0, 0.1, 0.01)),
-                "dict_update_sweep": (ck.dict_update_sweep,
-                                      ck.dict_update_sweep_plain,
-                                      (W, A_agg, B_agg)),
-            }
-            for name, (kernel, plain, args) in cases.items():
-                err = compare(f"{name} r={r} n={n}", kernel(*args),
-                              plain(*args))
-                ms = cuda_ms(lambda: kernel(*args), 20)
-                plain_ms = cuda_ms(lambda: plain(*args), 3)
+            fista = dict(sub_iter=10, use_stopping=False)
+            bf16 = dict(fista, bf16_matmul=True)
+            cases = [
+                ("coder_sweeps", ck.coder_sweeps, ck.coder_sweeps_plain,
+                 (A, B, H0, 0.1), {}, ""),
+                ("coder_sweeps_earlystop", ck.coder_sweeps_earlystop,
+                 ck.coder_sweeps_earlystop_plain, (A, B, H0, 0.1, 0.01), {},
+                 ""),
+                ("fista_sweeps", ck.fista_sweeps, ck.fista_sweeps_plain,
+                 (A, B, H0, 0.1, 0.01), fista, "fixed"),
+                ("fista_sweeps", ck.fista_sweeps, ck.fista_sweeps_plain,
+                 (A, B, H0, 0.1, 0.01), dict(sub_iter=10), "stop"),
+                # one iteration: A and H0 round to the same bf16 values in
+                # both and their products are exact in f32, so the two agree
+                # at the f32 tolerance; rounding neither, only A or only Y
+                # lands 1.9e-4 or more outside it on these inputs
+                ("fista_sweeps", ck.fista_sweeps, ck.fista_sweeps_plain,
+                 (A, B, H0, 0.1, 0.01), dict(bf16, sub_iter=1),
+                 "bf16_one_iteration"),
+                ("fista_sweeps", ck.fista_sweeps, ck.fista_sweeps_plain,
+                 (A, B, H0, 0.1, 0.01), bf16, "bf16"),
+                ("dict_update_sweep", ck.dict_update_sweep,
+                 ck.dict_update_sweep_plain, (W, A_agg, B_agg), {}, ""),
+            ]
+            for name, kernel, plain, args, kw, mode in cases:
+                label = f"{name} {mode} r={r} n={n}"
+                tol = BF16_TOL if mode == "bf16" else TOL
+                got = kernel(*args, **kw)
+                err = compare(label, got, plain(*args, **kw), tol)
+                gap = None
+                if kw.get("bf16_matmul"):
+                    # the rounding must show against the f32 plain version
+                    f32 = plain(*args, **dict(kw, bf16_matmul=False))
+                    gap = float((got - f32).abs().max())
+                    if torch.allclose(got, f32, **TOL):
+                        raise AssertionError(f"{label}: agrees with the f32 "
+                                             "plain version")
+                ms = cuda_ms(lambda: kernel(*args, **kw), 20)
+                plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
                 s = summary[name]
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                if r == 25 and n == HEADLINE_N:
+                if tol is TOL:
+                    s["max_abs_err"] = max(s["max_abs_err"], err)
+                if r == 25 and n == HEADLINE_N and mode in ("", "fixed"):
                     s.update(ms=ms, plain_ms=plain_ms)
-                emit("kernels", kernel=name, r=r, n=n, d=d, max_abs_err=err,
-                     ms=ms, plain_ms=plain_ms)
+                emit("kernels", kernel=name, mode=mode or None, r=r, n=n,
+                     d=d, max_abs_err=err, atol=tol["atol"],
+                     rtol=tol["rtol"], gap_vs_f32_plain=gap, ms=ms,
+                     plain_ms=plain_ms)
     # many tiles, each freezing on its own relative-change test: every
     # tile's iterate must meet the global rule's guarantee (slack over
     # stop = 0.05 as in the Pallas kernel's test: the probe sweep takes
@@ -135,6 +224,44 @@ def phase_kernels(ck, dev):
         HEADLINE_N / ck.TN), one_more_sweep_rel_change=rel, limit=0.1)
     if not (rel <= 0.1 and bool((H >= 0).all())):
         raise AssertionError(f"multi-tile early stop not converged: {rel}")
+    summary["checkerboard_sweeps"] = checkerboard_kernels(dev, gen)
+    return summary
+
+
+def checkerboard_kernels(dev, gen):
+    """The checkerboard kernel site for site against its plain version,
+    then two physics checks from an all-(+1) start at n = 4096; returns the
+    summary of the n = 4096 comparison."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel as ik
+
+    summary = {}
+    for n in (200, 4096):
+        lat = (1 - 2 * torch.randint(0, 2, (n, n), generator=gen)).to(
+            torch.int8).to(dev)
+        kw = dict(J=1.0, H=0.0, T=2.5)
+        got = ik.checkerboard_sweeps(n, lat, 100, **kw)
+        want, plain_ms = timed_once(
+            lambda: ik.checkerboard_sweeps_plain(n, lat, 100, **kw))
+        mismatched = int((got != want).sum())
+        err = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: ik.checkerboard_sweeps(n, lat, 100, **kw), 5)
+        emit("kernels", kernel="checkerboard_sweeps", n=n, sweeps=100,
+             mismatched_sites=mismatched, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms)
+        if mismatched:
+            raise AssertionError(f"checkerboard n={n}: {mismatched} sites "
+                                 "differ from the plain version")
+        if n == 4096:
+            summary.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # Onsager: |m| = 0.9993 at T = 1; T = 5 is far above T_c = 2.269
+    ones = torch.ones((4096, 4096), dtype=torch.int8, device=dev)
+    for T, ok in ((1.0, lambda m: m > 0.99), (5.0, lambda m: m < 0.05)):
+        m = abs(float(ik.checkerboard_sweeps(1, ones, 100, T=T)
+                      .float().mean()))
+        emit("kernels", check="checkerboard_magnetization", n=4096,
+             sweeps=100, T=T, abs_m=m)
+        if not ok(m):
+            raise AssertionError(f"magnetization {m} at T={T}")
     return summary
 
 
@@ -189,21 +316,22 @@ def phase_main(ck, dev):
     codes = codes * (torch.rand(codes.shape, generator=gen, device=dev) < .3)
     X = Wt @ codes + .01 * torch.rand((d, 131072), generator=gen,
                                       device=dev)
-    for stop in (None, 0.01):
+    for coder, stop in (("bcd", None), ("bcd", 0.01), ("fista", None)):
         st = lib.init_state(2, d, r, device=dev)
         st, _ = lib.train_dict(st, X, iterations=3, batch_size=batch,
-                               stopping_diff=stop)
+                               stopping_diff=stop, coder=coder)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, code = lib.train_dict(st, X, iterations=steps + 1,
-                                  batch_size=batch, stopping_diff=stop)
+                                  batch_size=batch, stopping_diff=stop,
+                                  coder=coder)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if not (torch.isfinite(st.W).all() and torch.isfinite(code).all()
                 and (st.W >= 0).all()):
             raise AssertionError("non-finite or negative training state")
-        emit("main", check="throughput", stopping_diff=stop, d=d, r=r,
-             batch=batch, steps=steps, step_ms=1e3 * dt / steps,
+        emit("main", check="throughput", coder=coder, stopping_diff=stop,
+             d=d, r=r, batch=batch, steps=steps, step_ms=1e3 * dt / steps,
              patches_per_s=steps * batch / dt)
     # eager per-step overhead: a batch so small that the card is idle
     st = lib.init_state(3, d, r, device=dev)
@@ -214,10 +342,7 @@ def phase_main(ck, dev):
     torch.cuda.synchronize()
     emit("main", check="eager_step_overhead", batch=128,
          step_ms=1e3 * (time.perf_counter() - t0) / 100)
-    launches = dict(ck.LAUNCHES)
-    emit("main", launches=launches)
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    launches = check_launches(ck, "main")
 
     # the same short run on the card (kernels, float32) and on the CPU
     # (plain, float64) from the same draws; fixed sweeps, so both run the
@@ -238,8 +363,7 @@ def phase_main(ck, dev):
             st, torch.as_tensor(Xh, dtype=dtype, device=device),
             iterations=6, batch_size=2048, stopping_diff=None, draws=dr)
         out[device] = (st.W.double().cpu(), code.double().cpu())
-    rel = [float((a - b).norm() / b.norm())
-           for a, b in zip(out[dev], out["cpu"])]
+    rel = [rel_err(a, b) for a, b in zip(out[dev], out["cpu"])]
     emit("main", check="cuda_f32_vs_cpu_f64", rel_err_W=rel[0],
          rel_err_code=rel[1], limit=1e-4)
     if not max(rel) <= 1e-4:
@@ -256,13 +380,18 @@ def synthetic_image(seed, h=1024, w=1024):
     return np.clip(img + 0.02 * rng.random(img.shape), 0, 1)
 
 
-def phase_image(dev):
+def masked_err(out, img):
+    """Relative error over the painted pixels."""
+    mask = out.sum(dim=-1) > 0
+    return float(torch.linalg.norm((out - img)[mask])
+                 / torch.linalg.norm(img[mask]))
+
+
+def phase_image(dev, img):
     from onmf_ontf_ndl_tpu_torch.apps.image import (ImageReconstructor,
                                                     reconstruct)
     from onmf_ontf_ndl_tpu_torch.models.state import make_generator
 
-    img = torch.as_tensor(synthetic_image(7), dtype=torch.float32,
-                          device=dev)
     kw = dict(data=img, device=dev, patch_size=10, n_components=25,
               num_patches=16384, sub_iterations=10, seed=4)
     rec = ImageReconstructor(iterations=5, **kw)
@@ -278,17 +407,12 @@ def phase_image(dev):
     out0 = reconstruct(img, W0 / W0.norm(dim=0).clamp_min(1.0),
                        make_generator(17, dev), patch_size=10, stride=2)
 
-    def err(o):
-        mask = o.sum(dim=-1) > 0
-        return float(torch.linalg.norm((o - img)[mask])
-                     / torch.linalg.norm(img[mask]))
-
     if tuple(out.shape) != tuple(img.shape) or not torch.isfinite(out).all():
         raise AssertionError("bad reconstruction")
     emit("image", train_seconds=train_s, recon_seconds=recon_s,
-         recon_err=err(out), recon_err_initial_w=err(out0),
-         history=rec.state.t)
-    if not err(out) < err(out0):
+         recon_err=masked_err(out, img),
+         recon_err_initial_w=masked_err(out0, img), history=rec.state.t)
+    if not masked_err(out, img) < masked_err(out0, img):
         raise AssertionError("training did not lower the recon error")
 
     with tempfile.TemporaryDirectory(
@@ -306,6 +430,141 @@ def phase_image(dev):
         raise AssertionError(f"resumed run differs: {diff}")
 
 
+def phase_tensor(ck, dev, img):
+    """The tensor path at benchmarks/run_all.py's configuration: r = 100,
+    patch 20, joint mode 2 (d = 1200), 20 outer iterations of 2 inner, 100
+    patches, block_iterations 4 (so the exact coder runs FISTA with at
+    least 100 iterations and the 0.01 stop)."""
+    from onmf_ontf_ndl_tpu_torch.apps.image import reconstruct
+    from onmf_ontf_ndl_tpu_torch.apps.image_tensor import (
+        ImageReconstructorTensor, _train_tensor)
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state, make_generator
+
+    ck.reset_launches()
+    kw = dict(data=img, n_components=100, iterations=20, sub_iterations=2,
+              batch_size=100, block_iterations=4, num_patches=100,
+              patch_size=20, device=dev, seed=3)
+    rec = ImageReconstructorTensor(**kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W = rec.train_dict(mode=2, learn_joint_dict=True)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = rec.reconstruct_image_color(data=img, recons_resolution=2)
+    torch.cuda.synchronize()
+    recon_s = time.perf_counter() - t0
+    launches = check_launches(ck, "tensor")
+    W0 = init_state(3, 1200, 100, device=dev).W
+    out0 = reconstruct(img, W0 / W0.norm(dim=0).clamp_min(1.0),
+                       make_generator(29, dev), patch_size=20, stride=2,
+                       sub_iter=rec.coder_sub_iter, method="fista")
+    e, e0 = masked_err(out, img), masked_err(out0, img)
+    emit("tensor", W_shape=list(W.shape), coder_sub_iter=rec.coder_sub_iter,
+         train_seconds=train_s, recon_seconds=recon_s, recon_patches=502**2,
+         recon_err=e, recon_err_initial_w=e0, history=rec.state.t)
+    if tuple(out.shape) != tuple(img.shape) or not torch.isfinite(out).all() \
+            or not (W >= 0).all():
+        raise AssertionError("bad tensor dictionary or reconstruction")
+    if not e < e0:
+        raise AssertionError(f"training did not lower the error: {e} {e0}")
+
+    # the same short run on the card (float32) and on the CPU (float64)
+    # from the same draws, fixed FISTA iterations; limit 1e-3 relative
+    rng = np.random.default_rng(6)
+    k, num, r, d = 20, 100, 100, 1200
+    small = img[:200, :200].double().cpu()
+    W0 = rng.random((d, r))
+    draws = [((rng.integers(0, 180, num), rng.integers(0, 180, num)),
+              [(rng.integers(0, num, num), rng.random((r, num)))])
+             for _ in range(3)]
+    res = {}
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        dr = [(tuple(torch.as_tensor(c, device=device) for c in cs),
+               [(torch.as_tensor(i, device=device),
+                 torch.as_tensor(h, dtype=dtype, device=device))
+                for i, h in inner]) for cs, inner in draws]
+        st = init_state(0, d, r, device=device, dtype=dtype, W=W0)
+        st = _train_tensor(
+            st, small.to(device, dtype), outer_iterations=3,
+            num_patches=num, inner_iterations=2, batch_size=num,
+            patch_size=k, mode=2, joint=True, alpha=2.0, beta=1.0,
+            sub_iter=100, use_stopping=False, coder="fista", draws=dr)
+        res[str(device)] = st.W
+    rel = rel_err(res[str(dev)], res["cpu"])
+    emit("tensor", check="cuda_f32_vs_cpu_f64", rel_err_W=rel, limit=1e-3)
+    if not rel <= 1e-3:
+        raise AssertionError(f"card run differs from the CPU run: {rel}")
+    return launches
+
+
+def phase_ising(ck, dev):
+    """The Ising path at benchmarks/run_all.py's configuration: r = 100,
+    lattice 200, 20 rounds at T = 5, 40000 subsampling steps (one sweep a
+    round), 20 inner iterations on 1000 patches of 20x20 (d = 400), early
+    stop; then a config reconstruction (fixed sweeps)."""
+    from onmf_ontf_ndl_tpu_torch.apps.ising import (
+        IsingReconstructor, ising_trajectory_learning)
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+
+    ck.reset_launches()
+    rec = IsingReconstructor(
+        n_components=100, lattice_size=200, ising_iterations=20,
+        temperature=5.0, ising_subsampling_steps=40000, sub_iterations=20,
+        batch_size=50, num_patches=1000, patch_size=20, beta=1.0,
+        device=dev, seed=5)
+    lat0 = rec.lattice.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, dict_stack, errors = rec.ising_mcmc_learning()
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = rec.reconstruct_config(rec.lattice)
+    torch.cuda.synchronize()
+    recon_s = time.perf_counter() - t0
+    launches = check_launches(ck, "ising")
+    emit("ising", learn_seconds=learn_s, recon_seconds=recon_s,
+         errors_len=len(errors), error_first=float(errors[0]),
+         error_last=float(errors[-1]),
+         lattice_changed_sites=int((rec.lattice != lat0).sum()),
+         dict_stack=list(dict_stack.shape))
+    if not (len(errors) == 21 and bool(torch.isfinite(errors).all())
+            and bool((rec.W >= 0).all()) and tuple(out.shape) == (200, 200)
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError("bad Ising learning result")
+
+    # the same short run on the card (float32) and on the CPU (float64)
+    # from the same draws and a fixed lattice, fixed sweeps; limit 1e-3
+    rng = np.random.default_rng(7)
+    n, k, r, num = 40, 6, 10, 200
+    lat = rng.choice(np.array([1, -1], np.int8), (n, n))
+    W0 = rng.random((k * k, r))
+    draws = [((rng.integers(0, n - k, num), rng.integers(0, n - k, num)),
+              [(None, rng.random((r, num))) for _ in range(4)])
+             for _ in range(4)]
+    res = {}
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        dr = [(tuple(torch.as_tensor(c, device=device) for c in cs),
+               [(None, torch.as_tensor(h, dtype=dtype, device=device))
+                for _, h in inner]) for cs, inner in draws]
+        st = init_state(0, k * k, r, device=device, dtype=dtype, W=W0,
+                        track_xxt=True)
+        _, stack, errs, _, _ = ising_trajectory_learning(
+            st, torch.as_tensor(lat, device=device),
+            torch.Generator(device=device), ising_iterations=3, nsteps=1,
+            num_patches=num, inner_iterations=5, batch_size=num,
+            patch_size=k, update_lattice=False, use_stopping=False,
+            draws=dr)
+        res[str(device)] = (stack, errs)
+    rel = [rel_err(a, b) for a, b in zip(res[str(dev)], res["cpu"])]
+    emit("ising", check="cuda_f32_vs_cpu_f64", rel_err_dict_stack=rel[0],
+         rel_err_errors=rel[1], limit=1e-3)
+    if not max(rel) <= 1e-3:
+        raise AssertionError(f"card run differs from the CPU run: {rel}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -314,14 +573,23 @@ def main():
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
     smi = phase_build(ck)
     summary = phase_kernels(ck, dev)
-    launches = phase_main(ck, dev)
-    phase_image(dev)
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                "plain_ms": s["plain_ms"]} for name, s in summary.items()]
+    launches = {"main": phase_main(ck, dev)}
+    img = torch.as_tensor(synthetic_image(7), dtype=torch.float32,
+                          device=dev)
+    phase_image(dev, img)
+    launches["tensor"] = phase_tensor(ck, dev, img)
+    launches["ising"] = phase_ising(ck, dev)
+    emit("done", seconds=time.perf_counter() - t0)
+    kernels = [{"name": name, "route": "cuda", "source": CSRC + src,
+                "replaces": PALLAS + replaces,
+                "launches": launches[path][name],
+                "max_abs_err": summary[name]["max_abs_err"],
+                "ms": summary[name]["ms"],
+                "plain_ms": summary[name]["plain_ms"]}
+               for name, (src, replaces, path) in KERNELS.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

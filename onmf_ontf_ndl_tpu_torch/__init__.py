@@ -2,13 +2,15 @@
 
 Same layout and names as the JAX package, which stays the reference:
 
-- ``ops``    : nonnegative sparse coder, BCD dictionary update, patch ops,
-               and ``ops/kernels`` (hand-written CUDA kernels for sm_90a in
-               place of the JAX package's ``ops/pallas``);
-- ``models`` : ``OnmfState``, ``onmf_step`` / ``train_dict`` (a Python
-               loop in place of ``lax.scan``), ``OnlineNMF``;
-- ``data``, ``apps`` (``ImageReconstructor``), ``utils`` (checkpoint,
-               metrics).
+- ``ops``      : nonnegative sparse coders (Gauss-Seidel sweeps, FISTA),
+                 BCD dictionary update, patch ops, tensor unfolding, and
+                 ``ops/kernels`` (hand-written CUDA kernels for sm_90a in
+                 place of the JAX package's ``ops/pallas``);
+- ``models``   : ``OnmfState``, ``onmf_step`` / ``train_dict`` (a Python
+                 loop in place of ``lax.scan``), ``OnlineNMF``, ``OnlineNTF``;
+- ``samplers`` : the Ising Metropolis chain and checkerboard sweeps;
+- ``data``, ``apps`` (``ImageReconstructor``, ``ImageReconstructorTensor``,
+                 ``IsingReconstructor``), ``utils`` (checkpoint, metrics).
 
 Every constructor takes ``device=``; randomness comes from explicit
 ``torch.Generator``s. Importing the package builds no kernel and imports
@@ -26,6 +28,7 @@ from onmf_ontf_ndl_tpu_torch.models.state import (  # noqa: E402
     OnmfState, init_state, state_from_numpy, state_to_numpy)
 from onmf_ontf_ndl_tpu_torch.models.onmf import (  # noqa: E402
     OnlineNMF, onmf_step, train_dict)
+from onmf_ontf_ndl_tpu_torch.models.ontf import OnlineNTF  # noqa: E402
 from onmf_ontf_ndl_tpu_torch.ops.coder import (  # noqa: E402
     nonneg_code, nonneg_code_gram)
 
@@ -37,18 +40,27 @@ __all__ = [
     "state_from_numpy",
     "state_to_numpy",
     "OnlineNMF",
+    "OnlineNTF",
     "onmf_step",
     "train_dict",
     "nonneg_code",
     "nonneg_code_gram",
     "ImageReconstructor",
+    "ImageReconstructorTensor",
+    "IsingReconstructor",
 ]
+
+_APPS = {
+    "ImageReconstructor": "onmf_ontf_ndl_tpu_torch.apps.image",
+    "ImageReconstructorTensor": "onmf_ontf_ndl_tpu_torch.apps.image_tensor",
+    "IsingReconstructor": "onmf_ontf_ndl_tpu_torch.apps.ising",
+}
 
 
 def __getattr__(name):
-    # lazy app export (it pulls in PIL only when used)
-    if name == "ImageReconstructor":
-        from onmf_ontf_ndl_tpu_torch.apps.image import ImageReconstructor
+    # lazy app exports (they pull in PIL only when used)
+    if name in _APPS:
+        import importlib
 
-        return ImageReconstructor
+        return getattr(importlib.import_module(_APPS[name]), name)
     raise AttributeError(name)

@@ -82,7 +82,7 @@ def train_image_dict(
             state, X, None, alpha, beta,
             stopping_diff if use_stopping else None, inner_iterations,
             batch_size, subsample, sub_iter, False, dict_from,
-            backend=backend, draws=inner)
+            backend=backend, draws=inner, coder=coder)
     return state
 
 

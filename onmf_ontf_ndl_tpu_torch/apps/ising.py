@@ -1,0 +1,233 @@
+"""Dictionary learning along an Ising MCMC trajectory, in PyTorch.
+
+Counterpart of ``onmf_ontf_ndl_tpu/apps/ising.py`` (the reference's
+``Ising_Reconstructor``): an initial learning round on random patches of
+the lattice, then per trajectory step a lattice update and another round,
+with the full ``C = agg X X^T`` statistic so that the surrogate error
+``tr(W A W^T) - 2 tr(W B) + tr(C)`` is tracked after every round. The JAX
+``lax.scan`` becomes a Python loop.
+
+Semantics kept from the JAX module: patches come from the raw +-1 lattice;
+``errors`` and ``dict_stack`` have ``ising_iterations + 1`` entries;
+``update_lattice=False`` reproduces the reference's released driver (the
+in-loop lattice update commented out). Samplers: ``"exact"`` runs the
+sequential Metropolis chain; ``"checkerboard"`` runs red/black sweeps
+covering at least as many single-site updates, through the CUDA kernel on a
+CUDA lattice; ``"checkerboard_pallas"`` is an alias of ``"checkerboard"``.
+The sweeps' seed is drawn per round from the driver's generator.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
+from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, init_state,
+                                                  make_generator)
+from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
+from onmf_ontf_ndl_tpu_torch.ops.patches import (extract_patches,
+                                                 random_patch_corners)
+from onmf_ontf_ndl_tpu_torch.samplers.ising import (checkerboard_sweeps,
+                                                    init_lattice,
+                                                    metropolis_chain)
+from onmf_ontf_ndl_tpu_torch.utils.metrics import surrogate_error
+
+__all__ = ["IsingReconstructor", "ising_trajectory_learning"]
+
+_SAMPLERS = ("exact", "checkerboard", "checkerboard_pallas")
+
+
+def ising_trajectory_learning(
+    state: OnmfState,
+    lattice: torch.Tensor,
+    gen: torch.Generator,
+    *,
+    ising_iterations: int,
+    nsteps: int,
+    num_patches: int,
+    inner_iterations: int,
+    batch_size: int,
+    patch_size: int,
+    J: float = 1.0,
+    H_field: float = 0.0,
+    T: float = 0.5,
+    alpha: float = 0.0,
+    beta: float = 1.0,
+    sub_iter: int = 10,
+    stopping_diff: float = 0.01,
+    sampler: str = "checkerboard",
+    update_lattice: bool = True,
+    keep_trajectory: bool = False,
+    use_stopping: bool = True,
+    backend: str = "auto",
+    subsample: bool = False,
+    coder: str = "bcd",
+    draws=None,
+):
+    """Trajectory learner. Returns ``(state, dict_stack, errors, lattice,
+    trajectory)``: ``dict_stack`` (ising_iterations+1, d, r), ``errors``
+    (ising_iterations+1,), and the per-step lattices (ising_iterations, n, n)
+    or an (ising_iterations, 0, 0) placeholder without ``keep_trajectory``.
+
+    ``gen`` (on the lattice's device) draws the patch corners and the
+    samplers' randomness; the state's own generator draws the inner loop's.
+    ``draws`` (tests): per round (the initial one first) a pair
+    ``(corners, inner)`` as in ``apps.image.train_image_dict``.
+    """
+    if sampler not in _SAMPLERS:
+        raise ValueError(f"sampler must be one of {_SAMPLERS}, got {sampler!r}")
+    _check_modes("stale", coder)
+    backend = resolve_backend(backend, state.W)
+    k, n = patch_size, lattice.shape[0]
+    stop = stopping_diff if use_stopping else None
+
+    def train_round(st, lat, rnd):
+        if draws is not None:
+            corners, inner = draws[rnd]
+            corners = tuple(torch.as_tensor(c, device=lat.device)
+                            for c in corners)
+        else:
+            corners = random_patch_corners(gen, lat.shape, k, num_patches,
+                                           device=lat.device)
+            inner = None
+        X = extract_patches(lat.to(st.W.dtype), corners, k)
+        st, _, _ = _train_loop(
+            st, X, None, alpha, beta, stop, inner_iterations, batch_size,
+            subsample, sub_iter, False, "stale", backend=backend,
+            draws=inner, coder=coder)
+        return st
+
+    def advance(lat):
+        if not update_lattice:
+            return lat
+        if sampler == "exact":
+            return metropolis_chain(gen, lat, nsteps, J, H_field, T)[0]
+        nsweeps = max(1, -(-nsteps // (n * n)))
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
+                                 device=gen.device))
+        return checkerboard_sweeps(seed, lat, nsweeps, J, H_field, T)
+
+    state = train_round(state, lattice, 0)
+    Ws = [state.W]
+    errors = [surrogate_error(state.W, state.A, state.B, state.C)]
+    traj = []
+    for rnd in range(1, ising_iterations + 1):
+        lattice = advance(lattice)
+        state = train_round(state, lattice, rnd)
+        Ws.append(state.W)
+        errors.append(surrogate_error(state.W, state.A, state.B, state.C))
+        if keep_trajectory:
+            traj.append(lattice)
+    trajectory = (torch.stack(traj) if traj else
+                  lattice.new_zeros((ising_iterations, 0, 0)))
+    return state, torch.stack(Ws), torch.stack(errors), lattice, trajectory
+
+
+class IsingReconstructor:
+    """Driver shell mirroring the reference's ``Ising_Reconstructor``.
+    ``device`` places the lattice and the state; ``seed`` seeds the
+    driver's generator, which draws the initial lattice and the state's
+    seed."""
+
+    def __init__(
+        self,
+        n_components: int = 100,
+        lattice_size: int = 200,
+        ising_iterations: int = 500,
+        temperature: float = 0.5,
+        ising_subsampling_steps: int = 100,
+        sub_iterations: int = 20,
+        num_patches: int = 1000,
+        batch_size: int = 20,
+        patch_size: int = 20,
+        beta: float = 0.5,
+        J: float = 1.0,
+        field: float = 0.0,
+        alpha: float = 0.0,
+        sampler: str = "checkerboard",
+        update_lattice: bool = True,
+        fast: bool = False,
+        coder: str = "bcd",
+        subsample: bool = False,
+        seed: int = 0,
+        device="cpu",
+        dtype=torch.float32,
+    ):
+        if sampler not in _SAMPLERS:
+            raise ValueError(
+                f"sampler must be one of {_SAMPLERS}, got {sampler!r}")
+        _check_modes("stale", coder)
+        self.n_components = n_components
+        self.lattice_size = lattice_size
+        self.ising_iterations = ising_iterations
+        self.temperature = temperature
+        self.ising_subsampling_steps = ising_subsampling_steps
+        self.sub_iterations = sub_iterations
+        self.num_patches = num_patches
+        self.batch_size = batch_size
+        self.patch_size = patch_size
+        self.beta = beta
+        self.J = J
+        self.field = field
+        self.alpha = alpha
+        self.sampler = sampler
+        self.update_lattice = update_lattice
+        self.fast = fast
+        self.coder = coder
+        self.subsample = subsample
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.gen = make_generator(seed, self.device)
+        self.lattice = init_lattice(self.gen, lattice_size)
+        # the state draws from its own stream, seeded from the driver's
+        state_seed = int(torch.randint(0, 2**62, (1,), generator=self.gen,
+                                       device=self.device))
+        # C = agg X X^T is tracked for the surrogate error
+        self.state = init_state(state_seed, patch_size**2, n_components,
+                                device=self.device, dtype=dtype,
+                                track_xxt=True)
+        self.W = self.state.W
+        self.errors = None
+        self.dict_stack = None
+
+    def ising_mcmc_learning(self, initial_lattice=None, keep_trajectory=False,
+                            draws=None):
+        """Learn along the trajectory; returns ``(trajectory, dict_stack,
+        errors)``. ``initial_lattice`` (any +-1 array, floats included)
+        replaces the lattice; ``draws`` as in
+        :func:`ising_trajectory_learning`."""
+        if initial_lattice is not None:
+            self.lattice = torch.as_tensor(
+                initial_lattice, device=self.device).to(torch.int8)
+        (self.state, self.dict_stack, self.errors, self.lattice, traj
+         ) = ising_trajectory_learning(
+            self.state, self.lattice, self.gen,
+            ising_iterations=self.ising_iterations,
+            nsteps=self.ising_subsampling_steps,
+            num_patches=self.num_patches,
+            inner_iterations=self.sub_iterations,
+            batch_size=self.batch_size,
+            patch_size=self.patch_size,
+            J=self.J, H_field=self.field, T=self.temperature,
+            alpha=self.alpha, beta=self.beta,
+            sampler=self.sampler, update_lattice=self.update_lattice,
+            keep_trajectory=keep_trajectory,
+            use_stopping=not self.fast,
+            coder=self.coder,
+            subsample=self.subsample,
+            draws=draws,
+        )
+        self.W = self.dict_stack[-1]
+        return traj, self.dict_stack, self.errors
+
+    def reconstruct_config(self, config, patch_size: int | None = None):
+        """Reconstruct a spin configuration from the learned dictionary:
+        every patch of the (x+1)/2 rescaled configuration, overlap-averaged."""
+        from onmf_ontf_ndl_tpu_torch.apps.image import reconstruct
+
+        k = patch_size or self.patch_size
+        data = (torch.as_tensor(config, device=self.device).to(self.dtype)
+                + 1.0) / 2.0
+        return reconstruct(data, self.W, make_generator(23, self.device),
+                           patch_size=k, alpha=self.alpha, full_grid=True,
+                           method=self.coder)

@@ -32,7 +32,7 @@ import torch
 
 from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, init_state,
                                                   make_generator)
-from onmf_ontf_ndl_tpu_torch.ops.coder import _FISTA_TODO, _code_impl
+from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
 from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 
@@ -43,9 +43,7 @@ def _check_modes(dict_from: str, coder: str) -> None:
     if dict_from not in ("stale", "fresh"):
         raise ValueError(
             f"dict_from must be 'stale' or 'fresh', got {dict_from!r}")
-    if coder in ("fista", "fista_bf16"):
-        raise NotImplementedError(_FISTA_TODO)
-    if coder != "bcd":
+    if coder not in ("bcd", "fista", "fista_bf16"):
         raise ValueError(
             f"coder must be 'bcd', 'fista' or 'fista_bf16', got {coder!r}")
 
@@ -75,7 +73,9 @@ def onmf_step(
         ``state.gen`` when omitted.
       dict_from: "stale" (reference) or "fresh" aggregates for the W update.
       backend: "auto" | "torch" | "cuda".
-      coder: "bcd" (the FISTA coders are not ported yet).
+      coder: "bcd" (Gauss-Seidel sweeps), "fista" (accelerated projected
+        gradient, same objective) or "fista_bf16" (its product from
+        bf16-rounded inputs, f32 accumulation).
       draws: optional ``(idx, H0)``: code columns ``idx`` of X (all when
         None) from this ``H0``.
 
@@ -93,18 +93,20 @@ def onmf_step(
         H0 = torch.rand((state.r, X.shape[1]), generator=state.gen,
                         dtype=state.W.dtype, device=state.W.device)
     return _step_inner(state, X, float(t), H0, alpha, beta, sub_iter,
-                       stopping_diff, dict_from, resolve_backend(backend, X))
+                       stopping_diff, dict_from, resolve_backend(backend, X),
+                       coder=coder)
 
 
 def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
-                stopping_diff, dict_from: str, backend: str = "torch"):
+                stopping_diff, dict_from: str, backend: str = "torch",
+                coder: str = "bcd"):
     """One step: code, aggregates, dictionary update.
 
-    backend="cuda" runs the coder kernel (fixed-sweep, or per-tile early
-    stop when ``stopping_diff`` is set) and the BCD dictionary kernel; the
-    result agrees with the torch path to float32 accumulation order (the
-    early-stop kernel also up to the stopping tolerance on batches wider
-    than one tile, PARITY.md #8).
+    backend="cuda" runs the coder kernel of ``coder`` (fixed iterations, or
+    the per-tile stop when ``stopping_diff`` is set) and the BCD dictionary
+    kernel; the result agrees with the torch path to float32 accumulation
+    order (the stopping kernels also up to the stopping tolerance on
+    batches wider than one tile, PARITY.md #8).
     """
     W, A, B, C = st.W, st.A, st.B, st.C
     use_stopping = stopping_diff is not None
@@ -112,7 +114,19 @@ def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
     gram = W.T @ W
     proj = W.T @ Xb
     H0 = H0.contiguous()
-    if use_cuda:
+    fista = coder in ("fista", "fista_bf16")
+    if fista and use_cuda:
+        from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
+            fista_sweeps)
+
+        H = fista_sweeps(gram, proj, H0, alpha,
+                         stopping_diff if use_stopping else 0.0,
+                         sub_iter=int(sub_iter), use_stopping=use_stopping,
+                         bf16_matmul=coder == "fista_bf16")
+    elif fista:
+        H = _fista_impl(gram, proj, H0, alpha, stopping_diff, int(sub_iter),
+                        use_stopping, bf16_matmul=coder == "fista_bf16")
+    elif use_cuda:
         from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
             coder_sweeps, coder_sweeps_earlystop)
 
@@ -158,6 +172,7 @@ def _train_loop(
     track_metrics: bool = False,
     sampling: str = "iid",
     draws=None,
+    coder: str = "bcd",
 ):
     """``iterations - 1`` steps (the JAX ``_train_scan``); every training
     path funnels through here. ``code`` is updated in place."""
@@ -193,7 +208,7 @@ def _train_loop(
             H0 = torch.rand((st.r, Xb.shape[1]), generator=gen,
                             dtype=X.dtype, device=X.device)
         st, H = _step_inner(st, Xb, t0 + i, H0, alpha, beta, sub_iter,
-                            stopping_diff, dict_from, backend)
+                            stopping_diff, dict_from, backend, coder=coder)
         if track_code:
             if idx is None:
                 code += H
@@ -256,6 +271,7 @@ def train_dict(
         int(batch_size), bool(subsample), int(sub_iter), bool(track_code),
         dict_from, backend=resolve_backend(backend, X),
         track_metrics=bool(return_metrics), sampling=sampling, draws=draws,
+        coder=coder,
     )
     if return_metrics:
         return state, code, metrics

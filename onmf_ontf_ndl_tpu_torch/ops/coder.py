@@ -15,9 +15,14 @@ Execution modes, as in the JAX module:
 - ``stopping_diff=float``: sweeps until the relative spectral-norm change
   of the whole batch drops to ``stopping_diff`` (the reference rule).
 
-On a CUDA tensor without a radius, both modes run the hand-written kernels
-of ``ops/kernels/coder_kernel.py``; the early-stop kernel applies the rule
-per column tile (see that module). Everything else is plain PyTorch.
+``method="fista"`` (or ``"fista_bf16"``, the product from bf16-rounded
+inputs) solves the same objective by accelerated projected gradient
+(:func:`_fista_impl`), with no radius.
+
+On a CUDA tensor without a radius, every mode runs the hand-written kernels
+of ``ops/kernels/coder_kernel.py``; the early-stop and FISTA-stop kernels
+apply the rule per column tile (see that module). Everything else is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -28,8 +33,58 @@ import torch
 
 __all__ = ["nonneg_code", "nonneg_code_gram"]
 
-_FISTA_TODO = ("method='fista'/'fista_bf16' is not ported yet "
-               "(ROADMAP.md A2 `_fista_impl` and B4 `fista_sweeps`)")
+
+def _fista_grad(A, Y, B, alpha, bf16_matmul: bool):
+    """``A Y - B + alpha``; with ``bf16_matmul`` the product takes
+    bf16-rounded A and Y and sums in the working type (float32 on the card,
+    as the kernel does)."""
+    if bf16_matmul:
+        A, Y = A.bfloat16().to(A.dtype), Y.bfloat16().to(Y.dtype)
+    return A @ Y - B + alpha
+
+
+def _fista_step(H, Y, tt: float, A, B, alpha, inv_L, bf16_matmul: bool):
+    """One FISTA iteration: the projected gradient step from Y, then the
+    Nesterov extrapolation with momentum ``(tt - 1) / tt'``."""
+    Hn = torch.clamp_min(Y - inv_L * _fista_grad(A, Y, B, alpha, bf16_matmul),
+                         0.0)
+    tn = 0.5 * (1.0 + math.sqrt(1.0 + 4.0 * tt * tt))
+    return Hn, Hn + ((tt - 1.0) / tn) * (Hn - H), tn
+
+
+def _fista_fixed(A, B, H0, alpha, inv_L, sub_iter: int, bf16_matmul: bool):
+    """Exactly ``sub_iter`` FISTA iterations from H0 with step ``inv_L``."""
+    H, Y, tt = H0, H0, 1.0
+    for _ in range(sub_iter):
+        H, Y, tt = _fista_step(H, Y, tt, A, B, alpha, inv_L, bf16_matmul)
+    return H
+
+
+def _fista_impl(A, B, H0, alpha, stopping_diff, sub_iter: int,
+                use_stopping: bool, bf16_matmul: bool = False):
+    """Accelerated projected-gradient (FISTA) nonnegative LASSO coder.
+
+    Step ``1 / L`` with ``L = 1.02 lambda_max(A) + 1e-12`` from 16 power
+    steps, Nesterov momentum in the standard t-sequence. With
+    ``use_stopping``, iterates until the relative spectral change of the
+    whole batch is at most ``stopping_diff`` (the denominator guarded at
+    1e-30, unlike the sweep loop) or ``sub_iter`` iterations pass.
+    """
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
+        _inv_lipschitz)
+
+    inv_L = _inv_lipschitz(A, 16)
+    if not use_stopping:
+        return _fista_fixed(A, B, H0, alpha, inv_L, sub_iter, bf16_matmul)
+    H, Y, tt = H0, H0, 1.0
+    i, dist = 0, math.inf
+    while i < sub_iter and dist > stopping_diff:
+        Hn, Y, tt = _fista_step(H, Y, tt, A, B, alpha, inv_L, bf16_matmul)
+        dist = float(_spectral_norm(Hn - H)
+                     / torch.clamp_min(_spectral_norm(H), 1e-30))
+        H = Hn
+        i += 1
+    return H
 
 
 def _spectral_norm(M: torch.Tensor) -> torch.Tensor:
@@ -119,7 +174,8 @@ def nonneg_code_gram(
         exactly ``sub_iter`` sweeps.
       radius: optional spectral trust-region radius around ``H0``.
       backend: "auto" | "torch" | "cuda" (see ``ops.kernels``).
-      method: "bcd" only; the FISTA coder is not ported yet.
+      method: "bcd" (Gauss-Seidel sweeps), "fista" or "fista_bf16"
+        (accelerated projected gradient; no radius).
 
     Returns:
       (r, n) nonnegative code matrix.
@@ -128,12 +184,24 @@ def nonneg_code_gram(
 
     use_stopping = stopping_diff is not None
     use_radius = radius is not None
+    resolved = resolve_backend(backend, B)
     if method in ("fista", "fista_bf16"):
-        raise NotImplementedError(_FISTA_TODO)
+        if use_radius:
+            raise ValueError(f"method={method!r} does not support radius")
+        bf16 = method == "fista_bf16"
+        if resolved == "cuda":
+            from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
+                fista_sweeps)
+
+            return fista_sweeps(
+                A, B, H0, alpha, stopping_diff if use_stopping else 0.0,
+                sub_iter=int(sub_iter), use_stopping=use_stopping,
+                bf16_matmul=bf16)
+        return _fista_impl(A, B, H0, alpha, stopping_diff, int(sub_iter),
+                           use_stopping, bf16_matmul=bf16)
     if method != "bcd":
         raise ValueError(
             f"method must be 'bcd', 'fista' or 'fista_bf16', got {method!r}")
-    resolved = resolve_backend(backend, B)
     if use_radius and backend == "cuda":
         raise ValueError(
             "the trust-region (radius) coder has no kernel; use "

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper and backend selection.
 
 Counterpart of ``onmf_ontf_ndl_tpu/ops/pallas/``. The kernels are built
-with ``nvcc`` at first use (``coder_kernel.build``); importing this package
+with ``nvcc`` at first use (``_lib.build``); importing this package
 builds nothing.
 """
 

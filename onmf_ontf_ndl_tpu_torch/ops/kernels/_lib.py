@@ -1,0 +1,151 @@
+"""The kernel library shared by ``coder_kernel.py`` and ``ising_kernel.py``:
+its build, its launch counts and the launch helpers of the wrappers.
+
+The sources are ``csrc/*.cu``. :func:`build` compiles each source with its
+own ``nvcc`` for ``sm_90a``, all at once, links them into one shared
+library with a plain C interface (under ``_build/``, keyed by a hash of the
+sources) and binds it with ctypes. Nothing is built or loaded at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["build", "LAUNCHES", "reset_launches", "TN"]
+
+TN = 128                  # early-stop tile: columns per thread block
+
+_CSRC = Path(__file__).parent / "csrc"
+_BUILD = Path(__file__).parent / "_build"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC"]
+
+# Launches of each kernel since the last reset_launches(), for every kernel
+# of the library. Only the wrappers' kernel branch adds to it.
+LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
+            "fista_sweeps": 0, "dict_update_sweep": 0,
+            "checkerboard_sweeps": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------------ build
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the output of the first that
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.cache
+def build() -> dict:
+    """Compile (once per source hash) and load the kernel library: one
+    ``nvcc -c`` per source, all started together, then one link.
+
+    Returns ``{"lib": ctypes.CDLL, "path": str, "seconds": float,
+    "compiled": bool}``; ``seconds`` is the nvcc time (0 when the library
+    for these sources was already built).
+    """
+    sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = _BUILD / f"libonmf_kernels_{digest.hexdigest()[:16]}.so"
+    seconds, compiled = 0.0, False
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        cus = [s for s in sources if s.suffix == ".cu"]
+        objs = [_BUILD / f"{s.stem}.{tag}.o" for s in cus]
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        _run_all([[nvcc, *_NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(cus, objs)])
+        _run_all([[nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        seconds = time.perf_counter() - t0
+        for o in objs:
+            o.unlink()
+        os.replace(tmp, so)   # atomic: a concurrent build loads either copy
+        compiled = True
+    lib = ctypes.CDLL(str(so))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.onmf_coder_sweeps.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.onmf_coder_sweeps_earlystop.argtypes = [p, p, p, p, i, i, f, f, i,
+                                                i, p]
+    lib.onmf_fista_sweeps.argtypes = [p, p, p, p, i, i, f, p, i, f, i, i, i,
+                                      i, p]
+    lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, p]
+    lib.onmf_checkerboard_sweeps.argtypes = [p, i, i, ctypes.c_uint, p, p]
+    for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
+               lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
+               lib.onmf_checkerboard_sweeps, lib.onmf_tile_columns):
+        fn.restype = ctypes.c_int
+    lib.onmf_tile_columns.argtypes = []
+    lib.onmf_error_string.argtypes = [i]
+    lib.onmf_error_string.restype = ctypes.c_char_p
+    if lib.onmf_tile_columns() != TN:
+        raise RuntimeError(
+            f"kernel tile {lib.onmf_tile_columns()} != TN={TN}")
+    return {"lib": lib, "path": str(so), "seconds": seconds,
+            "compiled": compiled}
+
+
+# --------------------------------------------------------------- launches
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor is on the CPU (the plain path); raises on a
+    mix of devices or on a device that is neither CPU nor CUDA."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def _raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        msg = build()["lib"].onmf_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,10 +1,10 @@
-"""Hand-written CUDA kernels for the sequential sweeps of online NMF.
+"""Hand-written CUDA kernels for the coders and the dictionary update of
+online NMF.
 
 Counterpart of ``onmf_ontf_ndl_tpu/ops/pallas/coder_kernel.py``. The
-sources are ``csrc/onmf_kernels.cu``; :func:`build` compiles them with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface
-(under ``_build/``, keyed by a hash of the sources) and binds it with
-ctypes. Nothing is built or loaded at import.
+kernels are in ``csrc/onmf_kernels.cu``, built into the library of
+:func:`~onmf_ontf_ndl_tpu_torch.ops.kernels._lib.build` with the Ising
+sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
 
 - :func:`coder_sweeps` replaces the TPU ``coder_sweeps`` (``:192``):
   exactly ``sub_iter`` Gauss-Seidel nonnegative-LASSO row sweeps from Gram
@@ -29,6 +29,29 @@ ctypes. Nothing is built or loaded at import.
   sweep chain plus the Gram products (about the sweep's cost again) and
   the per-sweep barriers; shared memory (3 r^2 + 2 r (TN + 1) floats)
   limits it to r <= 100 and to one block per SM at r = 100.
+- :func:`fista_sweeps` replaces ``fista_sweeps`` (``:579``): accelerated
+  projected gradient ``H <- max(0, Y - (A Y - B + alpha) / L)`` with
+  Nesterov momentum, one block per tile of **TN = 128 columns** and one
+  thread per column; A and the H and Y tiles live in shared memory, and a
+  thread forms its column of ``A Y`` from broadcast reads of A (stored
+  transposed, four rows of the product per pass). ``1 / L``
+  (``L = 1.02 lambda_max(A) + 1e-12``, 16 power steps from
+  :func:`_fixed_start`) is computed once per call, outside the sweep
+  kernel: by one warp in a launch of its own on the card (one launch in
+  place of ~100 small PyTorch ones), by :func:`_inv_lipschitz` in the
+  plain version.
+  ``use_stopping`` stops each tile on the early-stop kernel's rule (the same
+  device code), on the Grams of the step delta and the old iterate, and the
+  tile's momentum stops with it. As for the early stop, the tile is part of
+  the semantics: the Pallas tile is as wide as VMEM allows (up to 13056
+  columns at r = 25, 3968 at r = 100), this one is 128. ``bf16_matmul``
+  rounds A and Y to bf16 before the multiply-add and accumulates in f32.
+  What bounds it: the ``r^2`` multiply-adds per column and iteration, each
+  with a shared-memory load, on the CUDA cores. Its inner loop is a real
+  matrix product, so tensor cores are the next step. Shared memory:
+  ``r R4 + 2 r (TN + 1)`` floats for fixed sweeps (``R4`` = r rounded up
+  to a multiple of 4; r <= 128), plus both Grams and five vectors for the
+  stop (r <= 100, one block per SM at r = 100).
 - :func:`dict_update_sweep` replaces ``dict_update_sweep`` (``:629``): one
   column-BCD pass over W in a single block, sequential over the r columns,
   threads over the d rows, one block reduction per column norm. It reads
@@ -47,117 +70,24 @@ and counts the launch in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-__all__ = ["coder_sweeps", "coder_sweeps_earlystop", "dict_update_sweep",
-           "coder_sweeps_plain", "coder_sweeps_earlystop_plain",
-           "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
-           "TN", "MAX_RANK", "MAX_RANK_EARLYSTOP"]
+from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
+    LAUNCHES, TN, _on_cpu, _raise_on_error, _stream, build, reset_launches)
 
-TN = 128                  # early-stop tile: columns per thread block
+__all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
+           "dict_update_sweep", "coder_sweeps_plain",
+           "coder_sweeps_earlystop_plain", "fista_sweeps_plain",
+           "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
+           "TN", "MAX_RANK", "MAX_RANK_EARLYSTOP", "MAX_RANK_FISTA",
+           "MAX_RANK_FISTA_STOP"]
+
 MAX_RANK = 128            # coder_sweeps: A + the (r, TN) tile in shared memory
 MAX_RANK_EARLYSTOP = 100  # 3 r^2 + 2 r (TN + 1) floats within 227 KB
-
-_CSRC = Path(__file__).parent / "csrc"
-_BUILD = Path(__file__).parent / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-# Launches of each kernel since the last reset_launches(). Only the
-# wrappers' kernel branch adds to it.
-LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
-            "dict_update_sweep": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-# ------------------------------------------------------------------ build
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if os.path.exists("/usr/local/cuda/bin/nvcc"):
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-@functools.cache
-def build() -> dict:
-    """Compile (once per source hash) and load the kernel library.
-
-    Returns ``{"lib": ctypes.CDLL, "path": str, "seconds": float,
-    "compiled": bool}``; ``seconds`` is the nvcc time (0 when the library
-    for these sources was already built).
-    """
-    sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    so = _BUILD / f"libonmf_kernels_{digest.hexdigest()[:16]}.so"
-    seconds, compiled = 0.0, False
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sources if s.suffix == ".cu"]]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)   # atomic: a concurrent build loads either copy
-        compiled = True
-    lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.onmf_coder_sweeps.argtypes = [p, p, p, p, i, i, f, i, p]
-    lib.onmf_coder_sweeps_earlystop.argtypes = [p, p, p, p, i, i, f, f, i,
-                                                i, p]
-    lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, p]
-    for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
-               lib.onmf_dict_update_sweep, lib.onmf_tile_columns):
-        fn.restype = ctypes.c_int
-    lib.onmf_tile_columns.argtypes = []
-    lib.onmf_error_string.argtypes = [i]
-    lib.onmf_error_string.restype = ctypes.c_char_p
-    if lib.onmf_tile_columns() != TN:
-        raise RuntimeError(
-            f"kernel tile {lib.onmf_tile_columns()} != TN={TN}")
-    return {"lib": lib, "path": str(so), "seconds": seconds,
-            "compiled": compiled}
-
-
-# --------------------------------------------------------------- launches
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor is on the CPU (the plain path); raises on a
-    mix of devices or on a device that is neither CPU nor CUDA."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
+MAX_RANK_FISTA = 128      # fista_sweeps: A + the H and Y tiles
+MAX_RANK_FISTA_STOP = 100  # + both Grams, as the early stop
 
 
 def _check(name: str, **tensors) -> None:
@@ -181,16 +111,6 @@ def _check_coder(name: str, A, B, H0, max_rank: int) -> tuple[int, int]:
         raise ValueError(f"{name}: rank r={r} outside the kernel's "
                          f"limit 1 <= r <= {max_rank}")
     return r, n
-
-
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        msg = build()["lib"].onmf_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def coder_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
@@ -246,6 +166,41 @@ def coder_sweeps_earlystop(A: torch.Tensor, B: torch.Tensor,
     return out
 
 
+def fista_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
+                 alpha: float = 0.0, stopping_diff: float = 0.01, *,
+                 sub_iter: int = 10, use_stopping: bool = True,
+                 pi_iters: int = 12,
+                 bf16_matmul: bool = False) -> torch.Tensor:
+    """FISTA nonnegative sparse coding from Gram form: exactly ``sub_iter``
+    accelerated projected-gradient iterations, or with ``use_stopping`` up
+    to ``sub_iter`` per tile of :data:`TN` columns, each tile stopping once
+    its relative spectral change is at most ``stopping_diff``.
+    ``bf16_matmul`` takes the product ``A Y`` from bf16-rounded inputs with
+    f32 accumulation. Args/returns as :func:`coder_sweeps`."""
+    if _on_cpu(A, B, H0):
+        return fista_sweeps_plain(
+            A, B, H0, alpha, stopping_diff, sub_iter=sub_iter,
+            use_stopping=use_stopping, pi_iters=pi_iters,
+            bf16_matmul=bf16_matmul)
+    r, n = _check_coder(
+        "fista_sweeps", A, B, H0,
+        MAX_RANK_FISTA_STOP if use_stopping else MAX_RANK_FISTA)
+    out = torch.empty_like(B)
+    if n == 0:
+        return out
+    inv_L = torch.empty(1, dtype=torch.float32, device=B.device)
+    lib = build()["lib"]
+    with torch.cuda.device(B.device):
+        err = lib.onmf_fista_sweeps(
+            A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,
+            float(alpha), inv_L.data_ptr(), max(16, int(pi_iters)),
+            float(stopping_diff if use_stopping else 0.0), int(sub_iter),
+            int(use_stopping), int(pi_iters), int(bf16_matmul), _stream(B))
+    _raise_on_error("fista_sweeps", err)
+    LAUNCHES["fista_sweeps"] += 1
+    return out
+
+
 def dict_update_sweep(W: torch.Tensor, A: torch.Tensor,
                       B: torch.Tensor) -> torch.Tensor:
     """One column-BCD pass over the dictionary.
@@ -298,6 +253,25 @@ def _fixed_start(r: int, dtype, device) -> torch.Tensor:
     return 0.5 + ((idx * 40503) % 65536).to(dtype) / 65536.0
 
 
+def _lambda_max(G: torch.Tensor, iters: int) -> torch.Tensor:
+    """Top eigenvalue of a small PSD matrix: the Rayleigh quotient after
+    ``iters`` normalized power steps from :func:`_fixed_start`. In float32
+    whatever ``G``'s type, as the JAX helper computes it; the quotient only
+    under-estimates."""
+    G = G.float()
+    v = _fixed_start(G.shape[0], torch.float32, G.device)
+    for _ in range(iters):
+        w = G @ v
+        v = w / torch.clamp_min(torch.sqrt(torch.sum(w * w)), 1e-30)
+    return torch.sum(v * (G @ v)) / torch.clamp_min(torch.sum(v * v), 1e-30)
+
+
+def _inv_lipschitz(A: torch.Tensor, iters: int = 16) -> torch.Tensor:
+    """The FISTA step ``1 / L``, ``L = 1.02 lambda_max(A) + 1e-12`` (the
+    1.02 covers the power estimate's shortfall); a float32 scalar tensor."""
+    return 1.0 / (_lambda_max(A, iters) * 1.02 + 1e-12)
+
+
 def _warm_pair(Gd, Gh, vd, vh, iters: int):
     """``iters`` power steps on batched Grams (tiles, r, r) from vd/vh
     (tiles, r); returns the Rayleigh quotients and the final vectors."""
@@ -323,6 +297,60 @@ def _psd_lambda_ub(G):
     return torch.minimum(tr, G.abs().sum(-1).amax(-1))
 
 
+def _tile_view(M: torch.Tensor) -> torch.Tensor:
+    """(r, tiles * TN) -> (tiles, r, TN)."""
+    r, N = M.shape
+    return M.view(r, N // TN, TN).transpose(0, 1)
+
+
+class _TileStop:
+    """The per-tile stop of the early-stop and FISTA kernels (the kernels'
+    ``stop_decision``), for all tiles at once: certified bounds first, warm
+    power steps only in the band between them."""
+
+    def __init__(self, tiles: int, r: int, stopping_diff: float,
+                 pi_iters: int, dtype, device):
+        self.v0 = _fixed_start(r, dtype, device)
+        self.vd = self.v0.expand(tiles, r).clone()
+        self.vh = self.v0.expand(tiles, r).clone()
+        self.conv = torch.zeros(tiles, dtype=torch.bool, device=device)
+        self.stop2 = torch.tensor(stopping_diff, dtype=dtype) ** 2
+        self.pi_iters = pi_iters
+
+    def update(self, D: torch.Tensor, O: torch.Tensor) -> None:
+        """Decide on step delta ``D`` and old iterate ``O`` (r, tiles * TN);
+        tiles that converged before keep their vectors and stay stopped."""
+        Dt, Ot = _tile_view(D), _tile_view(O)
+        Gd = Dt @ Dt.transpose(1, 2)
+        Gh = Ot @ Ot.transpose(1, 2)
+        lb_d, lb_h, vd1, vh1 = _warm_pair(Gd, Gh, self.vd + 0.05 * self.v0,
+                                          self.vh + 0.05 * self.v0, 1)
+        ub_d, ub_h = _psd_lambda_ub(Gd), _psd_lambda_ub(Gh)
+        conv_certain = ub_d <= self.stop2 * lb_h
+        band = ~(conv_certain | (lb_d > self.stop2 * ub_h))
+        now = conv_certain
+        if bool(band.any()):
+            num, den, vd2, vh2 = _warm_pair(Gd, Gh, vd1, vh1, self.pi_iters)
+            now = torch.where(band, num <= self.stop2 * den, conv_certain)
+            vd1 = torch.where(band[:, None], vd2, vd1)
+            vh1 = torch.where(band[:, None], vh2, vh1)
+        live = ~self.conv
+        self.vd = torch.where(live[:, None], vd1, self.vd)
+        self.vh = torch.where(live[:, None], vh1, self.vh)
+        self.conv = self.conv | (live & now)
+
+
+def _padded(B, H0):
+    """B and H0 zero-padded to whole tiles, and the padding-column mask."""
+    r, n = B.shape
+    N = -(-n // TN) * TN
+    H = torch.zeros((r, N), dtype=B.dtype, device=B.device)
+    Bp = torch.zeros_like(H)
+    H[:, :n] = H0
+    Bp[:, :n] = B
+    return H, Bp, torch.arange(N, device=B.device) >= n
+
+
 def coder_sweeps_earlystop_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,
                                  sub_iter: int = 10, pi_iters: int = 12):
     """Plain PyTorch :func:`coder_sweeps_earlystop`: the same per-tile rule
@@ -330,42 +358,49 @@ def coder_sweeps_earlystop_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,
     from onmf_ontf_ndl_tpu_torch.ops.coder import _sweep
 
     r, n = B.shape
-    tiles = -(-n // TN)
-    N = tiles * TN
-    H = torch.zeros((r, N), dtype=B.dtype, device=B.device)
-    Bp = torch.zeros_like(H)
-    H[:, :n] = H0
-    Bp[:, :n] = B
-    pad = torch.arange(N, device=B.device) >= n
-    stop2 = torch.tensor(stopping_diff, dtype=B.dtype) ** 2
-    v0 = _fixed_start(r, B.dtype, B.device)
-    vd = v0.expand(tiles, r).clone()
-    vh = v0.expand(tiles, r).clone()
-    conv = torch.zeros(tiles, dtype=torch.bool, device=B.device)
+    H, Bp, pad = _padded(B, H0)
+    stop = _TileStop(H.shape[1] // TN, r, stopping_diff, pi_iters, B.dtype,
+                     B.device)
     for i in range(sub_iter):
-        if bool(conv.all()):
+        if bool(stop.conv.all()):
             break
         H_old = H.clone()
         _sweep(H, A, Bp, alpha, 1.0 / math.sqrt(i + 10.0))
-        H = torch.where(conv.repeat_interleave(TN) | pad, H_old, H)
-        Ht = H.view(r, tiles, TN).transpose(0, 1)
-        Ot = H_old.view(r, tiles, TN).transpose(0, 1)
-        D = Ht - Ot
-        Gd = D @ D.transpose(1, 2)
-        Gh = Ot @ Ot.transpose(1, 2)
-        lb_d, lb_h, vd1, vh1 = _warm_pair(Gd, Gh, vd + 0.05 * v0,
-                                          vh + 0.05 * v0, 1)
-        ub_d, ub_h = _psd_lambda_ub(Gd), _psd_lambda_ub(Gh)
-        conv_certain = ub_d <= stop2 * lb_h
-        band = ~(conv_certain | (lb_d > stop2 * ub_h))
-        now = conv_certain
-        if bool(band.any()):
-            num, den, vd2, vh2 = _warm_pair(Gd, Gh, vd1, vh1, pi_iters)
-            now = torch.where(band, num <= stop2 * den, conv_certain)
-            vd1 = torch.where(band[:, None], vd2, vd1)
-            vh1 = torch.where(band[:, None], vh2, vh1)
-        live = ~conv
-        vd = torch.where(live[:, None], vd1, vd)
-        vh = torch.where(live[:, None], vh1, vh)
-        conv = conv | (live & now)
+        H = torch.where(stop.conv.repeat_interleave(TN) | pad, H_old, H)
+        stop.update(H - H_old, H_old)
+    return H[:, :n].contiguous()
+
+
+def fista_sweeps_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,
+                       sub_iter: int = 10, use_stopping: bool = True,
+                       pi_iters: int = 12, bf16_matmul: bool = False):
+    """Plain PyTorch :func:`fista_sweeps`: fixed iterations as
+    ``ops.coder._fista_impl``; with ``use_stopping`` the kernel's per-tile
+    rule at the same tile width :data:`TN`, all tiles batched, each tile
+    with its own momentum."""
+    from onmf_ontf_ndl_tpu_torch.ops.coder import _fista_fixed, _fista_grad
+
+    inv_L = _inv_lipschitz(A, max(16, pi_iters))
+    if not use_stopping:
+        return _fista_fixed(A, B, H0, alpha, inv_L, sub_iter, bf16_matmul)
+    r, n = B.shape
+    H, Bp, pad = _padded(B, H0)
+    tiles = H.shape[1] // TN
+    Y = H.clone()
+    tmom = torch.ones(tiles, dtype=B.dtype, device=B.device)
+    stop = _TileStop(tiles, r, stopping_diff, pi_iters, B.dtype, B.device)
+    for _ in range(sub_iter):
+        if bool(stop.conv.all()):
+            break
+        tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tmom * tmom))
+        mom = ((tmom - 1.0) / tn).repeat_interleave(TN)
+        Hn = torch.clamp_min(
+            Y - inv_L * _fista_grad(A, Y, Bp, alpha, bf16_matmul), 0.0)
+        Hn = torch.where(pad, 0.0, Hn)
+        D = Hn - H
+        live = ~stop.conv
+        cols = live.repeat_interleave(TN)
+        stop.update(D, H)
+        H, Y = torch.where(cols, Hn, H), torch.where(cols, Hn + mom * D, Y)
+        tmom = torch.where(live, tn, tmom)
     return H[:, :n].contiguous()

@@ -1,13 +1,16 @@
-// Hopper (sm_90a) kernels for the sequential sweeps of online NMF.
+// Hopper (sm_90a) kernels for the coders and the dictionary update of
+// online NMF.
 //
 // Replace the Pallas TPU kernels of onmf_ontf_ndl_tpu/ops/pallas/coder_kernel.py:
 //   onmf_coder_sweeps            <- coder_sweeps            (:192)
 //   onmf_coder_sweeps_earlystop  <- coder_sweeps_earlystop  (:455)
+//   onmf_fista_sweeps            <- fista_sweeps            (:579)
 //   onmf_dict_update_sweep       <- dict_update_sweep       (:629)
 // Plain C entry points, bound from Python with ctypes. Each returns
 // cudaGetLastError() after its launch (0 = success). All arrays are float32,
 // row-major and contiguous; the caller allocates every output.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -19,6 +22,8 @@ constexpr int TN = 128;
 // Row stride of the early-stop kernel's shared (r, TN) tiles. The odd pad
 // keeps the Gram loop (lanes on different rows, same column) off one bank.
 constexpr int HS = TN + 1;
+// Largest rank of the FISTA kernel: the thread-local new column hn[].
+constexpr int FISTA_MAX_RANK = 128;
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
@@ -131,6 +136,71 @@ __device__ float psd_lambda_ub(const float* G, int r) {
   return fminf(warp_sum(tr), warp_max(rowmax));
 }
 
+// Grams over one tile's TN columns (row stride HS), upper triangle (k <= l)
+// mirrored: Gd = D D^T and Gh = O O^T, with D = P - O when kDiff and D = P
+// otherwise. Columns outside the batch hold 0 in P and O.
+template <bool kDiff>
+__device__ void tile_grams(const float* P, const float* O, float* Gd,
+                           float* Gh, int r) {
+  int k = 0, l = threadIdx.x;
+  while (k < r && l >= r) { l = l - r + k + 1; ++k; }
+  while (k < r) {
+    float gd = 0.f, gh = 0.f;
+    for (int cc = 0; cc < TN; ++cc) {
+      const float ok = O[k * HS + cc], ol = O[l * HS + cc];
+      const float dk = kDiff ? P[k * HS + cc] - ok : P[k * HS + cc];
+      const float dl = kDiff ? P[l * HS + cc] - ol : P[l * HS + cc];
+      gd = fmaf(dk, dl, gd);
+      gh = fmaf(ok, ol, gh);
+    }
+    Gd[k * r + l] = gd;
+    Gd[l * r + k] = gd;
+    Gh[k * r + l] = gh;
+    Gh[l * r + k] = gh;
+    l += blockDim.x;
+    while (k < r && l >= r) { l = l - r + k + 1; ++k; }
+  }
+}
+
+// The per-tile stop (_stopping_update), decided by one warp:
+// sigma(delta)^2 <= stop^2 sigma(H_old)^2, certified bounds first. One warm
+// power step gives Rayleigh lower bounds, trace/Gershgorin give upper
+// bounds; only in the band between them do pi_iters more warm steps decide.
+// vd/vh carry the eigenvector estimates from sweep to sweep. Every lane
+// returns the same decision (1 = converged).
+__device__ int stop_decision(const float* Gd, const float* Gh, const float* v0,
+                             float* vd, float* vh, float* wd, float* wh,
+                             int r, float stop2, int pi_iters) {
+  for (int k = threadIdx.x & 31; k < r; k += 32) {
+    vd[k] += 0.05f * v0[k];
+    vh[k] += 0.05f * v0[k];
+  }
+  __syncwarp();
+  float lb_d, lb_h;
+  warm_pair(Gd, Gh, vd, vh, wd, wh, r, 1, &lb_d, &lb_h);
+  const float ub_d = psd_lambda_ub(Gd, r);
+  const float ub_h = psd_lambda_ub(Gh, r);
+  const bool conv_certain = ub_d <= stop2 * lb_h;
+  const bool notconv_certain = lb_d > stop2 * ub_h;
+  int cv = conv_certain;
+  if (!conv_certain && !notconv_certain) {
+    float num, den;
+    warm_pair(Gd, Gh, vd, vh, wd, wh, r, pi_iters, &num, &den);
+    cv = num <= stop2 * den;
+  }
+  return cv;
+}
+
+// Start vectors of the power steps: _fixed_start, an unstructured positive
+// vector, in v0, vd and vh.
+__device__ void init_power_vectors(float* v0, float* vd, float* vh, int r) {
+  for (int k = threadIdx.x; k < r; k += blockDim.x) {
+    v0[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
+    vd[k] = v0[k];
+    vh[k] = v0[k];
+  }
+}
+
 __global__ void coder_es_kernel(const float* __restrict__ A,
                                 const float* __restrict__ B,
                                 const float* __restrict__ H0,
@@ -158,12 +228,7 @@ __global__ void coder_es_kernel(const float* __restrict__ A,
     Hs[k * HS + t] = active ? H0[(size_t)k * n + c] : 0.f;
     Os[k * HS + t] = Hs[k * HS + t];
   }
-  for (int k = t; k < r; k += blockDim.x) {
-    // _fixed_start: an unstructured positive start for the power steps
-    v0[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
-    vd[k] = v0[k];
-    vh[k] = v0[k];
-  }
+  init_power_vectors(v0, vd, vh, r);
   if (t == 0) conv = 0;
   const float stop2 = stop * stop;
   __syncthreads();
@@ -177,52 +242,153 @@ __global__ void coder_es_kernel(const float* __restrict__ A,
                    1.0f / sqrtf((float)i + 10.0f));
     }
     __syncthreads();
-    // Grams of the sweep delta and of the old iterate over the tile's
-    // columns; upper triangle (k <= l), mirrored. Inactive columns are 0.
-    {
-      int k = 0, l = t;
-      while (k < r && l >= r) { l = l - r + k + 1; ++k; }
-      while (k < r) {
-        float gd = 0.f, gh = 0.f;
-        for (int cc = 0; cc < TN; ++cc) {
-          const float ok = Os[k * HS + cc], ol = Os[l * HS + cc];
-          const float dk = Hs[k * HS + cc] - ok, dl = Hs[l * HS + cc] - ol;
-          gd = fmaf(dk, dl, gd);
-          gh = fmaf(ok, ol, gh);
-        }
-        Gd[k * r + l] = gd;
-        Gd[l * r + k] = gd;
-        Gh[k * r + l] = gh;
-        Gh[l * r + k] = gh;
-        l += blockDim.x;
-        while (k < r && l >= r) { l = l - r + k + 1; ++k; }
-      }
-    }
+    tile_grams<true>(Hs, Os, Gd, Gh, r);
     __syncthreads();
     if (t < 32) {
-      // sigma(delta)^2 <= stop^2 sigma(H_old)^2, certified bounds first
-      // (_stopping_update): one warm power step gives Rayleigh lower
-      // bounds, trace/Gershgorin give upper bounds; only in the band
-      // between them do pi_iters more warm steps decide.
-      for (int k = t; k < r; k += 32) {
-        vd[k] += 0.05f * v0[k];
-        vh[k] += 0.05f * v0[k];
-      }
-      __syncwarp();
-      float lb_d, lb_h;
-      warm_pair(Gd, Gh, vd, vh, wd, wh, r, 1, &lb_d, &lb_h);
-      const float ub_d = psd_lambda_ub(Gd, r);
-      const float ub_h = psd_lambda_ub(Gh, r);
-      const bool conv_certain = ub_d <= stop2 * lb_h;
-      const bool notconv_certain = lb_d > stop2 * ub_h;
-      int cv = conv_certain;
-      if (!conv_certain && !notconv_certain) {
-        float num, den;
-        warm_pair(Gd, Gh, vd, vh, wd, wh, r, pi_iters, &num, &den);
-        cv = num <= stop2 * den;
-      }
+      const int cv = stop_decision(Gd, Gh, v0, vd, vh, wd, wh, r, stop2,
+                                   pi_iters);
       if (t == 0) conv = cv;
     }
+    __syncthreads();
+  }
+  if (active)
+    for (int k = 0; k < r; ++k) H[(size_t)k * n + c] = Hs[k * HS + t];
+}
+
+// The FISTA step inv_L = 1 / (1.02 lambda_max(A) + 1e-12), lambda_max from
+// `iters` power steps from the fixed start (_lambda_max), by one warp.
+// warm_pair runs the chain twice on A; only one result is kept.
+__global__ void fista_step_size_kernel(const float* __restrict__ A, int r,
+                                       int iters, float* __restrict__ inv_L) {
+  extern __shared__ float smem[];
+  float* v0 = smem;  // five (r) vectors, as the stop decision lays them out
+  float* vd = v0 + r;
+  float* vh = vd + r;
+  float* wd = vh + r;
+  float* wh = wd + r;
+  init_power_vectors(v0, vd, vh, r);
+  __syncwarp();
+  float lam, unused;
+  warm_pair(A, A, vd, vh, wd, wh, r, iters, &lam, &unused);
+  if (threadIdx.x == 0) *inv_L = 1.f / (lam * 1.02f + 1e-12f);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// FISTA on one tile of TN columns, one thread per column:
+//   Hn = max(0, Y - inv_L (A Y - B + alpha)),  t' = (1 + sqrt(1 + 4 t^2)) / 2,
+//   Y  = Hn + (t - 1) / t' (Hn - H).
+// A (transposed, rows padded to R4 = a multiple of 4), H and Y live in
+// shared memory; a thread reads A by broadcast and only its own columns of
+// H and Y. It forms four rows of A Y at a time: one float4 of A^T and one
+// element of Y per four multiply-adds, each row summed over j in order. The
+// new column is formed in hn[] (thread-local) because every row of the
+// product needs the whole old Y column. kBf16
+// rounds A and Y to bf16 before the multiply-add (accumulation stays f32).
+// With use_stopping the tile stops as coder_es_kernel does, on the Grams of
+// the step delta (kept in the spent Y slot) and of the old H; the momentum t
+// is per tile and stops with it. What bounds it: r^2 multiply-adds per column
+// and iteration, each with a shared-memory load, in CUDA cores; the product
+// is a real (r, r) x (r, TN) matrix product, so tensor cores (mma/wgmma) are
+// the next step.
+template <bool kBf16>
+__global__ void fista_kernel(const float* __restrict__ A,
+                             const float* __restrict__ B,
+                             const float* __restrict__ H0,
+                             float* __restrict__ H, int r, int n,
+                             float alpha, const float* __restrict__ inv_L_ptr,
+                             float stop, int sub_iter, int use_stopping,
+                             int pi_iters) {
+  extern __shared__ float smem[];
+  const int R4 = (r + 3) & ~3;
+  float* At = smem;          // (r, R4): At[j * R4 + k] = A[k, j]
+  float* Hs = At + r * R4;   // (r, HS) iterate
+  float* Ys = Hs + r * HS;   // (r, HS) extrapolated point; the step delta
+                             // during the stop test
+  float* Gd = Ys + r * HS;   // stop mode only: (r, r) delta Gram,
+  float* Gh = Gd + r * r;    // (r, r) iterate Gram,
+  float* v0 = Gh + r * r;    // and five (r) vectors as in coder_es_kernel
+  float* vd = v0 + r;
+  float* vh = vd + r;
+  float* wd = vh + r;
+  float* wh = wd + r;
+  __shared__ int conv;
+
+  const int t = threadIdx.x;
+  const int c = blockIdx.x * TN + t;
+  const bool active = c < n;
+  const float inv_L = *inv_L_ptr;
+  for (int i = t; i < r * R4; i += blockDim.x) {
+    const int j = i / R4, k = i % R4;
+    const float a = k < r ? A[k * r + j] : 0.f;
+    At[i] = kBf16 ? bf16_round(a) : a;
+  }
+  for (int k = 0; k < r; ++k) {
+    const float h = active ? H0[(size_t)k * n + c] : 0.f;
+    Hs[k * HS + t] = h;
+    Ys[k * HS + t] = h;
+  }
+  if (use_stopping) init_power_vectors(v0, vd, vh, r);
+  if (t == 0) conv = 0;
+  const float stop2 = stop * stop;
+  float tmom = 1.f;
+  float hn[FISTA_MAX_RANK];
+  __syncthreads();
+
+  for (int i = 0; i < sub_iter; ++i) {
+    if (conv) break;  // set only in stop mode, read after a barrier
+    const float tn = 0.5f * (1.f + sqrtf(1.f + 4.f * tmom * tmom));
+    const float mom = (tmom - 1.f) / tn;
+    tmom = tn;
+    if (active) {
+      const float* y = Ys + t;
+      for (int k0 = 0; k0 < r; k0 += 4) {
+        float g[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j = 0; j < r; ++j) {
+          const float yj = kBf16 ? bf16_round(y[j * HS]) : y[j * HS];
+          const float4 a = *reinterpret_cast<const float4*>(At + j * R4 + k0);
+          g[0] = fmaf(a.x, yj, g[0]);
+          g[1] = fmaf(a.y, yj, g[1]);
+          g[2] = fmaf(a.z, yj, g[2]);
+          g[3] = fmaf(a.w, yj, g[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = k0 + q;
+          if (k < r)
+            hn[k] = fmaxf(y[k * HS] - inv_L * (g[q] - __ldg(B + (size_t)k * n + c)
+                                              + alpha), 0.f);
+        }
+      }
+    }
+    if (!use_stopping) {  // columns are independent: no barrier
+      if (active)
+        for (int k = 0; k < r; ++k) {
+          const float h = Hs[k * HS + t];
+          Hs[k * HS + t] = hn[k];
+          Ys[k * HS + t] = hn[k] + mom * (hn[k] - h);
+        }
+      continue;
+    }
+    for (int k = 0; k < r; ++k)
+      Ys[k * HS + t] = active ? hn[k] - Hs[k * HS + t] : 0.f;
+    __syncthreads();
+    tile_grams<false>(Ys, Hs, Gd, Gh, r);
+    __syncthreads();
+    if (t < 32) {
+      const int cv = stop_decision(Gd, Gh, v0, vd, vh, wd, wh, r, stop2,
+                                   pi_iters);
+      if (t == 0) conv = cv;
+    }
+    // the step applies in the sweep that converges too
+    if (active)
+      for (int k = 0; k < r; ++k) {
+        const float d = Ys[k * HS + t];
+        Hs[k * HS + t] = hn[k];
+        Ys[k * HS + t] = hn[k] + mom * d;
+      }
     __syncthreads();
   }
   if (active)
@@ -291,6 +457,12 @@ size_t onmf_coder_sweeps_earlystop_smem(int r) {
   return sizeof(float) * (3 * (size_t)r * r + 2 * (size_t)r * HS + 5 * (size_t)r);
 }
 
+size_t onmf_fista_sweeps_smem(int r, int use_stopping) {
+  size_t floats = (size_t)r * ((r + 3) & ~3) + 2 * (size_t)r * HS;
+  if (use_stopping) floats += 2 * (size_t)r * r + 5 * (size_t)r;
+  return sizeof(float) * floats;
+}
+
 int onmf_tile_columns(void) { return TN; }
 
 const char* onmf_error_string(int err) {
@@ -317,6 +489,36 @@ int onmf_coder_sweeps_earlystop(const float* A, const float* B,
   if (e) return e;
   coder_es_kernel<<<(n + TN - 1) / TN, TN, smem, (cudaStream_t)stream>>>(
       A, B, H0, H, r, n, alpha, stop, sub_iter, pi_iters);
+  return (int)cudaGetLastError();
+}
+
+// Two launches: the step size into inv_L (one float of device scratch,
+// from lipschitz_iters power steps), then the sweeps, which read it.
+int onmf_fista_sweeps(const float* A, const float* B, const float* H0,
+                      float* H, int r, int n, float alpha, float* inv_L,
+                      int lipschitz_iters, float stop, int sub_iter,
+                      int use_stopping, int pi_iters, int bf16_matmul,
+                      void* stream) {
+  if (r > FISTA_MAX_RANK) return (int)cudaErrorInvalidValue;
+  fista_step_size_kernel<<<1, 32, 5 * r * sizeof(float),
+                           (cudaStream_t)stream>>>(A, r, lipschitz_iters,
+                                                   inv_L);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t smem = onmf_fista_sweeps_smem(r, use_stopping);
+  const void* fn = bf16_matmul ? (const void*)fista_kernel<true>
+                               : (const void*)fista_kernel<false>;
+  e = launch_smem(fn, smem);
+  if (e) return e;
+  const int blocks = (n + TN - 1) / TN;
+  if (bf16_matmul)
+    fista_kernel<true><<<blocks, TN, smem, (cudaStream_t)stream>>>(
+        A, B, H0, H, r, n, alpha, inv_L, stop, sub_iter, use_stopping,
+        pi_iters);
+  else
+    fista_kernel<false><<<blocks, TN, smem, (cudaStream_t)stream>>>(
+        A, B, H0, H, r, n, alpha, inv_L, stop, sub_iter, use_stopping,
+        pi_iters);
   return (int)cudaGetLastError();
 }
 

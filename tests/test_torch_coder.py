@@ -4,6 +4,7 @@ coder and the NumPy oracle, in float64 on the CPU."""
 import math
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -93,10 +94,37 @@ def test_zero_start_stops_on_nan():
 
 
 def test_fista_not_ported_and_radius_rejects_cuda():
+    # FISTA now dispatches (to _fista_impl for a CPU tensor) and rejects a
+    # radius; the radius coder has no kernel, so backend="cuda" raises
     W, X, H0 = make_problem(r=4)
     A, B = _t(W.T @ W), _t(W.T @ X)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcoder.nonneg_code_gram(A, B, _t(H0), method="fista")
+    got = tcoder.nonneg_code_gram(A, B, _t(H0), method="fista",
+                                  stopping_diff=None)
+    want = tcoder._fista_impl(A, B, _t(H0), 0.0, None, 10, False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="radius"):
+        tcoder.nonneg_code_gram(A, B, _t(H0), method="fista", radius=0.1)
+    with pytest.raises(ValueError, match="method"):
+        tcoder.nonneg_code_gram(A, B, _t(H0), method="jacobi")
     with pytest.raises(ValueError):
         tcoder.nonneg_code_gram(A, B, _t(H0), radius=0.1, backend="cuda")
     assert resolve_backend("auto", A) == "torch"
+
+
+@pytest.mark.parametrize("method", ["fista", "fista_bf16"])
+def test_fista_dispatch_matches_jax_objective(method):
+    # the data-form coder on FISTA reaches the JAX coder's objective (the
+    # two H0 draws differ, so compare solutions, not iterates)
+    W, X, _ = make_problem(d=30, r=6, n=25)
+    got = tcoder.nonneg_code(_t(X), _t(W), generator=torch.Generator()
+                             .manual_seed(0), alpha=0.5, sub_iter=200,
+                             stopping_diff=None, method=method).numpy()
+    want = np.asarray(jcoder.nonneg_code(
+        jnp.asarray(X), jnp.asarray(W), key=jax.random.key(0), alpha=0.5,
+        sub_iter=200, stopping_diff=None, method=method))
+
+    def obj(H):
+        return 0.5 * np.linalg.norm(X - W @ H) ** 2 + 0.5 * H.sum()
+
+    assert obj(got) == pytest.approx(obj(want), rel=5e-3)
+    assert (got >= 0).all()

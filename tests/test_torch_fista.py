@@ -1,0 +1,224 @@
+"""The port's FISTA coder (ops/coder.py::_fista_impl, the FISTA branches of
+nonneg_code_gram and of the ONMF step) and the plain version of its kernel
+(ops/kernels/coder_kernel.py::fista_sweeps_plain) against the JAX package.
+
+- ``_fista_impl`` and the training path: float64 on the CPU against the
+  JAX functions. The step ``1 / L`` comes from 16 power steps in float32 on
+  both sides, as the JAX helper computes it; the two frameworks sum in
+  another order, so the step can differ by one float32 ulp (6e-8
+  relative). That moves the float64 iterates by up to ~3e-8 after 30
+  iterations: rtol 1e-6 / atol 1e-7. In bf16 mode any such difference can
+  carry an iterate across a bf16 rounding boundary, after which the paths
+  part at bf16 precision, so bf16 is held at the tolerance
+  tests/test_fista.py holds the Pallas kernel to (rtol 0.05 / atol 0.02,
+  and the objective within 0.5%).
+- ``fista_sweeps_plain``: float32 against the Pallas ``fista_sweeps`` in
+  interpret mode, at the Pallas tests' own tolerances (tests/test_fista.py).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from onmf_ontf_ndl_tpu.models import onmf as jonmf
+from onmf_ontf_ndl_tpu.models.state import init_state as jinit_state
+from onmf_ontf_ndl_tpu.ops import coder as jcoder
+from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import (
+    _lambda_max as jax_lambda_max, fista_sweeps as jax_fista_sweeps)
+from onmf_ontf_ndl_tpu_torch.models import onmf as tonmf
+from onmf_ontf_ndl_tpu_torch.models.state import init_state
+from onmf_ontf_ndl_tpu_torch.ops import coder as tcoder
+from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel as ck
+from test_torch_onmf import assert_state_close, replay_draws
+
+torch.set_num_threads(1)
+
+RNG = np.random.default_rng(34)
+F64 = torch.float64
+TOL = dict(rtol=2e-4, atol=2e-5)
+F64_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def problem(d=80, r=20, n=300, seed=0, dtype=np.float64):
+    """The Gram-form problem of tests/test_fista.py, with its objective and
+    the quadratic part that the single-tile stop test compares."""
+    rng = np.random.default_rng(seed)
+    W = rng.random((d, r)).astype(dtype)
+    X = rng.random((d, n)).astype(dtype)
+    H0 = rng.random((r, n)).astype(dtype)
+    A, B = W.T @ W, W.T @ X
+
+    def obj(H, alpha=0.0):
+        H = np.asarray(H, np.float64)
+        return (0.5 * np.linalg.norm(X - W @ H) ** 2
+                + alpha * np.abs(H).sum())
+
+    def qobj(H):
+        H = np.asarray(H, np.float64)
+        return 0.5 * np.sum(H * (A @ H)) - np.sum(B * H)
+
+    return A, B, H0, obj, qobj
+
+
+def test_lambda_max_matches_jax():
+    A, _, _, _, _ = problem(r=12)
+    for iters in (1, 16):
+        got = float(ck._lambda_max(_t(A), iters))
+        want = float(jax_lambda_max(jnp.asarray(A), iters))
+        assert got == pytest.approx(want, rel=1e-6)
+    assert ck._inv_lipschitz(_t(A)).dtype == torch.float32
+
+
+BF16_TOL = dict(rtol=0.05, atol=0.02)
+
+
+def tol(bf16):
+    return BF16_TOL if bf16 else F64_TOL
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("alpha", [0.0, 0.5])
+@pytest.mark.parametrize("stop", [None, 0.01])
+def test_fista_impl_matches_jax(stop, alpha, bf16):
+    A, B, H0, obj, _ = problem(n=60)
+    use_stop = stop is not None
+    got = tcoder._fista_impl(_t(A), _t(B), _t(H0), alpha, stop, 30,
+                             use_stop, bf16_matmul=bf16).numpy()
+    want = np.asarray(jcoder._fista_impl(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), jnp.float64(alpha),
+        jnp.float64(stop or 0.0), 30, use_stop, bf16_matmul=bf16))
+    np.testing.assert_allclose(got, want, **tol(bf16))
+    assert obj(got, alpha) == pytest.approx(obj(want, alpha), rel=5e-3)
+
+
+@pytest.mark.parametrize("method", ["fista", "fista_bf16"])
+@pytest.mark.parametrize("stop", [None, 0.05])
+def test_nonneg_code_gram_fista_matches_jax(method, stop):
+    A, B, H0, _, _ = problem(d=30, r=9, n=40, seed=1)
+    kw = dict(alpha=0.2, sub_iter=20, stopping_diff=stop, method=method)
+    got = tcoder.nonneg_code_gram(_t(A), _t(B), _t(H0), **kw).numpy()
+    want = np.asarray(jcoder.nonneg_code_gram(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), **kw))
+    np.testing.assert_allclose(got, want, **tol(method == "fista_bf16"))
+
+
+@pytest.mark.parametrize("n", [64, 200, 513])
+def test_fista_sweeps_plain_fixed_matches_pallas(n):
+    A, B, H0, _, _ = problem(n=n, seed=n, dtype=np.float32)
+    got = ck.fista_sweeps(_t(A), _t(B), _t(H0), 0.5, 0.0, sub_iter=10,
+                          use_stopping=False).numpy()
+    want = np.asarray(jax_fista_sweeps(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), 0.5, 0.0,
+        sub_iter=10, use_stopping=False, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("stop", [0.01, 0.05])
+def test_fista_sweeps_plain_single_tile_stop_matches_pallas(stop):
+    # n <= TN and <= the Pallas tile: one tile on both sides. The power
+    # statistic can stop one iteration apart at the boundary, so compare
+    # by the quadratic objective, as tests/test_fista.py does
+    A, B, H0, _, qobj = problem(n=ck.TN, seed=3, dtype=np.float32)
+    got = ck.fista_sweeps(_t(A), _t(B), _t(H0), 0.0, stop,
+                          sub_iter=20).numpy()
+    want = np.asarray(jax_fista_sweeps(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), 0.0, stop,
+        sub_iter=20, use_stopping=True, interpret=True))
+    assert abs(qobj(got) - qobj(want)) <= 0.02 * abs(qobj(want))
+    assert (got >= 0).all()
+
+
+def test_fista_sweeps_plain_bf16_matches_pallas():
+    A, B, H0, obj, _ = problem(n=200, seed=5, dtype=np.float32)
+    got = ck.fista_sweeps(_t(A), _t(B), _t(H0), 0.5, 0.0, sub_iter=10,
+                          use_stopping=False, bf16_matmul=True).numpy()
+    want = np.asarray(jax_fista_sweeps(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), 0.5, 0.0,
+        sub_iter=10, use_stopping=False, interpret=True, bf16_matmul=True))
+    # bf16 rounding points differ between the two: loose elementwise plus
+    # the objective within 0.5%, as tests/test_fista.py holds the Pallas
+    # kernel to the XLA path
+    np.testing.assert_allclose(got, want, rtol=0.05, atol=0.02)
+    assert abs(obj(got, 0.5) - obj(want, 0.5)) \
+        <= 0.005 * abs(obj(want, 0.5)) + 1e-6
+
+
+def test_fista_sweeps_plain_multi_tile_stop_converges():
+    # four TN-column tiles, each stopping on its own test with its own
+    # momentum: the result must be as good a solution as the global rule
+    # gives (within 10% of 200 fixed iterations' objective, the bound of
+    # tests/test_fista.py::test_fista_early_stop_converges)
+    A, B, H0, obj, _ = problem(n=4 * ck.TN, seed=7, dtype=np.float32)
+    got = ck.fista_sweeps(_t(A), _t(B), _t(H0), 0.0, 0.01,
+                          sub_iter=200).numpy()
+    full = ck.fista_sweeps(_t(A), _t(B), _t(H0), 0.0, 0.0, sub_iter=200,
+                           use_stopping=False).numpy()
+    assert (got >= 0).all()
+    assert obj(got) <= obj(full) * 1.10
+    # stopping is per tile: a tile stops no later than a run capped at the
+    # global stopping point would, so the objective is above the full run
+    assert obj(got) >= obj(full) * (1 - 1e-6)
+
+
+def test_fista_sweeps_plain_fixed_equals_fista_impl():
+    # the fixed mode is _fista_impl's loop, whatever the tiling
+    A, B, H0, _, _ = problem(n=300, seed=2)
+    got = ck.fista_sweeps_plain(_t(A), _t(B), _t(H0), 0.3, 0.0,
+                                sub_iter=15, use_stopping=False)
+    want = tcoder._fista_impl(_t(A), _t(B), _t(H0), 0.3, None, 15, False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def make_states(d=36, r=8, seed=0):
+    W = RNG.random((d, r))
+    js = jinit_state(jax.random.key(seed), d, r, dtype=jnp.float64, W=W)
+    ts = init_state(seed, d, r, dtype=F64, W=W)
+    return js, ts
+
+
+@pytest.mark.parametrize("coder", ["fista", "fista_bf16"])
+@pytest.mark.parametrize("stop", [None, 0.01])
+def test_onmf_step_fista_matches_jax(coder, stop):
+    js, ts = make_states()
+    X, H0 = RNG.random((36, 20)), RNG.random((8, 20))
+    kw = dict(t=3.0, alpha=0.5, beta=0.7, stopping_diff=stop, coder=coder)
+    js1, jH = jonmf.onmf_step(js, jnp.asarray(X), H0=jnp.asarray(H0), **kw)
+    ts1, tH = tonmf.onmf_step(ts, _t(X), H0=_t(H0), **kw)
+    bf16 = coder == "fista_bf16"
+    np.testing.assert_allclose(tH.numpy(), np.asarray(jH), **tol(bf16))
+    assert_state_close(ts1, js1, **tol(bf16))
+
+
+@pytest.mark.parametrize("stop", [None, 0.01])
+def test_train_dict_fista_matches_jax(stop):
+    d, r, n, iterations, batch = 36, 8, 50, 6, 12
+    js, ts = make_states(d=d, r=r, seed=7)
+    X = RNG.random((d, n))
+    draws = replay_draws(js.key, n, r, iterations, batch, True)
+    kw = dict(iterations=iterations, batch_size=batch, alpha=0.3, beta=0.9,
+              sub_iter=20, stopping_diff=stop, coder="fista",
+              return_metrics=True)
+    js1, jcode, jmet = jonmf.train_dict(js, jnp.asarray(X), **kw)
+    ts1, tcode, tmet = tonmf.train_dict(ts, _t(X), draws=draws, **kw)
+    assert_state_close(ts1, js1, **F64_TOL)
+    np.testing.assert_allclose(tcode.numpy(), np.asarray(jcode), **F64_TOL)
+    np.testing.assert_allclose(tmet.numpy(), np.asarray(jmet), rtol=1e-6)
+
+
+def test_online_nmf_fista_learns():
+    # the JAX shell test (tests/test_fista.py::test_onlinenmf_shell_fista)
+    # on the port
+    X = np.random.default_rng(9).random((40, 200))
+    nmf = tonmf.OnlineNMF(X, n_components=8, iterations=20, batch_size=50,
+                          coder="fista", stopping_diff=None, dtype=F64)
+    W, _, _, _, _ = nmf.train_dict()
+    assert (W >= 0).all()
+    H = nmf.sparse_code(nmf.X, W)
+    err = torch.linalg.norm(nmf.X - W @ H) / torch.linalg.norm(nmf.X)
+    assert float(err) < 0.5

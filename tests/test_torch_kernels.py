@@ -109,13 +109,19 @@ def test_dict_update_plain_matches_pallas_asymmetric():
 
 
 def test_cpu_wrappers_take_the_plain_path_without_launching():
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel
+
     ck.reset_launches()
     A, B, H0, W, X = make(n=30)
     ck.coder_sweeps(_t(A), _t(B), _t(H0))
     ck.coder_sweeps_earlystop(_t(A), _t(B), _t(H0))
+    ck.fista_sweeps(_t(A), _t(B), _t(H0))
     ck.dict_update_sweep(_t(W), _t(A), _t(H0 @ X.T))
+    ising_kernel.checkerboard_sweeps(0, torch.ones((4, 4), dtype=torch.int8),
+                                     1)
     assert ck.LAUNCHES == {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
-                           "dict_update_sweep": 0}
+                           "fista_sweeps": 0, "dict_update_sweep": 0,
+                           "checkerboard_sweeps": 0}
 
 
 def test_argument_checks():

@@ -51,11 +51,11 @@ def replay_draws(key, n, r, iterations, batch_size, subsample):
     return draws
 
 
-def assert_state_close(ts, js, rtol=1e-8):
+def assert_state_close(ts, js, rtol=1e-8, atol=1e-12):
     for name in ("W", "A", "B", "C"):
         np.testing.assert_allclose(getattr(ts, name).numpy(),
                                    np.asarray(getattr(js, name)), rtol=rtol,
-                                   atol=1e-12, err_msg=name)
+                                   atol=atol, err_msg=name)
     assert ts.t == float(js.t)
 
 
@@ -167,8 +167,11 @@ def test_online_nmf_shims_and_fit_restart():
     assert tuple(nmf.inverse_transform(codes).shape) == (40, 20)
     nmf.partial_fit(X[:, :7])
     assert nmf.history == 4.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tonmf.OnlineNMF(X, coder="fista")
+    fista = tonmf.OnlineNMF(X, n_components=4, iterations=3, coder="fista",
+                            dtype=F64)
+    assert (fista.train_dict()[0] >= 0).all()
+    with pytest.raises(ValueError, match="coder"):
+        tonmf.OnlineNMF(X, coder="fsita")
 
 
 def test_state_from_numpy_round_trip_gives_same_step():
