@@ -12,9 +12,11 @@ Phases, each printing its findings on a line of its own:
              n in {TN, 131072 + 37}, d = 300, rtol 2e-4 / atol 2e-5; bf16
              FISTA over one iteration at that tolerance and over ten at
              atol 1.5e-3, each outside the f32 tolerance of the f32 plain
-             version; the checkerboard sampler at n in {200, 4096}, 100
-             sweeps, equal site for site, and two physics checks at
-             n = 4096.
+             version; the coders past their shared-memory ranks (the
+             workspace kernels) at r in {128, 256}, and 101 for the
+             stopping modes, n = 131072 + 37; the checkerboard sampler at
+             n in {200, 4096}, 100 sweeps, equal site for site, and two
+             physics checks at n = 4096.
 3. main    - ``OnlineNMF(...).train_dict()`` on synthetic sparse-dictionary
              data (trained W within 10% of the ground-truth W's score),
              then ``init_state`` + ``train_dict`` at d = 300, r = 25,
@@ -29,8 +31,14 @@ Phases, each printing its findings on a line of its own:
 6. ising   - ``IsingReconstructor`` (r = 100, lattice 200, 20 rounds,
              T = 5; ``benchmarks/run_all.py``'s configuration), config
              reconstruction, and a short card/CPU run.
+7. network - ``NetworkReconstructor`` at ``NETWORK_RUNS``' two
+             configurations (the reference main()'s 21-node motif on a
+             seeded 4,039-node Barabasi-Albert graph, dense reconstruction;
+             the 129,600-node torus on a CsrGraph, sparse reconstruction of
+             4.8M samples): train and reconstruction seconds, chain steps
+             per second and accuracy; a short card/CPU run.
 
-Phases 3, 5 and 6 each drive one path of the port with the launch counts
+Phases 3, 5, 6 and 7 each drive one path of the port with the launch counts
 set to 0 before it, and fail unless every kernel of that path launched.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -75,6 +83,8 @@ PATH_KERNELS = {
     "tensor": ("fista_sweeps", "dict_update_sweep"),
     "ising": ("checkerboard_sweeps", "coder_sweeps_earlystop",
               "coder_sweeps", "dict_update_sweep"),
+    "network": ("coder_sweeps_earlystop", "coder_sweeps",
+                "dict_update_sweep"),
 }
 HEADLINE_N = 131072 + 37   # a ragged last tile
 
@@ -224,8 +234,55 @@ def phase_kernels(ck, dev):
         HEADLINE_N / ck.TN), one_more_sweep_rel_change=rel, limit=0.1)
     if not (rel <= 0.1 and bool((H >= 0).all())):
         raise AssertionError(f"multi-tile early stop not converged: {rel}")
+    large_rank_kernels(ck, dev, gen)
     summary["checkerboard_sweeps"] = checkerboard_kernels(dev, gen)
     return summary
+
+
+def large_rank_kernels(ck, dev, gen):
+    """The coders past their shared-memory ranks (the workspace kernels;
+    fixed-sweep coder_sweeps and FISTA still shared at r = 128) at
+    n = 131072 + 37, kernel against plain, with CUDA-event times of both:
+    r in {128, 256} for every mode and r = 101 for the stopping modes."""
+    d, n = 300, HEADLINE_N
+    for r in (101, 128, 256):
+        W = torch.rand((d, r), generator=gen)
+        W = (W / W.norm(dim=0)).to(dev)
+        X = torch.rand((d, n), generator=gen).to(dev)
+        H0 = torch.rand((r, n), generator=gen).to(dev)
+        A, B = W.T @ W, W.T @ X
+        fista = dict(sub_iter=10, use_stopping=False)
+        bf16 = dict(fista, bf16_matmul=True)
+        cases = [
+            ("coder_sweeps", "coder_sweeps", "", {}),
+            ("coder_sweeps_earlystop", "coder_sweeps_earlystop", "", {}),
+            ("fista_sweeps", "fista_sweeps", "fixed", fista),
+            ("fista_sweeps", "fista_sweeps_stop", "stop", dict(sub_iter=10)),
+            ("fista_sweeps", "fista_sweeps", "bf16_one_iteration",
+             dict(bf16, sub_iter=1)),
+            ("fista_sweeps", "fista_sweeps", "bf16", bf16),
+        ]
+        for name, route_name, mode, kw in cases:
+            if r == 101 and route_name not in ("coder_sweeps_earlystop",
+                                               "fista_sweeps_stop"):
+                continue
+            kernel = getattr(ck, name)
+            plain = getattr(ck, name + "_plain")
+            args = (A, B, H0, 0.1) if name == "coder_sweeps" \
+                else (A, B, H0, 0.1, 0.01)
+            label = f"{name} {mode} r={r} n={n}"
+            tol = BF16_TOL if mode == "bf16" else TOL
+            before = ck.LAUNCHES[name]
+            got = kernel(*args, **kw)
+            if ck.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"{label}: no kernel launched")
+            err = compare(label, got, plain(*args, **kw), tol)
+            ms = cuda_ms(lambda: kernel(*args, **kw), 5)
+            plain_ms = cuda_ms(lambda: plain(*args, **kw), 2)
+            emit("kernels", kernel=name, mode=mode or None, r=r, n=n, d=d,
+                 route=ck.kernel_route(route_name, r), max_abs_err=err,
+                 atol=tol["atol"], rtol=tol["rtol"], ms=ms,
+                 plain_ms=plain_ms)
 
 
 def checkerboard_kernels(dev, gen):
@@ -565,6 +622,184 @@ def phase_ising(ck, dev):
     return launches
 
 
+def torus_edges(m):
+    """Edges of the m x m torus, each node's (down, right) pair in turn:
+    ``benchmarks/scale_extras.py::torus_edges``."""
+    u = np.arange(m * m, dtype=np.int64).reshape(m, m)
+    e = np.empty((2 * m * m, 2), np.int64)
+    e[:, 0] = np.repeat(u.reshape(-1), 2)
+    e[0::2, 1] = np.roll(u, -1, axis=0).reshape(-1)
+    e[1::2, 1] = np.roll(u, -1, axis=1).reshape(-1)
+    return e
+
+
+def ba_edges(n, m, seed, chunk=4096):
+    """A Barabasi-Albert edge list from an (m+1)-clique, targets drawn from
+    the repeated-endpoint bag as of each chunk's start:
+    ``benchmarks/scale_extras.py::ba_edges``."""
+    rng = np.random.default_rng(seed)
+    init = np.asarray([(i, j) for i in range(m + 1) for j in range(i)],
+                      np.int64)
+    bag = np.empty(2 * (m * n + len(init)), np.int64)
+    bl = init.size
+    bag[:bl] = init.reshape(-1)
+    pieces, node = [init], m + 1
+    while node < n:
+        c = min(chunk, n - node, max(1, bl // (2 * m)))
+        e = np.stack([np.repeat(np.arange(node, node + c), m),
+                      bag[rng.integers(0, bl, c * m)]], axis=1)
+        pieces.append(e)
+        bag[bl:bl + e.size] = e.reshape(-1)
+        bl += e.size
+        node += c
+    return np.concatenate(pieces)
+
+
+def chain_rate(g, B, chains, steps, use_glauber, dev):
+    """Sequential chain steps per second of ``chains`` chains (each step
+    moves every chain once), host clock around synchronised runs."""
+    from onmf_ontf_ndl_tpu_torch.samplers.motif import (run_chains,
+                                                        tree_parents,
+                                                        tree_sample)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x0 = torch.randint(0, g.num_nodes, (chains,), generator=gen, device=dev)
+    emb0 = tree_sample(gen, tree_parents(B), g, x0)
+    run_chains(gen, g, emb0, B, 2, use_glauber=use_glauber)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+# Phase 7's configurations: the graph (built in the script, as the
+# benchmarks build theirs), the NetworkReconstructor's arguments and the
+# reconstruction's.
+NETWORK_RUNS = {
+    # the reference main()'s (benchmarks/run_all.py::bench_facebook) on a
+    # seeded Barabasi-Albert graph of facebook_combined's size
+    "a": (lambda: ba_edges(4039, 22, seed=0), "dense",
+          dict(n_components=25, MCMC_iterations=20, sub_iterations=20,
+               sample_size=500, batch_size=20, k1=0, k2=20, alpha=0.1,
+               is_glauber_dict=True, is_glauber_recons=False, fast=False,
+               num_chains=8, seed=0),
+          dict(recons_iter=100_000, num_chains=256)),
+    # benchmarks/scale_extras.py::big_torus_ndl at m = 360, on a CsrGraph
+    "b": (lambda: torus_edges(360), "csr",
+          dict(n_components=25, MCMC_iterations=50, sub_iterations=30,
+               sample_size=500, batch_size=100, k1=0, k2=2, num_chains=16,
+               fast=True, seed=0),
+          dict(recons_iter=4_800_000, num_chains=8192)),
+}
+
+
+def phase_network(ck, dev):
+    """Network dictionary learning at NETWORK_RUNS' two configurations:
+    (a) 21-node path motif (d = 441), r = 25, 20 MCMC iterations of 500
+        Glauber samples over 8 chains, each followed by 19 optimizer steps
+        on all 500 (``subsample=False``, the default, leaves batch_size
+        unused), early stop;
+        dense reconstruction from 100,000 pivot samples over 256 chains; the
+        trained W must score above the initial W;
+    (b) the 360 x 360 torus, 3-node path, r = 25, 50 MCMC iterations of 500
+        samples over 16 chains and 29 optimizer steps, fixed sweeps; sparse
+        reconstruction from 4.8M Glauber samples over 8192 chains; accuracy
+        at least 0.90.
+    Then (c) a short training run on the card (float32) and on the CPU
+    (float64) from the same patches and draws."""
+    from onmf_ontf_ndl_tpu_torch.apps.network import (NetworkReconstructor,
+                                                      ndl_train)
+    from onmf_ontf_ndl_tpu_torch.data.graphs import (csr_graph_from_edges,
+                                                     graph_from_edgelist)
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+
+    build = {"dense": graph_from_edgelist, "csr": csr_graph_from_edges}
+    graphs = {tag: build[kind](edges(), device=dev)
+              for tag, (edges, kind, _, _) in NETWORK_RUNS.items()}
+    # the initial W's accuracy in (a), before the counted run: the same
+    # seed gives the same initial W
+    _, _, conf_a, recon_a = NETWORK_RUNS["a"]
+    base = NetworkReconstructor(source=graphs["a"], device=dev, **conf_a)
+    base.reconstruct_network(**recon_a)
+    acc0 = base.compute_recons_accuracy()
+
+    ck.reset_launches()
+    runs = {}
+    for tag, (_, _, conf, recon) in NETWORK_RUNS.items():
+        rec = NetworkReconstructor(source=graphs[tag], device=dev, **conf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W = rec.train_dict()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = rec.reconstruct_network(**recon)
+        torch.cuda.synchronize()
+        runs[tag] = (rec, W, out, train_s, time.perf_counter() - t0)
+    launches = check_launches(ck, "network")
+
+    for tag, (rec, W, out, train_s, recon_s) in runs.items():
+        recon = NETWORK_RUNS[tag][3]
+        acc = rec.compute_recons_accuracy()
+        k, n = rec.k1 + rec.k2 + 1, rec.G.num_nodes
+        ok = (tuple(W.shape) == (k * k, rec.n_components)
+              and bool(torch.isfinite(W).all()) and bool((W >= 0).all())
+              and rec.state.t == rec.MCMC_iterations * rec.sub_iterations)
+        per = -(-rec.sample_size // rec.num_chains)
+        recon_steps = -(-recon["recons_iter"] // recon["num_chains"])
+        train_rate = chain_rate(rec.G, rec.B, rec.num_chains, per,
+                                rec.is_glauber_dict, dev)
+        recon_rate = chain_rate(rec.G, rec.B, recon["num_chains"],
+                                min(recon_steps, 100), rec.is_glauber_recons,
+                                dev)
+        fields = dict(config=tag, nodes=n, edges=rec.G.num_edges,
+                      max_deg=int(rec.G.deg.max()), k=k,
+                      train_seconds=train_s, recon_seconds=recon_s,
+                      train_chain_steps=rec.MCMC_iterations * per,
+                      recon_chain_steps=recon_steps,
+                      train_chain_steps_per_s=train_rate,
+                      recon_chain_steps_per_s=recon_rate, accuracy=acc)
+        if tag == "a":
+            fields.update(accuracy_initial_w=acc0,
+                          recon_edges=int(out.sum()) // 2)
+            ok = ok and tuple(out.shape) == (n, n) and acc > acc0
+        else:
+            fields.update(recon_edges=len(out), limit=0.90)
+            ok = ok and out.shape[1] == 2 and acc >= 0.90
+        emit("network", **fields)
+        if not ok:
+            raise AssertionError(f"network ({tag}): bad result {fields}")
+
+    # the same short training run on the card (float32) and on the CPU
+    # (float64) from the same patches and draws, fixed sweeps, the 21-node
+    # motif; limit 1e-3 relative
+    rng = np.random.default_rng(8)
+    d, r, S, inner = 441, 25, 500, 5
+    W0 = rng.random((d, r))
+    draws = [((rng.random((d, S)) < 0.2).astype(np.float64),
+              [(rng.integers(0, S, 20), rng.random((r, 20)))
+               for _ in range(inner - 1)]) for _ in range(3)]
+    res = {}
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        dr = [(torch.as_tensor(X, dtype=dtype, device=device),
+               [(torch.as_tensor(i, device=device),
+                 torch.as_tensor(h, dtype=dtype, device=device))
+                for i, h in steps]) for X, steps in draws]
+        st = init_state(0, d, r, device=device, dtype=dtype, W=W0)
+        st, _, _ = ndl_train(
+            st, graphs["a"].to(device), torch.arange(21, device=device),
+            runs["a"][0].B, mcmc_iterations=3, sample_size=S,
+            inner_iterations=inner, batch_size=20, alpha=0.1,
+            use_stopping=False, subsample=True, draws=dr)
+        res[str(device)] = st.W
+    rel = rel_err(res[str(dev)], res["cpu"])
+    emit("network", check="cuda_f32_vs_cpu_f64", rel_err_W=rel, limit=1e-3)
+    if not rel <= 1e-3:
+        raise AssertionError(f"card run differs from the CPU run: {rel}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -582,6 +817,7 @@ def main():
     phase_image(dev, img)
     launches["tensor"] = phase_tensor(ck, dev, img)
     launches["ising"] = phase_ising(ck, dev)
+    launches["network"] = phase_network(ck, dev)
     emit("done", seconds=time.perf_counter() - t0)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": PALLAS + replaces,

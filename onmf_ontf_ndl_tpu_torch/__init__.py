@@ -8,9 +8,12 @@ Same layout and names as the JAX package, which stays the reference:
                  place of the JAX package's ``ops/pallas``);
 - ``models``   : ``OnmfState``, ``onmf_step`` / ``train_dict`` (a Python
                  loop in place of ``lax.scan``), ``OnlineNMF``, ``OnlineNTF``;
-- ``samplers`` : the Ising Metropolis chain and checkerboard sweeps;
-- ``data``, ``apps`` (``ImageReconstructor``, ``ImageReconstructorTensor``,
-                 ``IsingReconstructor``), ``utils`` (checkpoint, metrics).
+- ``samplers`` : the Ising Metropolis chain and checkerboard sweeps, the
+                 motif-homomorphism chains of network dictionary learning;
+- ``data``     : images, graphs (dense, CSR, bitset) and the native loader;
+- ``apps`` (``ImageReconstructor``, ``ImageReconstructorTensor``,
+                 ``IsingReconstructor``, ``NetworkReconstructor``),
+  ``utils`` (checkpoint, metrics).
 
 Every constructor takes ``device=``; randomness comes from explicit
 ``torch.Generator``s. Importing the package builds no kernel and imports
@@ -48,12 +51,14 @@ __all__ = [
     "ImageReconstructor",
     "ImageReconstructorTensor",
     "IsingReconstructor",
+    "NetworkReconstructor",
 ]
 
 _APPS = {
     "ImageReconstructor": "onmf_ontf_ndl_tpu_torch.apps.image",
     "ImageReconstructorTensor": "onmf_ontf_ndl_tpu_torch.apps.image_tensor",
     "IsingReconstructor": "onmf_ontf_ndl_tpu_torch.apps.ising",
+    "NetworkReconstructor": "onmf_ontf_ndl_tpu_torch.apps.network",
 }
 
 

@@ -105,11 +105,11 @@ def build() -> dict:
         compiled = True
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.onmf_coder_sweeps.argtypes = [p, p, p, p, i, i, f, i, p]
+    lib.onmf_coder_sweeps.argtypes = [p, p, p, p, i, i, f, i, i, p]
     lib.onmf_coder_sweeps_earlystop.argtypes = [p, p, p, p, i, i, f, f, i,
-                                                i, p]
+                                                i, p, i, p]
     lib.onmf_fista_sweeps.argtypes = [p, p, p, p, i, i, f, p, i, f, i, i, i,
-                                      i, p]
+                                      i, p, i, p]
     lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, p]
     lib.onmf_checkerboard_sweeps.argtypes = [p, i, i, ctypes.c_uint, p, p]
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
@@ -117,6 +117,11 @@ def build() -> dict:
                lib.onmf_checkerboard_sweeps, lib.onmf_tile_columns):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
+    for fn, args in ((lib.onmf_earlystop_slice_floats, [i]),
+                     (lib.onmf_fista_head_floats, [i]),
+                     (lib.onmf_fista_slice_floats, [i, i])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_size_t
     lib.onmf_error_string.argtypes = [i]
     lib.onmf_error_string.restype = ctypes.c_char_p
     if lib.onmf_tile_columns() != TN:

@@ -14,7 +14,8 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   each with a shared-memory load (the B/H0/H traffic is ~39 MB per call at
   n = 131072, r = 25: ~12 us at HBM speed). Columns are independent, so
   the design needs no barrier after the load and keeps thousands of
-  threads in flight to hide the shared-memory latency. r <= 128.
+  threads in flight to hide the shared-memory latency. Shared-memory
+  form: r <= 128.
 - :func:`coder_sweeps_earlystop` replaces ``coder_sweeps_earlystop``
   (``:455``): the same sweeps with the reference's relative spectral-change
   stop decided per column tile of **TN = 128 columns** (one thread block).
@@ -28,7 +29,8 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   columns the two freeze different column sets. What bounds it: the same
   sweep chain plus the Gram products (about the sweep's cost again) and
   the per-sweep barriers; shared memory (3 r^2 + 2 r (TN + 1) floats)
-  limits it to r <= 100 and to one block per SM at r = 100.
+  limits the shared-memory form to r <= 100 and to one block per SM at
+  r = 100.
 - :func:`fista_sweeps` replaces ``fista_sweeps`` (``:579``): accelerated
   projected gradient ``H <- max(0, Y - (A Y - B + alpha) / L)`` with
   Nesterov momentum, one block per tile of **TN = 128 columns** and one
@@ -60,6 +62,23 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   bounds it: the r dependent column steps (2 barriers each); the work is
   d * r^2 FMAs, tiny at d = 300. Any d works (rows loop over the threads).
 
+**Ranks.** Each coder kernel has two instantiations of the same device
+code, chosen by :func:`kernel_route` from r alone: ``"shared"`` keeps A,
+the tiles and the Grams in one block's shared memory (the limits above,
+:data:`SMEM_MAX_RANK`); ``"workspace"`` reads A from device memory (L2)
+and keeps the tiles, the Grams and the power vectors in a device
+workspace, one slice per resident block, the grid striding over the
+tiles (``coder_sweeps`` sweeps each column in place in its output). Both
+serve every r up to :data:`MAX_RANK` = 1248, the largest r whose Gram the
+JAX wrappers keep in their kernel (``round_up(r, 8)^2 * 4 B <= 6 MiB``,
+``pallas/coder_kernel.py:147``). Past it the wrappers do what the JAX
+wrappers do: the same maths without a kernel (``ops.coder._code_impl``,
+whose early stop is the whole-batch rule, and ``_fista_impl``), on the
+tensor's device; ``"unfused"`` routes count no launch. What bounds the
+workspace form: each of the sweeps' and the Grams' loads goes to L1/L2 in
+place of shared memory (the Gram loop takes one pair per warp, the lanes
+along the tile's rows, so that its loads are contiguous).
+
 The TPU blocking (``block_rows``/``_block_corr``, the (8, 128) padding of
 ``_tile_plan``, SMEM staging) is not carried over.
 
@@ -81,13 +100,47 @@ __all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
            "dict_update_sweep", "coder_sweeps_plain",
            "coder_sweeps_earlystop_plain", "fista_sweeps_plain",
            "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
-           "TN", "MAX_RANK", "MAX_RANK_EARLYSTOP", "MAX_RANK_FISTA",
-           "MAX_RANK_FISTA_STOP"]
+           "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route"]
 
-MAX_RANK = 128            # coder_sweeps: A + the (r, TN) tile in shared memory
-MAX_RANK_EARLYSTOP = 100  # 3 r^2 + 2 r (TN + 1) floats within 227 KB
-MAX_RANK_FISTA = 128      # fista_sweeps: A + the H and Y tiles
-MAX_RANK_FISTA_STOP = 100  # + both Grams, as the early stop
+# Largest rank each coder runs as a kernel: the JAX kernels' limit
+# round_up(r, 8)^2 * 4 B <= 6 MiB, for every mode.
+MAX_RANK = 1248
+# Largest rank of each shared-memory kernel; the workspace kernel above it.
+SMEM_MAX_RANK = {
+    "coder_sweeps": 128,            # A + the (r, TN) tile
+    "coder_sweeps_earlystop": 100,  # 3 r^2 + 2 r (TN + 1) floats in 227 KB
+    "fista_sweeps": 128,            # A + the H and Y tiles; hn[128]
+    "fista_sweeps_stop": 100,       # + both Grams, as the early stop
+}
+# Workspace of the workspace kernels: at most this many bytes of slices,
+# and at most this many resident blocks per SM.
+_WS_BYTES = 1 << 30
+_WS_BLOCKS_PER_SM = 8
+
+
+def kernel_route(name: str, r: int) -> str:
+    """Which form a coder takes at rank ``r``, from ``r`` alone:
+    ``"shared"`` (the shared-memory kernel), ``"workspace"`` (the
+    workspace kernel) or ``"unfused"`` (past :data:`MAX_RANK`, the plain
+    maths, as the JAX wrapper does). ``name`` is a key of
+    :data:`SMEM_MAX_RANK`."""
+    if r <= SMEM_MAX_RANK[name]:
+        return "shared"
+    return "workspace" if r <= MAX_RANK else "unfused"
+
+
+def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0):
+    """The workspace of a workspace kernel and its block count: one slice
+    of ``slice_floats`` per block (after ``head_floats`` shared by all),
+    as many blocks as there are tiles, up to :data:`_WS_BLOCKS_PER_SM`
+    per SM and :data:`_WS_BYTES` of slices."""
+    tiles = -(-B.shape[1] // TN)
+    sms = torch.cuda.get_device_properties(B.device).multi_processor_count
+    blocks = max(1, min(tiles, _WS_BLOCKS_PER_SM * sms,
+                        _WS_BYTES // (4 * slice_floats)))
+    ws = torch.empty(head_floats + blocks * slice_floats,
+                     dtype=torch.float32, device=B.device)
+    return ws, blocks
 
 
 def _check(name: str, **tensors) -> None:
@@ -123,6 +176,9 @@ def coder_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
     """
     if _on_cpu(A, B, H0):
         return coder_sweeps_plain(A, B, H0, alpha, sub_iter=sub_iter)
+    route = kernel_route("coder_sweeps", B.shape[0])
+    if route == "unfused":
+        return coder_sweeps_plain(A, B, H0, alpha, sub_iter=sub_iter)
     r, n = _check_coder("coder_sweeps", A, B, H0, MAX_RANK)
     out = torch.empty_like(B)
     if n == 0:
@@ -131,7 +187,8 @@ def coder_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
     with torch.cuda.device(B.device):
         err = lib.onmf_coder_sweeps(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,
-            float(alpha), int(sub_iter), _stream(B))
+            float(alpha), int(sub_iter), int(route == "workspace"),
+            _stream(B))
     _raise_on_error("coder_sweeps", err)
     LAUNCHES["coder_sweeps"] += 1
     return out
@@ -150,17 +207,26 @@ def coder_sweeps_earlystop(A: torch.Tensor, B: torch.Tensor,
         return coder_sweeps_earlystop_plain(
             A, B, H0, alpha, stopping_diff, sub_iter=sub_iter,
             pi_iters=pi_iters)
-    r, n = _check_coder("coder_sweeps_earlystop", A, B, H0,
-                        MAX_RANK_EARLYSTOP)
+    route = kernel_route("coder_sweeps_earlystop", B.shape[0])
+    if route == "unfused":
+        from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl
+
+        return _code_impl(A, B, H0, alpha, stopping_diff, None,
+                          int(sub_iter), True, False)
+    r, n = _check_coder("coder_sweeps_earlystop", A, B, H0, MAX_RANK)
     out = torch.empty_like(B)
     if n == 0:
         return out
     lib = build()["lib"]
+    ws, blocks = None, 0
+    if route == "workspace":
+        ws, blocks = _workspace(B, lib.onmf_earlystop_slice_floats(r))
     with torch.cuda.device(B.device):
         err = lib.onmf_coder_sweeps_earlystop(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,
             float(alpha), float(stopping_diff), int(sub_iter),
-            int(pi_iters), _stream(B))
+            int(pi_iters), None if ws is None else ws.data_ptr(), blocks,
+            _stream(B))
     _raise_on_error("coder_sweeps_earlystop", err)
     LAUNCHES["coder_sweeps_earlystop"] += 1
     return out
@@ -182,20 +248,31 @@ def fista_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
             A, B, H0, alpha, stopping_diff, sub_iter=sub_iter,
             use_stopping=use_stopping, pi_iters=pi_iters,
             bf16_matmul=bf16_matmul)
-    r, n = _check_coder(
-        "fista_sweeps", A, B, H0,
-        MAX_RANK_FISTA_STOP if use_stopping else MAX_RANK_FISTA)
+    route = kernel_route(
+        "fista_sweeps_stop" if use_stopping else "fista_sweeps", B.shape[0])
+    if route == "unfused":
+        from onmf_ontf_ndl_tpu_torch.ops.coder import _fista_impl
+
+        return _fista_impl(A, B, H0, alpha, stopping_diff, int(sub_iter),
+                           use_stopping, bf16_matmul=bf16_matmul)
+    r, n = _check_coder("fista_sweeps", A, B, H0, MAX_RANK)
     out = torch.empty_like(B)
     if n == 0:
         return out
     inv_L = torch.empty(1, dtype=torch.float32, device=B.device)
     lib = build()["lib"]
+    ws, blocks = None, 0
+    if route == "workspace":
+        ws, blocks = _workspace(
+            B, lib.onmf_fista_slice_floats(r, int(use_stopping)),
+            lib.onmf_fista_head_floats(r))
     with torch.cuda.device(B.device):
         err = lib.onmf_fista_sweeps(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,
             float(alpha), inv_L.data_ptr(), max(16, int(pi_iters)),
             float(stopping_diff if use_stopping else 0.0), int(sub_iter),
-            int(use_stopping), int(pi_iters), int(bf16_matmul), _stream(B))
+            int(use_stopping), int(pi_iters), int(bf16_matmul),
+            None if ws is None else ws.data_ptr(), blocks, _stream(B))
     _raise_on_error("fista_sweeps", err)
     LAUNCHES["fista_sweeps"] += 1
     return out

@@ -7,8 +7,13 @@ imports no JAX, so it also runs on a machine without it:
 
 Tolerance: rtol 2e-4 / atol 2e-5, float32 summation order; the bf16 FISTA
 product at rtol 2e-3 / atol 2e-4 (a float32 sum in another order can carry
-a bf16-rounded input across a rounding boundary). The checkerboard kernel
-draws the same bits as its plain version: equal site for site.
+a bf16-rounded input across a rounding boundary); at the large ranks one
+bf16 iteration at the f32 tolerance and ten at atol 1.5e-3, as
+``chip_smoke.py`` checks them. The checkerboard kernel
+draws the same bits as its plain version: equal site for site. A small
+network run (20x20 torus) must launch the coder and dictionary kernels,
+and its training on the card (float32) must agree with the CPU (float64)
+from the same draws within 1e-3 relative.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel as ik
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_TOL = dict(rtol=2e-3, atol=2e-4)
+BF16_TEN_TOL = dict(rtol=0.0, atol=1.5e-3)   # as chip_smoke.py's BF16_TOL
 
 
 def make(d, r, n, seed):
@@ -78,16 +84,154 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(TypeError):
         ck.coder_sweeps(_t(A, cuda).double(), _t(B, cuda).double(),
                         _t(H0, cuda).double())
-    with pytest.raises(ValueError):
-        A, B, H0 = make(20, ck.MAX_RANK_EARLYSTOP + 1, 8, seed=0)
-        ck.coder_sweeps_earlystop(_t(A, cuda), _t(B, cuda), _t(H0, cuda))
+    with pytest.raises(ValueError, match="do not agree"):
+        A, B, H0 = make(20, 150, 8, seed=0)
+        ck.coder_sweeps_earlystop(_t(A, cuda), _t(B, cuda),
+                                  _t(H0[:, :5], cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "earlystop", "fista_fixed",
+                                  "fista_stop", "fista_bf16"])
+@pytest.mark.parametrize("r", [101, 128, 129, 256])
+@pytest.mark.parametrize("n", [ck.TN, 131072 + 37])
+def test_cuda_coder_kernels_take_large_ranks(cuda, mode, r, n):
+    # every case above a kernel's shared-memory limit raised ValueError
+    # before the workspace kernels; now each launches a kernel and agrees
+    # with its plain version
+    A, B, H0 = make(300, r, n, seed=r + n)
+    A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
+    if mode in ("fixed", "earlystop"):
+        name = "coder_sweeps" if mode == "fixed" else "coder_sweeps_earlystop"
+        kernel = getattr(ck, name)
+        plain = getattr(ck, name + "_plain")
+        args, kw = ((A, B, H0, 0.1) if mode == "fixed"
+                    else (A, B, H0, 0.1, 0.01)), {}
+    else:
+        name, kernel, plain = "fista_sweeps", ck.fista_sweeps, \
+            ck.fista_sweeps_plain
+        args = (A, B, H0, 0.1, 0.01)
+        kw = dict(sub_iter=10, use_stopping=mode == "fista_stop",
+                  bf16_matmul=mode == "fista_bf16")
+    ck.reset_launches()
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[name] == 1
+    if mode == "fista_bf16":
+        # chip_smoke.py's two stages: one iteration at the f32 tolerance
+        # (both round the same inputs; the products are exact in f32), ten
+        # at bf16 precision
+        one = dict(kw, sub_iter=1)
+        torch.testing.assert_close(kernel(*args, **one),
+                                   plain(*args, **one), **TOL)
+        torch.testing.assert_close(got, plain(*args, **kw),
+                                   **BF16_TEN_TOL)
+    else:
+        torch.testing.assert_close(got, plain(*args, **kw), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_coders_at_the_jax_limit_launch_kernels(cuda):
+    # r = MAX_RANK, the largest rank the JAX wrappers keep in a kernel
+    A, B, H0 = make(300, ck.MAX_RANK, ck.TN, seed=4)
+    A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
+    for name, kw in (("coder_sweeps", {}),
+                     ("coder_sweeps_earlystop", dict(stopping_diff=0.01)),
+                     ("fista_sweeps", dict(use_stopping=False)),
+                     ("fista_sweeps", dict(use_stopping=True))):
+        ck.reset_launches()
+        got = getattr(ck, name)(A, B, H0, 0.1, sub_iter=3, **kw)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES[name] == 1
+        torch.testing.assert_close(
+            got, getattr(ck, name + "_plain")(A, B, H0, 0.1, sub_iter=3,
+                                              **kw), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_coders_past_the_jax_limit_run_the_plain_maths(cuda):
+    # r = MAX_RANK + 1: the JAX wrappers hand the same maths to XLA; the
+    # port runs it with torch on the card and counts no launch
+    from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
+
+    r = ck.MAX_RANK + 1
+    A, B, H0 = make(300, r, 64, seed=5)
+    A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
+    ck.reset_launches()
+    got = [ck.coder_sweeps(A, B, H0, 0.1, sub_iter=3),
+           ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01, sub_iter=3),
+           ck.fista_sweeps(A, B, H0, 0.1, 0.01, sub_iter=3)]
+    assert not any(ck.LAUNCHES.values())
+    want = [_code_impl(A, B, H0, 0.1, None, None, 3, False, False),
+            _code_impl(A, B, H0, 0.1, 0.01, None, 3, True, False),
+            _fista_impl(A, B, H0, 0.1, 0.01, 3, True)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+def _torus_edges(m):
+    u = np.arange(m * m).reshape(m, m)
+    return np.concatenate([
+        np.stack([u.ravel(), np.roll(u, -1, 0).ravel()], 1),
+        np.stack([u.ravel(), np.roll(u, -1, 1).ravel()], 1)])
+
+
+@pytest.mark.cuda
+def test_cuda_network_path_launches_kernels_and_matches_cpu(cuda):
+    from onmf_ontf_ndl_tpu_torch.apps.network import (NetworkReconstructor,
+                                                      ndl_train)
+    from onmf_ontf_ndl_tpu_torch.data.graphs import csr_graph_from_edges
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+
+    g = csr_graph_from_edges(_torus_edges(20))
+    ck.reset_launches()
+    rec = NetworkReconstructor(
+        source=g, n_components=16, MCMC_iterations=8, sub_iterations=10,
+        sample_size=200, batch_size=40, k1=0, k2=2, alpha=0.1,
+        num_chains=8, device=cuda)
+    W = rec.train_dict()
+    edges = rec.reconstruct_network(recons_iter=20000, num_chains=64)
+    acc = rec.compute_recons_accuracy()
+    dense = rec.reconstruct_network(recons_iter=20000, num_chains=64,
+                                    sparse=False)
+    torch.cuda.synchronize()
+    for name in ("coder_sweeps_earlystop", "coder_sweeps",
+                 "dict_update_sweep"):
+        assert ck.LAUNCHES[name] > 0, name
+    assert W.device.type == "cuda" and bool((W >= 0).all())
+    assert edges.shape[1] == 2 and acc > 0.9
+    assert dense.shape == (400, 400) and rec.compute_recons_accuracy() > 0.9
+
+    # the same short training on the card (float32) and on the CPU
+    # (float64) from the same patches and draws, fixed sweeps; 1e-3 relative
+    rng = np.random.default_rng(9)
+    k2, r, S = 9, 16, 200
+    W0 = rng.random((k2, r))
+    draws = [((rng.random((k2, S)) < 0.4).astype(np.float64),
+              [(rng.integers(0, S, 40), rng.random((r, 40)))
+               for _ in range(9)]) for _ in range(4)]
+    out = {}
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        dr = [(torch.as_tensor(X, dtype=dtype, device=device),
+               [(torch.as_tensor(i, device=device),
+                 torch.as_tensor(h, dtype=dtype, device=device))
+                for i, h in inner]) for X, inner in draws]
+        st = init_state(0, k2, r, device=device, dtype=dtype, W=W0)
+        st, code, _ = ndl_train(
+            st, g.to(device), torch.tensor([0, 1, 2], device=device),
+            rec.B, mcmc_iterations=4, sample_size=S, inner_iterations=10,
+            batch_size=40, alpha=0.1, use_stopping=False, subsample=True,
+            draws=dr)
+        out[str(device)] = st.W.double().cpu()
+    rel = (out[str(cuda)] - out["cpu"]).norm() / out["cpu"].norm()
+    assert float(rel) <= 1e-3
 
 
 @pytest.mark.cuda
 def test_cuda_refused_launch_raises(cuda, monkeypatch):
-    # past the shared-memory limit the launch is refused: the wrapper must
-    # raise, and the next launch must still work
-    monkeypatch.setattr(ck, "MAX_RANK_EARLYSTOP", 200)
+    # past the shared-memory limit the shared kernel's launch is refused:
+    # the wrapper must raise, and the next launch must still work
+    monkeypatch.setitem(ck.SMEM_MAX_RANK, "coder_sweeps_earlystop", 200)
     A, B, H0 = make(300, 150, 256, seed=1)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         ck.coder_sweeps_earlystop(_t(A, cuda), _t(B, cuda), _t(H0, cuda))
@@ -133,9 +277,9 @@ def test_cuda_checkerboard_kernel_equals_plain(cuda, n):
 
 @pytest.mark.cuda
 def test_cuda_new_wrappers_raise_instead_of_falling_back(cuda):
-    A, B, H0 = make(20, ck.MAX_RANK_FISTA_STOP + 1, 8, seed=0)
-    with pytest.raises(ValueError):
-        ck.fista_sweeps(_t(A, cuda), _t(B, cuda), _t(H0, cuda))
+    A, B, H0 = make(20, 150, 8, seed=0)
+    with pytest.raises(ValueError, match="do not agree"):
+        ck.fista_sweeps(_t(A, cuda), _t(B, cuda), _t(H0[:, :5], cuda))
     with pytest.raises(TypeError):
         ik.checkerboard_sweeps(0, torch.ones((4, 4), device=cuda), 1)
     with pytest.raises(ValueError, match="even"):

@@ -139,3 +139,42 @@ def test_argument_checks():
         ck._on_cpu(_t(A), _t(B).to("meta"))
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         resolve_backend("cuda", _t(A))
+
+
+def test_kernel_route_by_rank_alone():
+    # the shared-memory kernels up to their limits, the workspace kernels
+    # up to the JAX kernels' limit round_up(r, 8)^2 * 4 B <= 6 MiB, the
+    # plain maths past it (as the JAX wrappers do)
+    assert ck.MAX_RANK == max(r for r in range(1, 2000)
+                              if (-(-r // 8) * 8) ** 2 * 4 <= 6 << 20)
+    for name, limit in (("coder_sweeps", 128), ("coder_sweeps_earlystop", 100),
+                        ("fista_sweeps", 128), ("fista_sweeps_stop", 100)):
+        assert ck.kernel_route(name, 1) == "shared"
+        assert ck.kernel_route(name, limit) == "shared"
+        assert ck.kernel_route(name, limit + 1) == "workspace"
+        assert ck.kernel_route(name, 256) == "workspace"
+        assert ck.kernel_route(name, ck.MAX_RANK) == "workspace"
+        assert ck.kernel_route(name, ck.MAX_RANK + 1) == "unfused"
+
+
+@pytest.mark.parametrize("coder", ["earlystop", "fista_stop"])
+def test_stopping_plain_two_tiles_at_rank_160_matches_pallas(coder):
+    # r = 160 is past the shared-memory kernels; the Pallas tile is set to
+    # the port's TN, so both decide per tile on the same two column sets
+    from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import (
+        fista_sweeps as jax_fista_sweeps)
+
+    A, B, H0, _, _ = make(d=200, r=160, n=2 * ck.TN, seed=160)
+    if coder == "earlystop":
+        got = ck.coder_sweeps_earlystop(_t(A), _t(B), _t(H0), 0.1, 0.01,
+                                        sub_iter=6).numpy()
+        want = jax_coder_sweeps_earlystop(
+            jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), 0.1, 0.01,
+            sub_iter=6, block_n=ck.TN, interpret=True)
+    else:
+        got = ck.fista_sweeps(_t(A), _t(B), _t(H0), 0.1, 0.01, sub_iter=20,
+                              use_stopping=True).numpy()
+        want = jax_fista_sweeps(
+            jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), 0.1, 0.01,
+            sub_iter=20, use_stopping=True, block_n=ck.TN, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)

@@ -16,20 +16,26 @@ import onmf_ontf_ndl_tpu_torch as p
 import onmf_ontf_ndl_tpu_torch.apps.image
 import onmf_ontf_ndl_tpu_torch.apps.image_tensor
 import onmf_ontf_ndl_tpu_torch.apps.ising
+import onmf_ontf_ndl_tpu_torch.apps.network
+import onmf_ontf_ndl_tpu_torch.data.graphs
+import onmf_ontf_ndl_tpu_torch.data.native as native
 import onmf_ontf_ndl_tpu_torch.models.ontf
 import onmf_ontf_ndl_tpu_torch.ops.unfold
 import onmf_ontf_ndl_tpu_torch.samplers.ising
+import onmf_ontf_ndl_tpu_torch.samplers.motif
 import onmf_ontf_ndl_tpu_torch.utils
 from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel, ising_kernel
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("onmf_ontf_ndl_tpu.") or m == "onmf_ontf_ndl_tpu"
                for m in sys.modules)
 assert coder_kernel.build.cache_info().currsize == 0   # nothing built
+assert native._get_lib.cache_info().currsize == 0      # nor the loader
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32
 assert "triton" not in sys.modules
 assert p.IsingReconstructor.__name__ == "IsingReconstructor"
 assert p.ImageReconstructorTensor.__name__ == "ImageReconstructorTensor"
+assert p.NetworkReconstructor.__name__ == "NetworkReconstructor"
 assert coder_kernel.build.cache_info().currsize == 0   # still nothing built
 print("ok", p.ImageReconstructor.__name__)
 """
