@@ -16,7 +16,12 @@ Phases, each printing its findings on a line of its own:
              workspace kernels) at r in {128, 256}, and 101 for the
              stopping modes, n = 131072 + 37; the checkerboard sampler at
              n in {200, 4096}, 100 sweeps, equal site for site, and two
-             physics checks at n = 4096.
+             physics checks at n = 4096. Then the dictionary and early-stop
+             kernels at the paths' shapes (``PATH_SHAPES``), each with its
+             route, device time, bound and share of the bound. Kernel times
+             are device times: a CUDA graph of 20 calls, replayed; the plain
+             versions (host loops that synchronise) and the sampler (200
+             launches a call) are timed by CUDA events around a few calls.
 3. main    - ``OnlineNMF(...).train_dict()`` on synthetic sparse-dictionary
              data (trained W within 10% of the ground-truth W's score),
              then ``init_state`` + ``train_dict`` at d = 300, r = 25,
@@ -87,6 +92,20 @@ PATH_KERNELS = {
                 "dict_update_sweep"),
 }
 HEADLINE_N = 131072 + 37   # a ragged last tile
+# The card's published peaks (the on-chip-measurement guide's table, H100
+# SXM): device memory bytes/s and float32 operations/s outside the tensor
+# cores. Integer operations (the sampler's Philox) are counted against the
+# same 67e12/s: the table has no integer CUDA-core rate.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+# The dictionary and early-stop kernels at the shapes their paths give
+# them: main path and image app (d = 300, r = 25; batch 16384 and the
+# headline n), the network path (d = 441, r = 25), Ising (d = 400, r = 100,
+# 1000 patches) and tensor (d = 1200, r = 100) paths.
+PATH_SHAPES = {
+    "dict_update_sweep": [(300, 25), (441, 25), (400, 100), (1200, 100)],
+    "coder_sweeps_earlystop": [(25, 16384), (25, HEADLINE_N), (100, 1000)],
+}
 
 
 def emit(phase, **fields):
@@ -105,6 +124,59 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Mean device milliseconds per call: ``reps`` calls captured in a CUDA
+    graph and replayed (no host launch cost between the kernels)."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for moving ``nbytes``
+    and doing ``ops`` at the card's peaks."""
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_OPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def coder_bound(name, r, n, args, kw):
+    """A coder's bound at (r, n): A, B and H0 read and H written once; the
+    sweeps' and iterations' 2 r^2 operations per column (10 of them), and
+    for the early stop, over the column-sweeps its tiles ran on these
+    inputs, 2 r (r + 1) more for the two Grams."""
+    ops = 2 * r * r * n * kw.get("sub_iter", 10)
+    if name == "coder_sweeps_earlystop":
+        from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
+            TN, coder_sweeps_earlystop_plain)
+
+        _, sweeps = coder_sweeps_earlystop_plain(*args, **kw,
+                                                 with_sweeps=True)
+        cols = torch.full_like(sweeps, TN)
+        cols[-1] = n - TN * (len(cols) - 1)
+        ops = int((sweeps * cols).sum()) * (2 * r * r + 2 * r * (r + 1))
+    return bound(4 * (r * r + 3 * r * n), ops)
+
+
+def dict_bound(d, r):
+    """The dictionary update's bound: W, A and B read and W written once;
+    W A[:, j] for every column, 2 d r^2 operations."""
+    return bound(4 * (2 * d * r + r * r + r * d), 2 * d * r * r)
 
 
 def timed_once(fn):
@@ -208,17 +280,22 @@ def phase_kernels(ck, dev):
                     if torch.allclose(got, f32, **TOL):
                         raise AssertionError(f"{label}: agrees with the f32 "
                                              "plain version")
-                ms = cuda_ms(lambda: kernel(*args, **kw), 20)
+                ms = graph_ms(lambda: kernel(*args, **kw))
+                loop_ms = cuda_ms(lambda: kernel(*args, **kw), 20)
                 plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
                 s = summary[name]
                 if tol is TOL:
                     s["max_abs_err"] = max(s["max_abs_err"], err)
                 if r == 25 and n == HEADLINE_N and mode in ("", "fixed"):
-                    s.update(ms=ms, plain_ms=plain_ms)
+                    bound_ms, by = (dict_bound(d, r)
+                                    if name == "dict_update_sweep"
+                                    else coder_bound(name, r, n, args, kw))
+                    s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=by)
                 emit("kernels", kernel=name, mode=mode or None, r=r, n=n,
                      d=d, max_abs_err=err, atol=tol["atol"],
                      rtol=tol["rtol"], gap_vs_f32_plain=gap, ms=ms,
-                     plain_ms=plain_ms)
+                     loop_ms=loop_ms, plain_ms=plain_ms)
     # many tiles, each freezing on its own relative-change test: every
     # tile's iterate must meet the global rule's guarantee (slack over
     # stop = 0.05 as in the Pallas kernel's test: the probe sweep takes
@@ -235,8 +312,61 @@ def phase_kernels(ck, dev):
     if not (rel <= 0.1 and bool((H >= 0).all())):
         raise AssertionError(f"multi-tile early stop not converged: {rel}")
     large_rank_kernels(ck, dev, gen)
+    path_shape_kernels(ck, dev, gen)
     summary["checkerboard_sweeps"] = checkerboard_kernels(dev, gen)
     return summary
+
+
+def path_shape_kernels(ck, dev, gen):
+    """The dictionary and early-stop kernels at PATH_SHAPES against their
+    plain versions, with their route, device time, bound and share: the
+    dictionary on an asymmetric A (any A must match), the early stop at
+    alpha = 0.1 and the default stop 0.01."""
+    lib = ck.build()["lib"]
+    for d, r in PATH_SHAPES["dict_update_sweep"]:
+        rows = -(-d // max(ck.dict_route(d, r)[1], 1))
+        if lib.onmf_dict_smem_floats(rows, r) != ck._dict_smem_floats(rows, r):
+            raise AssertionError(f"dict_route's shared-memory size at d={d} "
+                                 f"r={r} differs from the kernel's")
+        W = torch.rand((d, r), generator=gen).to(dev)
+        A = torch.rand((r, r), generator=gen).to(dev)
+        B = torch.rand((r, d), generator=gen).to(dev)
+        before = ck.LAUNCHES["dict_update_sweep"]
+        got = ck.dict_update_sweep(W, A, B)
+        if ck.LAUNCHES["dict_update_sweep"] != before + 1:
+            raise AssertionError(f"dict_update_sweep d={d} r={r}: no launch")
+        err = compare(f"dict_update_sweep d={d} r={r}", got,
+                      ck.dict_update_sweep_plain(W, A, B))
+        ms = graph_ms(lambda: ck.dict_update_sweep(W, A, B))
+        bound_ms, by = dict_bound(d, r)
+        emit("kernels", kernel="dict_update_sweep", d=d, r=r,
+             route=list(ck.dict_route(d, r)), max_abs_err=err,
+             atol=TOL["atol"], rtol=TOL["rtol"], ms=ms,
+             loop_ms=cuda_ms(lambda: ck.dict_update_sweep(W, A, B), 20),
+             plain_ms=cuda_ms(lambda: ck.dict_update_sweep_plain(W, A, B),
+                              3),
+             bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
+    for r, n in PATH_SHAPES["coder_sweeps_earlystop"]:
+        W = torch.rand((300, r), generator=gen)
+        W = (W / W.norm(dim=0)).to(dev)
+        X = torch.rand((300, n), generator=gen).to(dev)
+        args = (W.T @ W, W.T @ X, torch.rand((r, n), generator=gen).to(dev),
+                0.1, 0.01)
+        before = ck.LAUNCHES["coder_sweeps_earlystop"]
+        got = ck.coder_sweeps_earlystop(*args)
+        if ck.LAUNCHES["coder_sweeps_earlystop"] != before + 1:
+            raise AssertionError(f"coder_sweeps_earlystop r={r}: no launch")
+        err = compare(f"coder_sweeps_earlystop r={r} n={n}", got,
+                      ck.coder_sweeps_earlystop_plain(*args))
+        ms = graph_ms(lambda: ck.coder_sweeps_earlystop(*args))
+        bound_ms, by = coder_bound("coder_sweeps_earlystop", r, n, args, {})
+        emit("kernels", kernel="coder_sweeps_earlystop", r=r, n=n, d=300,
+             route=ck.kernel_route("coder_sweeps_earlystop", r),
+             max_abs_err=err, atol=TOL["atol"], rtol=TOL["rtol"], ms=ms,
+             loop_ms=cuda_ms(lambda: ck.coder_sweeps_earlystop(*args), 20),
+             plain_ms=cuda_ms(
+                 lambda: ck.coder_sweeps_earlystop_plain(*args), 3),
+             bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
 
 
 def large_rank_kernels(ck, dev, gen):
@@ -309,7 +439,13 @@ def checkerboard_kernels(dev, gen):
             raise AssertionError(f"checkerboard n={n}: {mismatched} sites "
                                  "differ from the plain version")
         if n == 4096:
-            summary.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            # 60 integer operations of Philox4x32-10 (10 rounds of two
+            # multiply-highs, two multiplies and two three-way xors) and
+            # ~12 for the neighbour sum, the threshold and the flip, per
+            # site and sweep; the lattice read and written once
+            bound_ms, by = bound(2 * n * n, 72 * n * n * 100)
+            summary.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by)
     # Onsager: |m| = 0.9993 at T = 1; T = 5 is far above T_c = 2.269
     ones = torch.ones((4096, 4096), dtype=torch.int8, device=dev)
     for T, ok in ((1.0, lambda m: m > 0.99), (5.0, lambda m: m < 0.05)):
@@ -819,12 +955,18 @@ def main():
     launches["ising"] = phase_ising(ck, dev)
     launches["network"] = phase_network(ck, dev)
     emit("done", seconds=time.perf_counter() - t0)
+    # library_ms: no single PyTorch call computes any of these functions
+    # (each is a loop: Gauss-Seidel sweeps, FISTA or column BCD with a
+    # per-tile stop, a Philox heat-bath sampler)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": PALLAS + replaces,
                 "launches": launches[path][name],
                 "max_abs_err": summary[name]["max_abs_err"],
                 "ms": summary[name]["ms"],
-                "plain_ms": summary[name]["plain_ms"]}
+                "plain_ms": summary[name]["plain_ms"],
+                "bound_ms": summary[name]["bound_ms"],
+                "bound_by": summary[name]["bound_by"],
+                "library_ms": None}
                for name, (src, replaces, path) in KERNELS.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,8 +20,8 @@ import torch
 from onmf_ontf_ndl_tpu_torch.data.images import (downscale_local_mean,
                                                  load_image)
 from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
-from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, init_state,
-                                                  make_generator)
+from onmf_ontf_ndl_tpu_torch.models.state import (
+    OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import nonneg_code
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.patches import (
@@ -145,13 +145,13 @@ class ImageReconstructor:
         subsample: bool = False,
         coder: str = "bcd",
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
         if is_stack:
             raise NotImplementedError(_STACK_TODO)
         _check_modes("stale", coder)
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         if data is None:
             if path is None:
                 raise ValueError("ImageReconstructor: provide path or data")

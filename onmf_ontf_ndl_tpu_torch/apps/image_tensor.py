@@ -25,8 +25,8 @@ from onmf_ontf_ndl_tpu_torch.data.images import (downscale_local_mean,
                                                  load_image)
 from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
 from onmf_ontf_ndl_tpu_torch.models.ontf import resolve_tensor_coder
-from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, init_state,
-                                                  make_generator)
+from onmf_ontf_ndl_tpu_torch.models.state import (
+    OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.patches import (extract_patches,
                                                  random_patch_corners)
@@ -133,10 +133,10 @@ class ImageReconstructorTensor:
         coder: str = "exact",
         coder_sub_iter: int | None = None,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         if data is None:
             if path is None:
                 raise ValueError("provide path or data")

@@ -22,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
-from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, init_state,
-                                                  make_generator)
+from onmf_ontf_ndl_tpu_torch.models.state import (
+    OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.patches import (extract_patches,
                                                  random_patch_corners)
@@ -150,7 +150,7 @@ class IsingReconstructor:
         coder: str = "bcd",
         subsample: bool = False,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
         if sampler not in _SAMPLERS:
@@ -175,7 +175,7 @@ class IsingReconstructor:
         self.fast = fast
         self.coder = coder
         self.subsample = subsample
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.dtype = dtype
         self.gen = make_generator(seed, self.device)
         self.lattice = init_lattice(self.gen, lattice_size)

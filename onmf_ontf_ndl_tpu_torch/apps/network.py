@@ -48,8 +48,8 @@ from onmf_ontf_ndl_tpu_torch.data.graphs import (
     BitsetGraph, CsrGraph, Graph, graph_from_adjacency, host_csr,
     load_edgelist)
 from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
-from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, init_state,
-                                                  make_generator)
+from onmf_ontf_ndl_tpu_torch.models.state import (
+    OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import nonneg_code
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.samplers.motif import (
@@ -264,11 +264,11 @@ class NetworkReconstructor:
         num_chains: int = 1,
         subsample: bool = False,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
         _check_modes("stale", coder)
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         if isinstance(source, (Graph, BitsetGraph, CsrGraph)):
             self.G = source.to(self.device)
         elif source is not None:

@@ -30,8 +30,8 @@ import dataclasses
 
 import torch
 
-from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, init_state,
-                                                  make_generator)
+from onmf_ontf_ndl_tpu_torch.models.state import (
+    OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
 from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
@@ -283,8 +283,9 @@ class OnlineNMF:
 
     ``OnlineNMF(X, ...).train_dict()`` returns ``(W, At, Bt, Ct, H)`` with
     warm-start kwargs ``ini_dict / ini_A / ini_B / ini_C / history``.
-    ``device`` places the data and state; ``seed`` or ``generator`` (on
-    that device) seeds the random draws.
+    ``device`` places the data and state (the card by default; a CPU run
+    passes ``device="cpu"``); ``seed`` or ``generator`` (on that device)
+    seeds the random draws.
     """
 
     def __init__(
@@ -309,11 +310,11 @@ class OnlineNMF:
         coder: str = "bcd",
         generator: torch.Generator | None = None,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
         _check_modes(dict_from, coder)
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.X = torch.as_tensor(X, dtype=dtype, device=self.device)
         self.n_components = n_components
         self.iterations = iterations

@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from onmf_ontf_ndl_tpu_torch.models.onmf import train_dict as _train_dict
-from onmf_ontf_ndl_tpu_torch.models.state import init_state, make_generator
+from onmf_ontf_ndl_tpu_torch.models.state import (entry_device, init_state,
+                                                  make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.unfold import unfold
 
 __all__ = ["OnlineNTF", "resolve_tensor_coder"]
@@ -41,8 +42,9 @@ def resolve_tensor_coder(coder: str, knob: int,
 class OnlineNTF:
     """Online NTF via mode unfolding; ``OnlineNTF(X, ...).train_dict_single()``
     returns ``(W, At, Bt, code)`` as the reference driver consumes it.
-    ``device`` places the tensor and the state; ``seed`` or ``generator``
-    (on that device) seeds the random draws."""
+    ``device`` places the tensor and the state (the card by default; a CPU
+    run passes ``device="cpu"``); ``seed`` or ``generator`` (on that
+    device) seeds the random draws."""
 
     def __init__(
         self,
@@ -64,10 +66,10 @@ class OnlineNTF:
         coder_sub_iter: int | None = None,
         generator: torch.Generator | None = None,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.X = torch.as_tensor(X, dtype=dtype, device=self.device)
         self.n_components = n_components
         self.iterations = iterations

@@ -59,6 +59,17 @@ class OnmfState:
         return self.C.numel() > 0
 
 
+def entry_device(device) -> torch.device:
+    """The device of an entry point. Entry points default to ``"cuda"``;
+    where CUDA is missing that raises, and CPU runs pass ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    return device
+
+
 def make_generator(seed: int, device) -> torch.Generator:
     """A generator on ``device`` seeded with ``seed``."""
     return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
@@ -69,7 +80,7 @@ def init_state(
     d: int,
     r: int,
     *,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
     track_xxt: bool = False,
     W=None,
@@ -84,7 +95,7 @@ def init_state(
     no warm-start arrays: uniform-random W and zero aggregates, the
     reference's cold start.
     """
-    device = torch.device(device)
+    device = entry_device(device)
     gen = seed if isinstance(seed, torch.Generator) \
         else make_generator(seed, device)
     # validate warm-start shapes here, before any training loop sees them
@@ -116,7 +127,7 @@ def init_state(
     return OnmfState(W=W, A=A, B=B, C=C, t=float(t), gen=gen)
 
 
-def state_from_numpy(W, A, B, C, t, *, seed: int = 0, device="cpu",
+def state_from_numpy(W, A, B, C, t, *, seed: int = 0, device="cuda",
                      dtype=torch.float32) -> OnmfState:
     """Build a state from host arrays (e.g. a JAX ``OnmfState`` converted
     with ``np.asarray``). ``C`` may be ``None`` or (0, 0) when untracked."""

@@ -110,7 +110,7 @@ def build() -> dict:
                                                 i, p, i, p]
     lib.onmf_fista_sweeps.argtypes = [p, p, p, p, i, i, f, p, i, f, i, i, i,
                                       i, p, i, p]
-    lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, p]
+    lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, i, p]
     lib.onmf_checkerboard_sweeps.argtypes = [p, i, i, ctypes.c_uint, p, p]
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
                lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
@@ -118,6 +118,7 @@ def build() -> dict:
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
     for fn, args in ((lib.onmf_earlystop_slice_floats, [i]),
+                     (lib.onmf_dict_smem_floats, [i, i]),
                      (lib.onmf_fista_head_floats, [i]),
                      (lib.onmf_fista_slice_floats, [i, i])):
         fn.argtypes = args

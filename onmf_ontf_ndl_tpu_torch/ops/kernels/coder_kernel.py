@@ -20,17 +20,24 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   (``:455``): the same sweeps with the reference's relative spectral-change
   stop decided per column tile of **TN = 128 columns** (one thread block).
   After each sweep the block forms the (r, r) Grams of the sweep delta and
-  of the old iterate in shared memory, and one warp decides with certified
-  bounds first (Rayleigh lower bound after one warm power step;
-  min(trace, Gershgorin) upper bound) and ``pi_iters`` warm power steps only
-  in the band between them. A converged tile leaves its loop. The tile is
-  part of the semantics (PARITY.md deviation #8): the TPU kernel's tile is
-  up to 13056 columns, this one is 128, so on a batch wider than 128
-  columns the two freeze different column sets. What bounds it: the same
-  sweep chain plus the Gram products (about the sweep's cost again) and
-  the per-sweep barriers; shared memory (3 r^2 + 2 r (TN + 1) floats)
-  limits the shared-memory form to r <= 100 and to one block per SM at
-  r = 100.
+  of the old iterate in shared memory and decides with certified bounds
+  first (Rayleigh lower bound after one warm power step; min(trace,
+  Gershgorin) upper bound) and ``pi_iters`` warm power steps only in the
+  band between them. A converged tile leaves its loop. The tile is part of
+  the semantics (PARITY.md deviation #8): the TPU kernel's tile is up to
+  13056 columns, this one is 128, so on a batch wider than 128 columns the
+  two freeze different column sets. The shared-memory kernel
+  (``coder_es_lanes_kernel``, r <= 100) gives each pair of columns two
+  lanes (four past r = 32), each holding its rows of the columns'
+  residuals ``g = A h - b`` in registers: a coordinate step is one
+  shuffle of the owner's delta and independent multiply-adds per lane,
+  each value of A read from shared memory serving both columns, not an
+  r-long dependent dot product; the two Grams come from one pass over
+  the whole block, and the stop decision's two power iterations run on
+  two warps at once. What bounds it: the r^2 multiply-adds per column and
+  sweep, and as many for the Grams, on the CUDA cores, fed by shared
+  memory at a quarter of their rate. Shared memory (at r = 100 within
+  3 r^2 + 2 r (TN + 1) + 5 r floats) limits it to r <= 100.
 - :func:`fista_sweeps` replaces ``fista_sweeps`` (``:579``): accelerated
   projected gradient ``H <- max(0, Y - (A Y - B + alpha) / L)`` with
   Nesterov momentum, one block per tile of **TN = 128 columns** and one
@@ -55,12 +62,17 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   to a multiple of 4; r <= 128), plus both Grams and five vectors for the
   stop (r <= 100, one block per SM at r = 100).
 - :func:`dict_update_sweep` replaces ``dict_update_sweep`` (``:629``): one
-  column-BCD pass over W in a single block, sequential over the r columns,
-  threads over the d rows, one block reduction per column norm. It reads
-  ``A[:, j]`` by column, so no transpose is needed to match
+  column-BCD pass over W in residual form. ``G = W A - B^T`` is formed
+  once in shared memory; column j then needs ``G[:, j]`` and the input
+  column, one sum of squares over the rows (one barrier), and a rank-1
+  update ``G[i, l] += delta_i A[j, l]`` for ``l > j`` that is parallel over
+  (row, l). Any A, symmetric or not, matches
   :func:`~onmf_ontf_ndl_tpu_torch.ops.dict_update.dict_update_bcd`. What
-  bounds it: the r dependent column steps (2 barriers each); the work is
-  d * r^2 FMAs, tiny at d = 300. Any d works (rows loop over the threads).
+  bounds it: the r sequential column steps, not the roofline. The rows go
+  to one CTA or, for larger ``d * r``, to a thread block cluster of up to
+  8 CTAs sharing the column norms through distributed shared memory
+  (:func:`dict_route`); past the cluster's shared memory the single-block
+  kernel (W in device memory, threads over the rows) runs.
 
 **Ranks.** Each coder kernel has two instantiations of the same device
 code, chosen by :func:`kernel_route` from r alone: ``"shared"`` keeps A,
@@ -100,7 +112,7 @@ __all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
            "dict_update_sweep", "coder_sweeps_plain",
            "coder_sweeps_earlystop_plain", "fista_sweeps_plain",
            "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
-           "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route"]
+           "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route", "dict_route"]
 
 # Largest rank each coder runs as a kernel: the JAX kernels' limit
 # round_up(r, 8)^2 * 4 B <= 6 MiB, for every mode.
@@ -127,6 +139,53 @@ def kernel_route(name: str, r: int) -> str:
     if r <= SMEM_MAX_RANK[name]:
         return "shared"
     return "workspace" if r <= MAX_RANK else "unfused"
+
+
+# The dictionary kernel (csrc dict_lanes, dict_threads, dict_smem_floats):
+# threads and shared memory of one CTA, the largest cluster, and the G
+# cells per CTA past which more CTAs share the rows.
+_DICT_MAX_THREADS = 1024
+_DICT_MAX_CLUSTER = 8
+_DICT_SMEM_BYTES = 232448
+_DICT_CTA_CELLS = 16384
+
+
+def _dict_lanes(rows: int, r: int) -> int:
+    """Lanes per row of W in a dictionary-kernel CTA."""
+    L = 32
+    while L > 1 and (rows * L > _DICT_MAX_THREADS or 16 * L > r):
+        L >>= 1
+    return L
+
+
+def _dict_threads(rows: int, r: int) -> int:
+    return -(-rows * _dict_lanes(rows, r) // 32) * 32
+
+
+def _dict_smem_floats(rows: int, r: int) -> int:
+    """Shared floats of a dictionary-kernel CTA of ``rows`` rows: G and the
+    CTA's rows of W at a row stride = L (mod 32), A, two buffers of partial
+    sums and the reciprocals of the diagonal."""
+    L = _dict_lanes(rows, r)
+    return (2 * rows * (r + (L - r) % 32) + r * r
+            + 2 * _DICT_MAX_CLUSTER * 32 + r)
+
+
+def dict_route(d: int, r: int) -> tuple[str, int]:
+    """How :func:`dict_update_sweep` runs at (d, r), from the shape alone:
+    ``("shared", 1)`` (one CTA), ``("cluster", c)`` (the rows split over a
+    cluster of c CTAs) or ``("single", 0)`` (past the cluster's shared
+    memory: the single-block kernel). The fewest CTAs whose rows fit and
+    hold at most :data:`_DICT_CTA_CELLS` cells of G each; if none holds so
+    few, the most that fit."""
+    fits = [c for c in (1, 2, 4, _DICT_MAX_CLUSTER)
+            if _dict_threads(-(-d // c), r) <= _DICT_MAX_THREADS
+            and 4 * _dict_smem_floats(-(-d // c), r) <= _DICT_SMEM_BYTES]
+    if not fits:
+        return "single", 0
+    c = next((c for c in fits if -(-d // c) * r <= _DICT_CTA_CELLS),
+             fits[-1])
+    return ("shared" if c == 1 else "cluster"), c
 
 
 def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0):
@@ -300,10 +359,11 @@ def dict_update_sweep(W: torch.Tensor, A: torch.Tensor,
     if W.numel() == 0:
         return out
     lib = build()["lib"]
+    _, ctas = dict_route(d, r)
     with torch.cuda.device(W.device):
         err = lib.onmf_dict_update_sweep(
             W.data_ptr(), A.data_ptr(), B.data_ptr(), out.data_ptr(), d, r,
-            _stream(W))
+            ctas, _stream(W))
     _raise_on_error("dict_update_sweep", err)
     LAUNCHES["dict_update_sweep"] += 1
     return out
@@ -429,23 +489,28 @@ def _padded(B, H0):
 
 
 def coder_sweeps_earlystop_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,
-                                 sub_iter: int = 10, pi_iters: int = 12):
+                                 sub_iter: int = 10, pi_iters: int = 12,
+                                 with_sweeps: bool = False):
     """Plain PyTorch :func:`coder_sweeps_earlystop`: the same per-tile rule
-    at the same tile width :data:`TN`, all tiles batched."""
+    at the same tile width :data:`TN`, all tiles batched. ``with_sweeps``
+    also returns the sweeps each tile ran, a (tiles,) int64 tensor."""
     from onmf_ontf_ndl_tpu_torch.ops.coder import _sweep
 
     r, n = B.shape
     H, Bp, pad = _padded(B, H0)
     stop = _TileStop(H.shape[1] // TN, r, stopping_diff, pi_iters, B.dtype,
                      B.device)
+    sweeps = torch.zeros(H.shape[1] // TN, dtype=torch.int64, device=B.device)
     for i in range(sub_iter):
         if bool(stop.conv.all()):
             break
+        sweeps += ~stop.conv
         H_old = H.clone()
         _sweep(H, A, Bp, alpha, 1.0 / math.sqrt(i + 10.0))
         H = torch.where(stop.conv.repeat_interleave(TN) | pad, H_old, H)
         stop.update(H - H_old, H_old)
-    return H[:, :n].contiguous()
+    H = H[:, :n].contiguous()
+    return (H, sweeps) if with_sweeps else H
 
 
 def fista_sweeps_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,

@@ -10,19 +10,27 @@
 // cudaGetLastError() after its launch (0 = success). All arrays are float32,
 // row-major and contiguous; the caller allocates every output and workspace.
 //
-// Each coder kernel comes in two instantiations of the same device code,
-// chosen by the wrapper from the rank alone:
-//   kGlobal = false: A, the (r, TN) tiles and the (r, r) Grams in one block's
-//     shared memory, one block per tile (the small ranks: the tiles and Grams
-//     must fit 227 KB);
-//   kGlobal = true: A read from device memory (through L2: 6 MiB at the
-//     JAX kernels' largest rank), the tiles, the Grams and the power vectors
-//     in a device workspace, one slice per resident block, the grid striding
-//     over the tiles. coder_sweeps keeps each column in the output itself.
+// Each coder has a form in shared memory and a workspace form, chosen by
+// the wrapper from the rank alone:
+//   shared: A, the (r, TN) tiles and the (r, r) Grams in one block's shared
+//     memory, one block per tile (the small ranks: the tiles and Grams must
+//     fit 227 KB): coder_sweeps_kernel<false>, fista_kernel<*, false> and,
+//     for the early stop, coder_es_lanes_kernel;
+//   workspace (kGlobal = true): A read from device memory (through L2:
+//     6 MiB at the JAX kernels' largest rank), the tiles, the Grams and the
+//     power vectors in a device workspace, one slice per resident block, the
+//     grid striding over the tiles. coder_sweeps keeps each column in the
+//     output itself.
+// The dictionary update runs dict_update_kernel on one CTA or a cluster,
+// or dict_update_single_kernel past the cluster's shared memory, chosen by
+// the wrapper from (d, r) alone.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -328,6 +336,385 @@ __global__ void coder_es_kernel(const float* __restrict__ A,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The shared-memory early-stop coder, r <= ES_MAX_RANK: coder_es_lanes_kernel.
+//
+// Replaces coder_sweeps_earlystop (pallas/coder_kernel.py:455) with the same
+// function: the tile of TN columns, the step 1 / sqrt(i + 10), the certified
+// bounds first and pi_iters warm power steps only in the band between them,
+// a converged tile left as it is. What bounds it: the sweep's r^2
+// multiply-adds per column and sweep, and as many for the two Grams (10
+// sweeps at r = 25, n = 131,109: 3.3 GFLOP, ~50 us at 67 TFLOP/s f32); but
+// shared memory delivers 32 floats a clock to an SM, a quarter of its FMA
+// rate, so a multiply-add that takes a fresh shared operand runs at a
+// quarter of the peak. Each coordinate step is a sequential dependency
+// within a column, and the stop decision's power steps a sequential chain
+// per tile. What the design does about it:
+//   * L lanes per column group (2 up to r = 32, else 4), each lane owning
+//     Q consecutive rows of the residual g = A h - b of ES_COLS columns in
+//     registers. At
+//     coordinate k the owner forms h_k' and delta for each column, one
+//     shuffle per column hands delta to the group's lanes, and each lane
+//     adds A[i, k] delta to its Q rows of each column: every A value read
+//     from shared memory feeds ES_COLS multiply-adds, and none of them is
+//     on the r-long dependent chain of sweep_column. A is kept transposed
+//     (At[k][i] = A[i][k]) so that a lane's rows are consecutive (float4
+//     loads when Q is a multiple of 4). Past r = 32, g is formed anew from
+//     A h - b at the start of every sweep, so that float32 rounding does
+//     not build up over the r rank-1 updates of each sweep (at r = 100 it
+//     reached 3.8e-5 against the plain version after ten sweeps); up to
+//     r = 32 it is formed once per tile (5e-6 after ten sweeps at r = 25).
+//     Every lane repeats its column's candidate step, so the lanes are kept
+//     few: the kernel is bound by issued instructions, not by latency.
+//   * The two Grams (the step delta's and the old iterate's) in one pass
+//     over 4x4 blocks of the upper triangle, each summed over interleaved
+//     columns by ES_GRAM_LANES neighbouring lanes and reduced by shuffles:
+//     16 shared loads feed 32 multiply-adds. With the tiles' row stride HS
+//     = TN + 1, the rows 4 apart that a warp's blocks read fall
+//     ES_GRAM_LANES banks apart: no bank conflicts.
+//   * The stop decision runs on two warps at once, one per Gram (the two
+//     power iterations are independent until the decision compares them),
+//     with no block barrier inside the power steps; each reads its
+//     symmetric Gram by columns, so that the lanes' loads are consecutive.
+//     The decision logic and its order are those of stop_decision.
+// Shared memory: r RP + 2 Rg (TN + 1) + 2 r^2 + 3 r floats (RP = L Q, Rg =
+// r rounded up to 4): at r = 100 within the old kernel's 3 r^2 +
+// 2 r (TN + 1) + 5 r.
+constexpr int ES_COLS = 2;
+constexpr int ES_MAX_RANK = 100;
+constexpr int ES_GRAM_LANES = 4;
+
+// Lanes per column group and rows per lane at rank r (Q a multiple of 4,
+// read as float4, up to r = 64).
+__host__ __device__ inline int es_lanes(int r) { return r <= 32 ? 2 : 4; }
+
+__host__ __device__ inline int es_rows_per_lane(int r) {
+  return r <= 16 ? 8 : r <= 32 ? 16 : r <= 64 ? 16 : 25;
+}
+
+// Rows of the shared tiles: r rounded up to the Gram blocks' 4.
+__host__ __device__ inline int es_tile_rows(int r) { return (r + 3) & ~3; }
+
+__host__ __device__ inline size_t es_lanes_smem_floats(int r) {
+  const size_t rp = (size_t)es_lanes(r) * es_rows_per_lane(r);
+  return (size_t)r * rp + 2 * (size_t)es_tile_rows(r) * HS
+         + 2 * (size_t)r * r + 3 * (size_t)r;
+}
+
+// Gd = D D^T and Gh = O O^T over the tile's TN columns, D = P - O (shared
+// tiles of row stride HS; rows r..Rg-1 hold 0). Upper-triangle 4x4
+// blocks: S neighbouring lanes sum columns s, s + S, ... of a block and
+// reduce across each other; the first writes the block and its mirror.
+__device__ void es_tile_grams(const float* P, const float* O, float* Gd,
+                              float* Gh, int r) {
+  constexpr int S = ES_GRAM_LANES;
+  const int nb = es_tile_rows(r) >> 2, blocks = nb * (nb + 1) / 2;
+  for (int base = 0; base < blocks * S; base += blockDim.x) {
+    const int item = base + threadIdx.x;
+    const bool valid = item < blocks * S;
+    const int s = item % S;
+    int kb = 0, rem = valid ? item / S : 0;
+    while (rem >= nb - kb) { rem -= nb - kb; ++kb; }
+    const int lb = kb + rem;
+    float gd[4][4] = {}, gh[4][4] = {};
+    if (valid) {
+      const float* pk = P + 4 * kb * HS;
+      const float* ok = O + 4 * kb * HS;
+      const float* pl = P + 4 * lb * HS;
+      const float* ol = O + 4 * lb * HS;
+      for (int c = s; c < TN; c += S) {
+        float dk[4], okv[4], dl[4], olv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          okv[a] = ok[a * HS + c];
+          dk[a] = pk[a * HS + c] - okv[a];
+          olv[a] = ol[a * HS + c];
+          dl[a] = pl[a * HS + c] - olv[a];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            gd[a][b] = fmaf(dk[a], dl[b], gd[a][b]);
+            gh[a][b] = fmaf(okv[a], olv[b], gh[a][b]);
+          }
+      }
+    }
+    for (int m = S >> 1; m > 0; m >>= 1)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          gd[a][b] += __shfl_xor_sync(0xffffffffu, gd[a][b], m);
+          gh[a][b] += __shfl_xor_sync(0xffffffffu, gh[a][b], m);
+        }
+    if (valid && s == 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int k = 4 * kb + a, l = 4 * lb + b;
+          if (k < r && l < r) {
+            Gd[k * r + l] = gd[a][b];
+            Gd[l * r + k] = gd[a][b];
+            Gh[k * r + l] = gh[a][b];
+            Gh[l * r + k] = gh[a][b];
+          }
+        }
+  }
+}
+// One Gram's power steps (warm_pair for one matrix), by one warp: `iters`
+// normalised steps from v (updated in place), then the Rayleigh quotient.
+// G is symmetric: row k is read as column k, the lanes on consecutive
+// addresses. With ub, the first product also gives min(trace, max
+// absolute row sum) (psd_lambda_ub).
+__device__ float warp_power_steps(const float* G, float* v, float* w, int r,
+                                  int iters, float* ub) {
+  const int lane = threadIdx.x & 31;
+  for (int it = 0;; ++it) {
+    float ss = 0.f, tr = 0.f, rowmax = 0.f;
+    for (int k = lane; k < r; k += 32) {
+      float a[4] = {}, s[4] = {};
+      int l = 0;
+      for (; l + 4 <= r; l += 4)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float gv = G[(l + q) * r + k];
+          a[q] = fmaf(gv, v[l + q], a[q]);
+          s[q] += fabsf(gv);
+        }
+      for (; l < r; ++l) {
+        const float gv = G[l * r + k];
+        a[0] = fmaf(gv, v[l], a[0]);
+        s[0] += fabsf(gv);
+      }
+      const float wk = (a[0] + a[1]) + (a[2] + a[3]);
+      w[k] = wk;
+      ss += wk * wk;
+      tr += G[k * r + k];
+      rowmax = fmaxf(rowmax, (s[0] + s[1]) + (s[2] + s[3]));
+    }
+    if (ub && it == 0) *ub = fminf(warp_sum(tr), warp_max(rowmax));
+    __syncwarp();
+    if (it == iters) break;
+    const float nrm = fmaxf(sqrtf(warp_sum(ss)), 1e-30f);
+    for (int k = lane; k < r; k += 32) v[k] = w[k] / nrm;
+    __syncwarp();
+  }
+  float q = 0.f, p = 0.f;
+  for (int k = lane; k < r; k += 32) {
+    q += v[k] * w[k];
+    p += v[k] * v[k];
+  }
+  return warp_sum(q) / fmaxf(warp_sum(p), 1e-30f);
+}
+
+// stop_decision with one warp per Gram: warp 0 on Gd (vectors vd, wd),
+// warp 1 on Gh (vh, wh; wd and wh are scratch); the bounds meet in xch. Call after a barrier;
+// returns the same decision (1 = converged) in every thread, after at most
+// two block barriers.
+__device__ int es_stop_decision(const float* Gd, const float* Gh, float* vd,
+                                float* vh, float* wd, float* wh, float* xch,
+                                int r, float stop2, int pi_iters) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 2) {
+    const float* G = warp ? Gh : Gd;
+    float* v = warp ? vh : vd;
+    float* w = warp ? wh : wd;
+    for (int k = lane; k < r; k += 32)
+      v[k] += 0.05f * (0.5f + (float)((k * 40503) % 65536) / 65536.0f);
+    __syncwarp();
+    float ub;
+    const float lb = warp_power_steps(G, v, w, r, 1, &ub);
+    if (lane == 0) {
+      xch[2 * warp] = lb;
+      xch[2 * warp + 1] = ub;
+    }
+  }
+  __syncthreads();
+  const float lb_d = xch[0], ub_d = xch[1], lb_h = xch[2], ub_h = xch[3];
+  const bool conv_certain = ub_d <= stop2 * lb_h;
+  const bool notconv_certain = lb_d > stop2 * ub_h;
+  if (conv_certain || notconv_certain) return conv_certain;
+  __syncthreads();  // every thread has read xch
+  if (warp < 2) {
+    const float lam = warp_power_steps(warp ? Gh : Gd, warp ? vh : vd,
+                                       warp ? wh : wd, r, pi_iters, nullptr);
+    if (lane == 0) xch[warp] = lam;
+  }
+  __syncthreads();
+  return xch[0] <= stop2 * xch[1];
+}
+
+// A lane's Q consecutive rows of a column of At (float4 loads when Q is a
+// multiple of 4; the rows start 16-byte aligned then).
+template <int Q>
+__device__ __forceinline__ void load_rows(const float* a, float* out) {
+  if constexpr (Q % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < Q; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(a + q);
+      out[q] = v.x;
+      out[q + 1] = v.y;
+      out[q + 2] = v.z;
+      out[q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) out[q] = a[q];
+  }
+}
+
+template <int L, int Q>
+__global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
+    coder_es_lanes_kernel(const float* __restrict__ A,
+                          const float* __restrict__ B,
+                          const float* __restrict__ H0,
+                          float* __restrict__ H, int r, int n, float alpha,
+                          float stop, int sub_iter, int pi_iters) {
+  extern __shared__ float smem[];
+  constexpr int C = ES_COLS, RP = L * Q;
+  constexpr bool kReform = L * Q > 32;  // g formed anew every sweep
+  const int Rg = es_tile_rows(r);
+  float* At = smem;             // (r, RP): At[k * RP + i] = A[i, k]; 0 past r
+  float* Hs = At + r * RP;      // (Rg, HS) iterate
+  float* Os = Hs + Rg * HS;     // (Rg, HS) iterate before the sweep; after
+                                // the Grams, the power steps' scratch
+  float* Gd = Os + Rg * HS;     // (r, r) delta Gram
+  float* Gh = Gd + r * r;       // (r, r) iterate Gram
+  float* vd = Gh + r * r;       // (r) carried eigenvector estimates
+  float* vh = vd + r;
+  float* step = vh + r;         // (r) this sweep's rs / (A_kk + 1)
+  __shared__ float xch[4];
+
+  // this thread: lane ell of the group of columns cc[u] = grp + u TN / C
+  const int t = threadIdx.x, grp = t / L, ell = t % L;
+  const int group = (t & 31) & ~(L - 1);  // the group's first lane
+  int cc[C];
+  bool active[C];
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    cc[u] = grp + u * (TN / C);
+    active[u] = blockIdx.x * TN + cc[u] < n;
+  }
+  // A^T and the tile of H0, eight global loads in flight per thread
+  for (int x0 = t; x0 < r * RP; x0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x, k = x / RP, i = x % RP;
+      v[q] = x < r * RP && i < r ? A[i * r + k] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (x0 + q * blockDim.x < r * RP) At[x0 + q * blockDim.x] = v[q];
+  }
+  for (int x0 = t; x0 < Rg * TN; x0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x, k = x / TN, col = x % TN;
+      const int cl = blockIdx.x * TN + col;
+      v[q] = x < Rg * TN && k < r && cl < n ? H0[(size_t)k * n + cl] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x, k = x / TN, col = x % TN;
+      if (x < Rg * TN) {
+        Hs[k * HS + col] = v[q];
+        Os[k * HS + col] = 0.f;
+      }
+    }
+  }
+  for (int k = t; k < r; k += blockDim.x) {
+    vd[k] = vh[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
+    step[k] = 1.0f / sqrtf(10.0f) / (A[k * r + k] + 1.0f);
+  }
+  __syncthreads();
+
+  // rows ell * Q + q of each column, and of its g = A h - b
+  float h[C][Q], g[C][Q];
+#pragma unroll
+  for (int u = 0; u < C; ++u)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = ell * Q + q;
+      h[u][q] = k < r ? Hs[k * HS + cc[u]] : 0.f;
+    }
+  const float stop2 = stop * stop;
+  for (int i = 0; i < sub_iter; ++i) {
+    if (kReform || i == 0) {
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int k = ell * Q + q;
+          g[u][q] = k < r && active[u]
+              ? -__ldg(B + (size_t)k * n + blockIdx.x * TN + cc[u]) : 0.f;
+        }
+      for (int m = 0; m < r; ++m) {
+        float a[Q];
+        load_rows<Q>(At + m * RP + ell * Q, a);
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          const float hm = Hs[m * HS + cc[u]];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], hm, g[u][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int k = ell * Q + q;
+        if (k < r) Os[k * HS + cc[u]] = h[u][q];
+      }
+    for (int l0 = 0; l0 < L; ++l0) {
+#pragma unroll
+      for (int q0 = 0; q0 < Q; ++q0) {
+        const int k = l0 * Q + q0;
+        if (k >= r) break;
+        const float st = step[k];
+        float a[Q];
+        load_rows<Q>(At + k * RP + ell * Q, a);
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          // every lane forms its own row's candidate; the owner's is taken
+          const float hn = fmaxf(h[u][q0] - st * (g[u][q0] + alpha), 0.f);
+          float delta =
+              __shfl_sync(0xffffffffu, hn - h[u][q0], group + l0);
+          if (!active[u]) delta = 0.f;
+          if (ell == l0 && active[u]) h[u][q0] = hn;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], delta, g[u][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int k = ell * Q + q;
+        if (k < r) Hs[k * HS + cc[u]] = h[u][q];
+      }
+    __syncthreads();
+    es_tile_grams(Hs, Os, Gd, Gh, r);
+    __syncthreads();
+    const int cv = es_stop_decision(Gd, Gh, vd, vh, Os, Os + r, xch, r,
+                                    stop2, pi_iters);
+    if (cv) break;  // the same in every thread
+    for (int k = t; k < r; k += blockDim.x)
+      step[k] = 1.0f / sqrtf((float)i + 11.0f) / (At[k * RP + k] + 1.0f);
+    __syncthreads();  // the steps, and xch, Os and the vectors next sweep
+  }
+  __syncthreads();
+  for (int x = t; x < r * TN; x += blockDim.x) {
+    const int k = x / TN, col = x % TN, cl = blockIdx.x * TN + col;
+    if (cl < n) H[(size_t)k * n + cl] = Hs[k * HS + col];
+  }
+}
+
 // The FISTA step inv_L = 1 / (1.02 lambda_max(A) + 1e-12), lambda_max from
 // `iters` power steps from the fixed start (_lambda_max), by one warp.
 // warm_pair runs the chain twice on A; only one result is kept.
@@ -525,13 +912,16 @@ __global__ void fista_kernel(const float* __restrict__ A,
   }
 }
 
-// One block. Sequential over the r columns, threads over the d rows; each
-// thread owns rows tid, tid + blockDim, ... of W, so only the column norm
-// needs the whole block. A[:, j] is read by column, as dict_update_bcd does.
-__global__ void dict_update_kernel(const float* __restrict__ W_in,
-                                   const float* __restrict__ A,
-                                   const float* __restrict__ B,
-                                   float* __restrict__ W, int d, int r) {
+// The route past the cluster's shared memory (dict_route "single"; no path
+// of the repo reaches it): one block, sequential over the r columns,
+// threads over the d rows, W in device memory; each thread owns rows tid,
+// tid + blockDim, ... of W, so only the column norm needs the whole block.
+// A[:, j] is read by column, as dict_update_bcd does.
+__global__ void dict_update_single_kernel(const float* __restrict__ W_in,
+                                          const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          float* __restrict__ W, int d,
+                                          int r) {
   __shared__ float red[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = (blockDim.x + 31) >> 5;
@@ -561,6 +951,262 @@ __global__ void dict_update_kernel(const float* __restrict__ W_in,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dict_update_kernel: one column-BCD pass in residual form.
+//
+// Replaces dict_update_sweep (pallas/coder_kernel.py:629): for j = 0..r-1,
+//   col = max(0, W[:, j] - (W A[:, j] - B[j, :]) / (A_jj + 1)),
+//   W[:, j] = col / max(1, |col|),
+// with W A[:, j] over the already-updated earlier columns, so any A,
+// symmetric or not, matches dict_update_bcd. What bounds it: not the
+// roofline (d r^2 multiply-adds and ~100 KB at d = 300, r = 25: tens of
+// nanoseconds) but the r sequential column steps, each needing the whole
+// column's norm. The design keeps one reduction and one barrier per column:
+//   * the CTA's rows of W (a contiguous block of W_in) are copied into
+//     shared memory at entry and back at exit, both coalesced: per-row
+//     loads and stores of one column each (one cache line per lane) cost
+//     more than the whole column step;
+//   * G = W_in A - B^T (d, r) is formed once, in shared memory, parallel
+//     over (row, l). Column j of W is unchanged before step j, so step j
+//     needs only G[i, j] and W[i, j];
+//   * the new column w'_j replaces column j in shared memory and delta =
+//     w'_j - W_in[:, j] updates G[i, l] += delta_i A[j, l] for l > j:
+//     independent multiply-adds over (row, l), no dependent chain;
+//   * one row per L lanes (L = a power of two dividing 32, so a row's
+//     lanes share a warp and a __syncwarp orders them; each lane keeps 16
+//     or more of the r columns): the column step is a latency chain in
+//     each thread, so short threads finish it sooner, but each warp repeats
+//     the chain's scalar work. The row stride of G and W is = L (mod 32),
+//     so that a warp's rows fall on distinct banks;
+//   * G is formed in register blocks of 4 rows by 8 columns, so that each
+//     value read from shared memory feeds 4 or 8 multiply-adds;
+//   * the column chain is kept short: 1 / (A_jj + 1) is formed at entry,
+//     the partial sums (up to 32) are read whole by every thread, the
+//     norm's reciprocal comes from rsqrt, the rank-1 update is unrolled by
+//     eight with its loads ahead of its stores, and the one element of G
+//     that the next column needs is updated first; the copy in keeps eight
+//     global loads in flight per thread. On the H100 a column step still
+//     takes ~1 us, one warp or ten (PERF.md);
+//   * kCluster: the rows split over a thread block cluster of up to
+//     DICT_MAX_CLUSTER CTAs, each holding its rows of G; each warp's partial
+//     sum of squares goes to every CTA's shared memory (distributed shared
+//     memory), with one cluster barrier per column, split: each thread
+//     arrives once its partial sum is posted and does the rest of the
+//     previous column's rank-1 update before it waits. The partial sums
+//     sit in two buffers by column parity: a buffer is written again only
+//     after the next column's wait, and every reader of it has arrived
+//     there after reading.
+// Every thread sums the same partials in the same order, so every CTA
+// takes the same norm. The residual sums in another order than
+// dict_update_bcd, and the reciprocals round once more: the kernel matches
+// it to float32 tolerance.
+constexpr int DICT_MAX_THREADS = 1024;
+constexpr int DICT_MAX_CLUSTER = 8;
+
+// Lanes per row: the largest power of two up to 32 with rows * L <=
+// DICT_MAX_THREADS and 16 L <= r.
+__host__ __device__ inline int dict_lanes(int rows, int r) {
+  int L = 32;
+  while (L > 1 && (rows * L > DICT_MAX_THREADS || 16 * L > r)) L >>= 1;
+  return L;
+}
+
+__host__ __device__ inline int dict_threads(int rows, int r) {
+  return (rows * dict_lanes(rows, r) + 31) / 32 * 32;
+}
+
+// Row stride of G and W: at least r, and = L (mod 32).
+__host__ __device__ inline int dict_row_stride(int r, int L) {
+  return r + (((L - r) % 32) + 32) % 32;
+}
+
+// Shared floats of one CTA of `rows` rows: G and W, A, the partial sums and
+// the reciprocals 1 / (A_jj + 1).
+__host__ __device__ inline size_t dict_smem_floats(int rows, int r) {
+  return 2 * (size_t)rows * dict_row_stride(r, dict_lanes(rows, r))
+         + (size_t)r * r + 2 * DICT_MAX_CLUSTER * 32 + r;
+}
+
+// The column barrier: in a cluster, the cluster barrier split in two,
+// arrive (release) and wait (acquire); in a CTA alone, one __syncthreads at
+// the wait (a lone CTA's split barrier measured slower).
+template <bool kCluster>
+__device__ __forceinline__ void column_arrive() {
+  if constexpr (kCluster)
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+template <bool kCluster>
+__device__ __forceinline__ void column_wait() {
+  if constexpr (kCluster)
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  else
+    __syncthreads();
+}
+
+// A warp's share of sum(col^2) (one lane per row) into slot warp of every
+// CTA's partial-sum buffer `part` (distributed shared memory past one CTA),
+// then the arrival at the column's barrier.
+template <bool kCluster>
+__device__ __forceinline__ void dict_post(float* part, float col, int ell,
+                                          int lane, int warp, int nwarps,
+                                          int rank, int ctas) {
+  const float ss = warp_sum(ell == 0 ? col * col : 0.f);
+  if (lane < ctas) {
+    float* dst = part;
+    if constexpr (kCluster) dst = cg::this_cluster().map_shared_rank(part, lane);
+    dst[rank * nwarps + warp] = ss;
+  }
+  column_arrive<kCluster>();
+}
+
+// The sum of the column's partial sums, the same in every thread: up to 32
+// read whole by every thread (float4 loads, no shuffles on the chain),
+// more spread over the lanes and reduced by shuffles.
+__device__ __forceinline__ float dict_total(const float* part, int parts,
+                                            int lane) {
+  float tot = 0.f;
+  if (parts <= 32) {
+    float4 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      v[q] = 4 * q < parts ? reinterpret_cast<const float4*>(part)[q]
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      tot += (v[q].x + v[q].y) + (v[q].z + v[q].w);
+    return tot;
+  }
+  for (int x = lane; x < parts; x += 32) tot += part[x];
+  return warp_sum(tot);
+}
+
+template <bool kCluster>
+__global__ void __launch_bounds__(DICT_MAX_THREADS)
+    dict_update_kernel(const float* __restrict__ W_in,
+                       const float* __restrict__ A,
+                       const float* __restrict__ B, float* __restrict__ W,
+                       int d, int r, int rows) {
+  extern __shared__ float smem[];
+  const int L = dict_lanes(rows, r), GS = dict_row_stride(r, L);
+  float* red = smem;                   // 2 x (DICT_MAX_CLUSTER * 32), 16 B
+                                       // aligned: read as float4
+  float* rinv = red + 2 * DICT_MAX_CLUSTER * 32;  // (r) 1 / (A_jj + 1)
+  float* G = rinv + r;                 // (rows, GS) residual W A - B^T
+  float* Ws = G + (size_t)rows * GS;   // (rows, GS) this CTA's rows of W
+  float* As = Ws + (size_t)rows * GS;  // (r, r)
+  int ctas = 1, rank = 0;
+  if constexpr (kCluster) {
+    ctas = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = blockDim.x >> 5, parts = ctas * nwarps;
+  const int il = t / L, ell = t & (L - 1);  // local row; lane within it
+  const int own = min(rows, d - rank * rows);  // rows this CTA holds
+  const bool live = il < own;
+  const size_t first = (size_t)rank * rows * r;
+  for (int x = t; x < r * r; x += blockDim.x) As[x] = A[x];
+  for (int x = t; x < r; x += blockDim.x) rinv[x] = 1.0f / (A[x * r + x] + 1.0f);
+  for (int x = t; x < 2 * DICT_MAX_CLUSTER * 32; x += blockDim.x) red[x] = 0.f;
+  // the rows of W, eight loads in flight per thread
+  for (int x0 = t; x0 < own * r; x0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x;
+      v[q] = x < own * r ? W_in[first + x] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x;
+      if (x < own * r) Ws[(x / r) * GS + x % r] = v[q];
+    }
+  }
+  __syncthreads();
+  // G = W_in A - B^T in blocks of rows 4b..4b+3 by columns 8c..8c+7
+  const int chunks = (r + 7) / 8, items = (own + 3) / 4 * chunks;
+  for (int it = t; it < items; it += blockDim.x) {
+    const int b = it / chunks, l0 = 8 * (it % chunks);
+    float acc[4][8] = {}, bt[4][8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)  // B^T, loaded ahead of the products
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int row = 4 * b + k, l = l0 + q;
+        bt[k][q] = row < own && l < r
+            ? __ldg(B + (size_t)l * d + rank * rows + row) : 0.f;
+      }
+    for (int m = 0; m < r; ++m) {
+      float a[8], wm[4];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) a[q] = l0 + q < r ? As[m * r + l0 + q] : 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wm[k] = 4 * b + k < own ? Ws[(4 * b + k) * GS + m] : 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[k][q] = fmaf(wm[k], a[q], acc[k][q]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int row = 4 * b + k, l = l0 + q;
+        if (row < own && l < r) G[row * GS + l] = acc[k][q] - bt[k][q];
+      }
+  }
+  column_arrive<kCluster>();  // G, and every CTA runs before remote writes
+  column_wait<kCluster>();
+  float* w = Ws + il * GS;
+  float* gi = G + il * GS;
+
+  // Column j: the partial sums of col_j^2 are written and (in a cluster)
+  // the barrier arrived at; the rank-1 update of column j - 1 (past column
+  // j + 1) runs before the wait; after it the norm gives w'_j, and the one
+  // element of G that column j + 1 needs is updated first.
+  float w_old = live ? w[0] : 0.f;
+  float col = live ? fmaxf(fmaf(-gi[0], rinv[0], w_old), 0.f) : 0.f;
+  dict_post<kCluster>(red, col, ell, lane, warp, nwarps, rank, ctas);
+  float delta_prev = 0.f;
+  for (int j = 0; j < r; ++j) {
+    if (live && j > 0) {
+      const float* a = As + (j - 1) * r;
+      int l = j + 1 + ((ell - j - 1) & (L - 1));
+      for (; l + 7 * L < r; l += 8 * L) {
+        float av[8], gv[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          av[q] = a[l + q * L];
+          gv[q] = gi[l + q * L];
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          gi[l + q * L] = fmaf(delta_prev, av[q], gv[q]);
+      }
+      for (; l < r; l += L) gi[l] = fmaf(delta_prev, a[l], gi[l]);
+    }
+    column_wait<kCluster>();
+    const float tot =
+        dict_total(red + (j & 1) * (DICT_MAX_CLUSTER * 32), parts, lane);
+    const float wn = col * (tot > 1.0f ? rsqrtf(tot) : 1.0f);
+    if (live && ell == 0) w[j] = wn;
+    delta_prev = wn - w_old;
+    if (j + 1 == r) break;
+    if (live && ell == ((j + 1) & (L - 1)))
+      gi[j + 1] = fmaf(delta_prev, As[j * r + j + 1], gi[j + 1]);
+    __syncwarp();  // G[i, j + 1] is read by the row's lanes
+    w_old = live ? w[j + 1] : 0.f;
+    col = live ? fmaxf(fmaf(-gi[j + 1], rinv[j + 1], w_old), 0.f) : 0.f;
+    dict_post<kCluster>(red + ((j + 1) & 1) * (DICT_MAX_CLUSTER * 32), col,
+                        ell, lane, warp, nwarps, rank, ctas);
+  }
+  __syncthreads();
+  for (int x = t; x < own * r; x += blockDim.x)
+    W[first + x] = Ws[(x / r) * GS + x % r];
+}
+
 int launch_smem(const void* fn, size_t smem) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -579,6 +1225,19 @@ int launch_fista(const float* A, const float* B, const float* H0, float* H,
                  int sub_iter, int use_stopping, int pi_iters, float* ws,
                  int blocks, cudaStream_t stream);
 
+template <int L, int Q>
+int launch_es_lanes(const float* A, const float* B, const float* H0, float* H,
+                    int r, int n, float alpha, float stop, int sub_iter,
+                    int pi_iters, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * es_lanes_smem_floats(r);
+  int e = launch_smem((const void*)coder_es_lanes_kernel<L, Q>, smem);
+  if (e) return e;
+  coder_es_lanes_kernel<L, Q><<<(n + TN - 1) / TN, TN / ES_COLS * L, smem,
+                                stream>>>(A, B, H0, H, r, n, alpha, stop,
+                                          sub_iter, pi_iters);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -589,7 +1248,12 @@ size_t onmf_coder_sweeps_smem(int r) {
 }
 
 size_t onmf_coder_sweeps_earlystop_smem(int r) {
-  return sizeof(float) * (3 * (size_t)r * r + 2 * (size_t)r * HS + 5 * (size_t)r);
+  return sizeof(float) * es_lanes_smem_floats(r);
+}
+
+// Shared floats of one dict_update_kernel CTA of `rows` rows.
+size_t onmf_dict_smem_floats(int rows, int r) {
+  return dict_smem_floats(rows, r);
 }
 
 size_t onmf_fista_sweeps_smem(int r, int use_stopping) {
@@ -646,13 +1310,18 @@ int onmf_coder_sweeps_earlystop(const float* A, const float* B,
         A, B, H0, H, r, n, alpha, stop, sub_iter, pi_iters, ws);
     return (int)cudaGetLastError();
   }
-  const size_t smem = onmf_coder_sweeps_earlystop_smem(r);
-  int e = launch_smem((const void*)coder_es_kernel<false>, smem);
-  if (e) return e;
-  coder_es_kernel<false><<<(n + TN - 1) / TN, TN, smem,
-                           (cudaStream_t)stream>>>(
-      A, B, H0, H, r, n, alpha, stop, sub_iter, pi_iters, nullptr);
-  return (int)cudaGetLastError();
+  if (r > ES_MAX_RANK) return (int)cudaErrorInvalidValue;
+  if (r <= 16)
+    return launch_es_lanes<2, 8>(A, B, H0, H, r, n, alpha, stop, sub_iter,
+                                 pi_iters, (cudaStream_t)stream);
+  if (r <= 32)
+    return launch_es_lanes<2, 16>(A, B, H0, H, r, n, alpha, stop, sub_iter,
+                                  pi_iters, (cudaStream_t)stream);
+  if (r <= 64)
+    return launch_es_lanes<4, 16>(A, B, H0, H, r, n, alpha, stop, sub_iter,
+                                  pi_iters, (cudaStream_t)stream);
+  return launch_es_lanes<4, 25>(A, B, H0, H, r, n, alpha, stop, sub_iter,
+                                pi_iters, (cudaStream_t)stream);
 }
 
 // The step size into inv_L (one float of device scratch, from
@@ -679,12 +1348,50 @@ int onmf_fista_sweeps(const float* A, const float* B, const float* H0,
                              (cudaStream_t)stream);
 }
 
+// ctas = 0: the single-block kernel (the route past the cluster); 1: one
+// CTA of dict_update_kernel; 2..DICT_MAX_CLUSTER: a cluster of that many,
+// each with ceil(d / ctas) rows.
 int onmf_dict_update_sweep(const float* W_in, const float* A, const float* B,
-                           float* W, int d, int r, void* stream) {
-  int threads = ((d + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  dict_update_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(W_in, A, B, W,
-                                                              d, r);
+                           float* W, int d, int r, int ctas, void* stream) {
+  if (ctas <= 0) {
+    int threads = ((d + 31) / 32) * 32;
+    threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
+    dict_update_single_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+        W_in, A, B, W, d, r);
+    return (int)cudaGetLastError();
+  }
+  if (ctas > DICT_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  const int rows = (d + ctas - 1) / ctas;
+  const int threads = dict_threads(rows, r);
+  if (threads > DICT_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * dict_smem_floats(rows, r);
+  if (ctas == 1) {
+    int e = launch_smem((const void*)dict_update_kernel<false>, smem);
+    if (e) return e;
+    dict_update_kernel<false><<<1, threads, smem, (cudaStream_t)stream>>>(
+        W_in, A, B, W, d, r, rows);
+    return (int)cudaGetLastError();
+  }
+  int e = launch_smem((const void*)dict_update_kernel<true>, smem);
+  if (e) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, dict_update_kernel<true>, W_in, A, B, W,
+                              d, r, rows);
+  if (e) {
+    cudaGetLastError();
+    return e;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,8 @@ import os
 import numpy as np
 import torch
 
-from onmf_ontf_ndl_tpu_torch.models.state import OnmfState, make_generator
+from onmf_ontf_ndl_tpu_torch.models.state import (OnmfState, entry_device,
+                                                  make_generator)
 
 __all__ = ["save_state", "load_state", "checkpoint_exists"]
 
@@ -63,13 +64,13 @@ def _text(arr) -> str:
     return s.decode() if isinstance(s, bytes) else str(s)
 
 
-def load_state(path: str, *, device="cpu", dtype=None,
+def load_state(path: str, *, device="cuda", dtype=None,
                with_extra: bool = False):
     """Restore an OnmfState written by :func:`save_state` or by the JAX
     ``save_state``, on ``device``. ``dtype`` recasts the optimizer arrays
     (default: as saved). ``with_extra=True`` also returns the auxiliary
     arrays, in their saved dtypes."""
-    device = torch.device(device)
+    device = entry_device(device)
     with np.load(_norm_path(path)) as z:
         def cast(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)

@@ -48,8 +48,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [25, 100])
-@pytest.mark.parametrize("n", [ck.TN, 4 * ck.TN + 37])
+@pytest.mark.parametrize("r,n", [(25, ck.TN), (25, 4 * ck.TN + 37),
+                                 (100, ck.TN), (100, 4 * ck.TN + 37),
+                                 (25, 16384), (100, 1000)])
 def test_cuda_coder_kernels_match_plain(cuda, r, n):
     A, B, H0 = make(300, r, n, seed=r + n)
     A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
@@ -67,15 +68,39 @@ def test_cuda_coder_kernels_match_plain(cuda, r, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,r", [(300, 25), (2000, 100), (75, 9)])
+@pytest.mark.parametrize("d,r", [(300, 25), (2000, 100), (75, 9),
+                                 (441, 25), (400, 100), (1200, 100),
+                                 (300, 300)])
 def test_cuda_dict_kernel_matches_plain(cuda, d, r):
+    # one CTA, a cluster of CTAs ((400, 100), (1200, 100)) and, past the
+    # cluster's shared memory, the single-block kernel ((2000, 100),
+    # (300, 300))
     rng = np.random.default_rng(d)
     W = _t(rng.random((d, r)).astype(np.float32), cuda)
     A = _t(rng.random((r, r)).astype(np.float32), cuda)   # asymmetric
     B = _t(rng.random((r, d)).astype(np.float32), cuda)
+    ck.reset_launches()
     got = ck.dict_update_sweep(W, A, B)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["dict_update_sweep"] == 1
     torch.testing.assert_close(got, ck.dict_update_sweep_plain(W, A, B),
                                **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_earlystop_multi_tile_converged(cuda):
+    # many tiles, each freezing on its own relative-change test: every
+    # tile's iterate must meet the global rule's guarantee (slack over
+    # stop = 0.05 as in the Pallas kernel's test: the probe sweep takes the
+    # larger i = 0 step)
+    from onmf_ontf_ndl_tpu_torch.ops.coder import _spectral_norm, _sweep
+
+    A, B, H0 = make(300, 25, 16 * ck.TN + 37, seed=11)
+    A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
+    H = ck.coder_sweeps_earlystop(A, B, H0, 0.0, 0.05, sub_iter=50)
+    probe = _sweep(H.clone(), A, B, 0.0, 1.0 / np.sqrt(10.0))
+    assert bool((H >= 0).all())
+    assert float(_spectral_norm(probe - H) / _spectral_norm(H)) <= 0.1
 
 
 @pytest.mark.cuda

@@ -178,7 +178,7 @@ def test_fista_sweeps_plain_fixed_equals_fista_impl():
 def make_states(d=36, r=8, seed=0):
     W = RNG.random((d, r))
     js = jinit_state(jax.random.key(seed), d, r, dtype=jnp.float64, W=W)
-    ts = init_state(seed, d, r, dtype=F64, W=W)
+    ts = init_state(seed, d, r, dtype=F64, W=W, device="cpu")
     return js, ts
 
 
@@ -216,7 +216,8 @@ def test_online_nmf_fista_learns():
     # on the port
     X = np.random.default_rng(9).random((40, 200))
     nmf = tonmf.OnlineNMF(X, n_components=8, iterations=20, batch_size=50,
-                          coder="fista", stopping_diff=None, dtype=F64)
+                          coder="fista", stopping_diff=None, dtype=F64,
+                          device="cpu")
     W, _, _, _, _ = nmf.train_dict()
     assert (W >= 0).all()
     H = nmf.sparse_code(nmf.X, W)

@@ -119,7 +119,7 @@ def test_train_image_dict_matches_jax(use_stopping):
     k, r, d = 5, 6, 75
     W = RNG.random((d, r))
     js = jinit_state(jax.random.key(5), d, r, dtype=jnp.float64, W=W)
-    ts = init_state(5, d, r, dtype=F64, W=W)
+    ts = init_state(5, d, r, dtype=F64, W=W, device="cpu")
     kw = dict(outer_iterations=3, num_patches=20, inner_iterations=4,
               batch_size=8, patch_size=k, alpha=0.2,
               use_stopping=use_stopping)
@@ -143,7 +143,7 @@ def test_color_pipeline_learns_and_reconstructs():
     rec = tapp.ImageReconstructor(
         data=img, n_components=16, iterations=20, sub_iterations=5,
         num_patches=50, batch_size=16, patch_size=6, is_color=True,
-        dtype=F64)
+        dtype=F64, device="cpu")
     W0 = rec.state.W.numpy().copy()
     rec.train_dict()
     W = rec.state.W.numpy()
@@ -163,14 +163,14 @@ def test_gray_pipeline_full_grid():
     rec = tapp.ImageReconstructor(
         data=img, n_components=9, iterations=10, sub_iterations=5,
         num_patches=40, batch_size=10, patch_size=5, is_color=False,
-        downscale_factor=1, dtype=F64)
+        downscale_factor=1, dtype=F64, device="cpu")
     rec.train_dict()
     out = rec.reconstruct_image(data=img).numpy()
     assert out.shape == img.shape
     assert (out > 0).all()   # the full grid paints every pixel
     assert np.linalg.norm(out - img) / np.linalg.norm(img) < 0.25
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapp.ImageReconstructor(data=img[None], is_stack=True)
+        tapp.ImageReconstructor(data=img[None], is_stack=True, device="cpu")
 
 
 def test_checkpoint_interop_both_ways(tmp_path):
@@ -180,7 +180,7 @@ def test_checkpoint_interop_both_ways(tmp_path):
                      B=RNG.random((r, d)), C=RNG.random((d, d)), t=7.0)
     jpath = str(tmp_path / "jax.npz")
     jckpt.save_state(jpath, js)
-    ts = tckpt.load_state(jpath)
+    ts = tckpt.load_state(jpath, device="cpu")
     for name in ("W", "A", "B", "C"):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(js, name)))
@@ -192,7 +192,7 @@ def test_checkpoint_interop_both_ways(tmp_path):
 
     ts = init_state(11, d, r, dtype=F64, track_xxt=True,
                     A=RNG.random((r, r)), B=RNG.random((r, d)),
-                    C=RNG.random((d, d)), t=3.0)
+                    C=RNG.random((d, d)), t=3.0, device="cpu")
     tpath = str(tmp_path / "torch")
     tckpt.save_state(tpath, ts, extra={"code": np.arange(5)})
     assert tckpt.checkpoint_exists(tpath)
@@ -205,7 +205,7 @@ def test_checkpoint_interop_both_ways(tmp_path):
                                   np.asarray(jax.random.key_data(
                                       jax.random.key(11))))
     # the port restores its own stream exactly, and the extras
-    back, extra = tckpt.load_state(tpath, with_extra=True)
+    back, extra = tckpt.load_state(tpath, with_extra=True, device="cpu")
     assert torch.equal(torch.rand(4, generator=back.gen),
                        torch.rand(4, generator=ts.gen))
     np.testing.assert_array_equal(extra["code"].numpy(), np.arange(5))
@@ -216,7 +216,7 @@ def test_checkpoint_chunking_and_resume_exact(tmp_path):
     img = 0.5 + 0.3 * np.sin(x / 5.0) * np.cos(y / 4.0)
     kw = dict(data=img, n_components=4, iterations=6, sub_iterations=3,
               num_patches=12, batch_size=6, patch_size=4, is_color=False,
-              dtype=F64, seed=3)
+              dtype=F64, seed=3, device="cpu")
     Wa = tapp.ImageReconstructor(**kw).train_dict()
     ckpt = str(tmp_path / "img.npz")
     Wb = tapp.ImageReconstructor(**kw).train_dict(checkpoint_path=ckpt,

@@ -174,7 +174,7 @@ def test_ising_trajectory_learning_matches_jax():
     W = RNG.random((k * k, r))
     js = jinit_state(jax.random.key(1), k * k, r, dtype=jnp.float64,
                      track_xxt=True, W=W)
-    ts = init_state(1, k * k, r, dtype=F64, track_xxt=True, W=W)
+    ts = init_state(1, k * k, r, dtype=F64, track_xxt=True, W=W, device="cpu")
     kw = dict(ising_iterations=rounds, nsteps=50, num_patches=num,
               inner_iterations=inner, batch_size=5, patch_size=k, beta=0.8,
               update_lattice=False)
@@ -201,7 +201,7 @@ def test_ising_reconstructor_end_to_end(sampler):
         n_components=8, lattice_size=16, ising_iterations=4,
         temperature=3.0, ising_subsampling_steps=256, sub_iterations=4,
         num_patches=30, batch_size=10, patch_size=4, beta=0.8,
-        sampler=sampler, dtype=F64)
+        sampler=sampler, dtype=F64, device="cpu")
     lat0 = rec.lattice.clone()
     traj, dict_stack, errors = rec.ising_mcmc_learning(keep_trajectory=True)
     assert dict_stack.shape == (5, 16, 8) and errors.shape == (5,)
@@ -213,4 +213,4 @@ def test_ising_reconstructor_end_to_end(sampler):
     # a float lattice (the reference's saved trajectories) is accepted
     rec.ising_mcmc_learning(initial_lattice=lat0.double().numpy())
     with pytest.raises(ValueError, match="sampler"):
-        tapp.IsingReconstructor(sampler="gibbs")
+        tapp.IsingReconstructor(sampler="gibbs", device="cpu")

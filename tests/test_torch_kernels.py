@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from onmf_ontf_ndl_tpu.ops.coder import _code_impl as jax_code_impl
+from onmf_ontf_ndl_tpu.ops.dict_update import (
+    dict_update_bcd as jax_dict_update_bcd)
 from onmf_ontf_ndl_tpu.ops.pallas.coder_kernel import (
     coder_sweeps as jax_coder_sweeps,
     coder_sweeps_earlystop as jax_coder_sweeps_earlystop,
@@ -178,3 +180,144 @@ def test_stopping_plain_two_tiles_at_rank_160_matches_pallas(coder):
             jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), 0.1, 0.01,
             sub_iter=20, use_stopping=True, block_n=ck.TN, interpret=True)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+# ------------------------------------------------ the kernels' algorithms
+# float64 NumPy emulations of the two kernel designs, held against the JAX
+# functions at 1e-12 (the designs sum in another order; in float64 that is
+# rounding only).
+def _emulate_dict_residual(W, A, B, ctas):
+    """dict_update_kernel: G = W A - B^T once; per column j the new column
+    from G[:, j] and the input column, its norm as the sum of per-CTA
+    partial sums (rows split over ``ctas`` CTAs), then the rank-1 update
+    G[:, l] += delta A[j, l] for l > j."""
+    d, r = W.shape
+    rows = -(-d // max(ctas, 1))
+    W = W.copy()
+    G = W @ A - B.T
+    for j in range(r):
+        col = np.maximum(W[:, j] - G[:, j] / (A[j, j] + 1.0), 0.0)
+        tot = sum(float(np.sum(col[c:c + rows] ** 2))
+                  for c in range(0, d, rows))
+        new = col / max(1.0, np.sqrt(tot))
+        G[:, j + 1:] += np.outer(new - W[:, j], A[j, j + 1:])
+        W[:, j] = new
+    return W
+
+
+@pytest.mark.parametrize("d,r,sym", [(40, 9, False), (75, 25, True),
+                                     (400, 100, False), (1200, 30, False)])
+def test_residual_dict_emulation_matches_jax_dict_update_bcd(d, r, sym):
+    rng = np.random.default_rng(d + r)
+    W = rng.random((d, r))
+    if sym:
+        H = rng.random((r, 60))
+        A, B = H @ H.T, H @ (W @ H + 0.01 * rng.random((d, 60))).T
+    else:   # an asymmetric A must match too
+        A, B = rng.random((r, r)), rng.random((r, d))
+    got = _emulate_dict_residual(W, A, B, ck.dict_route(d, r)[1])
+    want = np.asarray(jax_dict_update_bcd(jnp.asarray(W), jnp.asarray(A),
+                                          jnp.asarray(B)))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    plain = ck.dict_update_sweep_plain(_t(W), _t(A), _t(B)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-12, atol=1e-12)
+
+
+def _power(G, v, iters):
+    """warm_pair for one Gram: ``iters`` normalised steps, then the
+    Rayleigh quotient."""
+    for _ in range(iters):
+        w = G @ v
+        v = w / max(np.linalg.norm(w), 1e-30)
+    return float(v @ (G @ v)) / max(float(v @ v), 1e-30), v
+
+
+def _emulate_earlystop_lanes(A, B, H0, alpha, stop, sub_iter=10,
+                             pi_iters=12):
+    """coder_es_lanes_kernel: per tile of TN columns, L lanes of Q rows
+    (L = 2 up to r = 32, else 4) hold the residual g = A h - b, formed once
+    per tile up to r = 32 and anew every sweep past it; at coordinate k the
+    owner's delta updates every lane's rows; then the Grams of the delta
+    and the old iterate and the stop decision (certified bounds, warm power
+    steps only in the band)."""
+    r, n = B.shape
+    L = 2 if r <= 32 else 4
+    Q = -(-r // L)
+    v0 = 0.5 + ((np.arange(r) * 40503) % 65536) / 65536.0
+    out = H0.copy()
+    for t0 in range(0, n, ck.TN):
+        cols = slice(t0, min(n, t0 + ck.TN))
+        h, b = H0[:, cols].copy(), B[:, cols]
+        vd, vh = v0.copy(), v0.copy()
+        g = None
+        for i in range(sub_iter):
+            if r > 32 or i == 0:
+                g = A @ h - b
+            o = h.copy()
+            step = 1.0 / np.sqrt(i + 10.0) / (np.diag(A) + 1.0)
+            for k in range(r):
+                hn = np.maximum(h[k] - step[k] * (g[k] + alpha), 0.0)
+                delta = hn - h[k]
+                h[k] = hn
+                for lane in range(L):
+                    rows = slice(lane * Q, min(r, (lane + 1) * Q))
+                    g[rows] += np.outer(A[rows, k], delta)
+            D = h - o
+            Gd, Gh = D @ D.T, o @ o.T
+            vd, vh = vd + 0.05 * v0, vh + 0.05 * v0
+            lb_d, vd = _power(Gd, vd, 1)
+            lb_h, vh = _power(Gh, vh, 1)
+            ub_d = min(np.trace(Gd), np.abs(Gd).sum(1).max())
+            ub_h = min(np.trace(Gh), np.abs(Gh).sum(1).max())
+            conv = ub_d <= stop * stop * lb_h
+            if not conv and not lb_d > stop * stop * ub_h:
+                num, vd = _power(Gd, vd, pi_iters)
+                den, vh = _power(Gh, vh, pi_iters)
+                conv = num <= stop * stop * den
+            if conv:
+                break
+        out[:, cols] = h
+    return out
+
+
+@pytest.mark.parametrize("r,stop", [(7, 0.01), (25, 0.01), (25, 0.05),
+                                    (40, 0.01)])
+def test_lane_earlystop_emulation_matches_jax_code_impl(r, stop):
+    # each tile against the JAX coder on the tile's columns alone (its
+    # whole-batch rule with exact spectral norms): the same sweeps per tile
+    A, B, H0, _, _ = make(d=300, r=r, n=2 * ck.TN + 37, seed=r)
+    A, B, H0 = (x.astype(np.float64) for x in (A, B, H0))
+    got = _emulate_earlystop_lanes(A, B, H0, 0.1, stop)
+    for t0 in range(0, B.shape[1], ck.TN):
+        cols = slice(t0, t0 + ck.TN)
+        want = np.asarray(jax_code_impl(
+            jnp.asarray(A), jnp.asarray(B[:, cols]), jnp.asarray(H0[:, cols]),
+            jnp.float64(0.1), jnp.float64(stop), jnp.float64(0.0), 10, True,
+            False))
+        np.testing.assert_allclose(got[:, cols], want, rtol=1e-12,
+                                   atol=1e-12)
+    plain = ck.coder_sweeps_earlystop_plain(_t(A), _t(B), _t(H0), 0.1,
+                                            stop).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-12, atol=1e-12)
+
+
+def test_dict_route_by_shape_alone():
+    # the paths' shapes: one CTA at r = 25, a cluster at r = 100; past
+    # the cluster's shared memory the single-block kernel
+    assert ck.dict_route(300, 25) == ("shared", 1)
+    assert ck.dict_route(441, 25) == ("shared", 1)
+    assert ck.dict_route(400, 100) == ("cluster", 4)
+    assert ck.dict_route(1200, 100) == ("cluster", 8)
+    assert ck.dict_route(300, 300) == ("single", 0)
+    assert ck.dict_route(8000, 100) == ("single", 0)
+    for d in (1, 7, 33, 300, 441, 1000, 2000, 5000):
+        for r in (1, 9, 25, 64, 100, 128, 300):
+            route, ctas = ck.dict_route(d, r)
+            if route == "single":
+                assert ctas == 0
+                continue
+            rows = -(-d // ctas)
+            assert (route == "shared") == (ctas == 1)
+            assert ctas in (1, 2, 4, 8)
+            assert ck._dict_threads(rows, r) <= 1024
+            assert 4 * ck._dict_smem_floats(rows, r) <= 232448

@@ -143,7 +143,7 @@ def test_recons_accuracy_equal_on_both_forms():
     A = torus_adjacency(6)
     trec = tnet.NetworkReconstructor(source=tg.graph_from_adjacency(A),
                                      n_components=4, sample_size=10, k1=0,
-                                     k2=1, dtype=F64)
+                                     k2=1, dtype=F64, device="cpu")
     jrec = jnet.NetworkReconstructor(source=jg.graph_from_adjacency(A),
                                      n_components=4, sample_size=10, k1=0,
                                      k2=1, dtype=jnp.float64)
@@ -161,7 +161,7 @@ def test_recons_accuracy_equal_on_both_forms():
     for build in (tg.csr_graph_from_edges, tg.bitset_graph_from_edges):
         other = tnet.NetworkReconstructor(
             source=build(np.argwhere(np.triu(A))), n_components=4,
-            sample_size=10, k1=0, k2=1, dtype=F64)
+            sample_size=10, k1=0, k2=1, dtype=F64, device="cpu")
         label = np.asarray(other.G.node_ids)
         Ro = R[np.ix_(label, label)]
         assert other.compute_recons_accuracy(
@@ -190,7 +190,7 @@ def test_ndl_train_matches_oracle_iteration_by_iteration():
 
     W, A, Bm, t = W0, None, None, 0.0
     code_want = np.zeros((r, S))
-    st = init_state(0, k * k, r, dtype=F64, W=W0)
+    st = init_state(0, k * k, r, dtype=F64, W=W0, device="cpu")
     for i, (X, inner_draws) in enumerate(draws):
         W, A, Bm, _, code_i, t = train_oracle(
             X.numpy(), W, inner, [np.arange(S)] * (inner - 1),
@@ -206,7 +206,7 @@ def test_ndl_train_matches_oracle_iteration_by_iteration():
         np.testing.assert_allclose(st.B.numpy(), Bm, rtol=1e-8)
         assert st.t == t == (i + 1) * inner
         assert torch.equal(emb, emb0)
-    st2 = init_state(0, k * k, r, dtype=F64, W=W0)
+    st2 = init_state(0, k * k, r, dtype=F64, W=W0, device="cpu")
     st2, code, _ = tnet.ndl_train(st2, g, emb0, B, mcmc_iterations=mcmc,
                                   draws=draws, **kw)
     np.testing.assert_allclose(st2.W.numpy(), W, rtol=1e-8)
@@ -218,7 +218,7 @@ def test_ndl_train_chain_ensemble_rounds_the_sample_size():
     g = tg.csr_graph_from_edges(edges)
     B = jm.path_adj(0, 2)
     emb0 = torch.tensor([[0, 1, 2], [5, 6, 7], [10, 11, 12]])
-    st = init_state(1, 9, 4, dtype=F64)
+    st = init_state(1, 9, 4, dtype=F64, device="cpu")
     st, code, emb = tnet.ndl_train(st, g, emb0, B, mcmc_iterations=2,
                                    sample_size=10, inner_iterations=3,
                                    batch_size=5, num_chains=3,
@@ -238,7 +238,7 @@ def _small_rec(pkg, **kw):
         return jnet.NetworkReconstructor(source=jg.graph_from_adjacency(A),
                                          dtype=jnp.float64, **conf)
     return tnet.NetworkReconstructor(source=tg.graph_from_adjacency(A),
-                                     dtype=F64, **conf)
+                                     dtype=F64, device="cpu", **conf)
 
 
 @pytest.mark.parametrize("num_chains", [1, 3])
@@ -300,7 +300,7 @@ def test_ndl_torus_end_to_end():
         source=tg.graph_from_adjacency(torus_adjacency(10)),
         n_components=16, MCMC_iterations=10, sub_iterations=10,
         sample_size=100, batch_size=20, k1=0, k2=2, alpha=0.1,
-        is_glauber_dict=True, is_glauber_recons=False, dtype=F64)
+        is_glauber_dict=True, is_glauber_recons=False, dtype=F64, device="cpu")
     W = rec.train_dict()
     assert W.shape == (9, 16) and (W >= 0).all()
     assert rec.state.t == 10 * 10
@@ -318,7 +318,7 @@ def test_csr_graph_sparse_end_to_end_fast_ensemble():
     rec = tnet.NetworkReconstructor(
         source=tg.csr_graph_from_edges(edges), n_components=16,
         MCMC_iterations=8, sub_iterations=10, sample_size=200, batch_size=50,
-        k1=0, k2=2, num_chains=8, fast=True, seed=0, dtype=F64)
+        k1=0, k2=2, num_chains=8, fast=True, seed=0, dtype=F64, device="cpu")
     rec.train_dict()
     out = rec.reconstruct_network(recons_iter=8000, num_chains=32)
     assert out.ndim == 2 and out.shape[1] == 2
@@ -340,7 +340,7 @@ def test_wan_weighted_patches(weighted):
         adjacency=Wts + Wts.T, is_WAN=True, n_components=9,
         MCMC_iterations=5, sub_iterations=8, sample_size=64, batch_size=16,
         k1=0, k2=1, weighted_patches=weighted, is_glauber_recons=False,
-        dtype=F64)
+        dtype=F64, device="cpu")
     assert float(rec.G.weight.max()) == 1.0
     W = rec.train_dict()
     assert torch.isfinite(W).all() and (W >= 0).all()
@@ -358,7 +358,7 @@ def test_reconstructor_surface(tmp_path):
     rec = tnet.NetworkReconstructor(source=g, n_components=4,
                                     MCMC_iterations=2, sub_iterations=3,
                                     sample_size=20, batch_size=5, k1=0,
-                                    k2=1, dtype=F64)
+                                    k2=1, dtype=F64, device="cpu")
     assert rec.label_of(0) == 7 and rec.index_of(9) == 2
     with pytest.raises(ValueError, match="no reconstruction"):
         rec.recons_edges()
@@ -377,4 +377,4 @@ def test_reconstructor_surface(tmp_path):
     rec.W = np.ones((4, 4))
     assert rec.state.W.dtype == F64
     with pytest.raises(ValueError, match="source or adjacency"):
-        tnet.NetworkReconstructor()
+        tnet.NetworkReconstructor(device="cpu")

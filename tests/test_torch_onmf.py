@@ -31,7 +31,8 @@ def make_states(d=36, r=8, track_xxt=False, seed=0, **warm):
     W = RNG.random((d, r))
     js = jinit_state(jax.random.key(seed), d, r, track_xxt=track_xxt,
                      dtype=jnp.float64, W=W, **warm)
-    ts = init_state(seed, d, r, track_xxt=track_xxt, dtype=F64, W=W, **warm)
+    ts = init_state(seed, d, r, track_xxt=track_xxt, dtype=F64, W=W,
+                    device="cpu", **warm)
     return js, ts
 
 
@@ -143,7 +144,7 @@ def test_online_nmf_five_tuple_matches_jax():
                          ini_dict=W0, ini_C=C0, dtype=jnp.float64)
     draws = replay_draws(jn.state.key, 60, 5, 4, 10, False)
     tn = tonmf.OnlineNMF(X, n_components=5, iterations=4, batch_size=10,
-                         ini_dict=W0, ini_C=C0, dtype=F64)
+                         ini_dict=W0, ini_C=C0, dtype=F64, device="cpu")
     jout = jn.train_dict()
     tout = tn.train_dict(draws=draws)
     assert len(tout) == 5
@@ -156,7 +157,8 @@ def test_online_nmf_five_tuple_matches_jax():
 
 def test_online_nmf_shims_and_fit_restart():
     X = RNG.random((20, 40))
-    nmf = tonmf.OnlineNMF(X, n_components=4, iterations=3, dtype=F64)
+    nmf = tonmf.OnlineNMF(X, n_components=4, iterations=3, dtype=F64,
+                          device="cpu")
     W, A, B, C, H = nmf.train_dict()
     assert C is None and tuple(H.shape) == (4, 40)
     first = nmf.fit().state.W.clone()
@@ -168,10 +170,10 @@ def test_online_nmf_shims_and_fit_restart():
     nmf.partial_fit(X[:, :7])
     assert nmf.history == 4.0
     fista = tonmf.OnlineNMF(X, n_components=4, iterations=3, coder="fista",
-                            dtype=F64)
+                            dtype=F64, device="cpu")
     assert (fista.train_dict()[0] >= 0).all()
     with pytest.raises(ValueError, match="coder"):
-        tonmf.OnlineNMF(X, coder="fsita")
+        tonmf.OnlineNMF(X, coder="fsita", device="cpu")
 
 
 def test_state_from_numpy_round_trip_gives_same_step():
@@ -179,7 +181,7 @@ def test_state_from_numpy_round_trip_gives_same_step():
     js, _ = jonmf.train_dict(js, jnp.asarray(RNG.random((24, 30))),
                              iterations=3, batch_size=8)
     arrays = {k: np.asarray(getattr(js, k)) for k in ("W", "A", "B", "C")}
-    ts = state_from_numpy(**arrays, t=float(js.t), dtype=F64)
+    ts = state_from_numpy(**arrays, t=float(js.t), dtype=F64, device="cpu")
     back = state_to_numpy(ts)
     for k in arrays:
         np.testing.assert_array_equal(back[k], arrays[k])
@@ -194,4 +196,4 @@ def test_state_from_numpy_round_trip_gives_same_step():
 
 def test_warm_start_shape_check():
     with pytest.raises(ValueError, match="expected"):
-        init_state(0, 10, 4, W=np.zeros((10, 3)))
+        init_state(0, 10, 4, W=np.zeros((10, 3)), device="cpu")

@@ -48,6 +48,69 @@ def test_port_imports_without_jax_and_builds_nothing():
     assert out.stdout.strip() == "ok ImageReconstructor"
 
 
+def _entry_points(tmp_path):
+    """Each entry point with small arguments, called without a device."""
+    import numpy as np
+
+    import onmf_ontf_ndl_tpu_torch as p
+    from onmf_ontf_ndl_tpu_torch.apps.image import ImageReconstructor
+    from onmf_ontf_ndl_tpu_torch.apps.image_tensor import (
+        ImageReconstructorTensor)
+    from onmf_ontf_ndl_tpu_torch.apps.ising import IsingReconstructor
+    from onmf_ontf_ndl_tpu_torch.apps.network import NetworkReconstructor
+    from onmf_ontf_ndl_tpu_torch.models.ontf import OnlineNTF
+    from onmf_ontf_ndl_tpu_torch.models.state import (init_state,
+                                                      state_from_numpy)
+    from onmf_ontf_ndl_tpu_torch.utils.checkpoint import load_state
+
+    rng = np.random.default_rng(0)
+    img = rng.random((16, 16, 3))
+    ring = np.roll(np.eye(6), 1, axis=1)
+    W, A, B = rng.random((4, 2)), np.eye(2), rng.random((2, 4))
+    return {
+        p.OnlineNMF: lambda **kw: p.OnlineNMF(rng.random((4, 10)),
+                                              n_components=2, **kw),
+        OnlineNTF: lambda **kw: OnlineNTF(rng.random((4, 5, 3)),
+                                          n_components=2, **kw),
+        ImageReconstructor: lambda **kw: ImageReconstructor(
+            data=img, n_components=2, patch_size=4, **kw),
+        ImageReconstructorTensor: lambda **kw: ImageReconstructorTensor(
+            data=img, n_components=2, patch_size=4, **kw),
+        IsingReconstructor: lambda **kw: IsingReconstructor(
+            n_components=2, lattice_size=8, patch_size=4, **kw),
+        NetworkReconstructor: lambda **kw: NetworkReconstructor(
+            adjacency=ring + ring.T, n_components=2, k1=0, k2=2, **kw),
+        init_state: lambda **kw: init_state(0, 4, 2, **kw),
+        state_from_numpy: lambda **kw: state_from_numpy(W, A, B, None, 0.0,
+                                                        **kw),
+        load_state: lambda **kw: load_state(str(tmp_path / "none.npz"),
+                                            **kw),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "OnlineNMF", "OnlineNTF", "ImageReconstructor", "ImageReconstructorTensor",
+    "IsingReconstructor", "NetworkReconstructor", "init_state",
+    "state_from_numpy", "load_state"])
+def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
+    # the entry point defaults to device="cuda"; without CUDA a call that
+    # names no device raises rather than running on the CPU, and the same
+    # call with device="cpu" runs (load_state: up to the missing file)
+    import inspect
+
+    fn, call = next((fn, call) for fn, call in _entry_points(tmp_path).items()
+                    if fn.__name__ == name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    if name == "load_state":
+        with pytest.raises(FileNotFoundError):
+            call(device="cpu")
+    else:
+        call(device="cpu")
+
+
 def test_resolve_backend_by_tensor_device():
     x = torch.zeros(3)
     assert resolve_backend("auto", x) == "torch"

@@ -73,7 +73,7 @@ def test_online_ntf_train_dict_single_matches_jax():
     kw = dict(n_components=5, iterations=5, batch_size=8, ini_dict=W0,
               mode=0, sub_iterations=4)
     jn = jontf.OnlineNTF(X, dtype=jnp.float64, **kw)
-    tn = tontf.OnlineNTF(X, dtype=F64, **kw)
+    tn = tontf.OnlineNTF(X, dtype=F64, device="cpu", **kw)
     assert tuple(tn.X_unfold.shape) == tuple(jn.X_unfold.shape) == (6, 30)
     draws = replay_draws(jn.state.key, 30, 5, 5, 8, True)
     jout = jn.train_dict_single()
@@ -85,7 +85,7 @@ def test_online_ntf_train_dict_single_matches_jax():
     jn = jontf.OnlineNTF(X, n_components=4, learn_joint_dict=True, mode=2,
                          dtype=jnp.float64)
     tn = tontf.OnlineNTF(X, n_components=4, learn_joint_dict=True, mode=2,
-                         dtype=F64)
+                         dtype=F64, device="cpu")
     assert tuple(tn.X_unfold.shape) == (60, 3)
     H = tn.joint_sparse_code_tensor(tn.X_unfold, _t(RNG.random((60, 4))))
     assert tuple(H.shape) == (3, 4) and (H >= 0).all()
@@ -123,7 +123,7 @@ def test_train_tensor_matches_jax(color, mode, joint):
     n_cols = k * k * ch * num // d
     W = RNG.random((d, r))
     js = jinit_state(jax.random.key(2), d, r, dtype=jnp.float64, W=W)
-    ts = init_state(2, d, r, dtype=F64, W=W)
+    ts = init_state(2, d, r, dtype=F64, W=W, device="cpu")
     kw = dict(outer_iterations=outer, num_patches=num,
               inner_iterations=inner, batch_size=batch, patch_size=k,
               mode=mode, joint=joint, alpha=2.0, beta=1.0, sub_iter=100,
@@ -145,7 +145,7 @@ def sparse_dictionary(d, r):
 
 def _pair(**kw):
     return (japp.ImageReconstructorTensor(dtype=jnp.float64, **kw),
-            tapp.ImageReconstructorTensor(dtype=F64, **kw))
+            tapp.ImageReconstructorTensor(dtype=F64, device="cpu", **kw))
 
 
 def test_reconstruct_image_color_matches_jax():
@@ -178,10 +178,10 @@ def test_tensor_app_learns_joint_dictionary():
     rec = tapp.ImageReconstructorTensor(
         data=img, n_components=8, iterations=6, sub_iterations=3,
         batch_size=20, block_iterations=4, num_patches=40, patch_size=4,
-        learn_joint_dict=True, dtype=F64, seed=1)
+        learn_joint_dict=True, dtype=F64, seed=1, device="cpu")
     with pytest.raises(ValueError, match="joint"):
         rec.reconstruct_image_color(data=img)
-    W0 = init_state(1, 48, 8, dtype=F64).W
+    W0 = init_state(1, 48, 8, dtype=F64, device="cpu").W
     W = rec.train_dict(mode=2)
     assert tuple(W.shape) == (48, 8) and (W >= 0).all()
     assert rec.coder_sub_iter == 100 and rec.state.t == 6 * 3
