@@ -92,8 +92,8 @@ PATH_KERNELS = {
                 "dict_update_sweep"),
 }
 HEADLINE_N = 131072 + 37   # a ragged last tile
-# The card's published peaks (the on-chip-measurement guide's table, H100
-# SXM): device memory bytes/s and float32 operations/s outside the tensor
+# The card's published peaks (NVIDIA's H100 SXM datasheet): device memory
+# bytes/s and float32 operations/s outside the tensor
 # cores. Integer operations (the sampler's Philox) are counted against the
 # same 67e12/s: the table has no integer CUDA-core rate.
 PEAK_BYTES = 3.35e12
