@@ -1,11 +1,15 @@
-"""Device times of the port's coder and dictionary kernels at the paths'
-shapes, for comparing two versions of the package on one card.
+"""Device times of the port's coder, FISTA and dictionary kernels at the
+paths' shapes, for comparing two versions of the package on one card.
 
-    python3 chip_compare.py [ROOT] [TAG]
+    python3 chip_compare.py [ROOT] [TAG] [KERNEL ...]
 
 ROOT (default: this checkout) holds the ``onmf_ontf_ndl_tpu_torch``
 package to time, e.g. another commit unpacked with ``git archive`` into a
-directory that ``.gitignore`` lists; TAG labels its lines. Each kernel is
+directory that ``.gitignore`` lists; TAG labels its lines; KERNEL names
+(``dict``, ``coder``, ``fista``) keep the run to those tables, and ``iter``
+adds FISTA's cost per iteration (from calls of 1 and 21 iterations, fixed
+and with a stop of 0 that never converges) beside the call's fixed cost.
+Each kernel is
 timed as a CUDA graph of 20 calls, replayed three times; the least mean is
 kept. Inputs come from one seed, so two versions time the same work. To
 compare versions, run them in turns in one call (A, B, B, A). Prints one
@@ -21,8 +25,21 @@ import torch
 # (d, r) of the dictionary update: one warp's worth of rows (d = 32), then
 # the main path and image app, network (a), Ising and tensor paths
 DICT_SHAPES = [(32, 25), (300, 25), (441, 25), (400, 100), (1200, 100)]
-# (r, n) of the coders: the main path's batch and headline n, Ising
-CODER_SHAPES = [(25, 16384), (25, 131072 + 37), (100, 1000)]
+# (r, n) of the sweep coders: the main path's batch and headline n, network
+# (b) training, Ising
+CODER_SHAPES = [(25, 16384), (25, 131072 + 37), (25, 500), (100, 1000)]
+# FISTA: 10 fixed iterations at the main path's shapes; up to 100 with the
+# 0.01 stop at the tensor path's (training, colour reconstruction), and
+# training's with the bf16 product
+FISTA_MODES = {
+    "fixed": dict(sub_iter=10, use_stopping=False),
+    "stop": dict(sub_iter=100),
+    "bf16": dict(sub_iter=100, bf16_matmul=True),
+}
+FISTA_SHAPES = [(25, 16384, "fixed"), (25, 131072 + 37, "fixed"),
+                (100, 100, "stop"), (100, 252004, "stop"),
+                (100, 100, "bf16")]
+ITER_SHAPES = [(25, 16384), (25, 131072 + 37), (100, 100)]
 
 
 def graph_ms(fn, reps=20, replays=3):
@@ -54,6 +71,7 @@ def main():
         sys.exit(1)
     root = Path(sys.argv[1] if len(sys.argv) > 1 else ".").resolve()
     tag = sys.argv[2] if len(sys.argv) > 2 else root.name
+    only = sys.argv[3:] or ["dict", "coder", "fista"]
     sys.path.insert(0, str(root))
     from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel as ck
 
@@ -62,7 +80,7 @@ def main():
     ck.build()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    for d, r in DICT_SHAPES:
+    for d, r in DICT_SHAPES if "dict" in only else []:
         W = torch.rand((d, r), generator=gen).to(dev)
         A = torch.rand((r, r), generator=gen).to(dev)
         B = torch.rand((r, d), generator=gen).to(dev)
@@ -70,18 +88,35 @@ def main():
                           "d": d, "r": r, "ms": graph_ms(
                               lambda: ck.dict_update_sweep(W, A, B))}),
               flush=True)
-    for r, n in CODER_SHAPES:
+    def gram_inputs(r, n):
         W = torch.rand((300, r), generator=gen)
         W = (W / W.norm(dim=0)).to(dev)
         X = torch.rand((300, n), generator=gen).to(dev)
-        H0 = torch.rand((r, n), generator=gen).to(dev)
-        A, B = W.T @ W, W.T @ X
+        return W.T @ W, W.T @ X, torch.rand((r, n), generator=gen).to(dev)
+
+    for r, n in CODER_SHAPES if "coder" in only else []:
+        A, B, H0 = gram_inputs(r, n)
         line = {"version": tag, "r": r, "n": n}
         line["coder_sweeps_earlystop"] = graph_ms(
             lambda: ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01))
         line["coder_sweeps"] = graph_ms(lambda: ck.coder_sweeps(A, B, H0, 0.1))
-        line["fista_sweeps"] = graph_ms(lambda: ck.fista_sweeps(
-            A, B, H0, 0.1, 0.01, sub_iter=10, use_stopping=False))
+        print(json.dumps(line), flush=True)
+    for r, n, mode in FISTA_SHAPES if "fista" in only else []:
+        A, B, H0 = gram_inputs(r, n)
+        print(json.dumps({
+            "version": tag, "kernel": "fista_sweeps", "mode": mode, "r": r,
+            "n": n, "ms": graph_ms(lambda: ck.fista_sweeps(
+                A, B, H0, 0.1, 0.01, **FISTA_MODES[mode]))}), flush=True)
+    for r, n in ITER_SHAPES if "iter" in only else []:
+        A, B, H0 = gram_inputs(r, n)
+        line = {"version": tag, "kernel": "fista_sweeps", "per": "iteration",
+                "r": r, "n": n}
+        for mode, stop in (("fixed", False), ("stop", True)):
+            one, many = (graph_ms(lambda: ck.fista_sweeps(
+                A, B, H0, 0.1, 0.0, sub_iter=it, use_stopping=stop))
+                for it in (1, 21))
+            line[mode + "_one_iteration_ms"] = one
+            line[mode + "_us_per_iteration"] = 1e3 * (many - one) / 20
         print(json.dumps(line), flush=True)
 
 

@@ -16,9 +16,9 @@ Phases, each printing its findings on a line of its own:
              workspace kernels) at r in {128, 256}, and 101 for the
              stopping modes, n = 131072 + 37; the checkerboard sampler at
              n in {200, 4096}, 100 sweeps, equal site for site, and two
-             physics checks at n = 4096. Then the dictionary and early-stop
-             kernels at the paths' shapes (``PATH_SHAPES``), each with its
-             route, device time, bound and share of the bound. Kernel times
+             physics checks at n = 4096. Then the dictionary kernel and the
+             three coders at the paths' shapes (``PATH_SHAPES``), each with
+             its route, device time, bound and share of the bound. Kernel times
              are device times: a CUDA graph of 20 calls, replayed; the plain
              versions (host loops that synchronise) and the sampler (200
              launches a call) are timed by CUDA events around a few calls.
@@ -98,13 +98,25 @@ HEADLINE_N = 131072 + 37   # a ragged last tile
 # same 67e12/s: the table has no integer CUDA-core rate.
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-# The dictionary and early-stop kernels at the shapes their paths give
-# them: main path and image app (d = 300, r = 25; batch 16384 and the
-# headline n), the network path (d = 441, r = 25), Ising (d = 400, r = 100,
-# 1000 patches) and tensor (d = 1200, r = 100) paths.
+# The kernels at the shapes their paths give them: main path and image app
+# (d = 300, r = 25; batch 16384 and the headline n), the network path
+# (d = 441, r = 25; 500 samples a step), Ising (d = 400, r = 100, 1000
+# patches) and tensor (d = 1200, r = 100; 100 patches a step, 252,004 in
+# the colour reconstruction) paths. FISTA: (r, n, mode of FISTA_MODES).
 PATH_SHAPES = {
     "dict_update_sweep": [(300, 25), (441, 25), (400, 100), (1200, 100)],
     "coder_sweeps_earlystop": [(25, 16384), (25, HEADLINE_N), (100, 1000)],
+    "coder_sweeps": [(25, 16384), (25, HEADLINE_N), (25, 500), (100, 1000)],
+    "fista_sweeps": [(25, 16384, "fixed"), (25, HEADLINE_N, "fixed"),
+                     (100, 100, "stop"), (100, 252004, "stop"),
+                     (100, 100, "bf16")],
+}
+# 10 fixed iterations (the main path's FISTA step); the tensor path's up to
+# 100 iterations with the 0.01 stop, in f32 and with the bf16 product
+FISTA_MODES = {
+    "fixed": dict(sub_iter=10, use_stopping=False),
+    "stop": dict(sub_iter=100),
+    "bf16": dict(sub_iter=100, bf16_matmul=True),
 }
 
 
@@ -155,20 +167,23 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def coder_bound(name, r, n, args, kw):
+def coder_bound(name, r, n, args, kw, sweeps=None):
     """A coder's bound at (r, n): A, B and H0 read and H written once; the
-    sweeps' and iterations' 2 r^2 operations per column (10 of them), and
-    for the early stop, over the column-sweeps its tiles ran on these
-    inputs, 2 r (r + 1) more for the two Grams."""
-    ops = 2 * r * r * n * kw.get("sub_iter", 10)
-    if name == "coder_sweeps_earlystop":
-        from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
-            TN, coder_sweeps_earlystop_plain)
+    sweeps' and iterations' 2 r^2 operations per column (``sub_iter`` of
+    them), and for the early stop and FISTA with the stop, over the
+    column-sweeps its tiles ran on these inputs (``sweeps`` per tile, from
+    the plain version when not given), 2 r (r + 1) more for the two
+    Grams."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel as ck
 
-        _, sweeps = coder_sweeps_earlystop_plain(*args, **kw,
-                                                 with_sweeps=True)
-        cols = torch.full_like(sweeps, TN)
-        cols[-1] = n - TN * (len(cols) - 1)
+    ops = 2 * r * r * n * kw.get("sub_iter", 10)
+    if name == "coder_sweeps_earlystop" or (
+            name == "fista_sweeps" and kw.get("use_stopping", True)):
+        if sweeps is None:
+            _, sweeps = getattr(ck, name + "_plain")(*args, **kw,
+                                                     with_sweeps=True)
+        cols = torch.full_like(sweeps, ck.TN)
+        cols[-1] = n - ck.TN * (len(cols) - 1)
         ops = int((sweeps * cols).sum()) * (2 * r * r + 2 * r * (r + 1))
     return bound(4 * (r * r + 3 * r * n), ops)
 
@@ -317,12 +332,32 @@ def phase_kernels(ck, dev):
     return summary
 
 
+def gram_inputs(r, n, gen, dev, d=300):
+    """(A, B, H0) of a coder at (r, n): Grams of a normalised random
+    dictionary and random data."""
+    W = torch.rand((d, r), generator=gen)
+    W = (W / W.norm(dim=0)).to(dev)
+    X = torch.rand((d, n), generator=gen).to(dev)
+    return W.T @ W, W.T @ X, torch.rand((r, n), generator=gen).to(dev)
+
+
 def path_shape_kernels(ck, dev, gen):
-    """The dictionary and early-stop kernels at PATH_SHAPES against their
+    """The dictionary kernel and the coders at PATH_SHAPES against their
     plain versions, with their route, device time, bound and share: the
-    dictionary on an asymmetric A (any A must match), the early stop at
+    dictionary on an asymmetric A (any A must match), the coders at
     alpha = 0.1 and the default stop 0.01."""
     lib = ck.build()["lib"]
+    for r, use_stopping in [(r, s) for r in (1, 25, 33, 100) for s in (0, 1)
+                            ] + [(128, 0)]:
+        if lib.onmf_fista_sweeps_smem(r, use_stopping) \
+                != ck.fista_tile_config(r, bool(use_stopping))[3]:
+            raise AssertionError(f"fista_tile_config's shared-memory size "
+                                 f"at r={r} differs from the kernel's")
+    for r in (1, 16, 25, 33, 100, 128):
+        L, Q, _ = ck.coder_lanes_config(r)
+        if lib.onmf_coder_sweeps_smem(r) != 4 * r * L * Q:
+            raise AssertionError(f"coder_lanes_config at r={r} differs "
+                                 "from the kernel's lanes")
     for d, r in PATH_SHAPES["dict_update_sweep"]:
         rows = -(-d // max(ck.dict_route(d, r)[1], 1))
         if lib.onmf_dict_smem_floats(rows, r) != ck._dict_smem_floats(rows, r):
@@ -347,11 +382,7 @@ def path_shape_kernels(ck, dev, gen):
                               3),
              bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
     for r, n in PATH_SHAPES["coder_sweeps_earlystop"]:
-        W = torch.rand((300, r), generator=gen)
-        W = (W / W.norm(dim=0)).to(dev)
-        X = torch.rand((300, n), generator=gen).to(dev)
-        args = (W.T @ W, W.T @ X, torch.rand((r, n), generator=gen).to(dev),
-                0.1, 0.01)
+        args = (*gram_inputs(r, n, gen, dev), 0.1, 0.01)
         before = ck.LAUNCHES["coder_sweeps_earlystop"]
         got = ck.coder_sweeps_earlystop(*args)
         if ck.LAUNCHES["coder_sweeps_earlystop"] != before + 1:
@@ -366,6 +397,64 @@ def path_shape_kernels(ck, dev, gen):
              loop_ms=cuda_ms(lambda: ck.coder_sweeps_earlystop(*args), 20),
              plain_ms=cuda_ms(
                  lambda: ck.coder_sweeps_earlystop_plain(*args), 3),
+             bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
+    for r, n in PATH_SHAPES["coder_sweeps"]:
+        args = (*gram_inputs(r, n, gen, dev), 0.1)
+        before = ck.LAUNCHES["coder_sweeps"]
+        got = ck.coder_sweeps(*args)
+        if ck.LAUNCHES["coder_sweeps"] != before + 1:
+            raise AssertionError(f"coder_sweeps r={r}: no launch")
+        err = compare(f"coder_sweeps r={r} n={n}", got,
+                      ck.coder_sweeps_plain(*args))
+        ms = graph_ms(lambda: ck.coder_sweeps(*args))
+        bound_ms, by = coder_bound("coder_sweeps", r, n, args, {})
+        emit("kernels", kernel="coder_sweeps", r=r, n=n, d=300,
+             route=ck.kernel_route("coder_sweeps", r),
+             lanes=list(ck.coder_lanes_config(r)), max_abs_err=err,
+             atol=TOL["atol"], rtol=TOL["rtol"], ms=ms,
+             loop_ms=cuda_ms(lambda: ck.coder_sweeps(*args), 20),
+             plain_ms=cuda_ms(lambda: ck.coder_sweeps_plain(*args), 3),
+             bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
+    for r, n, mode in PATH_SHAPES["fista_sweeps"]:
+        args = (*gram_inputs(r, n, gen, dev), 0.1, 0.01)
+        kw = FISTA_MODES[mode]
+        label = f"fista_sweeps {mode} r={r} n={n}"
+        before = ck.LAUNCHES["fista_sweeps"]
+        got = ck.fista_sweeps(*args, **kw)
+        if ck.LAUNCHES["fista_sweeps"] != before + 1:
+            raise AssertionError(f"{label}: no launch")
+        # the plain version once: a host loop over up to 100 iterations
+        (want, sweeps), plain_ms = timed_once(
+            lambda: ck.fista_sweeps_plain(*args, **kw, with_sweeps=True))
+        if mode == "bf16":
+            # with the stop, a bf16 rounding can move a tile's stopping
+            # iteration: the kernel is held to the plain version under the
+            # two bf16 checks of phase 2 (one iteration; ten fixed ones)
+            one = dict(sub_iter=1, use_stopping=False, bf16_matmul=True)
+            compare(label + " one iteration", ck.fista_sweeps(*args, **one),
+                    ck.fista_sweeps_plain(*args, **one))
+            ten = dict(one, sub_iter=10)
+            tol = BF16_TOL
+            err = compare(label + " ten iterations",
+                          ck.fista_sweeps(*args, **ten),
+                          ck.fista_sweeps_plain(*args, **ten), tol)
+            if not bool(torch.isfinite(got).all() and (got >= 0).all()):
+                raise AssertionError(f"{label}: bad output")
+        else:
+            tol = TOL
+            err = compare(label, got, want)
+        ms = graph_ms(lambda: ck.fista_sweeps(*args, **kw),
+                      reps=20 if n < 100000 else 5)
+        bound_ms, by = coder_bound("fista_sweeps", r, n, args, kw, sweeps)
+        emit("kernels", kernel="fista_sweeps", mode=mode, r=r, n=n, d=300,
+             route=ck.kernel_route(
+                 "fista_sweeps_stop" if kw.get("use_stopping", True)
+                 else "fista_sweeps", r),
+             tile=list(ck.fista_tile_config(
+                 r, kw.get("use_stopping", True))[:3]),
+             iterations_mean=float(sweeps.float().mean()),
+             iterations_max=int(sweeps.max()), max_abs_err=err,
+             atol=tol["atol"], rtol=tol["rtol"], ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
 
 

@@ -20,8 +20,10 @@ packed bits, so all three representations give the same draws.
 Index arrays are int64 (torch indexes with int64; pair keys ``i * n + j``
 never wrap). ``bits`` holds the JAX package's uint32 words as int32
 (torch has no uint32 arithmetic); the bit patterns are the same. Every
-constructor takes ``device=``; the host arrays of the CSR constructors
-are kept for :func:`host_csr`.
+constructor and loader takes ``device=`` and defaults to ``"cuda"``
+(raising where there is no CUDA device; a CPU run passes
+``device="cpu"``); the host arrays of the CSR constructors are kept for
+:func:`host_csr`.
 
 Left out, because they exist for the TPU: the padded ``nbr_pad_T`` table
 (``graphs.py:266,317``) and its byte gates, the on-device bitset and table
@@ -36,6 +38,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from onmf_ontf_ndl_tpu_torch.models.state import entry_device
 
 __all__ = ["Graph", "BitsetGraph", "CsrGraph", "graph_from_edgelist",
            "graph_from_adjacency", "load_edgelist", "load_edgelist_dense",
@@ -166,12 +170,13 @@ def _build(adj_np: np.ndarray, weight_np, node_ids, device) -> Graph:
 
 
 def graph_from_edgelist(edges, num_nodes: int | None = None, *,
-                        device="cpu") -> Graph:
+                        device="cuda") -> Graph:
     """A simple undirected :class:`Graph` from an (E, 2) edge array.
 
     Labels may be arbitrary ints; indices go by first appearance.
     ``num_nodes`` may only pad with isolated nodes (labelled by their
     index); fewer nodes than distinct labels is an error."""
+    device = entry_device(device)
     e, node_ids = _intern_edges(edges)
     n = len(node_ids) if num_nodes is None else int(num_nodes)
     if n < len(node_ids):
@@ -186,12 +191,13 @@ def graph_from_edgelist(edges, num_nodes: int | None = None, *,
 
 
 def graph_from_adjacency(A, *, normalize: bool = False,
-                         device="cpu") -> Graph:
+                         device="cuda") -> Graph:
     """A :class:`Graph` from a (weighted) adjacency matrix.
 
     ``normalize=True`` divides by the maximum (the WAN convention). The
     structure is ``A > 0`` symmetrized; the weight of pair (i, j) is
     ``A[i, j]`` when that direction is present, else ``A[j, i]``."""
+    device = entry_device(device)
     A = np.array(A, np.float64)
     if normalize and A.max() > 0:
         A = A / A.max()
@@ -203,11 +209,12 @@ def graph_from_adjacency(A, *, normalize: bool = False,
 
 
 def load_edgelist(path: str, delimiter: str = ",", use_native: str = "auto",
-                  *, device="cpu") -> Graph:
+                  *, device="cuda") -> Graph:
     """A :class:`Graph` from an integer edge-list file. ``use_native``:
     ``"auto"`` parses with the C++ loader (``native/graph_loader.cpp``)
     when it builds here and with numpy otherwise, ``"always"`` raises
     without it, ``"never"`` takes numpy; both give the same graph."""
+    device = entry_device(device)
     if use_native in ("auto", "always"):
         from onmf_ontf_ndl_tpu_torch.data.native import load_edgelist_native
 
@@ -254,8 +261,9 @@ def _parse_edge_file(path: str, delimiter: str = ",") -> np.ndarray:
 
 
 def load_edgelist_csr(path: str, delimiter: str = ",",
-                      use_native: str = "auto", *, device="cpu") -> CsrGraph:
+                      use_native: str = "auto", *, device="cuda") -> CsrGraph:
     """Edge-list file -> :class:`CsrGraph`."""
+    device = entry_device(device)
     return csr_graph_from_edges(_parse_edge_file(path, delimiter),
                                 use_native=use_native, device=device)
 
@@ -273,8 +281,9 @@ def load_edgelist_dense(path: str, delimiter: str = ",") -> np.ndarray:
 
 
 def load_edgelist_bitset(path: str, delimiter: str = ",", *,
-                         device="cpu") -> BitsetGraph:
+                         device="cuda") -> BitsetGraph:
     """Edge-list file -> :class:`BitsetGraph`."""
+    device = entry_device(device)
     edges = np.genfromtxt(path, delimiter=delimiter, dtype=np.int64)
     return bitset_graph_from_edges(edges, device=device)
 
@@ -350,9 +359,10 @@ def _host_csr_build(edges, use_native: str = "auto"):
 
 
 def csr_graph_from_edges(edges, *, use_native: str = "auto",
-                         device="cpu") -> CsrGraph:
+                         device="cuda") -> CsrGraph:
     """A :class:`CsrGraph` from an (E, 2) edge array: O(E) host work and
     device memory. ``use_native`` as in :func:`load_edgelist`."""
+    device = entry_device(device)
     dst, offsets, deg, node_ids, max_deg = _host_csr_build(edges, use_native)
     return CsrGraph(
         nbr_flat=torch.as_tensor(dst, device=device),
@@ -363,9 +373,10 @@ def csr_graph_from_edges(edges, *, use_native: str = "auto",
 
 
 def bitset_graph_from_edges(edges, *, use_native: str = "auto",
-                            device="cpu") -> BitsetGraph:
+                            device="cuda") -> BitsetGraph:
     """A :class:`BitsetGraph` from an (E, 2) edge array, never forming the
     dense adjacency; the packed rows are built on the host."""
+    device = entry_device(device)
     dst, offsets, deg, node_ids, max_deg = _host_csr_build(edges, use_native)
     n = len(node_ids)
     src = np.repeat(np.arange(n, dtype=np.int64), deg)

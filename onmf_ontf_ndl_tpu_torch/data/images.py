@@ -12,13 +12,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from onmf_ontf_ndl_tpu_torch.models.state import entry_device
+
 __all__ = ["load_image", "downscale_local_mean"]
 
 
 def load_image(path: str, *, is_matrix: bool = False, is_color: bool = True,
-               dtype=torch.float32, device="cpu") -> torch.Tensor:
+               dtype=torch.float32, device="cuda") -> torch.Tensor:
     """Read an image (or a saved +-1 matrix) as a [0, 1] tensor on
-    ``device``."""
+    ``device`` (the card by default; a CPU run passes ``device="cpu"``)."""
+    device = entry_device(device)
     if is_matrix:
         data = (np.load(path) + 1.0) / 2.0
     else:

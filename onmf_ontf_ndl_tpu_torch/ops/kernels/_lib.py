@@ -119,6 +119,8 @@ def build() -> dict:
     lib.onmf_tile_columns.argtypes = []
     for fn, args in ((lib.onmf_earlystop_slice_floats, [i]),
                      (lib.onmf_dict_smem_floats, [i, i]),
+                     (lib.onmf_coder_sweeps_smem, [i]),
+                     (lib.onmf_fista_sweeps_smem, [i, i]),
                      (lib.onmf_fista_head_floats, [i]),
                      (lib.onmf_fista_slice_floats, [i, i])):
         fn.argtypes = args

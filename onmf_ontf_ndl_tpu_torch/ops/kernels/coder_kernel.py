@@ -8,14 +8,21 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
 
 - :func:`coder_sweeps` replaces the TPU ``coder_sweeps`` (``:192``):
   exactly ``sub_iter`` Gauss-Seidel nonnegative-LASSO row sweeps from Gram
-  form. One thread per column of H; the column lives in shared memory and
-  A in shared memory, read by every thread as a broadcast. What bounds it
-  on the card: the ``sub_iter * r^2`` dependent multiply-adds per column,
-  each with a shared-memory load (the B/H0/H traffic is ~39 MB per call at
-  n = 131072, r = 25: ~12 us at HBM speed). Columns are independent, so
-  the design needs no barrier after the load and keeps thousands of
-  threads in flight to hide the shared-memory latency. Shared-memory
-  form: r <= 128.
+  form. The shared-memory kernel (``coder_lanes_kernel``, r <= 128) is the
+  early-stop kernel's sweep without the stop: each pair of columns has two
+  lanes (four past r = 32), each holding its rows of the columns' ``h`` and
+  of the residuals ``g = A h - b`` in registers from ``H0`` to the output.
+  A coordinate step is the owner's candidate, one shuffle of its delta and
+  independent multiply-adds per lane, each value of A (transposed in
+  shared memory, read as ``float4``) serving both columns; there is no
+  tile in shared memory and no barrier after the load, so several blocks
+  share an SM. ``g`` is formed anew from ``A h - b`` every 16 sweeps up to
+  r = 32 and every sweep past it (:func:`coder_lanes_config`): carried in
+  float32 over ten sweeps at r = 128 it drifts 5e-5 from the plain
+  version, past the tolerance. What bounds it on the card: the
+  ``sub_iter * r^2`` multiply-adds per column on the CUDA cores, and within
+  a column the chain of r coordinate steps a sweep (the B/H0/H traffic is
+  ~39 MB per call at n = 131072, r = 25: ~12 us at HBM speed).
 - :func:`coder_sweeps_earlystop` replaces ``coder_sweeps_earlystop``
   (``:455``): the same sweeps with the reference's relative spectral-change
   stop decided per column tile of **TN = 128 columns** (one thread block).
@@ -40,27 +47,36 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   3 r^2 + 2 r (TN + 1) + 5 r floats) limits it to r <= 100.
 - :func:`fista_sweeps` replaces ``fista_sweeps`` (``:579``): accelerated
   projected gradient ``H <- max(0, Y - (A Y - B + alpha) / L)`` with
-  Nesterov momentum, one block per tile of **TN = 128 columns** and one
-  thread per column; A and the H and Y tiles live in shared memory, and a
-  thread forms its column of ``A Y`` from broadcast reads of A (stored
-  transposed, four rows of the product per pass). ``1 / L``
-  (``L = 1.02 lambda_max(A) + 1e-12``, 16 power steps from
-  :func:`_fixed_start`) is computed once per call, outside the sweep
-  kernel: by one warp in a launch of its own on the card (one launch in
-  place of ~100 small PyTorch ones), by :func:`_inv_lipschitz` in the
-  plain version.
-  ``use_stopping`` stops each tile on the early-stop kernel's rule (the same
-  device code), on the Grams of the step delta and the old iterate, and the
-  tile's momentum stops with it. As for the early stop, the tile is part of
-  the semantics: the Pallas tile is as wide as VMEM allows (up to 13056
+  Nesterov momentum, one block per tile of **TN = 128 columns**. The
+  shared-memory kernel (``fista_tiled_kernel``) forms the (r, TN) product
+  ``A Y`` as a register-tiled matrix product over the whole block: one
+  thread per 4 rows x 8 columns of the output (128 threads at r = 25, 416
+  at r = 100, so a one-tile call fills an SM's schedulers), each step of
+  the sum taking one ``float4`` of A (transposed in shared memory) and two
+  of Y for 32 multiply-adds. Y lives in shared memory row-major, H
+  transposed, B's entries of a thread's outputs in registers; a barrier
+  separates the product from the update of Y and the update from the next
+  product. ``1 / L`` (``L = 1.02 lambda_max(A) + 1e-12``, 16 power steps
+  from :func:`_fixed_start`) is computed once per call, outside the sweep
+  kernel: by one block in a launch of its own on the card (each product's
+  rows over the warps), by :func:`_inv_lipschitz` in the plain version.
+  ``use_stopping`` stops each tile on the early-stop kernel's rule: the
+  step delta is written, transposed, over the spent Y, both Grams come
+  from one pass over 4 x 4 register blocks of their upper triangles, and
+  the decision is the early-stop kernel's, each Gram's power steps on half
+  of the block's warps (one thread per row). The tile's momentum stops
+  with it. As for the early stop, the tile is part of the
+  semantics: the Pallas tile is as wide as VMEM allows (up to 13056
   columns at r = 25, 3968 at r = 100), this one is 128. ``bf16_matmul``
-  rounds A and Y to bf16 before the multiply-add and accumulates in f32.
-  What bounds it: the ``r^2`` multiply-adds per column and iteration, each
-  with a shared-memory load, on the CUDA cores. Its inner loop is a real
-  matrix product, so tensor cores are the next step. Shared memory:
-  ``r R4 + 2 r (TN + 1)`` floats for fixed sweeps (``R4`` = r rounded up
-  to a multiple of 4; r <= 128), plus both Grams and five vectors for the
-  stop (r <= 100, one block per SM at r = 100).
+  rounds A and Y to bf16 before the multiply-add and accumulates in f32,
+  each output summed in order. What bounds it: the ``r^2`` multiply-adds
+  per column and iteration, and as many again for the Grams with the stop,
+  on the CUDA cores (float32: the tensor cores' TF32 product does not hold
+  the tolerance over 100 iterations, and the Grams feed a threshold).
+  Shared memory: ``r R4 + 2 TN RS`` floats for fixed iterations (``R4`` =
+  r rounded up to a multiple of 4, ``RS`` = ``R4`` or ``R4 + 4``, whichever
+  has an odd quarter; r <= 128), plus both Grams and six vectors for the
+  stop (r <= 100: 225 KB, one block per SM).
 - :func:`dict_update_sweep` replaces ``dict_update_sweep`` (``:629``): one
   column-BCD pass over W in residual form. ``G = W A - B^T`` is formed
   once in shared memory; column j then needs ``G[:, j]`` and the input
@@ -74,13 +90,14 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   (:func:`dict_route`); past the cluster's shared memory the single-block
   kernel (W in device memory, threads over the rows) runs.
 
-**Ranks.** Each coder kernel has two instantiations of the same device
-code, chosen by :func:`kernel_route` from r alone: ``"shared"`` keeps A,
-the tiles and the Grams in one block's shared memory (the limits above,
-:data:`SMEM_MAX_RANK`); ``"workspace"`` reads A from device memory (L2)
-and keeps the tiles, the Grams and the power vectors in a device
-workspace, one slice per resident block, the grid striding over the
-tiles (``coder_sweeps`` sweeps each column in place in its output). Both
+**Ranks.** Each coder has two kernels, chosen by :func:`kernel_route`
+from r alone: ``"shared"`` keeps A, the tiles and the Grams in one block's
+shared memory and registers (the kernels above; the limits are
+:data:`SMEM_MAX_RANK`); ``"workspace"`` runs one thread per column, reads
+A from device memory (L2) and keeps the tiles, the Grams and the power
+vectors in a device workspace, one slice per resident block, the grid
+striding over the tiles (``coder_sweeps`` sweeps each column in place in
+its output). Both
 serve every r up to :data:`MAX_RANK` = 1248, the largest r whose Gram the
 JAX wrappers keep in their kernel (``round_up(r, 8)^2 * 4 B <= 6 MiB``,
 ``pallas/coder_kernel.py:147``). Past it the wrappers do what the JAX
@@ -112,16 +129,17 @@ __all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
            "dict_update_sweep", "coder_sweeps_plain",
            "coder_sweeps_earlystop_plain", "fista_sweeps_plain",
            "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
-           "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route", "dict_route"]
+           "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route", "dict_route",
+           "coder_lanes_config", "fista_tile_config"]
 
 # Largest rank each coder runs as a kernel: the JAX kernels' limit
 # round_up(r, 8)^2 * 4 B <= 6 MiB, for every mode.
 MAX_RANK = 1248
 # Largest rank of each shared-memory kernel; the workspace kernel above it.
 SMEM_MAX_RANK = {
-    "coder_sweeps": 128,            # A + the (r, TN) tile
+    "coder_sweeps": 128,            # 4 lanes of 32 rows in registers
     "coder_sweeps_earlystop": 100,  # 3 r^2 + 2 r (TN + 1) floats in 227 KB
-    "fista_sweeps": 128,            # A + the H and Y tiles; hn[128]
+    "fista_sweeps": 128,            # 512 threads of 4 x 8 outputs
     "fista_sweeps_stop": 100,       # + both Grams, as the early stop
 }
 # Workspace of the workspace kernels: at most this many bytes of slices,
@@ -139,6 +157,42 @@ def kernel_route(name: str, r: int) -> str:
     if r <= SMEM_MAX_RANK[name]:
         return "shared"
     return "workspace" if r <= MAX_RANK else "unfused"
+
+
+def coder_lanes_config(r: int) -> tuple[int, int, int]:
+    """``(L, Q, reform)`` of the shared-memory :func:`coder_sweeps` kernel
+    at rank ``r``, from ``r`` alone (csrc ``es_lanes``,
+    ``cs_rows_per_lane``, ``CS_REFORM``): L lanes per pair of columns, Q
+    rows of ``h`` and ``g = A h - b`` per lane, and ``g`` formed anew every
+    ``reform`` sweeps."""
+    if not 1 <= r <= SMEM_MAX_RANK["coder_sweeps"]:
+        raise ValueError(f"no shared-memory coder_sweeps kernel at r={r}")
+    L = 2 if r <= 32 else 4
+    Q = 8 if r <= 16 else 16 if r <= 64 else 25 if r <= 100 else 32
+    return L, Q, (16 if L * Q <= 32 else 1)
+
+
+def fista_tile_config(r: int, use_stopping: bool = False):
+    """``(threads, row_stride, gram_lanes, smem_bytes)`` of the
+    shared-memory :func:`fista_sweeps` kernel at rank ``r``, from ``r`` and
+    the mode alone (csrc ``ft_threads``, ``ft_row_stride``,
+    ``ft_smem_floats``): one thread per 4 x 8 outputs of the (r, TN) tile
+    in whole warps (at least two), the transposed tiles' row stride (a
+    multiple of 4 with an odd quarter), the lanes that share a 4 x 4 block
+    of the Grams (as many of 4, 2, 1 as the threads allow), and the
+    block's shared memory."""
+    name = "fista_sweeps_stop" if use_stopping else "fista_sweeps"
+    if not 1 <= r <= SMEM_MAX_RANK[name]:
+        raise ValueError(f"no shared-memory {name} kernel at r={r}")
+    nb = -(-r // 4)
+    threads = max(64, -(-nb * (TN // 8) // 32) * 32)
+    stride = 4 * nb if nb % 2 else 4 * nb + 4
+    blocks = nb * (nb + 1) // 2
+    lanes = 4 if 4 * blocks <= threads else 2 if 2 * blocks <= threads else 1
+    floats = r * 4 * nb + 2 * TN * stride
+    if use_stopping:
+        floats += 2 * r * r + 6 * r
+    return threads, stride, lanes, 4 * floats
 
 
 # The dictionary kernel (csrc dict_lanes, dict_threads, dict_smem_floats):
@@ -515,19 +569,25 @@ def coder_sweeps_earlystop_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,
 
 def fista_sweeps_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,
                        sub_iter: int = 10, use_stopping: bool = True,
-                       pi_iters: int = 12, bf16_matmul: bool = False):
+                       pi_iters: int = 12, bf16_matmul: bool = False,
+                       with_sweeps: bool = False):
     """Plain PyTorch :func:`fista_sweeps`: fixed iterations as
     ``ops.coder._fista_impl``; with ``use_stopping`` the kernel's per-tile
     rule at the same tile width :data:`TN`, all tiles batched, each tile
-    with its own momentum."""
+    with its own momentum. ``with_sweeps`` also returns the iterations
+    each tile ran, a (tiles,) int64 tensor."""
     from onmf_ontf_ndl_tpu_torch.ops.coder import _fista_fixed, _fista_grad
 
     inv_L = _inv_lipschitz(A, max(16, pi_iters))
-    if not use_stopping:
-        return _fista_fixed(A, B, H0, alpha, inv_L, sub_iter, bf16_matmul)
     r, n = B.shape
+    if not use_stopping:
+        H = _fista_fixed(A, B, H0, alpha, inv_L, sub_iter, bf16_matmul)
+        sweeps = torch.full((-(-n // TN),), sub_iter, dtype=torch.int64,
+                            device=B.device)
+        return (H, sweeps) if with_sweeps else H
     H, Bp, pad = _padded(B, H0)
     tiles = H.shape[1] // TN
+    sweeps = torch.zeros(tiles, dtype=torch.int64, device=B.device)
     Y = H.clone()
     tmom = torch.ones(tiles, dtype=B.dtype, device=B.device)
     stop = _TileStop(tiles, r, stopping_diff, pi_iters, B.dtype, B.device)
@@ -541,8 +601,10 @@ def fista_sweeps_plain(A, B, H0, alpha=0.0, stopping_diff=0.01, *,
         Hn = torch.where(pad, 0.0, Hn)
         D = Hn - H
         live = ~stop.conv
+        sweeps += live
         cols = live.repeat_interleave(TN)
         stop.update(D, H)
         H, Y = torch.where(cols, Hn, H), torch.where(cols, Hn + mom * D, Y)
         tmom = torch.where(live, tn, tmom)
-    return H[:, :n].contiguous()
+    H = H[:, :n].contiguous()
+    return (H, sweeps) if with_sweeps else H

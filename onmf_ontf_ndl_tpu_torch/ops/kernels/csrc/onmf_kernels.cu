@@ -12,15 +12,15 @@
 //
 // Each coder has a form in shared memory and a workspace form, chosen by
 // the wrapper from the rank alone:
-//   shared: A, the (r, TN) tiles and the (r, r) Grams in one block's shared
-//     memory, one block per tile (the small ranks: the tiles and Grams must
-//     fit 227 KB): coder_sweeps_kernel<false>, fista_kernel<*, false> and,
-//     for the early stop, coder_es_lanes_kernel;
-//   workspace (kGlobal = true): A read from device memory (through L2:
-//     6 MiB at the JAX kernels' largest rank), the tiles, the Grams and the
-//     power vectors in a device workspace, one slice per resident block, the
-//     grid striding over the tiles. coder_sweeps keeps each column in the
-//     output itself.
+//   shared: A and the tiles (with a stop, the (r, r) Grams too) in one
+//     block's shared memory or registers, one block per tile of TN columns
+//     (the small ranks: they must fit 227 KB): coder_lanes_kernel,
+//     fista_tiled_kernel and, for the early stop, coder_es_lanes_kernel;
+//   workspace: A read from device memory (through L2: 6 MiB at the JAX
+//     kernels' largest rank), the tiles, the Grams and the power vectors in
+//     a device workspace, one slice per resident block, the grid striding
+//     over the tiles: coder_sweeps_ws_kernel (each column kept in the
+//     output itself), coder_es_ws_kernel, fista_ws_kernel.
 // The dictionary update runs dict_update_kernel on one CTA or a cluster,
 // or dict_update_single_kernel past the cluster's shared memory, chosen by
 // the wrapper from (d, r) alone.
@@ -37,12 +37,12 @@ namespace {
 // Columns per block. For the early-stop kernel the block is the stopping
 // tile: the relative-change rule is decided on these TN columns together.
 constexpr int TN = 128;
-// Row stride of the shared (r, TN) tiles. The odd pad keeps the Gram loop
-// (lanes on different rows, same column) off one bank. Workspace tiles use
-// TN: their Gram loop reads along rows.
+// Row stride of the early-stop kernel's shared (r, TN) tiles. The odd pad
+// keeps the Gram loop (lanes on different rows, same column) off one bank.
+// Workspace tiles use TN: their Gram loop reads along rows.
 constexpr int HS = TN + 1;
-// Largest rank of the shared-memory FISTA kernel: its thread-local new
-// column hn[] (the workspace kernel keeps that column in its slice).
+// Largest rank of the shared-memory FISTA kernel with fixed iterations: one
+// thread per 4 x 8 outputs of a tile is 512 threads at r = 128.
 constexpr int FISTA_MAX_RANK = 128;
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -76,37 +76,21 @@ __device__ __forceinline__ void sweep_column(const float* __restrict__ As,
   }
 }
 
-// kGlobal: A is read from device memory and each column is swept in place
-// in the output H (consecutive threads, consecutive columns: coalesced).
-template <bool kGlobal>
-__global__ void coder_sweeps_kernel(const float* __restrict__ A,
-                                    const float* __restrict__ B,
-                                    const float* __restrict__ H0,
-                                    float* __restrict__ H, int r, int n,
-                                    float alpha, int sub_iter) {
-  extern __shared__ float smem[];
-  const int t = threadIdx.x;
-  const int c = blockIdx.x * TN + t;
-  if constexpr (kGlobal) {
-    if (c >= n) return;
-    float* h = H + c;
-    for (int k = 0; k < r; ++k) h[(size_t)k * n] = H0[(size_t)k * n + c];
-    for (int i = 0; i < sub_iter; ++i)
-      sweep_column(A, B + c, h, (size_t)n, r, n, alpha,
-                   1.0f / sqrtf((float)i + 10.0f));
-  } else {
-    float* As = smem;          // (r, r)
-    float* Hs = As + r * r;    // (r, TN): column t at Hs[k * TN + t]
-    for (int i = t; i < r * r; i += blockDim.x) As[i] = A[i];
-    __syncthreads();
-    if (c >= n) return;  // no barrier below: columns are independent
-    float* h = Hs + t;
-    for (int k = 0; k < r; ++k) h[k * TN] = H0[(size_t)k * n + c];
-    for (int i = 0; i < sub_iter; ++i)
-      sweep_column(As, B + c, h, TN, r, n, alpha,
-                   1.0f / sqrtf((float)i + 10.0f));
-    for (int k = 0; k < r; ++k) H[(size_t)k * n + c] = h[k * TN];
-  }
+// The workspace form of coder_sweeps (r > CS_MAX_RANK): one thread per
+// column, A read from device memory and each column swept in place in the
+// output H (consecutive threads, consecutive columns: coalesced).
+__global__ void coder_sweeps_ws_kernel(const float* __restrict__ A,
+                                       const float* __restrict__ B,
+                                       const float* __restrict__ H0,
+                                       float* __restrict__ H, int r, int n,
+                                       float alpha, int sub_iter) {
+  const int c = blockIdx.x * TN + threadIdx.x;
+  if (c >= n) return;
+  float* h = H + c;
+  for (int k = 0; k < r; ++k) h[(size_t)k * n] = H0[(size_t)k * n + c];
+  for (int i = 0; i < sub_iter; ++i)
+    sweep_column(A, B + c, h, (size_t)n, r, n, alpha,
+                 1.0f / sqrtf((float)i + 10.0f));
 }
 
 // Warm power iteration on both Grams at once (one warp), `iters` steps from
@@ -172,56 +156,33 @@ __device__ float psd_lambda_ub(const float* G, int r) {
 
 // Grams over one tile's TN columns, upper triangle (k <= l) mirrored:
 // Gd = D D^T and Gh = O O^T, with D = P - O when kDiff and D = P otherwise.
-// Columns outside the batch hold 0 in P and O.
-// kGlobal = false (shared tiles, row stride HS): one pair per thread, the
-// thread summing over the columns. kGlobal = true (workspace tiles, row
-// stride TN): one pair per warp, the lanes over the columns, so that each
-// load is one contiguous row segment.
-template <bool kDiff, bool kGlobal>
+// Columns outside the batch hold 0 in P and O. Workspace tiles, row stride
+// TN: one pair per warp, the lanes over the columns, so that each load is
+// one contiguous row segment.
+template <bool kDiff>
 __device__ void tile_grams(const float* P, const float* O, float* Gd,
                            float* Gh, int r) {
-  if constexpr (kGlobal) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    for (int k = 0; k < r; ++k)
-      for (int l = k + warp; l < r; l += nwarps) {
-        float gd = 0.f, gh = 0.f;
-        for (int cc = lane; cc < TN; cc += 32) {
-          const float ok = O[k * TN + cc], ol = O[l * TN + cc];
-          const float dk = kDiff ? P[k * TN + cc] - ok : P[k * TN + cc];
-          const float dl = kDiff ? P[l * TN + cc] - ol : P[l * TN + cc];
-          gd = fmaf(dk, dl, gd);
-          gh = fmaf(ok, ol, gh);
-        }
-        gd = warp_sum(gd);
-        gh = warp_sum(gh);
-        if (lane == 0) {
-          Gd[k * r + l] = gd;
-          Gd[l * r + k] = gd;
-          Gh[k * r + l] = gh;
-          Gh[l * r + k] = gh;
-        }
-      }
-  } else {
-    int k = 0, l = threadIdx.x;
-    while (k < r && l >= r) { l = l - r + k + 1; ++k; }
-    while (k < r) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int k = 0; k < r; ++k)
+    for (int l = k + warp; l < r; l += nwarps) {
       float gd = 0.f, gh = 0.f;
-      for (int cc = 0; cc < TN; ++cc) {
-        const float ok = O[k * HS + cc], ol = O[l * HS + cc];
-        const float dk = kDiff ? P[k * HS + cc] - ok : P[k * HS + cc];
-        const float dl = kDiff ? P[l * HS + cc] - ol : P[l * HS + cc];
+      for (int cc = lane; cc < TN; cc += 32) {
+        const float ok = O[k * TN + cc], ol = O[l * TN + cc];
+        const float dk = kDiff ? P[k * TN + cc] - ok : P[k * TN + cc];
+        const float dl = kDiff ? P[l * TN + cc] - ol : P[l * TN + cc];
         gd = fmaf(dk, dl, gd);
         gh = fmaf(ok, ol, gh);
       }
-      Gd[k * r + l] = gd;
-      Gd[l * r + k] = gd;
-      Gh[k * r + l] = gh;
-      Gh[l * r + k] = gh;
-      l += blockDim.x;
-      while (k < r && l >= r) { l = l - r + k + 1; ++k; }
+      gd = warp_sum(gd);
+      gh = warp_sum(gh);
+      if (lane == 0) {
+        Gd[k * r + l] = gd;
+        Gd[l * r + k] = gd;
+        Gh[k * r + l] = gh;
+        Gh[l * r + k] = gh;
+      }
     }
-  }
 }
 
 // The per-tile stop (_stopping_update), decided by one warp:
@@ -263,31 +224,25 @@ __device__ void init_power_vectors(float* v0, float* vd, float* vh, int r) {
   }
 }
 
-// Floats of one block's workspace slice in the kGlobal coder_es_kernel:
+// Floats of one block's workspace slice in coder_es_ws_kernel:
 // the iterate and old-iterate tiles, both Grams and five r-vectors.
 __host__ __device__ size_t es_slice_floats(int r) {
   return 2 * (size_t)r * TN + 2 * (size_t)r * r + 5 * (size_t)r;
 }
 
-template <bool kGlobal>
-__global__ void coder_es_kernel(const float* __restrict__ A,
-                                const float* __restrict__ B,
-                                const float* __restrict__ H0,
-                                float* __restrict__ H, int r, int n,
-                                float alpha, float stop, int sub_iter,
-                                int pi_iters, float* __restrict__ ws) {
-  extern __shared__ float smem[];
-  constexpr int S = kGlobal ? TN : HS;  // tile row stride
-  const float* As;
-  float* Hs;                 // (r, S) iterate, column t at Hs[k * S + t]
-  if constexpr (kGlobal) {
-    As = A;
-    Hs = ws + (size_t)blockIdx.x * es_slice_floats(r);
-  } else {
-    As = smem;               // (r, r)
-    Hs = smem + r * r;
-    for (int i = threadIdx.x; i < r * r; i += blockDim.x) smem[i] = A[i];
-  }
+// The workspace form of the early-stop coder (r > ES_MAX_RANK): one thread
+// per column, A read from device memory, the tiles, Grams and power vectors
+// in the block's workspace slice, the grid striding over the tiles.
+__global__ void coder_es_ws_kernel(const float* __restrict__ A,
+                                   const float* __restrict__ B,
+                                   const float* __restrict__ H0,
+                                   float* __restrict__ H, int r, int n,
+                                   float alpha, float stop, int sub_iter,
+                                   int pi_iters, float* __restrict__ ws) {
+  constexpr int S = TN;      // tile row stride
+  const float* As = A;
+  // (r, S) iterate, column t at Hs[k * S + t]
+  float* Hs = ws + (size_t)blockIdx.x * es_slice_floats(r);
   float* Os = Hs + r * S;    // (r, S) iterate before the current sweep
   float* Gd = Os + r * S;    // (r, r) delta Gram
   float* Gh = Gd + r * r;    // (r, r) iterate Gram
@@ -321,7 +276,7 @@ __global__ void coder_es_kernel(const float* __restrict__ A,
                      1.0f / sqrtf((float)i + 10.0f));
       }
       __syncthreads();
-      tile_grams<true, kGlobal>(Hs, Os, Gd, Gh, r);
+      tile_grams<true>(Hs, Os, Gd, Gh, r);
       __syncthreads();
       if (t < 32) {
         const int cv = stop_decision(Gd, Gh, v0, vd, vh, wd, wh, r, stop2,
@@ -715,22 +670,231 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
   }
 }
 
-// The FISTA step inv_L = 1 / (1.02 lambda_max(A) + 1e-12), lambda_max from
-// `iters` power steps from the fixed start (_lambda_max), by one warp.
-// warm_pair runs the chain twice on A; only one result is kept.
-__global__ void fista_step_size_kernel(const float* __restrict__ A, int r,
-                                       int iters, float* __restrict__ inv_L) {
+// ---------------------------------------------------------------------------
+// The shared-memory fixed-sweep coder, r <= CS_MAX_RANK: coder_lanes_kernel.
+//
+// Replaces coder_sweeps (pallas/coder_kernel.py:192): exactly sub_iter
+// Gauss-Seidel sweeps, step 1 / sqrt(i + 10) / (A_kk + 1). What bounds it:
+// the sub_iter r^2 multiply-adds per column on the CUDA cores (10 sweeps at
+// r = 25, n = 131,109: 1.6 GFLOP, ~25 us at 67 TFLOP/s f32) against ~39 MB
+// of B, H0 and H (~12 us); and within a column the r coordinate steps of a
+// sweep are a sequential chain. One thread per column with the column in
+// shared memory paid two shared loads per multiply-add on an r-long
+// dependent dot product. What the design does about it, carried over from
+// coder_es_lanes_kernel without the stop:
+//   * L lanes per pair of columns (2 up to r = 32, else 4), each lane
+//     holding Q consecutive rows of h and of the residual g = A h - b of
+//     both columns in registers. Coordinate k: the owner's candidate
+//     h_k' = max(0, h_k - step_k (g_k + alpha)), one shuffle per column of
+//     delta = h_k' - h_k, then g += A[:, k] delta as Q independent
+//     multiply-adds per column. Each A value (float4 loads of the
+//     transposed, zero-padded A^T) serves both columns; nothing but the
+//     candidate and the shuffle is on the dependent chain.
+//   * No tiles, Grams, power vectors or barriers after the load: h and g
+//     live in registers from H0 to H, shared memory holds only A^T
+//     (r L Q floats: 3.2 KB at r = 25), so several blocks share an SM.
+//     g is first formed by the same shuffle-and-update pass over H0.
+//   * float32 rounding of a carried g builds up over the r rank-1 updates
+//     of a sweep. g is formed anew from A h - b every CS_REFORM sweeps up
+//     to r = 32 (carried over 50 sweeps it stays 7e-6 from the plain
+//     version) and every sweep past it (carried over ten sweeps at r = 128
+//     it drifts 5e-5, past the tolerance's atol 2e-5).
+//   * B, H0 and H are touched once each, a warp's loads of a row covering
+//     32 / L consecutive columns (whole 32-byte sectors).
+// Small n (n = 500: four blocks) gains from the short chain alone.
+constexpr int CS_COLS = 2;
+constexpr int CS_MAX_RANK = 128;
+constexpr int CS_REFORM = 16;
+
+// Rows per lane at rank r (lanes as es_lanes: 2 up to r = 32, else 4).
+__host__ __device__ inline int cs_rows_per_lane(int r) {
+  return r <= 16 ? 8 : r <= 32 ? 16 : r <= 64 ? 16 : r <= 100 ? 25 : 32;
+}
+
+template <int L, int Q>
+__global__ void __launch_bounds__(TN / CS_COLS * L, L == 2 ? 4 : 1)
+    coder_lanes_kernel(const float* __restrict__ A,
+                       const float* __restrict__ B,
+                       const float* __restrict__ H0, float* __restrict__ H,
+                       int r, int n, float alpha, int sub_iter) {
   extern __shared__ float smem[];
-  float* v0 = smem;  // five (r) vectors, as the stop decision lays them out
-  float* vd = v0 + r;
-  float* vh = vd + r;
-  float* wd = vh + r;
-  float* wh = wd + r;
-  init_power_vectors(v0, vd, vh, r);
-  __syncwarp();
-  float lam, unused;
-  warm_pair(A, A, vd, vh, wd, wh, r, iters, &lam, &unused);
-  if (threadIdx.x == 0) *inv_L = 1.f / (lam * 1.02f + 1e-12f);
+  constexpr int C = CS_COLS, RP = L * Q;
+  constexpr int kReform = RP > 32 ? 1 : CS_REFORM;  // sweeps per fresh g
+  float* At = smem;  // (r, RP): At[k * RP + i] = A[i, k]; 0 past r
+
+  // this thread: lane ell of the group of columns cc[u] = grp + u TN / C
+  const int t = threadIdx.x, grp = t / L, ell = t % L;
+  const int group = (t & 31) & ~(L - 1);  // the group's first lane
+  size_t col[C];
+  bool active[C];
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    col[u] = (size_t)blockIdx.x * TN + grp + u * (TN / C);
+    active[u] = col[u] < (size_t)n;
+  }
+  // rows ell * Q + q of each column (0 past r and past n), loaded while
+  // A^T is on its way
+  float h[C][Q], g[C][Q];
+#pragma unroll
+  for (int u = 0; u < C; ++u)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = ell * Q + q;
+      h[u][q] = k < r && active[u] ? __ldg(H0 + (size_t)k * n + col[u]) : 0.f;
+    }
+  for (int x0 = t; x0 < r * RP; x0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x, k = x / RP, i = x % RP;
+      v[q] = x < r * RP && i < r ? A[i * r + k] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (x0 + q * blockDim.x < r * RP) At[x0 + q * blockDim.x] = v[q];
+  }
+  __syncthreads();
+
+  for (int i = 0; i < sub_iter; ++i) {
+    if (i % kReform == 0) {
+      // g = A h - b: row m of h from its owner, as a coordinate step does
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int k = ell * Q + q;
+          g[u][q] = k < r && active[u]
+              ? -__ldg(B + (size_t)k * n + col[u]) : 0.f;
+        }
+      for (int l0 = 0; l0 < L; ++l0) {
+#pragma unroll
+        for (int q0 = 0; q0 < Q; ++q0) {
+          const int m = l0 * Q + q0;
+          if (m >= r) break;
+          float a[Q];
+          load_rows<Q>(At + m * RP + ell * Q, a);
+#pragma unroll
+          for (int u = 0; u < C; ++u) {
+            const float hm = __shfl_sync(0xffffffffu, h[u][q0], group + l0);
+#pragma unroll
+            for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], hm, g[u][q]);
+          }
+        }
+      }
+    }
+    // this sweep's steps of the lane's own rows
+    const float rs = 1.0f / sqrtf((float)i + 10.0f);
+    float st[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = ell * Q + q;
+      st[q] = rs / ((k < r ? At[k * RP + k] : 0.f) + 1.0f);
+    }
+    for (int l0 = 0; l0 < L; ++l0) {
+#pragma unroll
+      for (int q0 = 0; q0 < Q; ++q0) {
+        const int k = l0 * Q + q0;
+        if (k >= r) break;
+        float a[Q];
+        load_rows<Q>(At + k * RP + ell * Q, a);
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          // every lane forms its own row's candidate; the owner's is taken
+          const float hn = fmaxf(h[u][q0] - st[q0] * (g[u][q0] + alpha), 0.f);
+          const float delta =
+              __shfl_sync(0xffffffffu, hn - h[u][q0], group + l0);
+          if (ell == l0) h[u][q0] = hn;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], delta, g[u][q]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < C; ++u)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = ell * Q + q;
+      if (k < r && active[u]) H[(size_t)k * n + col[u]] = h[u][q];
+    }
+}
+
+// The FISTA step inv_L = 1 / (1.02 lambda_max(A) + 1e-12), lambda_max the
+// Rayleigh quotient after `iters` normalised power steps from the fixed
+// start (_lambda_max). The 17 products A v are a sequential chain, so the
+// kernel is latency, not work: one block of one thread per row (whole
+// warps, up to STEP_MAX_THREADS; past that the rows stride), A copied into
+// shared memory once (in_smem; past STEP_SMEM_MAX_RANK it is read from
+// device memory) and read by columns (A is symmetric), so that a warp's
+// loads are consecutive and a row's sum needs no shuffle. The fewer the
+// warps, the cheaper the two barriers a step (one warp up to r = 32 needs
+// none across warps). One warp taking four rows a lane from device memory
+// took ~0.15 ms at r = 100. The sweep kernel that follows is let onto the
+// card at once (programmatic dependent launch): it loads its tiles while
+// the chain runs and waits for inv_L only before its first step.
+constexpr int STEP_MAX_THREADS = 1024;
+constexpr int STEP_SMEM_MAX_RANK = 192;  // r^2 + 2 r floats within 227 KB
+
+__global__ void __launch_bounds__(STEP_MAX_THREADS)
+    fista_step_size_kernel(const float* __restrict__ A, int r, int iters,
+                           int in_smem, float* __restrict__ inv_L) {
+  extern __shared__ float smem[];
+  float* v = smem;    // (r) the iterate
+  float* w = v + r;   // (r) A v
+  float* As = w + r;  // (r, r) when in_smem
+  const int t = threadIdx.x, lane = t & 31;
+  asm volatile("griddepcontrol.launch_dependents;");
+  for (int k = t; k < r; k += blockDim.x)
+    v[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
+  if (in_smem)
+    for (int x0 = t; x0 < r * r; x0 += 8 * blockDim.x) {
+      float a[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        a[q] = x0 + q * blockDim.x < r * r ? A[x0 + q * blockDim.x] : 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (x0 + q * blockDim.x < r * r) As[x0 + q * blockDim.x] = a[q];
+    }
+  __syncthreads();
+  for (int it = 0;; ++it) {
+    for (int k = t; k < r; k += blockDim.x) {
+      float a[4] = {};
+      int l = 0;
+      if (in_smem) {
+        for (; l + 4 <= r; l += 4)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[q] = fmaf(As[(l + q) * r + k], v[l + q], a[q]);
+        for (; l < r; ++l) a[0] = fmaf(As[l * r + k], v[l], a[0]);
+      } else {
+        for (; l + 4 <= r; l += 4)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[q] = fmaf(__ldg(A + (size_t)(l + q) * r + k), v[l + q], a[q]);
+        for (; l < r; ++l)
+          a[0] = fmaf(__ldg(A + (size_t)l * r + k), v[l], a[0]);
+      }
+      w[k] = (a[0] + a[1]) + (a[2] + a[3]);
+    }
+    __syncthreads();
+    if (it == iters) break;
+    float ss = 0.f;  // every warp sums the same terms in the same order
+    for (int k = lane; k < r; k += 32) ss = fmaf(w[k], w[k], ss);
+    const float nrm = fmaxf(sqrtf(warp_sum(ss)), 1e-30f);
+    for (int k = t; k < r; k += blockDim.x) v[k] = w[k] / nrm;
+    __syncthreads();
+  }
+  if (t < 32) {
+    float q = 0.f, p = 0.f;
+    for (int k = lane; k < r; k += 32) {
+      q = fmaf(v[k], w[k], q);
+      p = fmaf(v[k], v[k], p);
+    }
+    q = warp_sum(q);
+    p = warp_sum(p);
+    if (lane == 0) *inv_L = 1.f / (q / fmaxf(p, 1e-30f) * 1.02f + 1e-12f);
+  }
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -739,7 +903,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 // A transposed into (r, R4) rows (R4 = r rounded up to a multiple of 4,
 // zero padded), bf16-rounded when kBf16: the layout the FISTA kernel reads.
-// The workspace FISTA kernel reads it from device memory; the shared one
+// The workspace FISTA kernel reads it from device memory; the tiled one
 // builds the same table in shared memory itself.
 template <bool kBf16>
 __device__ __forceinline__ void fill_At(const float* __restrict__ A,
@@ -760,7 +924,7 @@ __global__ void fista_prep_kernel(const float* __restrict__ A, int r,
                  gridDim.x * blockDim.x);
 }
 
-// Floats of the kGlobal FISTA workspace: the shared (r, R4) table of A^T
+// Floats of the FISTA workspace: the shared (r, R4) table of A^T
 // first, then one slice per block (the H, Y and new-column tiles, and with
 // use_stopping both Grams and five r-vectors).
 __host__ __device__ size_t fista_head_floats(int r) {
@@ -773,61 +937,37 @@ __host__ __device__ size_t fista_slice_floats(int r, int use_stopping) {
   return floats;
 }
 
-// FISTA on one tile of TN columns, one thread per column:
-//   Hn = max(0, Y - inv_L (A Y - B + alpha)),  t' = (1 + sqrt(1 + 4 t^2)) / 2,
-//   Y  = Hn + (t - 1) / t' (Hn - H).
-// A (transposed, rows padded to R4 = a multiple of 4), H and Y live in
-// shared memory (kGlobal: A^T in device memory, H and Y in the block's
-// workspace slice); a thread reads A by broadcast and only its own columns
-// of H and Y. It forms four rows of A Y at a time: one float4 of A^T and one
-// element of Y per four multiply-adds, each row summed over j in order. The
-// new column is formed in hn[] (thread-local; kGlobal: a third tile of the
-// slice) because every row of the product needs the whole old Y column.
-// kBf16 rounds A and Y to bf16 before the multiply-add (accumulation stays
-// f32). With use_stopping the tile stops as coder_es_kernel does, on the
-// Grams of the step delta (kept in the spent Y slot) and of the old H; the
-// momentum t is per tile and stops with it. What bounds it: r^2
-// multiply-adds per column and iteration, each with a shared-memory (kGlobal:
-// L1) load, in CUDA cores; the product is a real (r, r) x (r, TN) matrix
-// product, so tensor cores (mma/wgmma) are the next step.
-template <bool kBf16, bool kGlobal>
-__global__ void fista_kernel(const float* __restrict__ A,
-                             const float* __restrict__ B,
-                             const float* __restrict__ H0,
-                             float* __restrict__ H, int r, int n,
-                             float alpha, const float* __restrict__ inv_L_ptr,
-                             float stop, int sub_iter, int use_stopping,
-                             int pi_iters, float* __restrict__ ws) {
-  extern __shared__ float smem[];
-  constexpr int S = kGlobal ? TN : HS;  // tile row stride
+// The workspace form of FISTA (past the shared-memory ranks): one thread
+// per column of a tile of TN columns, A^T (rows padded to R4 = a multiple
+// of 4, built by fista_prep_kernel) in device memory, the H, Y and
+// new-column tiles in the block's workspace slice, the grid striding over
+// the tiles. A thread forms four rows of A Y at a time: one float4 of A^T
+// and one element of Y per four multiply-adds, each row summed over j in
+// order. kBf16 rounds A and Y to bf16 before the multiply-add (accumulation
+// stays f32). With use_stopping the tile stops as coder_es_ws_kernel does, on
+// the Grams of the step delta (kept in the spent Y slot) and of the old H;
+// the momentum t is per tile and stops with it. What bounds it: r^2
+// multiply-adds per column and iteration, each with an L1 load.
+template <bool kBf16>
+__global__ void fista_ws_kernel(const float* __restrict__ B,
+                                const float* __restrict__ H0,
+                                float* __restrict__ H, int r, int n,
+                                float alpha,
+                                const float* __restrict__ inv_L_ptr,
+                                float stop, int sub_iter, int use_stopping,
+                                int pi_iters, float* __restrict__ ws) {
+  constexpr int S = TN;      // tile row stride
   const int R4 = (r + 3) & ~3;
   const int t = threadIdx.x;
-  const float* At;           // (r, R4): At[j * R4 + k] = A[k, j]
-  float* Hs;                 // (r, S) iterate
-  float* hn;                 // the new column, element k at hn[k * HN]
-  constexpr int HN = kGlobal ? TN : 1;
-  float hn_local[kGlobal ? 1 : FISTA_MAX_RANK];
-  if constexpr (kGlobal) {
-    At = ws;
-    Hs = ws + fista_head_floats(r)
-         + (size_t)blockIdx.x * fista_slice_floats(r, use_stopping);
-  } else {
-    fill_At<kBf16>(A, smem, r, t, blockDim.x);
-    At = smem;
-    Hs = smem + r * R4;
-  }
+  const float* At = ws;      // (r, R4): At[j * R4 + k] = A[k, j]
+  float* Hs = ws + fista_head_floats(r)
+              + (size_t)blockIdx.x * fista_slice_floats(r, use_stopping);
   float* Ys = Hs + r * S;    // (r, S) extrapolated point; the step delta
                              // during the stop test
-  float* Gd;                 // stop mode only: (r, r) delta Gram,
-  if constexpr (kGlobal) {
-    hn = Ys + r * S + t;     // (r, TN) new columns
-    Gd = Ys + 2 * r * S;
-  } else {
-    hn = hn_local;
-    Gd = Ys + r * S;
-  }
+  float* hn = Ys + r * S + t;  // (r, TN) new columns, element k at hn[k * TN]
+  float* Gd = Ys + 2 * r * S;  // stop mode only: (r, r) delta Gram,
   float* Gh = Gd + r * r;    // (r, r) iterate Gram,
-  float* v0 = Gh + r * r;    // and five (r) vectors as in coder_es_kernel
+  float* v0 = Gh + r * r;    // and five (r) vectors as in coder_es_ws_kernel
   float* vd = v0 + r;
   float* vh = vd + r;
   float* wd = vh + r;
@@ -872,7 +1012,7 @@ __global__ void fista_kernel(const float* __restrict__ A,
           for (int q = 0; q < 4; ++q) {
             const int k = k0 + q;
             if (k < r)
-              hn[k * HN] = fmaxf(
+              hn[k * TN] = fmaxf(
                   y[k * S] - inv_L * (g[q] - __ldg(B + (size_t)k * n + c)
                                       + alpha), 0.f);
           }
@@ -882,15 +1022,15 @@ __global__ void fista_kernel(const float* __restrict__ A,
         if (active)
           for (int k = 0; k < r; ++k) {
             const float h = Hs[k * S + t];
-            Hs[k * S + t] = hn[k * HN];
-            Ys[k * S + t] = hn[k * HN] + mom * (hn[k * HN] - h);
+            Hs[k * S + t] = hn[k * TN];
+            Ys[k * S + t] = hn[k * TN] + mom * (hn[k * TN] - h);
           }
         continue;
       }
       for (int k = 0; k < r; ++k)
-        Ys[k * S + t] = active ? hn[k * HN] - Hs[k * S + t] : 0.f;
+        Ys[k * S + t] = active ? hn[k * TN] - Hs[k * S + t] : 0.f;
       __syncthreads();
-      tile_grams<false, kGlobal>(Ys, Hs, Gd, Gh, r);
+      tile_grams<false>(Ys, Hs, Gd, Gh, r);
       __syncthreads();
       if (t < 32) {
         const int cv = stop_decision(Gd, Gh, v0, vd, vh, wd, wh, r, stop2,
@@ -901,14 +1041,461 @@ __global__ void fista_kernel(const float* __restrict__ A,
       if (active)
         for (int k = 0; k < r; ++k) {
           const float d = Ys[k * S + t];
-          Hs[k * S + t] = hn[k * HN];
-          Ys[k * S + t] = hn[k * HN] + mom * d;
+          Hs[k * S + t] = hn[k * TN];
+          Ys[k * S + t] = hn[k * TN] + mom * d;
         }
       __syncthreads();
     }
     if (active)
       for (int k = 0; k < r; ++k) H[(size_t)k * n + c] = Hs[k * S + t];
     __syncthreads();  // conv and the tiles are reused by the next tile
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The shared-memory FISTA kernel, r <= FISTA_MAX_RANK (FISTA_STOP_MAX_RANK
+// with the stop): fista_tiled_kernel.
+//
+// Replaces fista_sweeps (pallas/coder_kernel.py:579): on one tile of TN
+// columns,
+//   Hn = max(0, Y - inv_L (A Y - B + alpha)),  t' = (1 + sqrt(1 + 4 t^2)) / 2,
+//   Y  = Hn + (t - 1) / t' (Hn - H),
+// exactly sub_iter times, or with use_stopping until the tile meets the
+// early-stop kernel's rule on the Grams of the step delta and of the old H
+// (the tile is the unit of the stop and of the momentum, which stops with
+// it; the step applies in the iteration that converges too). kBf16 rounds A
+// and Y to bf16 before the multiply-add and accumulates in f32, each output
+// summed over j in order. What bounds it: r^2 multiply-adds per column and
+// iteration, and with the stop as many again for the two Grams, on the CUDA
+// cores, fed by shared memory at a quarter of their rate: one thread per
+// column took a shared load per four multiply-adds and ran a one-tile call
+// on four warps. What the design does about it:
+//   * The (r, TN) product A Y is formed by the whole block as a
+//     register-tiled matrix product: a thread owns FT_ROWS = 4 rows by 8
+//     columns of the output (columns 4 cb..4 cb + 3 and 64 more on, so that
+//     a warp's float4 loads of a row of Y are consecutive), and each step
+//     over j takes one float4 of A^T (a broadcast) and two of Y for 32
+//     multiply-adds. The block has one thread per output block: 16 threads
+//     per four rows (r = 25: 128 threads, r = 100: 416), so a one-tile call
+//     fills an SM's schedulers.
+//   * Y lives in shared memory row-major (the product's layout), H
+//     transposed (TN, RS) so that a thread's four rows of a column are one
+//     float4; B's entries of the thread's outputs stay in registers. One
+//     barrier separates the product from the update of Y, one the update
+//     from the next product. (Rotating the transposed tiles' four-row
+//     blocks by column, so that a row block's 16 threads fall on distinct
+//     banks, gained 4% at r = 25 and cost 50% at r = 100, where the kernel
+//     has no registers to spare for the offsets: not kept.)
+//   * The tile of H0 and A^T are loaded eight global loads in flight per
+//     thread, after B's entries are on their way: at r = 25 a tile's ten
+//     iterations are short enough that one load at a time took as long.
+//   * With the stop, the step delta D = Hn - H is written, transposed, over
+//     the spent Y, and both Grams Gd = D D^T and Gh = H H^T come from one
+//     pass over 4 x 4 blocks of the upper triangle: per column two float4
+//     of each tile feed 32 multiply-adds, a warp's lanes on neighbouring
+//     blocks (distinct banks) or, where the blocks are fewer than the
+//     threads, on up to four interleaved columns reduced by shuffles. The
+//     row stride RS is a multiple of 4 with RS / 4 odd, so that
+//     neighbouring columns fall on distinct banks. Hn stays in the
+//     product's registers over the Grams.
+//   * The decision (ft_stop_decision: es_stop_decision's logic and order)
+//     gives each Gram half of the block's warps, one thread per row of a
+//     power step's product, with block barriers between the steps: one
+//     warp per Gram took four rows a lane, and in the band between the
+//     certified bounds its 13 products were most of an iteration at
+//     r = 100.
+//   * The kernel is launched while the step-size kernel still runs and
+//     waits for inv_L only before its first step (griddepcontrol.wait), so
+//     the tile loads hide that kernel's latency chain.
+//   * Shared memory: r R4 + 2 TN RS floats, and with the stop 2 r^2 + 6 r
+//     more: 225 KB at r = 100, one block per SM.
+constexpr int FT_ROWS = 4;
+constexpr int FT_COLS = 8;
+constexpr int FT_COL_GROUPS = TN / FT_COLS;  // threads per four rows
+constexpr int FISTA_STOP_MAX_RANK = 100;
+
+// Row stride of the transposed tiles: r rounded up to a multiple of 4 whose
+// quarter is odd.
+__host__ __device__ inline int ft_row_stride(int r) {
+  const int R4 = (r + 3) & ~3;
+  return (R4 >> 2) & 1 ? R4 : R4 + 4;
+}
+
+// One thread per 4 x 8 output block, in whole warps; at least the two
+// warps of the stop decision.
+__host__ __device__ inline int ft_threads(int r) {
+  const int threads = (((r + 3) >> 2) * FT_COL_GROUPS + 31) / 32 * 32;
+  return threads < 64 ? 64 : threads;
+}
+
+__host__ __device__ inline size_t ft_smem_floats(int r, int use_stopping) {
+  size_t floats =
+      (size_t)r * ((r + 3) & ~3) + 2 * (size_t)TN * ft_row_stride(r);
+  if (use_stopping) floats += 2 * (size_t)r * r + 6 * (size_t)r;
+  return floats;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float x, float y, float z,
+                                    float w) {
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+}
+
+// Gd = D D^T and Gh = O O^T over the tile's TN columns from the transposed
+// tiles Dt, Ot (TN, RS; rows past r hold 0).
+// Upper-triangle 4 x 4 blocks; S neighbouring lanes (1, 2 or 4) sum columns
+// s, s + S, ... of a block and reduce across each other; the first writes
+// the block and its mirror.
+template <int S>
+__device__ void ft_tile_grams(const float* Dt, const float* Ot, float* Gd,
+                              float* Gh, int r, int RS) {
+  const int nb = (r + 3) >> 2, blocks = nb * (nb + 1) / 2;
+  for (int base = 0; base < blocks * S; base += blockDim.x) {
+    const int item = base + threadIdx.x;
+    const bool valid = item < blocks * S;
+    const int s = item % S;
+    int kb = 0, rem = valid ? item / S : 0;
+    while (rem >= nb - kb) { rem -= nb - kb; ++kb; }
+    const int lb = kb + rem;
+    float gd[4][4] = {}, gh[4][4] = {};
+    if (valid) {
+      const float* dk = Dt + 4 * kb;
+      const float* dl = Dt + 4 * lb;
+      const float* ok = Ot + 4 * kb;
+      const float* ol = Ot + 4 * lb;
+#pragma unroll 2
+      for (int c = s; c < TN; c += S) {
+        const float4 vdk = ld4(dk + c * RS), vdl = ld4(dl + c * RS);
+        const float4 vok = ld4(ok + c * RS), vol = ld4(ol + c * RS);
+        const float pk[4] = {vdk.x, vdk.y, vdk.z, vdk.w};
+        const float pl[4] = {vdl.x, vdl.y, vdl.z, vdl.w};
+        const float qk[4] = {vok.x, vok.y, vok.z, vok.w};
+        const float ql[4] = {vol.x, vol.y, vol.z, vol.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            gd[a][b] = fmaf(pk[a], pl[b], gd[a][b]);
+            gh[a][b] = fmaf(qk[a], ql[b], gh[a][b]);
+          }
+      }
+    }
+#pragma unroll
+    for (int m = S >> 1; m > 0; m >>= 1)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          gd[a][b] += __shfl_xor_sync(0xffffffffu, gd[a][b], m);
+          gh[a][b] += __shfl_xor_sync(0xffffffffu, gh[a][b], m);
+        }
+    if (valid && s == 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int k = 4 * kb + a, l = 4 * lb + b;
+          if (k < r && l < r) {
+            Gd[k * r + l] = gd[a][b];
+            Gd[l * r + k] = gd[a][b];
+            Gh[k * r + l] = gh[a][b];
+            Gh[l * r + k] = gh[a][b];
+          }
+        }
+  }
+}
+
+// w = G v for a symmetric (r, r) G, one thread per row (threads ti, ti +
+// nth, ... of this Gram's half of the block); row k is read as column k, a
+// warp's loads consecutive. With ab, the rows' absolute sums too.
+__device__ __forceinline__ void ft_matvec(const float* G, const float* v,
+                                          float* w, float* ab, int r, int ti,
+                                          int nth) {
+  for (int k = ti; k < r; k += nth) {
+    float a[4] = {}, s[4] = {};
+    int l = 0;
+    for (; l + 4 <= r; l += 4)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float gv = G[(l + q) * r + k];
+        a[q] = fmaf(gv, v[l + q], a[q]);
+        s[q] += fabsf(gv);
+      }
+    for (; l < r; ++l) {
+      const float gv = G[l * r + k];
+      a[0] = fmaf(gv, v[l], a[0]);
+      s[0] += fabsf(gv);
+    }
+    w[k] = (a[0] + a[1]) + (a[2] + a[3]);
+    if (ab) ab[k] = (s[0] + s[1]) + (s[2] + s[3]);
+  }
+}
+
+// v = w / max(|w|, 1e-30) on this Gram's threads; every warp sums the same
+// terms in the same order.
+__device__ __forceinline__ void ft_normalise(float* v, const float* w, int r,
+                                             int ti, int nth) {
+  float ss = 0.f;
+  for (int k = threadIdx.x & 31; k < r; k += 32) ss = fmaf(w[k], w[k], ss);
+  const float nrm = fmaxf(sqrtf(warp_sum(ss)), 1e-30f);
+  for (int k = ti; k < r; k += nth) v[k] = w[k] / nrm;
+}
+
+// The Rayleigh quotient v . w / v . v (w = G v), by one warp.
+__device__ __forceinline__ float ft_rayleigh(const float* v, const float* w,
+                                             int r) {
+  float q = 0.f, p = 0.f;
+  for (int k = threadIdx.x & 31; k < r; k += 32) {
+    q = fmaf(v[k], w[k], q);
+    p = fmaf(v[k], v[k], p);
+  }
+  return warp_sum(q) / fmaxf(warp_sum(p), 1e-30f);
+}
+
+// es_stop_decision on the whole block: the lower half of the warps on Gd
+// (vectors vd, wd, scratch ad), the upper on Gh (vh, wh, ah); the bounds
+// meet in xch. Call after a barrier, from every thread of at least two
+// warps; returns the same decision (1 = converged) in every thread.
+__device__ int ft_stop_decision(const float* Gd, const float* Gh, float* vd,
+                                float* vh, float* wd, float* wh, float* ad,
+                                float* ah, float* xch, int r, float stop2,
+                                int pi_iters) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nd = (int)(blockDim.x >> 6);  // warps on Gd
+  const bool second = warp >= nd;
+  const float* G = second ? Gh : Gd;
+  float* v = second ? vh : vd;
+  float* w = second ? wh : wd;
+  float* ab = second ? ah : ad;
+  const int wi = second ? warp - nd : warp;
+  const int nth = 32 * (second ? (int)(blockDim.x >> 5) - nd : nd);
+  const int ti = 32 * wi + lane;
+  for (int k = ti; k < r; k += nth)
+    v[k] += 0.05f * (0.5f + (float)((k * 40503) % 65536) / 65536.0f);
+  __syncthreads();
+  ft_matvec(G, v, w, ab, r, ti, nth);
+  __syncthreads();
+  if (wi == 0) {  // min(trace, max absolute row sum)
+    float tr = 0.f, rowmax = 0.f;
+    for (int k = lane; k < r; k += 32) {
+      tr += G[k * r + k];
+      rowmax = fmaxf(rowmax, ab[k]);
+    }
+    tr = warp_sum(tr);
+    rowmax = warp_max(rowmax);
+    if (lane == 0) xch[2 * second + 1] = fminf(tr, rowmax);
+  }
+  ft_normalise(v, w, r, ti, nth);
+  __syncthreads();
+  ft_matvec(G, v, w, nullptr, r, ti, nth);
+  __syncthreads();
+  if (wi == 0) {
+    const float lb = ft_rayleigh(v, w, r);
+    if (lane == 0) xch[2 * second] = lb;
+  }
+  __syncthreads();
+  const float lb_d = xch[0], ub_d = xch[1], lb_h = xch[2], ub_h = xch[3];
+  const bool conv_certain = ub_d <= stop2 * lb_h;
+  const bool notconv_certain = lb_d > stop2 * ub_h;
+  if (conv_certain || notconv_certain) return conv_certain;
+  // the band: pi_iters more steps from the vectors as they stand (w = G v)
+  __syncthreads();  // every thread has read xch
+  for (int it = 0; it < pi_iters; ++it) {
+    ft_normalise(v, w, r, ti, nth);
+    __syncthreads();
+    ft_matvec(G, v, w, nullptr, r, ti, nth);
+    __syncthreads();
+  }
+  if (wi == 0) {
+    const float lam = ft_rayleigh(v, w, r);
+    if (lane == 0) xch[second] = lam;
+  }
+  __syncthreads();
+  return xch[0] <= stop2 * xch[1];
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(512)
+    fista_tiled_kernel(const float* __restrict__ A,
+                       const float* __restrict__ B,
+                       const float* __restrict__ H0, float* __restrict__ H,
+                       int r, int n, float alpha, const float* inv_L_ptr,
+                       float stop, int sub_iter, int use_stopping,
+                       int pi_iters) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int R4 = (r + 3) & ~3, RS = ft_row_stride(r), nb = R4 >> 2;
+  float* At = smem;           // (r, R4): At[j * R4 + k] = A[k, j]; 0 past r
+  float* Ys = At + r * R4;    // (R4, TN) extrapolated point, row-major;
+                              // during the stop test Dt (TN, RS), the delta
+  float* Ht = Ys + TN * RS;   // (TN, RS) iterate, transposed
+  float* Gd = Ht + TN * RS;   // stop mode only: (r, r) delta Gram,
+  float* Gh = Gd + r * r;     // (r, r) iterate Gram,
+  float* vd = Gh + r * r;     // carried eigenvector estimates
+  float* vh = vd + r;
+  float* wd = vh + r;         // and the power steps' products
+  float* wh = wd + r;
+  float* ad = wh + r;         // and absolute row sums
+  float* ah = ad + r;
+  __shared__ float xch[4];
+
+  const int t = threadIdx.x;
+  const size_t tile0 = (size_t)blockIdx.x * TN;
+  // this thread's outputs: rows k0..k0 + 3 of columns cbase + 64 h + i
+  const bool live = t < nb * FT_COL_GROUPS;
+  const int k0 = FT_ROWS * (t / FT_COL_GROUPS);
+  const int cbase = 4 * (t % FT_COL_GROUPS);
+  // which of them lie in the batch: rows k0..k0 + nrow - 1, columns by bit
+  const int nrow = live ? min(FT_ROWS, r - k0) : 0;
+  unsigned cmask = 0;
+#pragma unroll
+  for (int e = 0; e < FT_COLS; ++e)
+    if (tile0 + cbase + 64 * (e >> 2) + (e & 3) < (size_t)n) cmask |= 1u << e;
+  // B at the outputs. Outside the batch (rows past r, columns past n) it
+  // is -inf: there Y and A Y are 0, so the step max(0, Y - inv_L (A Y - B
+  // + alpha)) gives max(0, -inf) = 0 without a mask, whatever alpha
+  float bb[FT_ROWS][FT_COLS];
+#pragma unroll
+  for (int a = 0; a < FT_ROWS; ++a)
+#pragma unroll
+    for (int e = 0; e < FT_COLS; ++e) {
+      const size_t cl = tile0 + cbase + 64 * (e >> 2) + (e & 3);
+      bb[a][e] = a < nrow && (cmask >> e & 1)
+          ? __ldg(B + (size_t)(k0 + a) * n + cl)
+          : __int_as_float(0xff800000);  // -inf
+    }
+  // A^T and the tile of H0, eight global loads in flight per thread
+  for (int x0 = t; x0 < r * R4; x0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x, j = x / R4, k = x % R4;
+      v[q] = x < r * R4 && k < r ? A[k * r + j] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (x0 + q * blockDim.x < r * R4)
+        At[x0 + q * blockDim.x] = kBf16 ? bf16_round(v[q]) : v[q];
+  }
+  for (int x0 = t; x0 < R4 * TN; x0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x, k = x / TN, c = x % TN;
+      v[q] = x < R4 * TN && k < r && tile0 + c < (size_t)n
+          ? H0[(size_t)k * n + tile0 + c] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int x = x0 + q * blockDim.x, k = x / TN, c = x % TN;
+      if (x < R4 * TN) {
+        Ys[x] = v[q];
+        Ht[c * RS + k] = v[q];
+      }
+    }
+  }
+  if (use_stopping)
+    for (int k = t; k < r; k += blockDim.x)
+      vd[k] = vh[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
+  // the step-size kernel may still be running (programmatic dependent
+  // launch): wait for it, and for its inv_L, only now
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const float inv_L = *reinterpret_cast<const volatile float*>(inv_L_ptr);
+  const float stop2 = stop * stop;
+  float tmom = 1.f;
+  __syncthreads();
+
+  for (int it = 0; it < sub_iter; ++it) {
+    const float tn = 0.5f * (1.f + sqrtf(1.f + 4.f * tmom * tmom));
+    const float mom = (tmom - 1.f) / tn;
+    tmom = tn;
+    float acc[FT_ROWS][FT_COLS] = {};
+    if (live) {
+#pragma unroll 4
+      for (int j = 0; j < r; ++j) {
+        const float4 av = ld4(At + j * R4 + k0);
+        const float4 y0 = ld4(Ys + j * TN + cbase);
+        const float4 y1 = ld4(Ys + j * TN + cbase + 64);
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+        float y[FT_COLS] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+        if constexpr (kBf16) {
+#pragma unroll
+          for (int e = 0; e < FT_COLS; ++e) y[e] = bf16_round(y[e]);
+        }
+#pragma unroll
+        for (int a = 0; a < FT_ROWS; ++a)
+#pragma unroll
+          for (int e = 0; e < FT_COLS; ++e)
+            acc[a][e] = fmaf(a4[a], y[e], acc[a][e]);
+      }
+      // the new iterate, in the product's registers
+#pragma unroll
+      for (int a = 0; a < FT_ROWS; ++a) {
+        const float4 y0 = ld4(Ys + (k0 + a) * TN + cbase);
+        const float4 y1 = ld4(Ys + (k0 + a) * TN + cbase + 64);
+        const float y[FT_COLS] = {y0.x, y0.y, y0.z, y0.w,
+                                  y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int e = 0; e < FT_COLS; ++e)
+          acc[a][e] =
+              fmaxf(y[e] - inv_L * (acc[a][e] - bb[a][e] + alpha), 0.f);
+      }
+    }
+    __syncthreads();  // every product has read Y
+    int cv = 0;
+    if (use_stopping) {
+      if (live) {
+#pragma unroll
+        for (int e = 0; e < FT_COLS; ++e) {
+          const int c = cbase + 64 * (e >> 2) + (e & 3);
+          const float4 h = ld4(Ht + c * RS + k0);
+          st4(Ys + c * RS + k0, acc[0][e] - h.x, acc[1][e] - h.y,
+              acc[2][e] - h.z, acc[3][e] - h.w);
+        }
+      }
+      __syncthreads();
+      // as many lanes per block of the Grams as the threads allow
+      const int blocks = nb * (nb + 1) / 2;
+      if (4 * blocks <= (int)blockDim.x)
+        ft_tile_grams<4>(Ys, Ht, Gd, Gh, r, RS);
+      else if (2 * blocks <= (int)blockDim.x)
+        ft_tile_grams<2>(Ys, Ht, Gd, Gh, r, RS);
+      else
+        ft_tile_grams<1>(Ys, Ht, Gd, Gh, r, RS);
+      __syncthreads();
+      cv = ft_stop_decision(Gd, Gh, vd, vh, wd, wh, ad, ah, xch, r, stop2,
+                            pi_iters);
+    }
+    // H = Hn, Y = Hn + mom (Hn - H): in the iteration that converges too
+    if (live) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float yn[FT_ROWS][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 4 * half + i, c = cbase + 64 * half + i;
+          const float4 h = ld4(Ht + c * RS + k0);
+          yn[0][i] = acc[0][e] + mom * (acc[0][e] - h.x);
+          yn[1][i] = acc[1][e] + mom * (acc[1][e] - h.y);
+          yn[2][i] = acc[2][e] + mom * (acc[2][e] - h.z);
+          yn[3][i] = acc[3][e] + mom * (acc[3][e] - h.w);
+          st4(Ht + c * RS + k0, acc[0][e], acc[1][e], acc[2][e], acc[3][e]);
+        }
+#pragma unroll
+        for (int a = 0; a < FT_ROWS; ++a)
+          st4(Ys + (k0 + a) * TN + cbase + 64 * half, yn[a][0], yn[a][1],
+              yn[a][2], yn[a][3]);
+      }
+    }
+    __syncthreads();
+    if (cv) break;  // the same in every thread
+  }
+  for (int x = t; x < r * TN; x += blockDim.x) {
+    const int k = x / TN, c = x % TN;
+    if (tile0 + c < (size_t)n) H[(size_t)k * n + tile0 + c] = Ht[c * RS + k];
   }
 }
 
@@ -1226,6 +1813,18 @@ int launch_fista(const float* A, const float* B, const float* H0, float* H,
                  int blocks, cudaStream_t stream);
 
 template <int L, int Q>
+int launch_coder_lanes(const float* A, const float* B, const float* H0,
+                       float* H, int r, int n, float alpha, int sub_iter,
+                       cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)r * L * Q;
+  int e = launch_smem((const void*)coder_lanes_kernel<L, Q>, smem);
+  if (e) return e;
+  coder_lanes_kernel<L, Q><<<(n + TN - 1) / TN, TN / CS_COLS * L, smem,
+                             stream>>>(A, B, H0, H, r, n, alpha, sub_iter);
+  return (int)cudaGetLastError();
+}
+
+template <int L, int Q>
 int launch_es_lanes(const float* A, const float* B, const float* H0, float* H,
                     int r, int n, float alpha, float stop, int sub_iter,
                     int pi_iters, cudaStream_t stream) {
@@ -1244,7 +1843,7 @@ extern "C" {
 
 // Shared memory bytes each shared-memory coder kernel needs at rank r.
 size_t onmf_coder_sweeps_smem(int r) {
-  return sizeof(float) * ((size_t)r * r + (size_t)r * TN);
+  return sizeof(float) * (size_t)r * es_lanes(r) * cs_rows_per_lane(r);
 }
 
 size_t onmf_coder_sweeps_earlystop_smem(int r) {
@@ -1257,12 +1856,10 @@ size_t onmf_dict_smem_floats(int rows, int r) {
 }
 
 size_t onmf_fista_sweeps_smem(int r, int use_stopping) {
-  size_t floats = (size_t)r * ((r + 3) & ~3) + 2 * (size_t)r * HS;
-  if (use_stopping) floats += 2 * (size_t)r * r + 5 * (size_t)r;
-  return sizeof(float) * floats;
+  return sizeof(float) * ft_smem_floats(r, use_stopping);
 }
 
-// Workspace floats of the kGlobal kernels: one slice per block (and for
+// Workspace floats of the workspace kernels: one slice per block (and for
 // FISTA the A^T table before the slices).
 size_t onmf_earlystop_slice_floats(int r) { return es_slice_floats(r); }
 
@@ -1278,27 +1875,31 @@ const char* onmf_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// use_global != 0: the kGlobal kernel (A from device memory, columns swept
-// in place in H).
+// use_global != 0: the workspace kernel (A from device memory, columns
+// swept in place in H); otherwise coder_lanes_kernel, r <= CS_MAX_RANK.
 int onmf_coder_sweeps(const float* A, const float* B, const float* H0,
                       float* H, int r, int n, float alpha, int sub_iter,
                       int use_global, void* stream) {
-  const int blocks = (n + TN - 1) / TN;
+  cudaStream_t st = (cudaStream_t)stream;
   if (use_global) {
-    coder_sweeps_kernel<true><<<blocks, TN, 0, (cudaStream_t)stream>>>(
+    coder_sweeps_ws_kernel<<<(n + TN - 1) / TN, TN, 0, st>>>(
         A, B, H0, H, r, n, alpha, sub_iter);
     return (int)cudaGetLastError();
   }
-  const size_t smem = onmf_coder_sweeps_smem(r);
-  int e = launch_smem((const void*)coder_sweeps_kernel<false>, smem);
-  if (e) return e;
-  coder_sweeps_kernel<false><<<blocks, TN, smem, (cudaStream_t)stream>>>(
-      A, B, H0, H, r, n, alpha, sub_iter);
-  return (int)cudaGetLastError();
+  if (r > CS_MAX_RANK) return (int)cudaErrorInvalidValue;
+  if (r <= 16)
+    return launch_coder_lanes<2, 8>(A, B, H0, H, r, n, alpha, sub_iter, st);
+  if (r <= 32)
+    return launch_coder_lanes<2, 16>(A, B, H0, H, r, n, alpha, sub_iter, st);
+  if (r <= 64)
+    return launch_coder_lanes<4, 16>(A, B, H0, H, r, n, alpha, sub_iter, st);
+  if (r <= 100)
+    return launch_coder_lanes<4, 25>(A, B, H0, H, r, n, alpha, sub_iter, st);
+  return launch_coder_lanes<4, 32>(A, B, H0, H, r, n, alpha, sub_iter, st);
 }
 
 // ws == NULL: the shared-memory kernel, one block per tile; otherwise the
-// kGlobal kernel on `blocks` blocks, each with its slice of ws
+// workspace kernel on `blocks` blocks, each with its slice of ws
 // (onmf_earlystop_slice_floats floats).
 int onmf_coder_sweeps_earlystop(const float* A, const float* B,
                                 const float* H0, float* H, int r, int n,
@@ -1306,7 +1907,7 @@ int onmf_coder_sweeps_earlystop(const float* A, const float* B,
                                 int pi_iters, float* ws, int blocks,
                                 void* stream) {
   if (ws) {
-    coder_es_kernel<true><<<blocks, TN, 0, (cudaStream_t)stream>>>(
+    coder_es_ws_kernel<<<blocks, TN, 0, (cudaStream_t)stream>>>(
         A, B, H0, H, r, n, alpha, stop, sub_iter, pi_iters, ws);
     return (int)cudaGetLastError();
   }
@@ -1327,17 +1928,25 @@ int onmf_coder_sweeps_earlystop(const float* A, const float* B,
 // The step size into inv_L (one float of device scratch, from
 // lipschitz_iters power steps), then the sweeps, which read it. ws == NULL:
 // the shared-memory kernel, one block per tile; otherwise the A^T table is
-// written to the head of ws and the kGlobal kernel runs on `blocks` blocks.
+// written to the head of ws and the workspace kernel runs on `blocks` blocks.
 int onmf_fista_sweeps(const float* A, const float* B, const float* H0,
                       float* H, int r, int n, float alpha, float* inv_L,
                       int lipschitz_iters, float stop, int sub_iter,
                       int use_stopping, int pi_iters, int bf16_matmul,
                       float* ws, int blocks, void* stream) {
-  if (!ws && r > FISTA_MAX_RANK) return (int)cudaErrorInvalidValue;
-  fista_step_size_kernel<<<1, 32, 5 * r * sizeof(float),
+  if (!ws && r > (use_stopping ? FISTA_STOP_MAX_RANK : FISTA_MAX_RANK))
+    return (int)cudaErrorInvalidValue;
+  const int in_smem = r <= STEP_SMEM_MAX_RANK;
+  const size_t step_smem =
+      sizeof(float) * (2 * (size_t)r + (in_smem ? (size_t)r * r : 0));
+  int e = launch_smem((const void*)fista_step_size_kernel, step_smem);
+  if (e) return e;
+  const int step_threads =
+      r >= STEP_MAX_THREADS ? STEP_MAX_THREADS : (r + 31) / 32 * 32;
+  fista_step_size_kernel<<<1, step_threads, step_smem,
                            (cudaStream_t)stream>>>(A, r, lipschitz_iters,
-                                                   inv_L);
-  int e = (int)cudaGetLastError();
+                                                   in_smem, inv_L);
+  e = (int)cudaGetLastError();
   if (e) return e;
   if (bf16_matmul)
     return launch_fista<true>(A, B, H0, H, r, n, alpha, inv_L, stop,
@@ -1410,17 +2019,33 @@ int launch_fista(const float* A, const float* B, const float* H0, float* H,
                                                                       ws);
     int e = (int)cudaGetLastError();
     if (e) return e;
-    fista_kernel<kBf16, true><<<blocks, TN, 0, stream>>>(
-        A, B, H0, H, r, n, alpha, inv_L, stop, sub_iter, use_stopping,
-        pi_iters, ws);
+    fista_ws_kernel<kBf16><<<blocks, TN, 0, stream>>>(
+        B, H0, H, r, n, alpha, inv_L, stop, sub_iter, use_stopping, pi_iters,
+        ws);
     return (int)cudaGetLastError();
   }
   const size_t smem = onmf_fista_sweeps_smem(r, use_stopping);
-  int e = launch_smem((const void*)fista_kernel<kBf16, false>, smem);
+  int e = launch_smem((const void*)fista_tiled_kernel<kBf16>, smem);
   if (e) return e;
-  fista_kernel<kBf16, false><<<(n + TN - 1) / TN, TN, smem, stream>>>(
-      A, B, H0, H, r, n, alpha, inv_L, stop, sub_iter, use_stopping,
-      pi_iters, nullptr);
+  // launched while the step-size kernel before it in the stream still
+  // runs; the kernel waits for it before it reads inv_L
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + TN - 1) / TN);
+  cfg.blockDim = dim3(ft_threads(r));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, fista_tiled_kernel<kBf16>, A, B, H0, H, r,
+                              n, alpha, inv_L, stop, sub_iter, use_stopping,
+                              pi_iters);
+  if (e) {
+    cudaGetLastError();
+    return e;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,10 +21,13 @@ __all__ = [
 
 
 def random_patch_corners(gen: torch.Generator, img_shape, k: int, num: int,
-                         *, device="cpu"):
+                         *, device=None):
     """Uniform top-left corners for ``num`` random k x k patches, on the
     support {0, ..., H-k-1} of the reference's ``np.random.choice(H - k)``.
-    ``gen`` must live on ``device``."""
+    The corners lie on ``device``, by default the device of ``gen``, which
+    must live there."""
+    if device is None:
+        device = gen.device
     if img_shape[0] <= k or img_shape[1] <= k:
         raise ValueError(
             f"image {tuple(img_shape[:2])} too small for {k}x{k} patches "

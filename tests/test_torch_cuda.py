@@ -50,8 +50,17 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,n", [(25, ck.TN), (25, 4 * ck.TN + 37),
                                  (100, ck.TN), (100, 4 * ck.TN + 37),
-                                 (25, 16384), (100, 1000)])
+                                 (25, 16384), (100, 1000), (1, 1), (1, 500),
+                                 (8, 100), (8, 131109), (25, 1), (25, 100),
+                                 (25, 500), (25, 131109), (33, 1),
+                                 (33, 500), (100, 100), (100, 500),
+                                 (101, 100), (101, 500), (128, 1),
+                                 (128, 500), (128, 131109)])
 def test_cuda_coder_kernels_match_plain(cuda, r, n):
+    # every instantiation of the lanes kernels (r = 1..128: 2 or 4 lanes of
+    # 8, 16, 25 or 32 rows), a lone column, ragged last tiles and fewer
+    # columns than a tile; the fixed-sweep coder also at 50 sweeps, where a
+    # carried residual has the most time to drift
     A, B, H0 = make(300, r, n, seed=r + n)
     A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
     ck.reset_launches()
@@ -62,6 +71,10 @@ def test_cuda_coder_kernels_match_plain(cuda, r, n):
     assert ck.LAUNCHES["coder_sweeps_earlystop"] == 1
     torch.testing.assert_close(got, ck.coder_sweeps_plain(A, B, H0, 0.1),
                                **TOL)
+    if n <= 16384:
+        torch.testing.assert_close(
+            ck.coder_sweeps(A, B, H0, 0.1, sub_iter=50),
+            ck.coder_sweeps_plain(A, B, H0, 0.1, sub_iter=50), **TOL)
     # same tile width TN in both: the per-tile decisions agree
     torch.testing.assert_close(
         got_es, ck.coder_sweeps_earlystop_plain(A, B, H0, 0.1, 0.01), **TOL)
@@ -208,7 +221,7 @@ def test_cuda_network_path_launches_kernels_and_matches_cpu(cuda):
     from onmf_ontf_ndl_tpu_torch.data.graphs import csr_graph_from_edges
     from onmf_ontf_ndl_tpu_torch.models.state import init_state
 
-    g = csr_graph_from_edges(_torus_edges(20))
+    g = csr_graph_from_edges(_torus_edges(20), device="cpu")
     ck.reset_launches()
     rec = NetworkReconstructor(
         source=g, n_components=16, MCMC_iterations=8, sub_iterations=10,
@@ -268,13 +281,21 @@ def test_cuda_refused_launch_raises(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fixed", "stop", "bf16"])
-@pytest.mark.parametrize("r", [25, 100])
-@pytest.mark.parametrize("n", [ck.TN, 4 * ck.TN + 37])
+@pytest.mark.parametrize("mode,r,n", [
+    (mode, r, n) for mode in ("fixed", "stop", "bf16") for r in (25, 100)
+    for n in (ck.TN, 4 * ck.TN + 37)] + [
+    # the tiled kernel's thread counts (64 to 512), a lone column, fewer
+    # columns than a tile, a ragged last tile of many; one-tile stop runs
+    # at the tensor path's 100 iterations
+    (mode, r, n) for mode in ("fixed", "stop")
+    for r in (1, 8, 25, 33, 100, 101, 128) for n in (1, 100, 500)] + [
+    ("fixed", 25, 131109), ("stop", 25, 131109), ("fixed", 128, 131109),
+    ("stop100", 25, 100), ("stop100", 100, 100), ("stop100", 100, 1)])
 def test_cuda_fista_kernel_matches_plain(cuda, mode, r, n):
     A, B, H0 = make(300, r, n, seed=3 * r + n)
     A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
-    kw = dict(sub_iter=20, use_stopping=mode == "stop",
+    kw = dict(sub_iter=100 if mode == "stop100" else 20,
+              use_stopping=mode.startswith("stop"),
               bf16_matmul=mode == "bf16")
     ck.reset_launches()
     got = ck.fista_sweeps(A, B, H0, 0.1, 0.01, **kw)

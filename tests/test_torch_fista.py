@@ -223,3 +223,175 @@ def test_online_nmf_fista_learns():
     H = nmf.sparse_code(nmf.X, W)
     err = torch.linalg.norm(nmf.X - W @ H) / torch.linalg.norm(nmf.X)
     assert float(err) < 0.5
+
+
+# float32 PyTorch emulation of the tiled FISTA kernel's order of
+# operations, against the Pallas kernel in interpret mode with its tile set
+# to the port's TN.
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _power32(G, v, iters):
+    """One Gram's warm power steps, then the Rayleigh quotient."""
+    for _ in range(iters):
+        w = G @ v
+        v = w / torch.clamp_min(torch.sqrt(torch.sum(w * w)), 1e-30)
+    return (torch.sum(v * (G @ v))
+            / torch.clamp_min(torch.sum(v * v), 1e-30)), v
+
+
+def _lane_gram(M, lanes):
+    """M M^T over the tile's columns as the kernel sums it: each of
+    ``lanes`` lanes over columns s, s + lanes, ... in order, then the
+    lanes' sums by a butterfly."""
+    parts = []
+    for s in range(lanes):
+        g = torch.zeros((M.shape[0], M.shape[0]), dtype=M.dtype)
+        for c in range(s, M.shape[1], lanes):
+            g += M[:, c, None] * M[None, :, c]
+        parts.append(g)
+    m = lanes // 2
+    while m:
+        parts = [parts[s] + parts[s ^ m] for s in range(lanes)]
+        m //= 2
+    return parts[0]
+
+
+def _emulate_fista_tiled(A, B, H0, alpha, stop, sub_iter, use_stopping,
+                         bf16=False, pi_iters=12):
+    """fista_tiled_kernel: per tile of TN columns (zero beyond the batch),
+    the product A Y summed over j in order into one accumulator per output
+    (A and Y rounded to bf16 first in bf16 mode), the projected step, and
+    with the stop the Grams of the step delta and of the old iterate summed
+    in lane order, the decision (certified bounds, warm power steps in the
+    band), the step applied in the converging iteration too, and the
+    tile's own momentum."""
+    r, n = B.shape
+    lanes = ck.fista_tile_config(r, use_stopping)[2]
+    inv_L = ck._inv_lipschitz(A, max(16, pi_iters))
+    v0 = ck._fixed_start(r, torch.float32, "cpu")
+    Ar = _bf16(A) if bf16 else A
+    out = torch.empty_like(B)
+    for t0 in range(0, n, ck.TN):
+        w = min(ck.TN, n - t0)
+        H = torch.zeros((r, ck.TN))
+        b = torch.zeros((r, ck.TN))
+        H[:, :w], b[:, :w] = H0[:, t0:t0 + w], B[:, t0:t0 + w]
+        Y, tm = H.clone(), torch.tensor(1.0)
+        vd, vh = v0.clone(), v0.clone()
+        for _ in range(sub_iter):
+            tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tm * tm))
+            mom, tm = (tm - 1.0) / tn, tn
+            Yr = _bf16(Y) if bf16 else Y
+            acc = torch.zeros_like(Y)
+            for j in range(r):
+                acc += Ar[:, j, None] * Yr[j]
+            Hn = torch.clamp_min(Y - inv_L * (acc - b + alpha), 0.0)
+            Hn[:, w:] = 0.0
+            D = Hn - H
+            conv = False
+            if use_stopping:
+                Gd, Gh = _lane_gram(D, lanes), _lane_gram(H, lanes)
+                lb_d, vd = _power32(Gd, vd + 0.05 * v0, 1)
+                lb_h, vh = _power32(Gh, vh + 0.05 * v0, 1)
+                ub_d = min(torch.trace(Gd), Gd.abs().sum(1).max())
+                ub_h = min(torch.trace(Gh), Gh.abs().sum(1).max())
+                conv = bool(ub_d <= stop * stop * lb_h)
+                if not conv and not bool(lb_d > stop * stop * ub_h):
+                    num, vd = _power32(Gd, vd, pi_iters)
+                    den, vh = _power32(Gh, vh, pi_iters)
+                    conv = bool(num <= stop * stop * den)
+            H, Y = Hn, Hn + mom * D
+            if conv:
+                break
+        out[:, t0:t0 + w] = H[:, :w]
+    return out
+
+
+def _pallas_fista(A, B, H0, alpha, stop, **kw):
+    return np.asarray(jax_fista_sweeps(
+        jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0), alpha, stop,
+        block_n=ck.TN, interpret=True, **kw))
+
+
+@pytest.mark.parametrize("r,n", [(8, 1), (25, 100), (25, 2 * ck.TN + 37),
+                                 (33, 129), (100, 100), (128, 64)])
+def test_tiled_fista_emulation_fixed_matches_pallas(r, n):
+    A, B, H0, _, _ = problem(d=300, r=r, n=n, seed=r + n, dtype=np.float32)
+    got = _emulate_fista_tiled(_t(A), _t(B), _t(H0), 0.1, 0.0, 10, False)
+    assert got.dtype == torch.float32
+    want = _pallas_fista(A, B, H0, 0.1, 0.0, sub_iter=10,
+                         use_stopping=False)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    plain = ck.fista_sweeps_plain(_t(A), _t(B), _t(H0), 0.1, 0.0,
+                                  sub_iter=10, use_stopping=False)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("r,n,stop", [(8, 100, 0.01), (25, 100, 0.01),
+                                      (25, 2 * ck.TN + 37, 0.05),
+                                      (40, 129, 0.01), (100, 100, 0.01)])
+def test_tiled_fista_emulation_stop_matches_pallas(r, n, stop):
+    # the same tiles, the same rule and each tile's own momentum on all
+    # three sides: the same iterations per tile, so the iterates agree at
+    # the float32 tolerance
+    A, B, H0, _, _ = problem(d=300, r=r, n=n, seed=3 * r + n,
+                             dtype=np.float32)
+    got = _emulate_fista_tiled(_t(A), _t(B), _t(H0), 0.1, stop, 40, True)
+    want = _pallas_fista(A, B, H0, 0.1, stop, sub_iter=40,
+                         use_stopping=True)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    plain, sweeps = ck.fista_sweeps_plain(_t(A), _t(B), _t(H0), 0.1, stop,
+                                          sub_iter=40, with_sweeps=True)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    assert sweeps.shape == (-(-n // ck.TN),)
+    assert 1 <= int(sweeps.min()) and int(sweeps.max()) <= 40
+
+
+@pytest.mark.parametrize("r,n", [(25, 100), (100, 100)])
+def test_tiled_fista_emulation_bf16_matches_pallas(r, n):
+    A, B, H0, obj, _ = problem(d=300, r=r, n=n, seed=r, dtype=np.float32)
+    got = _emulate_fista_tiled(_t(A), _t(B), _t(H0), 0.5, 0.0, 10, False,
+                               bf16=True).numpy()
+    want = _pallas_fista(A, B, H0, 0.5, 0.0, sub_iter=10,
+                         use_stopping=False, bf16_matmul=True)
+    # bf16 rounding points differ between the two: loose elementwise plus
+    # the objective within 0.5%, as the plain version is held above
+    np.testing.assert_allclose(got, want, rtol=0.05, atol=0.02)
+    assert abs(obj(got, 0.5) - obj(want, 0.5)) \
+        <= 0.005 * abs(obj(want, 0.5)) + 1e-6
+    # one iteration: both round the same inputs and the products are exact
+    # in float32, so the plain version agrees at the float32 tolerance
+    one = _emulate_fista_tiled(_t(A), _t(B), _t(H0), 0.5, 0.0, 1, False,
+                               bf16=True)
+    plain = ck.fista_sweeps_plain(_t(A), _t(B), _t(H0), 0.5, 0.0,
+                                  sub_iter=1, use_stopping=False,
+                                  bf16_matmul=True)
+    np.testing.assert_allclose(one.numpy(), plain.numpy(), **TOL)
+
+
+def test_fista_tile_config_by_rank_alone():
+    # threads, row stride, Gram lanes and shared memory at the paths'
+    # ranks; every rank of the shared routes fits a block and an SM
+    assert ck.fista_tile_config(25) == (128, 28, 4,
+                                        4 * (25 * 28 + 2 * 128 * 28))
+    assert ck.fista_tile_config(25, True)[:3] == (128, 28, 4)
+    assert ck.fista_tile_config(100, True)[:3] == (416, 100, 1)
+    assert ck.fista_tile_config(100, True)[3] == 4 * (
+        100 * 100 + 2 * 128 * 100 + 2 * 100 * 100 + 600)
+    assert ck.fista_tile_config(128)[:3] == (512, 132, 1)
+    assert ck.fista_tile_config(1)[:3] == (64, 4, 4)
+    for use_stopping, limit in ((False, 128), (True, 100)):
+        for r in range(1, limit + 1):
+            threads, stride, lanes, smem = ck.fista_tile_config(
+                r, use_stopping)
+            assert 64 <= threads <= 512 and threads % 32 == 0
+            assert threads >= -(-r // 4) * 16
+            assert stride >= r and stride % 4 == 0 and (stride // 4) % 2
+            assert lanes in (1, 2, 4) and smem <= 232448
+        with pytest.raises(ValueError):
+            ck.fista_tile_config(limit + 1, use_stopping)
+    route = "fista_sweeps_stop"
+    assert ck.kernel_route(route, 100) == "shared"
+    assert ck.kernel_route(route, 101) == "workspace"

@@ -62,9 +62,9 @@ def assert_dense_equal(t, j):
 @pytest.mark.parametrize("use_native", NATIVE)
 def test_csr_and_bitset_graphs_equal_jax(name, use_native):
     edges = EDGE_LISTS[name]
-    t = tg.csr_graph_from_edges(edges, use_native=use_native)
+    t = tg.csr_graph_from_edges(edges, use_native=use_native, device="cpu")
     assert_csr_equal(t, jg.csr_graph_from_edges(edges, use_native=use_native))
-    tb = tg.bitset_graph_from_edges(edges, use_native=use_native)
+    tb = tg.bitset_graph_from_edges(edges, use_native=use_native, device="cpu")
     jb = jg.bitset_graph_from_edges(edges, use_native=use_native)
     assert_csr_equal(tb, jb)
     np.testing.assert_array_equal(tb.bits.numpy().view(np.uint32),
@@ -80,15 +80,16 @@ def test_csr_and_bitset_graphs_equal_jax(name, use_native):
 @pytest.mark.parametrize("name", sorted(EDGE_LISTS))
 def test_dense_graph_equals_jax(name):
     edges = EDGE_LISTS[name]
-    assert_dense_equal(tg.graph_from_edgelist(edges),
+    assert_dense_equal(tg.graph_from_edgelist(edges, device="cpu"),
                        jg.graph_from_edgelist(edges))
     n = len(jg.graph_from_edgelist(edges).node_ids)
     # padding with isolated nodes
-    assert_dense_equal(tg.graph_from_edgelist(edges, num_nodes=n + 3),
+    assert_dense_equal(tg.graph_from_edgelist(edges, num_nodes=n + 3,
+                                              device="cpu"),
                        jg.graph_from_edgelist(edges, num_nodes=n + 3))
     with pytest.raises(ValueError, match="distinct labels"):
-        tg.graph_from_edgelist(edges, num_nodes=n - 1)
-    assert tg.host_csr(tg.graph_from_edgelist(edges)) is None
+        tg.graph_from_edgelist(edges, num_nodes=n - 1, device="cpu")
+    assert tg.host_csr(tg.graph_from_edgelist(edges, device="cpu")) is None
 
 
 @pytest.mark.parametrize("normalize", [False, True])
@@ -99,13 +100,13 @@ def test_graph_from_adjacency_wan_semantics(normalize):
     A[4, 5], A[5, 4] = 0.5, 0.0        # one direction only: backfilled
     A[6, 7], A[7, 6] = 0.25, 0.75      # each orientation keeps its own
     A_before = A.copy()
-    t = tg.graph_from_adjacency(A, normalize=normalize)
+    t = tg.graph_from_adjacency(A, normalize=normalize, device="cpu")
     assert_dense_equal(t, jg.graph_from_adjacency(A, normalize=normalize))
     np.testing.assert_array_equal(A, A_before)   # the caller's matrix
 
 
 def test_graph_moves_between_devices_and_keeps_fields():
-    g = tg.csr_graph_from_edges(EDGE_LISTS["torus"])
+    g = tg.csr_graph_from_edges(EDGE_LISTS["torus"], device="cpu")
     h = g.to("cpu")
     assert h.max_deg == g.max_deg and h.node_ids == g.node_ids
     assert tg.host_csr(h) is tg.host_csr(g)
@@ -129,13 +130,15 @@ FILES = {
 def test_file_loaders_equal_jax(tmp_path, kind, use_native):
     delim = {"comma": ",", "space": " ", "tab": "\t"}[kind]
     path = _write(tmp_path / f"{kind}.txt", FILES[kind])
-    assert_dense_equal(tg.load_edgelist(path, use_native=use_native),
+    assert_dense_equal(tg.load_edgelist(path, use_native=use_native,
+                                        device="cpu"),
                        jg.load_edgelist(path, use_native=use_native))
-    assert_csr_equal(tg.load_edgelist_csr(path, use_native=use_native),
+    assert_csr_equal(tg.load_edgelist_csr(path, use_native=use_native,
+                                          device="cpu"),
                      jg.load_edgelist_csr(path, use_native=use_native))
     np.testing.assert_array_equal(tg.load_edgelist_dense(path),
                                   jg.load_edgelist_dense(path))
-    tb = tg.load_edgelist_bitset(path, delimiter=delim)
+    tb = tg.load_edgelist_bitset(path, delimiter=delim, device="cpu")
     jb = jg.load_edgelist_bitset(path, delimiter=delim)
     assert_csr_equal(tb, jb)
     np.testing.assert_array_equal(tb.bits.numpy().view(np.uint32),
@@ -151,9 +154,9 @@ def test_parse_rejects_what_jax_rejects(tmp_path):
         with pytest.raises(ValueError, match="could not parse"):
             tg._parse_edge_file(path)
     with pytest.raises(ValueError, match="pairs"):
-        tg.csr_graph_from_edges(np.zeros((3, 3), np.int64))
+        tg.csr_graph_from_edges(np.zeros((3, 3), np.int64), device="cpu")
     with pytest.raises(ValueError, match="even length"):
-        tg.csr_graph_from_edges([1, 2, 3])
+        tg.csr_graph_from_edges([1, 2, 3], device="cpu")
 
 
 def test_native_binding_matches_jax_binding(tmp_path):
@@ -177,6 +180,6 @@ def test_native_binding_matches_jax_binding(tmp_path):
 def test_skewed_graph_equal_jax_at_scale():
     # a Barabasi-Albert graph with hub rows (max_deg > 256)
     edges = ba_edges(3000, 8, seed=1)
-    t = tg.csr_graph_from_edges(edges)
+    t = tg.csr_graph_from_edges(edges, device="cpu")
     assert t.max_deg > 256
     assert_csr_equal(t, jg.csr_graph_from_edges(edges))

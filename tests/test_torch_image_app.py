@@ -91,7 +91,8 @@ def test_downscale_and_load_match_jax(tmp_path):
     Image.fromarray((img * 255).astype(np.uint8)).save(path)
     for color in (True, False):
         np.testing.assert_allclose(
-            timages.load_image(path, is_color=color, dtype=F64).numpy(),
+            timages.load_image(path, is_color=color, dtype=F64,
+                               device="cpu").numpy(),
             np.asarray(jimages.load_image(path, is_color=color,
                                           dtype=jnp.float64)), rtol=1e-15)
 

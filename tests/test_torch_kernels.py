@@ -321,3 +321,92 @@ def test_dict_route_by_shape_alone():
             assert ctas in (1, 2, 4, 8)
             assert ck._dict_threads(rows, r) <= 1024
             assert 4 * ck._dict_smem_floats(rows, r) <= 232448
+
+
+# float32 PyTorch emulation of the fixed-sweep lanes kernel's order of
+# operations, against the JAX coder in float32 at the kernels' tolerance.
+def _emulate_coder_lanes(A, B, H0, alpha, sub_iter, reform=None):
+    """coder_lanes_kernel: L lanes of Q rows per column hold h and the
+    residual g = A h - b in registers; g is formed row by row from h every
+    ``reform`` sweeps (the kernel's own period by default) and carried in
+    between: at coordinate k the owner's candidate and delta, then
+    g += A[:, k] delta on every lane's rows."""
+    r = B.shape[0]
+    L, Q, period = ck.coder_lanes_config(r)
+    period = reform or period
+    h, g = H0.clone(), None
+    diag1 = torch.diagonal(A) + 1.0
+    for i in range(sub_iter):
+        if i % period == 0:
+            g = -B.clone()
+            for m in range(r):
+                g += A[:, m, None] * h[m]
+        st = (1.0 / torch.sqrt(torch.tensor(i + 10.0))) / diag1
+        for k in range(r):
+            hn = torch.clamp_min(h[k] - st[k] * (g[k] + alpha), 0.0)
+            delta = hn - h[k]
+            h[k] = hn
+            for lane in range(L):
+                rows = slice(lane * Q, min(r, (lane + 1) * Q))
+                g[rows] += A[rows, k, None] * delta
+    return h
+
+
+_LANES_N = 129
+
+
+def _lanes_problem(r, sub_iter, cache={}):
+    """Inputs at n = 129 and the JAX coder's float32 result on them."""
+    if (r, sub_iter) not in cache:
+        A, B, H0, _, _ = make(d=300, r=r, n=_LANES_N, seed=1000 + r)
+        want = np.asarray(jax_code_impl(
+            jnp.asarray(A), jnp.asarray(B), jnp.asarray(H0),
+            jnp.float32(0.1), jnp.float32(0.0), jnp.float32(0.0), sub_iter,
+            False, False))
+        assert want.dtype == np.float32
+        cache[r, sub_iter] = (A, B, H0, want)
+    return cache[r, sub_iter]
+
+
+@pytest.mark.parametrize("n", [1, 100, 129])
+@pytest.mark.parametrize("sub_iter", [10, 50])
+@pytest.mark.parametrize("r", [8, 25, 32, 33, 100, 128])
+def test_lane_coder_emulation_matches_jax_code_impl(r, sub_iter, n):
+    # columns are independent: the first n columns of the problem
+    A, B, H0, want = _lanes_problem(r, sub_iter)
+    got = _emulate_coder_lanes(_t(A), _t(B[:, :n].copy()),
+                               _t(H0[:, :n].copy()), 0.1, sub_iter)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want[:, :n], **TOL)
+    plain = ck.coder_sweeps_plain(_t(A), _t(B[:, :n].copy()),
+                                  _t(H0[:, :n].copy()), 0.1,
+                                  sub_iter=sub_iter)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("sub_iter", [10, 50])
+@pytest.mark.parametrize("r", [8, 25, 32])
+def test_lane_coder_carried_residual_holds_up_to_rank_32(r, sub_iter):
+    # g carried through every sweep (never formed anew) stays within the
+    # tolerance up to r = 32, where the kernel carries it for 16 sweeps
+    A, B, H0, want = _lanes_problem(r, sub_iter)
+    got = _emulate_coder_lanes(_t(A), _t(B), _t(H0), 0.1, sub_iter,
+                               reform=10 ** 6)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_coder_lanes_config_by_rank_alone():
+    # the instantiations the C entry point dispatches on: <L, Q> with
+    # L Q >= r, g formed anew every sweep once L Q > 32
+    want = {1: (2, 8, 16), 16: (2, 8, 16), 17: (2, 16, 16), 25: (2, 16, 16),
+            32: (2, 16, 16), 33: (4, 16, 1), 64: (4, 16, 1), 65: (4, 25, 1),
+            100: (4, 25, 1), 101: (4, 32, 1), 128: (4, 32, 1)}
+    for r, config in want.items():
+        assert ck.coder_lanes_config(r) == config
+        assert ck.kernel_route("coder_sweeps", r) == "shared"
+    for r in range(1, 129):
+        L, Q, _ = ck.coder_lanes_config(r)
+        assert L * Q >= r and (Q % 4 == 0 or Q == 25)
+    for r in (0, 129):
+        with pytest.raises(ValueError):
+            ck.coder_lanes_config(r)

@@ -41,9 +41,9 @@ def gen(seed):
 
 def three(edges):
     """The port's dense, CSR and bitset graphs of one edge list."""
-    return {"dense": tg.graph_from_edgelist(edges),
-            "csr": tg.csr_graph_from_edges(edges),
-            "bitset": tg.bitset_graph_from_edges(edges)}
+    return {"dense": tg.graph_from_edgelist(edges, device="cpu"),
+            "csr": tg.csr_graph_from_edges(edges, device="cpu"),
+            "bitset": tg.bitset_graph_from_edges(edges, device="cpu")}
 
 
 def jax_three(edges):
@@ -97,7 +97,7 @@ def test_weighted_patches_equal_jax():
     rng = np.random.default_rng(8)
     A = rng.random((25, 25)) * (rng.random((25, 25)) < 0.3)
     A[2, 3], A[3, 2] = 0.4, 0.9          # orientation-dependent weights
-    tgr = tg.graph_from_adjacency(A, normalize=True)
+    tgr = tg.graph_from_adjacency(A, normalize=True, device="cpu")
     jgr = jg.graph_from_adjacency(A, normalize=True)
     embs = _embeddings(25, 4, 200, seed=1)
     embs[0, :2] = [2, 3]
@@ -111,16 +111,17 @@ def test_weighted_patches_equal_jax():
         np.asarray(jm.patch_from_embedding(
             jgr, jnp.asarray(embs[0], jnp.int32), weighted=True)))
     with pytest.raises(ValueError, match="weighted"):
-        tm.pair_matrices_T(tg.csr_graph_from_edges(GRAPHS["torus"]),
-                           torch.as_tensor(embs), weighted=True)
+        tm.pair_matrices_T(
+            tg.csr_graph_from_edges(GRAPHS["torus"], device="cpu"),
+            torch.as_tensor(embs), weighted=True)
 
 
 def test_pair_matrices_skewed_graph_k21_equal_jax():
     # hub rows past the JAX binary-search threshold (max_deg > 256), the
     # reference's 21-node motif; embeddings from the port's own chains
     edges = ba_edges(3000, 8, seed=1)
-    tcsr, jcsr = tg.csr_graph_from_edges(edges), jg.csr_graph_from_edges(
-        edges)
+    tcsr = tg.csr_graph_from_edges(edges, device="cpu")
+    jcsr = jg.csr_graph_from_edges(edges)
     assert tcsr.max_deg > 256
     B = tm.path_adj(0, 20)
     x0 = torch.randint(0, tcsr.num_nodes, (8,), generator=gen(0))
@@ -129,13 +130,13 @@ def test_pair_matrices_skewed_graph_k21_equal_jax():
     embs = torch.cat([embs, torch.as_tensor(_embeddings(3000, 21, 64, 3))])
     want = np.asarray(jm.pair_matrices_T(jcsr, jnp.asarray(embs.numpy(),
                                                            jnp.int32)))
-    for rep in (tcsr, tg.bitset_graph_from_edges(edges),
-                tg.graph_from_edgelist(edges)):
+    for rep in (tcsr, tg.bitset_graph_from_edges(edges, device="cpu"),
+                tg.graph_from_edgelist(edges, device="cpu")):
         np.testing.assert_array_equal(tm.pair_matrices_T(rep, embs).numpy(),
                                       want)
     # the chain's own patches are homomorphisms of the path: ones on the
     # motif's edges
-    adj = tg.graph_from_edgelist(edges).adj.numpy()
+    adj = tg.graph_from_edgelist(edges, device="cpu").adj.numpy()
     assert is_homomorphism(adj, B, embs[:96].numpy())
 
 
@@ -164,7 +165,7 @@ def test_chains_emit_homomorphisms_and_agree_across_representations(
 
 
 def test_sample_patches_one_chain_layout():
-    g = tg.graph_from_edgelist(torus_edges(5))
+    g = tg.graph_from_edgelist(torus_edges(5), device="cpu")
     B = tm.path_adj(0, 2)
     emb0 = tm.tree_sample(gen(0), tm.tree_parents(B), g,
                           torch.tensor([3]))[0]
@@ -221,8 +222,8 @@ def test_glauber_single_step_conditional_law(rep):
 
 def test_glauber_law_long_motif():
     edges = torus_edges(5)
-    g = tg.csr_graph_from_edges(edges)
-    adj = tg.graph_from_edgelist(edges).adj.numpy()
+    g = tg.csr_graph_from_edges(edges, device="cpu")
+    adj = tg.graph_from_edgelist(edges, device="cpu").adj.numpy()
     B = tm.path_adj(0, 4)
     emb0 = tm.tree_sample(gen(8), tm.tree_parents(B), g,
                           torch.tensor([7]))[0].numpy()
@@ -236,12 +237,12 @@ def test_glauber_empty_common_neighbourhood_falls_back_to_uniform():
     B = tm.path_adj(0, 2)
     emb0 = np.array([0, 1, 4])
     for g in three(edges).values():
-        adj = tg.graph_from_edgelist(edges).adj.numpy()
+        adj = tg.graph_from_edgelist(edges, device="cpu").adj.numpy()
         assert _glauber_tv(g, adj, B, emb0, 30000, seed=3) < 0.03
 
 
 def test_edgeless_motif_embeds_uniformly():
-    g = tg.graph_from_edgelist(torus_edges(4))
+    g = tg.graph_from_edgelist(torus_edges(4), device="cpu")
     parents = tm.tree_parents(np.zeros((3, 3), int))
     reps = 8000
     outs = tm.tree_sample(gen(9), parents, g,
@@ -256,7 +257,7 @@ def test_edgeless_motif_embeds_uniformly():
 
 
 def test_single_node_motif_moves_as_the_walk():
-    g = tg.graph_from_edgelist([[0, 1], [1, 2], [2, 0], [2, 3]])
+    g = tg.graph_from_edgelist([[0, 1], [1, 2], [2, 0], [2, 3]], device="cpu")
     B = tm.path_adj(0, 0)
     x = torch.arange(4).repeat(10)[:, None]
     got = tm.glauber_update(gen(4), B, (), g, x)
@@ -266,7 +267,7 @@ def test_single_node_motif_moves_as_the_walk():
 
 def test_isolated_nodes():
     # an isolated pivot: the tree keeps the pivot's image, the walk jumps
-    g = tg.graph_from_edgelist([[0, 1], [1, 2]], num_nodes=4)
+    g = tg.graph_from_edgelist([[0, 1], [1, 2]], num_nodes=4, device="cpu")
     emb = tm.tree_sample(gen(0), (0,), g, torch.full((50,), 3))
     assert (emb == 3).all()
     ys = tm.rw_update(gen(1), g, torch.full((4000,), 3))

@@ -80,7 +80,7 @@ def test_reconstruction_equals_jax_on_injected_draws(rep):
         else tg.csr_graph_from_edges
     build_j = jg.graph_from_edgelist if rep == "dense" \
         else jg.csr_graph_from_edges
-    tgraph, jgraph = build_t(edges), build_j(edges)
+    tgraph, jgraph = build_t(edges, device="cpu"), build_j(edges)
     B = jm.path_adj(1, 1)
     W = np.random.default_rng(2).random((9, 5))
     key = jax.random.key(42)
@@ -141,7 +141,8 @@ def test_grouping_and_edges_equal_jax_beyond_65536_nodes(n, include_self):
 
 def test_recons_accuracy_equal_on_both_forms():
     A = torus_adjacency(6)
-    trec = tnet.NetworkReconstructor(source=tg.graph_from_adjacency(A),
+    trec = tnet.NetworkReconstructor(source=tg.graph_from_adjacency(
+                                         A, device="cpu"),
                                      n_components=4, sample_size=10, k1=0,
                                      k2=1, dtype=F64, device="cpu")
     jrec = jnet.NetworkReconstructor(source=jg.graph_from_adjacency(A),
@@ -160,8 +161,8 @@ def test_recons_accuracy_equal_on_both_forms():
     # edge list's first appearance: map R into them)
     for build in (tg.csr_graph_from_edges, tg.bitset_graph_from_edges):
         other = tnet.NetworkReconstructor(
-            source=build(np.argwhere(np.triu(A))), n_components=4,
-            sample_size=10, k1=0, k2=1, dtype=F64, device="cpu")
+            source=build(np.argwhere(np.triu(A)), device="cpu"),
+            n_components=4, sample_size=10, k1=0, k2=1, dtype=F64, device="cpu")
         label = np.asarray(other.G.node_ids)
         Ro = R[np.ix_(label, label)]
         assert other.compute_recons_accuracy(
@@ -182,7 +183,7 @@ def test_ndl_train_matches_oracle_iteration_by_iteration():
     k, r, S, mcmc, inner, alpha = 3, 6, 40, 3, 5, 0.1
     W0 = rng.random((k * k, r))
     draws = _ndl_draws(rng, k, r, S, mcmc, inner)
-    g = tg.graph_from_adjacency(torus_adjacency(5))
+    g = tg.graph_from_adjacency(torus_adjacency(5), device="cpu")
     B = jm.path_adj(0, 2)
     emb0 = torch.tensor([0, 1, 2])
     kw = dict(sample_size=S, inner_iterations=inner, batch_size=S,
@@ -215,7 +216,7 @@ def test_ndl_train_matches_oracle_iteration_by_iteration():
 
 def test_ndl_train_chain_ensemble_rounds_the_sample_size():
     edges = np.argwhere(np.triu(torus_adjacency(5)))
-    g = tg.csr_graph_from_edges(edges)
+    g = tg.csr_graph_from_edges(edges, device="cpu")
     B = jm.path_adj(0, 2)
     emb0 = torch.tensor([[0, 1, 2], [5, 6, 7], [10, 11, 12]])
     st = init_state(1, 9, 4, dtype=F64, device="cpu")
@@ -225,7 +226,8 @@ def test_ndl_train_chain_ensemble_rounds_the_sample_size():
                                    subsample=True, use_stopping=False)
     assert code.shape == (4, 12) and emb.shape == (3, 3)
     assert (code.sum(0) > 0).any() and st.t == 6
-    adj = tg.graph_from_edgelist(edges).adj.numpy()   # g's node order
+    # g's node order
+    adj = tg.graph_from_edgelist(edges, device="cpu").adj.numpy()
     assert adj[emb[:, 0], emb[:, 1]].all() and adj[emb[:, 1], emb[:, 2]].all()
 
 
@@ -237,7 +239,8 @@ def _small_rec(pkg, **kw):
     if pkg == "jax":
         return jnet.NetworkReconstructor(source=jg.graph_from_adjacency(A),
                                          dtype=jnp.float64, **conf)
-    return tnet.NetworkReconstructor(source=tg.graph_from_adjacency(A),
+    return tnet.NetworkReconstructor(source=tg.graph_from_adjacency(
+                                         A, device="cpu"),
                                      dtype=F64, device="cpu", **conf)
 
 
@@ -297,7 +300,7 @@ def test_checkpoints_cross_between_jax_and_the_port(tmp_path, num_chains):
 def test_ndl_torus_end_to_end():
     # tests/test_network_app.py:22's configuration
     rec = tnet.NetworkReconstructor(
-        source=tg.graph_from_adjacency(torus_adjacency(10)),
+        source=tg.graph_from_adjacency(torus_adjacency(10), device="cpu"),
         n_components=16, MCMC_iterations=10, sub_iterations=10,
         sample_size=100, batch_size=20, k1=0, k2=2, alpha=0.1,
         is_glauber_dict=True, is_glauber_recons=False, dtype=F64, device="cpu")
@@ -316,7 +319,7 @@ def test_csr_graph_sparse_end_to_end_fast_ensemble():
     m = 12
     edges = np.argwhere(np.triu(torus_adjacency(m)))
     rec = tnet.NetworkReconstructor(
-        source=tg.csr_graph_from_edges(edges), n_components=16,
+        source=tg.csr_graph_from_edges(edges, device="cpu"), n_components=16,
         MCMC_iterations=8, sub_iterations=10, sample_size=200, batch_size=50,
         k1=0, k2=2, num_chains=8, fast=True, seed=0, dtype=F64, device="cpu")
     rec.train_dict()
@@ -354,7 +357,7 @@ def test_wan_weighted_patches(weighted):
 
 
 def test_reconstructor_surface(tmp_path):
-    g = tg.graph_from_edgelist([[7, 3], [3, 9], [9, 7]])
+    g = tg.graph_from_edgelist([[7, 3], [3, 9], [9, 7]], device="cpu")
     rec = tnet.NetworkReconstructor(source=g, n_components=4,
                                     MCMC_iterations=2, sub_iterations=3,
                                     sample_size=20, batch_size=5, k1=0,

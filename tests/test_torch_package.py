@@ -58,6 +58,7 @@ def _entry_points(tmp_path):
         ImageReconstructorTensor)
     from onmf_ontf_ndl_tpu_torch.apps.ising import IsingReconstructor
     from onmf_ontf_ndl_tpu_torch.apps.network import NetworkReconstructor
+    from onmf_ontf_ndl_tpu_torch.data import graphs, images
     from onmf_ontf_ndl_tpu_torch.models.ontf import OnlineNTF
     from onmf_ontf_ndl_tpu_torch.models.state import (init_state,
                                                       state_from_numpy)
@@ -67,6 +68,11 @@ def _entry_points(tmp_path):
     img = rng.random((16, 16, 3))
     ring = np.roll(np.eye(6), 1, axis=1)
     W, A, B = rng.random((4, 2)), np.eye(2), rng.random((2, 4))
+    edges = np.array([[0, 1], [1, 2], [2, 0]])
+    edge_file = tmp_path / "edges.txt"
+    np.savetxt(edge_file, edges, fmt="%d", delimiter=",")
+    np.save(tmp_path / "spins.npy", np.sign(rng.random((8, 8)) - 0.5))
+    spins = str(tmp_path / "spins.npy")
     return {
         p.OnlineNMF: lambda **kw: p.OnlineNMF(rng.random((4, 10)),
                                               n_components=2, **kw),
@@ -85,13 +91,33 @@ def _entry_points(tmp_path):
                                                         **kw),
         load_state: lambda **kw: load_state(str(tmp_path / "none.npz"),
                                             **kw),
+        # the makers of the port's inputs: graphs and images
+        graphs.graph_from_edgelist: lambda **kw: graphs.graph_from_edgelist(
+            edges, **kw),
+        graphs.graph_from_adjacency: lambda **kw: graphs.graph_from_adjacency(
+            ring + ring.T, **kw),
+        graphs.load_edgelist: lambda **kw: graphs.load_edgelist(
+            str(edge_file), **kw),
+        graphs.load_edgelist_csr: lambda **kw: graphs.load_edgelist_csr(
+            str(edge_file), **kw),
+        graphs.load_edgelist_bitset: lambda **kw: graphs.load_edgelist_bitset(
+            str(edge_file), **kw),
+        graphs.csr_graph_from_edges: lambda **kw: graphs.csr_graph_from_edges(
+            edges, **kw),
+        graphs.bitset_graph_from_edges:
+            lambda **kw: graphs.bitset_graph_from_edges(edges, **kw),
+        images.load_image: lambda **kw: images.load_image(
+            spins, is_matrix=True, **kw),
     }
 
 
 @pytest.mark.parametrize("name", [
     "OnlineNMF", "OnlineNTF", "ImageReconstructor", "ImageReconstructorTensor",
     "IsingReconstructor", "NetworkReconstructor", "init_state",
-    "state_from_numpy", "load_state"])
+    "state_from_numpy", "load_state", "graph_from_edgelist",
+    "graph_from_adjacency", "load_edgelist", "load_edgelist_csr",
+    "load_edgelist_bitset", "csr_graph_from_edges",
+    "bitset_graph_from_edges", "load_image"])
 def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
     # the entry point defaults to device="cuda"; without CUDA a call that
     # names no device raises rather than running on the CPU, and the same
@@ -108,7 +134,26 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
         with pytest.raises(FileNotFoundError):
             call(device="cpu")
     else:
-        call(device="cpu")
+        out = call(device="cpu")
+        if name in ("load_image", "csr_graph_from_edges"):
+            assert (out if name == "load_image"
+                    else out.offsets).device.type == "cpu"
+
+
+def test_random_patch_corners_follow_the_generator():
+    # the corners take their device from the generator, not from a default
+    # of their own: a path on the card stays there, a CPU generator stays
+    # on the CPU
+    import inspect
+
+    from onmf_ontf_ndl_tpu_torch.ops.patches import random_patch_corners
+
+    assert inspect.signature(random_patch_corners).parameters[
+        "device"].default is None
+    a, b = random_patch_corners(torch.Generator().manual_seed(0), (16, 16),
+                                4, 5)
+    assert a.device.type == b.device.type == "cpu" and a.shape == (5,)
+    assert int(a.max()) < 12 and int(b.max()) < 12
 
 
 def test_resolve_backend_by_tensor_device():
