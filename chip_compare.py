@@ -6,63 +6,104 @@ paths' shapes, for comparing two versions of the package on one card.
 ROOT (default: this checkout) holds the ``onmf_ontf_ndl_tpu_torch``
 package to time, e.g. another commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists; TAG labels its lines; KERNEL names
-(``dict``, ``coder``, ``fista``) keep the run to those tables, and ``iter``
-adds FISTA's cost per iteration (from calls of 1 and 21 iterations, fixed
-and with a stop of 0 that never converges) beside the call's fixed cost.
-Each kernel is
-timed as a CUDA graph of 20 calls, replayed three times; the least mean is
-kept. Inputs come from one seed, so two versions time the same work. To
-compare versions, run them in turns in one call (A, B, B, A). Prints one
-JSON line per shape. Needs one CUDA device.
+(``dict``, ``coder``, ``fista``) keep the run to those tables. Two more
+tables come only when named: ``iter`` is FISTA's cost per iteration (from
+calls of 1 and 21 iterations, fixed and with a stop of 0 that never
+converges) beside the call's fixed cost; ``bf16`` is no time but the error
+of ten fixed bf16 FISTA iterations against the plain version, with the
+columns past ``chip_smoke.py``'s ``BF16_TOL`` counted and the worst one
+traced to the iteration and the rounding where it parted.
+The shapes, the modes, the inputs and the timer are ``chip_smoke.py``'s
+(``PATH_SHAPES``, ``FISTA_MODES``, ``gram_inputs``, ``graph_ms``): each
+kernel is timed as a CUDA graph of 20 calls, replayed three times; the
+least mean is kept. Inputs come from one seed, so two versions time the
+same work. To compare versions, run them in turns in one call
+(A, B, B, A). Prints one JSON line per shape. Needs one CUDA device.
 """
 
 import json
+import math
 import sys
 from pathlib import Path
 
 import torch
 
-# (d, r) of the dictionary update: one warp's worth of rows (d = 32), then
-# the main path and image app, network (a), Ising and tensor paths
-DICT_SHAPES = [(32, 25), (300, 25), (441, 25), (400, 100), (1200, 100)]
-# (r, n) of the sweep coders: the main path's batch and headline n, network
-# (b) training, Ising
-CODER_SHAPES = [(25, 16384), (25, 131072 + 37), (25, 500), (100, 1000)]
-# FISTA: 10 fixed iterations at the main path's shapes; up to 100 with the
-# 0.01 stop at the tensor path's (training, colour reconstruction), and
-# training's with the bf16 product
-FISTA_MODES = {
-    "fixed": dict(sub_iter=10, use_stopping=False),
-    "stop": dict(sub_iter=100),
-    "bf16": dict(sub_iter=100, bf16_matmul=True),
-}
-FISTA_SHAPES = [(25, 16384, "fixed"), (25, 131072 + 37, "fixed"),
-                (100, 100, "stop"), (100, 252004, "stop"),
-                (100, 100, "bf16")]
+from chip_smoke import (BF16_TOL, FISTA_MODES, PATH_SHAPES, TOL, gram_inputs,
+                        graph_ms)
+
+# one warp's worth of rows (d = 32) before the paths' (d, r)
+DICT_SHAPES = [(32, 25)] + PATH_SHAPES["dict_update_sweep"]
 ITER_SHAPES = [(25, 16384), (25, 131072 + 37), (100, 100)]
+# every thread count of the tiled kernel (64 to 512), at a few tiles and at
+# many with a ragged last one; r = 8, where one rounding moves a column the
+# furthest, also at the headline n
+BF16_SHAPES = [(r, n) for r in (1, 8, 25, 33, 100, 128)
+               for n in (500, 4133)] + [(8, 131072 + 37)]
 
 
-def graph_ms(fn, reps=20, replays=3):
-    stream = torch.cuda.Stream()
-    with torch.cuda.stream(stream):
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            for _ in range(reps):
-                fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / reps)
-    return best
+def bf16_errors(ck, tag, r, n, A, B, H0):
+    """Ten fixed bf16 iterations, kernel against plain. Both round the same
+    A and Y to bf16 and sum in f32, in another order: a Y within that
+    rounding of a bf16 boundary rounds to the other side in one of them,
+    and the column parts by inv_L |A[:, j]| times one bf16 step of Y from
+    there on. The line counts the elements and columns past BF16_TOL,
+    follows the worst column to the first iteration where it leaves the
+    f32 tolerance, and rebuilds the Y that entered that iteration from both
+    sides' outputs to show the entries that round apart. For scale: the
+    plain version against itself with the rank's rows permuted."""
+    kw = dict(use_stopping=False, bf16_matmul=True)
+    args = (A, B, H0, 0.1, 0.01)
+    got = [H0] + [ck.fista_sweeps(*args, sub_iter=k, **kw)
+                  for k in range(1, 11)]
+    want = [H0] + [ck.fista_sweeps_plain(*args, sub_iter=k, **kw)
+                   for k in range(1, 11)]
+    diff = (got[10] - want[10]).abs()
+    over = diff > BF16_TOL["atol"]
+    inv_L = ck._inv_lipschitz(A)
+    line = {"version": tag, "kernel": "fista_sweeps", "table": "bf16",
+            "r": r, "n": n, "max_abs_err": float(diff.max()),
+            "atol": BF16_TOL["atol"], "elements_over": int(over.sum()),
+            "columns_over": int(over.any(0).sum()),
+            "one_iteration_max_abs_err": float(
+                (got[1] - want[1]).abs().max()),
+            "one_iteration_within_f32_tol": bool(
+                torch.allclose(got[1], want[1], **TOL))}
+    # the plain version on the rank's rows in another order: the same
+    # function, its float32 sums in another order
+    perm = torch.randperm(r, generator=torch.Generator().manual_seed(r)).to(
+        A.device)
+    again = ck.fista_sweeps_plain(
+        A[perm][:, perm].contiguous(), B[perm].contiguous(),
+        H0[perm].contiguous(), 0.1, 0.01, sub_iter=10, **kw)
+    resum = (again - want[10][perm]).abs()
+    line["plain_reordered_max_abs_err"] = float(resum.max())
+    line["plain_reordered_columns_over"] = int(
+        (resum > BF16_TOL["atol"]).any(0).sum())
+    # the worst column, iteration by iteration
+    c = int(diff.max(0).values.argmax())
+    errs = [float((g[:, c] - w[:, c]).abs().max())
+            for g, w in zip(got, want)]
+    line["worst_column_err_by_iteration"] = errs[1:]
+    parted = next((k for k in range(1, 11) if not torch.allclose(
+        got[k][:, c], want[k][:, c], **TOL)), None)
+    line["worst_column_parts_at_iteration"] = parted
+    if parted is not None and parted >= 2:
+        # Y after iteration m is H_m + mom_m (H_m - H_{m-1})
+        tt = 1.0
+        for _ in range(parted - 1):
+            tn = 0.5 * (1.0 + math.sqrt(1.0 + 4.0 * tt * tt))
+            mom, tt = (tt - 1.0) / tn, tn
+        Yk, Yp = (h[parted - 1][:, c] + mom * (
+            h[parted - 1][:, c] - h[parted - 2][:, c]) for h in (got, want))
+        apart = Yk.bfloat16() != Yp.bfloat16()
+        step = (Yk.bfloat16().float() - Yp.bfloat16().float()).abs()
+        line["entries_rounding_apart"] = int(apart.sum())
+        line["their_f32_difference"] = float((Yk - Yp).abs()[apart].max()) \
+            if bool(apart.any()) else None
+        line["their_bf16_difference"] = float(step.max())
+        line["one_step_moves_h_by"] = float(
+            inv_L * (A.abs() @ step).max())
+    print(json.dumps(line), flush=True)
 
 
 def main():
@@ -80,44 +121,44 @@ def main():
     ck.build()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
+
+    def timed(fn):
+        return graph_ms(fn, replays=3)
+
     for d, r in DICT_SHAPES if "dict" in only else []:
         W = torch.rand((d, r), generator=gen).to(dev)
         A = torch.rand((r, r), generator=gen).to(dev)
         B = torch.rand((r, d), generator=gen).to(dev)
         print(json.dumps({"version": tag, "kernel": "dict_update_sweep",
-                          "d": d, "r": r, "ms": graph_ms(
+                          "d": d, "r": r, "ms": timed(
                               lambda: ck.dict_update_sweep(W, A, B))}),
               flush=True)
-    def gram_inputs(r, n):
-        W = torch.rand((300, r), generator=gen)
-        W = (W / W.norm(dim=0)).to(dev)
-        X = torch.rand((300, n), generator=gen).to(dev)
-        return W.T @ W, W.T @ X, torch.rand((r, n), generator=gen).to(dev)
-
-    for r, n in CODER_SHAPES if "coder" in only else []:
-        A, B, H0 = gram_inputs(r, n)
+    for r, n in PATH_SHAPES["coder_sweeps"] if "coder" in only else []:
+        A, B, H0 = gram_inputs(r, n, gen, dev)
         line = {"version": tag, "r": r, "n": n}
-        line["coder_sweeps_earlystop"] = graph_ms(
+        line["coder_sweeps_earlystop"] = timed(
             lambda: ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01))
-        line["coder_sweeps"] = graph_ms(lambda: ck.coder_sweeps(A, B, H0, 0.1))
+        line["coder_sweeps"] = timed(lambda: ck.coder_sweeps(A, B, H0, 0.1))
         print(json.dumps(line), flush=True)
-    for r, n, mode in FISTA_SHAPES if "fista" in only else []:
-        A, B, H0 = gram_inputs(r, n)
+    for r, n, mode in PATH_SHAPES["fista_sweeps"] if "fista" in only else []:
+        A, B, H0 = gram_inputs(r, n, gen, dev)
         print(json.dumps({
             "version": tag, "kernel": "fista_sweeps", "mode": mode, "r": r,
-            "n": n, "ms": graph_ms(lambda: ck.fista_sweeps(
+            "n": n, "ms": timed(lambda: ck.fista_sweeps(
                 A, B, H0, 0.1, 0.01, **FISTA_MODES[mode]))}), flush=True)
     for r, n in ITER_SHAPES if "iter" in only else []:
-        A, B, H0 = gram_inputs(r, n)
+        A, B, H0 = gram_inputs(r, n, gen, dev)
         line = {"version": tag, "kernel": "fista_sweeps", "per": "iteration",
                 "r": r, "n": n}
         for mode, stop in (("fixed", False), ("stop", True)):
-            one, many = (graph_ms(lambda: ck.fista_sweeps(
+            one, many = (timed(lambda: ck.fista_sweeps(
                 A, B, H0, 0.1, 0.0, sub_iter=it, use_stopping=stop))
                 for it in (1, 21))
             line[mode + "_one_iteration_ms"] = one
             line[mode + "_us_per_iteration"] = 1e3 * (many - one) / 20
         print(json.dumps(line), flush=True)
+    for r, n in BF16_SHAPES if "bf16" in only else []:
+        bf16_errors(ck, tag, r, n, *gram_inputs(r, n, gen, dev))
 
 
 if __name__ == "__main__":

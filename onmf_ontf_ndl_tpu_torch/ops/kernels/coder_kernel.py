@@ -355,7 +355,10 @@ def fista_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
     to ``sub_iter`` per tile of :data:`TN` columns, each tile stopping once
     its relative spectral change is at most ``stopping_diff``.
     ``bf16_matmul`` takes the product ``A Y`` from bf16-rounded inputs with
-    f32 accumulation. Args/returns as :func:`coder_sweeps`."""
+    f32 accumulation. The step size comes from power steps on ``A v`` and
+    the product is ``A Y`` as written, so an A that is not exactly
+    symmetric gives what the plain version gives. Args/returns as
+    :func:`coder_sweeps`."""
     if _on_cpu(A, B, H0):
         return fista_sweeps_plain(
             A, B, H0, alpha, stopping_diff, sub_iter=sub_iter,

@@ -823,17 +823,20 @@ __global__ void __launch_bounds__(TN / CS_COLS * L, L == 2 ? 4 : 1)
 // Rayleigh quotient after `iters` normalised power steps from the fixed
 // start (_lambda_max). The 17 products A v are a sequential chain, so the
 // kernel is latency, not work: one block of one thread per row (whole
-// warps, up to STEP_MAX_THREADS; past that the rows stride), A copied into
-// shared memory once (in_smem; past STEP_SMEM_MAX_RANK it is read from
-// device memory) and read by columns (A is symmetric), so that a warp's
-// loads are consecutive and a row's sum needs no shuffle. The fewer the
+// warps, up to STEP_MAX_THREADS), A copied into shared memory once
+// (in_smem) with an odd row stride, so that a warp's threads, each on its
+// own row, fall on distinct banks and a row's sum needs no shuffle. It is
+// A v that is formed, row by row, as _lambda_max does: an A that is not
+// exactly symmetric gives the plain version's step. Past
+// STEP_SMEM_MAX_RANK A is read from device memory, one warp per row with
+// its lanes along the row (consecutive loads). The fewer the
 // warps, the cheaper the two barriers a step (one warp up to r = 32 needs
 // none across warps). One warp taking four rows a lane from device memory
 // took ~0.15 ms at r = 100. The sweep kernel that follows is let onto the
 // card at once (programmatic dependent launch): it loads its tiles while
 // the chain runs and waits for inv_L only before its first step.
 constexpr int STEP_MAX_THREADS = 1024;
-constexpr int STEP_SMEM_MAX_RANK = 192;  // r^2 + 2 r floats within 227 KB
+constexpr int STEP_SMEM_MAX_RANK = 192;  // r (r | 1) + 2 r floats in 227 KB
 
 __global__ void __launch_bounds__(STEP_MAX_THREADS)
     fista_step_size_kernel(const float* __restrict__ A, int r, int iters,
@@ -841,8 +844,9 @@ __global__ void __launch_bounds__(STEP_MAX_THREADS)
   extern __shared__ float smem[];
   float* v = smem;    // (r) the iterate
   float* w = v + r;   // (r) A v
-  float* As = w + r;  // (r, r) when in_smem
+  float* As = w + r;  // (r, RA) when in_smem
   const int t = threadIdx.x, lane = t & 31;
+  const int RA = r | 1;
   asm volatile("griddepcontrol.launch_dependents;");
   for (int k = t; k < r; k += blockDim.x)
     v[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
@@ -852,30 +856,34 @@ __global__ void __launch_bounds__(STEP_MAX_THREADS)
 #pragma unroll
       for (int q = 0; q < 8; ++q)
         a[q] = x0 + q * blockDim.x < r * r ? A[x0 + q * blockDim.x] : 0.f;
+      int row = x0 / r, col = x0 - row * r;  // one division per eight
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (x0 + q * blockDim.x < r * r) As[x0 + q * blockDim.x] = a[q];
+      for (int q = 0; q < 8; ++q) {
+        if (x0 + q * blockDim.x < r * r) As[row * RA + col] = a[q];
+        for (col += blockDim.x; col >= r; col -= r) ++row;
+      }
     }
   __syncthreads();
   for (int it = 0;; ++it) {
-    for (int k = t; k < r; k += blockDim.x) {
-      float a[4] = {};
-      int l = 0;
-      if (in_smem) {
+    if (in_smem) {
+      for (int k = t; k < r; k += blockDim.x) {
+        const float* row = As + k * RA;
+        float a[4] = {};
+        int l = 0;
         for (; l + 4 <= r; l += 4)
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            a[q] = fmaf(As[(l + q) * r + k], v[l + q], a[q]);
-        for (; l < r; ++l) a[0] = fmaf(As[l * r + k], v[l], a[0]);
-      } else {
-        for (; l + 4 <= r; l += 4)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            a[q] = fmaf(__ldg(A + (size_t)(l + q) * r + k), v[l + q], a[q]);
-        for (; l < r; ++l)
-          a[0] = fmaf(__ldg(A + (size_t)l * r + k), v[l], a[0]);
+          for (int q = 0; q < 4; ++q) a[q] = fmaf(row[l + q], v[l + q], a[q]);
+        for (; l < r; ++l) a[0] = fmaf(row[l], v[l], a[0]);
+        w[k] = (a[0] + a[1]) + (a[2] + a[3]);
       }
-      w[k] = (a[0] + a[1]) + (a[2] + a[3]);
+    } else {
+      for (int k = t >> 5; k < r; k += blockDim.x >> 5) {
+        const float* row = A + (size_t)k * r;
+        float a = 0.f;
+        for (int l = lane; l < r; l += 32) a = fmaf(__ldg(row + l), v[l], a);
+        a = warp_sum(a);
+        if (lane == 0) w[k] = a;
+      }
     }
     __syncthreads();
     if (it == iters) break;
@@ -1938,11 +1946,11 @@ int onmf_fista_sweeps(const float* A, const float* B, const float* H0,
     return (int)cudaErrorInvalidValue;
   const int in_smem = r <= STEP_SMEM_MAX_RANK;
   const size_t step_smem =
-      sizeof(float) * (2 * (size_t)r + (in_smem ? (size_t)r * r : 0));
+      sizeof(float) * (2 * (size_t)r + (in_smem ? (size_t)r * (r | 1) : 0));
   int e = launch_smem((const void*)fista_step_size_kernel, step_smem);
   if (e) return e;
-  const int step_threads =
-      r >= STEP_MAX_THREADS ? STEP_MAX_THREADS : (r + 31) / 32 * 32;
+  // a thread per row in shared memory; a warp per row from device memory
+  const int step_threads = in_smem ? (r + 31) / 32 * 32 : STEP_MAX_THREADS;
   fista_step_size_kernel<<<1, step_threads, step_smem,
                            (cudaStream_t)stream>>>(A, r, lipschitz_iters,
                                                    in_smem, inv_L);

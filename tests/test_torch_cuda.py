@@ -9,7 +9,12 @@ Tolerance: rtol 2e-4 / atol 2e-5, float32 summation order; the bf16 FISTA
 product at rtol 2e-3 / atol 2e-4 (a float32 sum in another order can carry
 a bf16-rounded input across a rounding boundary); at the large ranks one
 bf16 iteration at the f32 tolerance and ten at atol 1.5e-3, as
-``chip_smoke.py`` checks them. The checkerboard kernel
+``chip_smoke.py`` checks them. At small ranks one such rounding moves a
+column about as far as that (r = 8, n = 4133 on an NVIDIA H100 80GB HBM3:
+1.2e-3 for the kernel, 1.7e-3 in one column for the plain version
+against itself with its rows permuted; 2.1e-3 in 6 of 131,109 columns;
+``chip_compare.py . new bf16``), so ``assert_bf16_close`` holds every
+column to the tolerance or to one rounding. The checkerboard kernel
 draws the same bits as its plain version: equal site for site. A small
 network run (20x20 torus) must launch the coder and dictionary kernels,
 and its training on the card (float32) must agree with the CPU (float64)
@@ -38,6 +43,38 @@ def make(d, r, n, seed):
 
 def _t(a, device):
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def assert_bf16_close(kernel, plain, A, iters, tol):
+    """``kernel(k)`` against ``plain(k)`` (the (r, n) results of k fixed bf16
+    FISTA iterations) at k = ``iters``, column by column. Both round the
+    same A and Y to bf16 and sum in float32, in another order, so a Y
+    within a float32 rounding of a bf16 boundary can round apart: that
+    column then moves by ``inv_L |A[:, j]|`` times one bf16 step of Y. A
+    column agrees within ``tol``, or (few may: one in 500) it agrees at the
+    float32 tolerance up to some iteration and leaves it there by at most
+    two such steps. Returns the number of such columns."""
+    got, want = kernel(iters), plain(iters)
+    assert bool(torch.isfinite(got).all())
+    bad = (~torch.isclose(got, want, **tol)).any(0).nonzero()[:, 0]
+    if bad.numel() == 0:
+        return 0
+    assert bad.numel() <= max(1, got.shape[1] // 500), bad.numel()
+    gs = [kernel(k)[:, bad] for k in range(1, iters + 1)]
+    ws = [plain(k)[:, bad] for k in range(1, iters + 1)]
+    scale = float(ck._inv_lipschitz(A) * A.abs().max())
+    for i in range(bad.numel()):
+        parted = next(k for k in range(iters) if not torch.allclose(
+            gs[k][:, i], ws[k][:, i], **TOL))
+        assert parted >= 1   # the first iteration rounds the same inputs
+        # |Y| <= 2 max |H| of the two iterates before; bf16 keeps 8 bits
+        y_max = max(2 * float(torch.stack(
+            [ws[parted - 1][:, i], ws[max(parted - 2, 0)][:, i]]
+        ).abs().max()), 2.0 ** -126)
+        step = 2.0 ** (np.floor(np.log2(y_max)) - 7)
+        jump = float((gs[parted][:, i] - ws[parted][:, i]).abs().max())
+        assert jump <= 2 * scale * step, (int(bad[i]), parted, jump, step)
+    return int(bad.numel())
 
 
 @pytest.fixture
@@ -290,7 +327,9 @@ def test_cuda_refused_launch_raises(cuda, monkeypatch):
     (mode, r, n) for mode in ("fixed", "stop")
     for r in (1, 8, 25, 33, 100, 101, 128) for n in (1, 100, 500)] + [
     ("fixed", 25, 131109), ("stop", 25, 131109), ("fixed", 128, 131109),
-    ("stop100", 25, 100), ("stop100", 100, 100), ("stop100", 100, 1)])
+    ("stop100", 25, 100), ("stop100", 100, 100), ("stop100", 100, 1)] + [
+    # the bf16 product at the other thread counts, a few tiles and many
+    ("bf16", r, n) for r in (1, 8, 33, 128) for n in (500, 4133)])
 def test_cuda_fista_kernel_matches_plain(cuda, mode, r, n):
     A, B, H0 = make(300, r, n, seed=3 * r + n)
     A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
@@ -304,6 +343,57 @@ def test_cuda_fista_kernel_matches_plain(cuda, mode, r, n):
     torch.testing.assert_close(
         got, ck.fista_sweeps_plain(A, B, H0, 0.1, 0.01, **kw),
         **(BF16_TOL if mode == "bf16" else TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 8, 25, 33, 100, 128])
+@pytest.mark.parametrize("n", [500, 4133, 16384])
+def test_cuda_fista_bf16_parts_only_at_a_rounding(cuda, r, n):
+    # chip_smoke.py's inputs (a normalised dictionary's Grams) and its two
+    # bf16 stages: one iteration at the f32 tolerance, ten at atol 1.5e-3,
+    # the few columns past it held to one rounding
+    rng = np.random.default_rng(7 * r + n)
+    W = rng.random((300, r)).astype(np.float32)
+    W /= np.linalg.norm(W, axis=0)
+    A = _t(W.T @ W, cuda)
+    B = _t(W.T @ rng.random((300, n)).astype(np.float32), cuda)
+    H0 = _t(rng.random((r, n)).astype(np.float32), cuda)
+
+    def run(fn):
+        return lambda k: fn(A, B, H0, 0.1, 0.01, sub_iter=k,
+                            use_stopping=False, bf16_matmul=True)
+
+    kernel, plain = run(ck.fista_sweeps), run(ck.fista_sweeps_plain)
+    torch.testing.assert_close(kernel(1), plain(1), **TOL)
+    assert_bf16_close(kernel, plain, A, 10, BF16_TEN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_stopping", [False, True])
+@pytest.mark.parametrize("r", [8, 25, 100, 128, 256])
+def test_cuda_fista_takes_an_asymmetric_A(cuda, r, use_stopping):
+    # the step size comes from A v and the product is A Y, as the plain
+    # version forms them: an A that is not symmetric must agree too (the
+    # step-size kernel in shared memory and, at r = 256, from device
+    # memory). A near-identity Gram plus a shear: 16 power steps have not
+    # converged, and on the transpose they end at another step size, which
+    # moves the result by 2e-3 (r = 8) to 1.2 (r = 256)
+    rng = np.random.default_rng(r)
+    W = rng.standard_normal((300, r)).astype(np.float32)
+    W /= np.linalg.norm(W, axis=0)
+    B = np.abs(W).T @ rng.random((300, 500)).astype(np.float32)
+    H0 = rng.random((r, 500)).astype(np.float32)
+    A = W.T @ W + np.triu(
+        0.1 * rng.standard_normal((r, r)).astype(np.float32), 1)
+    A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
+    assert not torch.equal(A, A.T)
+    kw = dict(sub_iter=10, use_stopping=use_stopping)
+    ck.reset_launches()
+    got = ck.fista_sweeps(A, B, H0, 0.1, 0.01, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["fista_sweeps"] == 1
+    torch.testing.assert_close(
+        got, ck.fista_sweeps_plain(A, B, H0, 0.1, 0.01, **kw), **TOL)
 
 
 @pytest.mark.cuda

@@ -371,6 +371,38 @@ def test_tiled_fista_emulation_bf16_matches_pallas(r, n):
     np.testing.assert_allclose(one.numpy(), plain.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("r,n", [(1, 500), (4, 4133), (8, 500), (8, 4133),
+                                 (33, 500), (128, 500)])
+def test_bf16_fista_in_another_sum_order_parts_only_at_a_rounding(r, n):
+    # the card tests' bf16 check, here on the plain version against itself
+    # with the rank's rows permuted (the same function, its float32 sums in
+    # another order): one iteration agrees at the float32 tolerance; after
+    # ten a column agrees at atol 1.5e-3 or left at one bf16 rounding of Y
+    # (one column does at (8, 4133), two at (4, 4133))
+    from test_torch_cuda import BF16_TEN_TOL, assert_bf16_close
+
+    rng = np.random.default_rng(7 * r + n)
+    W = rng.random((300, r)).astype(np.float32)
+    W /= np.linalg.norm(W, axis=0)
+    A, B = _t(W.T @ W), _t(W.T @ rng.random((300, n)).astype(np.float32))
+    H0 = _t(rng.random((r, n)).astype(np.float32))
+    perm = torch.from_numpy(rng.permutation(r))
+    back = torch.argsort(perm)
+    kw = dict(use_stopping=False, bf16_matmul=True)
+
+    def plain(k):
+        return ck.fista_sweeps_plain(A, B, H0, 0.1, 0.01, sub_iter=k, **kw)
+
+    def permuted(k):
+        return ck.fista_sweeps_plain(
+            A[perm][:, perm].contiguous(), B[perm].contiguous(),
+            H0[perm].contiguous(), 0.1, 0.01, sub_iter=k, **kw)[back]
+
+    np.testing.assert_allclose(permuted(1).numpy(), plain(1).numpy(), **TOL)
+    parted = assert_bf16_close(permuted, plain, A, 10, BF16_TEN_TOL)
+    assert 0 <= parted <= max(1, n // 500)
+
+
 def test_fista_tile_config_by_rank_alone():
     # threads, row stride, Gram lanes and shared memory at the paths'
     # ranks; every rank of the shared routes fits a block and an SM

@@ -164,3 +164,24 @@ def test_resolve_backend_by_tensor_device():
         resolve_backend("cuda", x)
     with pytest.raises(ValueError, match="unknown backend"):
         resolve_backend("pallas", x)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "stop", "bf16"])
+def test_smoke_bound_takes_the_peak_of_the_operand_type(mode):
+    # chip_smoke.py's bound of a FISTA call: the f32 product and the Grams
+    # at the float32 peak, a bf16 product at the tensor cores' bf16 peak
+    import chip_smoke as cs
+
+    r, n, iterations = 100, 100, 38
+    kw = cs.FISTA_MODES[mode]
+    ms, by = cs.coder_bound("fista_sweeps", r, n, None, kw,
+                            sweeps=torch.tensor([iterations]))
+    column_sweeps = n * (iterations if kw.get("use_stopping", True)
+                         else kw["sub_iter"])
+    product = 2 * r * r * column_sweeps
+    grams = 2 * r * (r + 1) * column_sweeps * kw.get("use_stopping", True)
+    want = {"fixed": product / 67e12, "stop": (product + grams) / 67e12,
+            "bf16": product / 989e12 + grams / 67e12}[mode]
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * want, rel=1e-12)
+    assert cs.bound(3.35e12, 0) == (1e3, "bytes")
