@@ -1,22 +1,27 @@
-"""Device times of the port's coder, FISTA and dictionary kernels at the
-paths' shapes, for comparing two versions of the package on one card.
+"""Device times of the port's coder, FISTA, dictionary and sampler kernels
+at the paths' shapes, for comparing two versions of the package on one
+card.
 
     python3 chip_compare.py [ROOT] [TAG] [KERNEL ...]
 
 ROOT (default: this checkout) holds the ``onmf_ontf_ndl_tpu_torch``
 package to time, e.g. another commit unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists; TAG labels its lines; KERNEL names
-(``dict``, ``coder``, ``fista``) keep the run to those tables. Two more
-tables come only when named: ``iter`` is FISTA's cost per iteration (from
-calls of 1 and 21 iterations, fixed and with a stop of 0 that never
-converges) beside the call's fixed cost; ``bf16`` is no time but the error
+(``dict``, ``coder``, ``fista``, ``checker``) keep the run to those tables
+(``checker`` is the checkerboard sampler at ``PATH_SHAPES``, by the
+wrapper's own route and, where the package has the resident kernels, by
+every other route that holds the lattice). Three more tables come only
+when named: ``routes`` times every route of the sampler on a grid of
+(n, sweeps) around the crossovers of ``checkerboard_route``; ``iter`` is
+FISTA's cost per iteration (from calls of 1 and 21 iterations, fixed and
+with a stop of 0 that never converges) beside the call's fixed cost; ``bf16`` is no time but the error
 of ten fixed bf16 FISTA iterations against the plain version, with the
 columns past ``chip_smoke.py``'s ``BF16_TOL`` counted and the worst one
 traced to the iteration and the rounding where it parted.
 The shapes, the modes, the inputs and the timer are ``chip_smoke.py``'s
 (``PATH_SHAPES``, ``FISTA_MODES``, ``gram_inputs``, ``graph_ms``): each
-kernel is timed as a CUDA graph of 20 calls, replayed three times; the
-least mean is kept. Inputs come from one seed, so two versions time the
+kernel is timed as a CUDA graph of 20 calls (5 of the sampler's longer
+ones), replayed three times; the least mean is kept. Inputs come from one seed, so two versions time the
 same work. To compare versions, run them in turns in one call
 (A, B, B, A). Prints one JSON line per shape. Needs one CUDA device.
 """
@@ -106,13 +111,51 @@ def bf16_errors(ck, tag, r, n, A, B, H0):
     print(json.dumps(line), flush=True)
 
 
+# lattices from one warp's worth of sites to past the cluster's reach, and
+# calls from one sweep to many: where the routes of the sampler cross
+ROUTE_SHAPES = [(n, sweeps) for n in (16, 32, 64, 96, 128, 160, 200, 224,
+                                      256, 384, 512)
+                for sweeps in (1, 4, 16, 64)]
+
+
+def checkerboard_times(tag, dev, gen, timed, shapes=None):
+    """The sampler at PATH_SHAPES (T = 2.5, a seeded random lattice): the
+    wrapper's own call, and for a package with ``checkerboard_route`` the
+    kernels of every route that can hold the lattice, run in place (a call
+    of the wrapper also clones the lattice)."""
+    import ctypes
+
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel as ik
+
+    for n, sweeps in shapes or PATH_SHAPES["checkerboard_sweeps"]:
+        lat = (1 - 2 * torch.randint(0, 2, (n, n), generator=gen)).to(
+            torch.int8).to(dev)
+        reps = 20 if n * n * sweeps <= 200 * 200 * 100 else 5
+        line = {"version": tag, "kernel": "checkerboard_sweeps", "n": n,
+                "sweeps": sweeps, "ms": graph_ms(
+                    lambda: ik.checkerboard_sweeps(n, lat, sweeps, T=2.5),
+                    reps=reps, replays=3)}
+        if hasattr(ik, "checkerboard_route"):
+            line["route"] = list(ik.checkerboard_route(n, sweeps))
+            thr = (ctypes.c_uint * 10)(*ik.acceptance_thresholds(
+                1.0, 0.0, 2.5))
+            work = lat.clone()
+            for ctas in (0, 1, 2, 4, 8):
+                if ctas == 0 or (ik._resident_fits(n, ctas)
+                                 and n * n * sweeps / ctas <= 1 << 25):
+                    line[f"ctas_{ctas}_ms"] = graph_ms(
+                        lambda: ik._launch(work, n, sweeps, n, thr, ctas),
+                        reps=reps, replays=3)
+        print(json.dumps(line), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
         sys.exit(1)
     root = Path(sys.argv[1] if len(sys.argv) > 1 else ".").resolve()
     tag = sys.argv[2] if len(sys.argv) > 2 else root.name
-    only = sys.argv[3:] or ["dict", "coder", "fista"]
+    only = sys.argv[3:] or ["dict", "coder", "fista", "checker"]
     sys.path.insert(0, str(root))
     from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel as ck
 
@@ -146,6 +189,10 @@ def main():
             "version": tag, "kernel": "fista_sweeps", "mode": mode, "r": r,
             "n": n, "ms": timed(lambda: ck.fista_sweeps(
                 A, B, H0, 0.1, 0.01, **FISTA_MODES[mode]))}), flush=True)
+    if "checker" in only:
+        checkerboard_times(tag, dev, gen, timed)
+    if "routes" in only:
+        checkerboard_times(tag, dev, gen, timed, ROUTE_SHAPES)
     for r, n in ITER_SHAPES if "iter" in only else []:
         A, B, H0 = gram_inputs(r, n, gen, dev)
         line = {"version": tag, "kernel": "fista_sweeps", "per": "iteration",

@@ -14,14 +14,15 @@ Phases, each printing its findings on a line of its own:
              atol 1.5e-3, each outside the f32 tolerance of the f32 plain
              version; the coders past their shared-memory ranks (the
              workspace kernels) at r in {128, 256}, and 101 for the
-             stopping modes, n = 131072 + 37; the checkerboard sampler at
-             n in {200, 4096}, 100 sweeps, equal site for site, and two
-             physics checks at n = 4096. Then the dictionary kernel and the
-             three coders at the paths' shapes (``PATH_SHAPES``), each with
-             its route, device time, bound and share of the bound. Kernel times
-             are device times: a CUDA graph of 20 calls, replayed; the plain
-             versions (host loops that synchronise) and the sampler (200
-             launches a call) are timed by CUDA events around a few calls.
+             stopping modes, n = 131072 + 37. Then the dictionary kernel,
+             the three coders and the checkerboard sampler at the paths'
+             shapes (``PATH_SHAPES``), each with its route, device time,
+             bound and share of the bound; the sampler equal to its plain
+             version site for site on every route and vector width, and two
+             physics checks at n = 4096. Kernel times are device times: a
+             CUDA graph of 20 calls (5 of the larger ones), replayed; the
+             plain versions (host loops that synchronise) are timed by CUDA
+             events around a few calls.
 3. main    - ``OnlineNMF(...).train_dict()`` on synthetic sparse-dictionary
              data (trained W within 10% of the ground-truth W's score),
              then ``init_state`` + ``train_dict`` at d = 300, r = 25,
@@ -35,16 +36,26 @@ Phases, each printing its findings on a line of its own:
              same image, colour reconstruction, and a short card/CPU run.
 6. ising   - ``IsingReconstructor`` (r = 100, lattice 200, 20 rounds,
              T = 5; ``benchmarks/run_all.py``'s configuration), config
-             reconstruction, and a short card/CPU run.
-7. network - ``NetworkReconstructor`` at ``NETWORK_RUNS``' two
+             reconstruction, and a short card/CPU run; then
+             ``ImageReconstructor(is_stack=True)`` on a stack of sampled
+             lattices.
+7. video   - ``VideoDictionaryLearner`` at the reference's defaults
+             (r = 100, patch 7, colour: d = 147; 200 patches a frame, 10
+             inner steps) on 16 synthetic 256x256x3 frames built on the
+             card, one epoch, and one frame reconstructed (its error must
+             be below the initial W's).
+8. network - ``NetworkReconstructor`` at ``NETWORK_RUNS``' two
              configurations (the reference main()'s 21-node motif on a
              seeded 4,039-node Barabasi-Albert graph, dense reconstruction;
              the 129,600-node torus on a CsrGraph, sparse reconstruction of
              4.8M samples): train and reconstruction seconds, chain steps
-             per second and accuracy; a short card/CPU run.
+             per second and accuracy; the sparse reconstruction once more
+             in 4 chunks, with the peak device memory of both; a short
+             card/CPU run.
 
-Phases 3, 5, 6 and 7 each drive one path of the port with the launch counts
-set to 0 before it, and fail unless every kernel of that path launched.
+Phases 3 and 5 to 8 each drive one path of the port (6: two, the Ising path
+and the stacked run) with the launch counts set to 0 before it, and fail
+unless every kernel of that path launched.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -88,6 +99,9 @@ PATH_KERNELS = {
     "tensor": ("fista_sweeps", "dict_update_sweep"),
     "ising": ("checkerboard_sweeps", "coder_sweeps_earlystop",
               "coder_sweeps", "dict_update_sweep"),
+    "stack": ("checkerboard_sweeps", "coder_sweeps_earlystop",
+              "coder_sweeps", "dict_update_sweep"),
+    "video": ("coder_sweeps_earlystop", "coder_sweeps", "dict_update_sweep"),
     "network": ("coder_sweeps_earlystop", "coder_sweeps",
                 "dict_update_sweep"),
 }
@@ -96,17 +110,28 @@ HEADLINE_N = 131072 + 37   # a ragged last tile
 # device memory bytes/s, float32 operations/s outside the tensor cores, and
 # bf16 operations/s on the tensor cores, which is the card's peak for a
 # product of bf16 operands summed in f32 (FISTA's bf16_matmul product),
-# wherever a kernel computes it. Integer operations (the sampler's Philox)
-# are counted against the same 67e12/s: the table has no integer CUDA-core
-# rate.
+# wherever a kernel computes it.
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 PEAK_BF16_OPS = 989e12
+# Integer instructions/s of the CUDA cores (the sampler's Philox and site
+# updates): 132 SMs of 64 INT32 lanes (NVIDIA H100 Tensor Core GPU
+# Architecture whitepaper: 4 partitions of 16 INT32 units an SM, beside 32
+# FP32 each; the arithmetic throughput table of NVIDIA's CUDA C++
+# programming manual gives 64 results a clock and SM at compute capability
+# 9.0 for 32-bit integer multiply-add and for add, compare and logic
+# alike) at the 1.98 GHz that
+# the datasheet's 67e12 FP32 operations/s imply (132 x 128 x 2 x 1.98e9).
+# Multiplies and the other integer instructions issue to different pipes,
+# so each is held to this rate on its own and the bound takes the larger.
+PEAK_INT_MUL = PEAK_INT_ALU = 132 * 64 * 1.98e9
 # The kernels at the shapes their paths give them: main path and image app
 # (d = 300, r = 25; batch 16384 and the headline n), the network path
 # (d = 441, r = 25; 500 samples a step), Ising (d = 400, r = 100, 1000
 # patches) and tensor (d = 1200, r = 100; 100 patches a step, 252,004 in
 # the colour reconstruction) paths. FISTA: (r, n, mode of FISTA_MODES).
+# The sampler: (n, sweeps): a lattice of one CTA, the Ising path's for one
+# sweep (a round) and for 100, and two larger ones.
 PATH_SHAPES = {
     "dict_update_sweep": [(300, 25), (441, 25), (400, 100), (1200, 100)],
     "coder_sweeps_earlystop": [(25, 16384), (25, HEADLINE_N), (100, 1000)],
@@ -114,6 +139,8 @@ PATH_SHAPES = {
     "fista_sweeps": [(25, 16384, "fixed"), (25, HEADLINE_N, "fixed"),
                      (100, 100, "stop"), (100, 252004, "stop"),
                      (100, 100, "bf16")],
+    "checkerboard_sweeps": [(16, 100), (200, 1), (200, 100), (1024, 100),
+                            (4096, 100)],
 }
 # 10 fixed iterations (the main path's FISTA step); the tensor path's up to
 # 100 iterations with the 0.01 stop, in f32 and with the bf16 product
@@ -208,6 +235,28 @@ def dict_bound(d, r):
     """The dictionary update's bound: W, A and B read and W written once;
     W A[:, j] for every column, 2 d r^2 operations."""
     return bound(4 * (2 * d * r + r * r + r * d), 2 * d * r * r)
+
+
+# Integer instructions of the sampler, whatever kernel runs it. A
+# Philox4x32-10 call is 10 rounds of two 32 x 32 -> 64 multiplies and two
+# three-input xors (the key schedule is the same for every site and is not
+# counted); it serves four sites. A site then takes its 24 bits (a shift),
+# sums four neighbours (3 adds), forms the table index (1), compares (1)
+# and flips (1).
+PHILOX_MULS, PHILOX_ALU, SITE_ALU = 20, 20, 7
+
+
+def checkerboard_bound(n, nsweeps):
+    """The sampler's bound at (n, nsweeps), the same for every route: the
+    lattice read and written once a call; one Philox call per four sites of
+    a colour and the site updates, multiplies and other integer
+    instructions each at their rate."""
+    calls = 2 * nsweeps * -(-n * (n // 2) // 4)
+    sites = n * n * nsweeps
+    t_bytes = 1e3 * 2 * n * n / PEAK_BYTES
+    t_ops = 1e3 * max(PHILOX_MULS * calls / PEAK_INT_MUL,
+                      (PHILOX_ALU * calls + SITE_ALU * sites) / PEAK_INT_ALU)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def timed_once(fn):
@@ -558,36 +607,77 @@ def large_rank_kernels(ck, dev, gen):
 
 
 def checkerboard_kernels(dev, gen):
-    """The checkerboard kernel site for site against its plain version,
-    then two physics checks from an all-(+1) start at n = 4096; returns the
-    summary of the n = 4096 comparison."""
+    """The checkerboard kernels site for site against the plain version: at
+    PATH_SHAPES with route, device time, bound and share, then every route
+    at every vector width (n % 16 == 0, n % 8 == 0, neither, where a Philox
+    call straddles two rows), then two physics checks from an all-(+1)
+    start at n = 4096; returns the summary of the n = 4096 comparison."""
+    import ctypes
+
     from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel as ik
 
-    summary = {}
-    for n in (200, 4096):
-        lat = (1 - 2 * torch.randint(0, 2, (n, n), generator=gen)).to(
+    def lattice(n):
+        return (1 - 2 * torch.randint(0, 2, (n, n), generator=gen)).to(
             torch.int8).to(dev)
-        kw = dict(J=1.0, H=0.0, T=2.5)
-        got = ik.checkerboard_sweeps(n, lat, 100, **kw)
+
+    lib = ik.build()["lib"]
+    for band, n in ((200, 200), (25, 200), (128, 1024)):
+        if lib.onmf_checkerboard_smem(band, n) \
+                != ik._RES_HEAD_BYTES + band * n:
+            raise AssertionError("the resident kernel's shared memory "
+                                 f"at band={band} n={n} differs")
+    summary, routes = {}, set()
+    kw = dict(J=1.0, H=0.0, T=2.5)
+    for n, sweeps in PATH_SHAPES["checkerboard_sweeps"]:
+        lat = lattice(n)
+        route = ik.checkerboard_route(n, sweeps)
+        routes.add(route[0])
+        before = ik.LAUNCHES["checkerboard_sweeps"]
+        got = ik.checkerboard_sweeps(n, lat, sweeps, **kw)
+        launched = ik.LAUNCHES["checkerboard_sweeps"] - before
+        if launched != (1 if route[1] else 2 * sweeps):
+            raise AssertionError(f"checkerboard n={n}: {launched} launches "
+                                 f"on route {route}")
         want, plain_ms = timed_once(
-            lambda: ik.checkerboard_sweeps_plain(n, lat, 100, **kw))
+            lambda: ik.checkerboard_sweeps_plain(n, lat, sweeps, **kw))
         mismatched = int((got != want).sum())
         err = float((got.float() - want.float()).abs().max())
-        ms = cuda_ms(lambda: ik.checkerboard_sweeps(n, lat, 100, **kw), 5)
-        emit("kernels", kernel="checkerboard_sweeps", n=n, sweeps=100,
-             mismatched_sites=mismatched, max_abs_err=err, ms=ms,
-             plain_ms=plain_ms)
+        ms = graph_ms(lambda: ik.checkerboard_sweeps(n, lat, sweeps, **kw),
+                      reps=20 if route[1] else 5)
+        bound_ms, by = checkerboard_bound(n, sweeps)
+        emit("kernels", kernel="checkerboard_sweeps", n=n, sweeps=sweeps,
+             route=list(route), launches=launched,
+             mismatched_sites=mismatched,
+             changed_sites=int((want != lat).sum()), max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+             share=bound_ms / ms)
         if mismatched:
             raise AssertionError(f"checkerboard n={n}: {mismatched} sites "
                                  "differ from the plain version")
         if n == 4096:
-            # 60 integer operations of Philox4x32-10 (10 rounds of two
-            # multiply-highs, two multiplies and two three-way xors) and
-            # ~12 for the neighbour sum, the threshold and the flip, per
-            # site and sweep; the lattice read and written once
-            bound_ms, by = bound(2 * n * n, 72 * n * n * 100)
             summary.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by)
+    if routes != {"shared", "cluster", "global"}:
+        raise AssertionError(f"PATH_SHAPES reached only the routes {routes}")
+    # every route (ctas as in checkerboard_route) at every vector width
+    thr = (ctypes.c_uint * 10)(*ik.acceptance_thresholds(1.0, 0.1, 2.3))
+    for n, sweeps, ctas_all in ((2, 5, (0, 1)), (6, 7, (0, 1, 2)),
+                                (24, 7, (0, 1, 4, 8)), (64, 7, (0, 1, 8)),
+                                (202, 3, (0, 1, 8)), (200, 3, (0, 1, 2, 8)),
+                                (482, 2, (1,)), (1022, 2, (0, 8)),
+                                (1024, 2, (0, 8)), (1360, 1, (8,))):
+        lat = lattice(n)
+        want = ik.checkerboard_sweeps_plain(77, lat, sweeps, 1.0, 0.1, 2.3)
+        for ctas in ctas_all:
+            got = lat.clone()
+            ik._launch(got, n, sweeps, 77, thr, ctas)
+            mismatched = int((got != want).sum())
+            emit("kernels", kernel="checkerboard_sweeps", check="route",
+                 n=n, sweeps=sweeps, ctas=ctas, mismatched_sites=mismatched)
+            if mismatched:
+                raise AssertionError(
+                    f"checkerboard n={n} ctas={ctas}: {mismatched} sites "
+                    "differ from the plain version")
     # Onsager: |m| = 0.9993 at T = 1; T = 5 is far above T_c = 2.269
     ones = torch.ones((4096, 4096), dtype=torch.int8, device=dev)
     for T, ok in ((1.0, lambda m: m > 0.99), (5.0, lambda m: m < 0.05)):
@@ -900,6 +990,103 @@ def phase_ising(ck, dev):
     return launches
 
 
+def phase_stack(ck, dev):
+    """The image app's stacked path on what the reference names for it, a
+    stack of Ising lattices: 8 lattices of 200 x 200 at T = 2.5, 16
+    checkerboard sweeps apart (a resident call of the sampler), r = 25,
+    patch 10 (d = 100), 1000 patches a lattice, 10 inner steps, two passes;
+    then the grey full-grid reconstruction of the first lattice."""
+    from onmf_ontf_ndl_tpu_torch.apps.image import ImageReconstructor
+    from onmf_ontf_ndl_tpu_torch.models.state import make_generator
+    from onmf_ontf_ndl_tpu_torch.samplers.ising import (checkerboard_sweeps,
+                                                        init_lattice)
+
+    ck.reset_launches()
+    lat = init_lattice(make_generator(9, dev), 200)
+    lats = []
+    for i in range(8):
+        lat = checkerboard_sweeps(100 + i, lat, 16, T=2.5)
+        lats.append(lat)
+    stack = (torch.stack(lats).float() + 1.0) / 2.0
+    rec = ImageReconstructor(data=stack, is_stack=True, n_components=25,
+                             iterations=16, sub_iterations=10,
+                             num_patches=1000, patch_size=10,
+                             downscale_factor=1, device=dev, seed=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W = rec.train_dict()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    out = rec.reconstruct_image(data=stack[0])
+    torch.cuda.synchronize()
+    launches = check_launches(ck, "stack")
+    err = float(torch.linalg.norm(out - stack[0])
+                / torch.linalg.norm(stack[0]))
+    emit("stack", stack=list(stack.shape),
+         W_shape=list(W.shape), train_seconds=train_s, history=rec.state.t,
+         magnetization=float(lats[-1].float().mean()), recon_err=err)
+    if not (tuple(W.shape) == (100, 25) and bool((W >= 0).all())
+            and bool(torch.isfinite(W).all()) and rec.state.t == 2 * 8 * 10
+            and tuple(out.shape) == (200, 200)
+            and bool(torch.isfinite(out).all()) and err < 1.0):
+        raise AssertionError("bad stacked-image result")
+    return launches
+
+
+def synthetic_frames(dev, frames=16, h=256, w=256):
+    """A drifting colour pattern with a little noise, (F, H, W, 3) in
+    [0, 1], built on the device from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(w, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    t = torch.arange(frames, device=dev, dtype=torch.float32)[:, None, None]
+    base = 0.5 + 0.3 * torch.sin((xx + 3 * t) / 7.0) * torch.cos(yy / 11.0) \
+        + 0.1 * torch.sin((xx + 2 * yy - 5 * t) / 3.0)
+    out = torch.stack([base, base**2, 1 - base], dim=-1)
+    noise = torch.rand(out.shape, generator=gen, device=dev)
+    return torch.clamp(out + 0.02 * noise, 0, 1)
+
+
+def phase_video(ck, dev):
+    """The video path at the reference's defaults (r = 100, patch 7,
+    colour: d = 147; 200 patches a frame, 10 inner steps, early stop) on 16
+    frames of 256 x 256 x 3, one epoch; then frame 8 reconstructed at
+    stride 1 (62,001 patches)."""
+    from onmf_ontf_ndl_tpu_torch import VideoDictionaryLearner
+    from onmf_ontf_ndl_tpu_torch.apps.image import reconstruct
+    from onmf_ontf_ndl_tpu_torch.models.state import make_generator
+
+    frames = synthetic_frames(dev)
+    ck.reset_launches()
+    rec = VideoDictionaryLearner(frames=frames, device=dev, seed=8)
+    W0 = rec.W.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W = rec.train_dict(epochs=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = rec.reconstruct_frame(8)
+    torch.cuda.synchronize()
+    recon_s = time.perf_counter() - t0
+    launches = check_launches(ck, "video")
+    out0 = reconstruct(frames[8], W0 / W0.norm(dim=0).clamp_min(1.0),
+                       make_generator(31, dev), patch_size=7)
+    e, e0 = masked_err(out, frames[8]), masked_err(out0, frames[8])
+    emit("video", frames=list(frames.shape), W_shape=list(W.shape),
+         train_seconds=train_s, recon_seconds=recon_s, recon_patches=249**2,
+         recon_err=e, recon_err_initial_w=e0, history=rec.state.t)
+    if not (tuple(W.shape) == (147, 100) and bool((W >= 0).all())
+            and bool(torch.isfinite(W).all()) and rec.state.t == 16 * 10
+            and tuple(out.shape) == (256, 256, 3)
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError("bad video dictionary or reconstruction")
+    if not e < e0:
+        raise AssertionError(f"training did not lower the error: {e} {e0}")
+    return launches
+
+
 def torus_edges(m):
     """Edges of the m x m torus, each node's (down, right) pair in turn:
     ``benchmarks/scale_extras.py::torus_edges``."""
@@ -1003,7 +1190,7 @@ def phase_network(ck, dev):
     acc0 = base.compute_recons_accuracy()
 
     ck.reset_launches()
-    runs = {}
+    runs, peak = {}, {}
     for tag, (_, _, conf, recon) in NETWORK_RUNS.items():
         rec = NetworkReconstructor(source=graphs[tag], device=dev, **conf)
         torch.cuda.synchronize()
@@ -1011,10 +1198,12 @@ def phase_network(ck, dev):
         W = rec.train_dict()
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = rec.reconstruct_network(**recon)
         torch.cuda.synchronize()
         runs[tag] = (rec, W, out, train_s, time.perf_counter() - t0)
+        peak[tag] = torch.cuda.max_memory_allocated()
     launches = check_launches(ck, "network")
 
     for tag, (rec, W, out, train_s, recon_s) in runs.items():
@@ -1043,11 +1232,30 @@ def phase_network(ck, dev):
                           recon_edges=int(out.sum()) // 2)
             ok = ok and tuple(out.shape) == (n, n) and acc > acc0
         else:
-            fields.update(recon_edges=len(out), limit=0.90)
+            fields.update(recon_edges=len(out), limit=0.90,
+                          recon_peak_bytes=peak[tag])
             ok = ok and out.shape[1] == 2 and acc >= 0.90
         emit("network", **fields)
         if not ok:
             raise AssertionError(f"network ({tag}): bad result {fields}")
+
+    # (b) once more in 4 chunks of 1.2M samples: fresh chains per chunk, the
+    # per-pair (sum, count) merged; the same accuracy limit
+    rec = runs["b"][0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = rec.reconstruct_network(chunks=4, **NETWORK_RUNS["b"][3])
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    acc = rec.compute_recons_accuracy()
+    emit("network", config="b", check="chunked_reconstruction", chunks=4,
+         recon_seconds=chunked_s, accuracy=acc, limit=0.90,
+         recon_edges=len(out), recon_peak_bytes=torch.cuda.
+         max_memory_allocated(), unchunked_recon_seconds=runs["b"][4],
+         unchunked_recon_peak_bytes=peak["b"])
+    if not (out.shape[1] == 2 and acc >= 0.90):
+        raise AssertionError(f"chunked reconstruction: accuracy {acc}")
 
     # the same short training run on the card (float32) and on the CPU
     # (float64) from the same patches and draws, fixed sweeps, the 21-node
@@ -1095,6 +1303,8 @@ def main():
     phase_image(dev, img)
     launches["tensor"] = phase_tensor(ck, dev, img)
     launches["ising"] = phase_ising(ck, dev)
+    launches["stack"] = phase_stack(ck, dev)
+    launches["video"] = phase_video(ck, dev)
     launches["network"] = phase_network(ck, dev)
     emit("done", seconds=time.perf_counter() - t0)
     # library_ms: no single PyTorch call computes any of these functions

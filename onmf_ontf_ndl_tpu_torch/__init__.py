@@ -10,9 +10,10 @@ Same layout and names as the JAX package, which stays the reference:
                  loop in place of ``lax.scan``), ``OnlineNMF``, ``OnlineNTF``;
 - ``samplers`` : the Ising Metropolis chain and checkerboard sweeps, the
                  motif-homomorphism chains of network dictionary learning;
-- ``data``     : images, graphs (dense, CSR, bitset) and the native loader;
+- ``data``     : images, video frames, graphs (dense, CSR, bitset) and the native loader;
 - ``apps`` (``ImageReconstructor``, ``ImageReconstructorTensor``,
-                 ``IsingReconstructor``, ``NetworkReconstructor``),
+                 ``IsingReconstructor``, ``NetworkReconstructor``,
+                 ``VideoDictionaryLearner``),
   ``utils`` (checkpoint, metrics).
 
 Every constructor takes ``device=``; randomness comes from explicit
@@ -52,6 +53,7 @@ __all__ = [
     "ImageReconstructorTensor",
     "IsingReconstructor",
     "NetworkReconstructor",
+    "VideoDictionaryLearner",
 ]
 
 _APPS = {
@@ -59,6 +61,7 @@ _APPS = {
     "ImageReconstructorTensor": "onmf_ontf_ndl_tpu_torch.apps.image_tensor",
     "IsingReconstructor": "onmf_ontf_ndl_tpu_torch.apps.ising",
     "NetworkReconstructor": "onmf_ontf_ndl_tpu_torch.apps.network",
+    "VideoDictionaryLearner": "onmf_ontf_ndl_tpu_torch.apps.video",
 }
 
 

@@ -33,10 +33,6 @@ from onmf_ontf_ndl_tpu_torch.ops.patches import (
 
 __all__ = ["ImageReconstructor", "train_image_dict", "reconstruct"]
 
-_STACK_TODO = ("is_stack=True trains through apps/video.py, which is not "
-               "ported yet (ROADMAP.md A5, tensor and video)")
-
-
 def train_image_dict(
     state: OnmfState,
     img: torch.Tensor,
@@ -148,16 +144,27 @@ class ImageReconstructor:
         device="cuda",
         dtype=torch.float32,
     ):
-        if is_stack:
-            raise NotImplementedError(_STACK_TODO)
         _check_modes("stale", coder)
         self.device = entry_device(device)
         if data is None:
             if path is None:
                 raise ValueError("ImageReconstructor: provide path or data")
-            data = load_image(path, is_matrix=is_matrix, is_color=is_color,
-                              dtype=dtype, device=self.device)
+            if is_stack:
+                # a stack of matrices, e.g. a saved Ising trajectory: the
+                # +-1 -> [0, 1] mapping is load_image's is_matrix transform
+                data = load_image(path, is_matrix=True, is_color=False,
+                                  dtype=dtype, device=self.device)
+            else:
+                data = load_image(path, is_matrix=is_matrix,
+                                  is_color=is_color, dtype=dtype,
+                                  device=self.device)
         self.data = torch.as_tensor(data, dtype=dtype, device=self.device)
+        self.is_stack = is_stack
+        if is_stack:
+            if self.data.dim() != 3:
+                raise ValueError("is_stack expects a (m, H, W) array")
+            # matrix stacks are grey by construction: d = k^2
+            is_color = False
         self.path = path
         self.n_components = n_components
         self.iterations = iterations
@@ -190,7 +197,8 @@ class ImageReconstructor:
             W=torch.as_tensor(value, dtype=self.dtype, device=self.device))
 
     def train_dict(self, checkpoint_path: str | None = None,
-                   checkpoint_every: int = 0, resume: bool = False):
+                   checkpoint_every: int = 0, resume: bool = False,
+                   draws=None):
         """Run the full streaming training; returns the dictionary (d, r).
 
         ``checkpoint_path`` + ``checkpoint_every=N`` write a full-state
@@ -199,28 +207,63 @@ class ImageReconstructor:
         and the schedule counter). ``resume=True`` restarts from the
         checkpoint and runs only the remaining outer iterations (each
         advances ``state.t`` by ``sub_iterations``).
+
+        With ``is_stack=True`` the outer loop streams over the stacked
+        matrices, one warm-started round per matrix, in
+        ``max(1, iterations // m)`` passes (``iterations`` approximates the
+        total number of rounds); a checkpoint unit is one pass, which
+        advances ``state.t`` by ``sub_iterations * m``.
+
+        ``draws`` (tests): the draws of the whole run, as
+        ``train_image_dict`` or ``train_video_dict`` take them; not with a
+        checkpoint.
         """
         if (checkpoint_path or resume) and checkpoint_every <= 0:
             raise ValueError(
                 "checkpoint_path/resume require checkpoint_every > 0 "
                 "(otherwise the request would be silently ignored and "
                 "training restarted from scratch)")
+        if draws is not None and checkpoint_path:
+            raise ValueError("draws cover one uninterrupted run: no "
+                             "checkpoint_path with them")
 
-        def run(st, units):
-            return train_image_dict(
-                st, self.data,
-                outer_iterations=units,
-                num_patches=self.num_patches,
-                inner_iterations=self.sub_iterations,
-                batch_size=self.batch_size,
-                patch_size=self.patch_size,
-                alpha=self.alpha, beta=self.beta,
-                use_stopping=not self.fast,
-                subsample=self.subsample,
-                coder=self.coder,
-            )
+        if self.is_stack:
+            from onmf_ontf_ndl_tpu_torch.apps.video import train_video_dict
 
-        total = self.iterations
+            m = self.data.shape[0]
+            total = max(1, self.iterations // m)
+            t_per_unit = self.sub_iterations * m
+
+            def run(st, units):
+                return train_video_dict(
+                    st, self.data,
+                    num_patches=self.num_patches,
+                    inner_iterations=self.sub_iterations,
+                    batch_size=self.batch_size,
+                    patch_size=self.patch_size,
+                    epochs=units,
+                    alpha=self.alpha, beta=self.beta,
+                    use_stopping=not self.fast,
+                    coder=self.coder, draws=draws,
+                )
+        else:
+            total = self.iterations
+            t_per_unit = self.sub_iterations
+
+            def run(st, units):
+                return train_image_dict(
+                    st, self.data,
+                    outer_iterations=units,
+                    num_patches=self.num_patches,
+                    inner_iterations=self.sub_iterations,
+                    batch_size=self.batch_size,
+                    patch_size=self.patch_size,
+                    alpha=self.alpha, beta=self.beta,
+                    use_stopping=not self.fast,
+                    subsample=self.subsample,
+                    coder=self.coder, draws=draws,
+                )
+
         if checkpoint_path and checkpoint_every > 0:
             from onmf_ontf_ndl_tpu_torch.utils.checkpoint import (
                 checkpoint_exists, load_state, save_state)
@@ -229,7 +272,7 @@ class ImageReconstructor:
             if resume and checkpoint_exists(checkpoint_path):
                 self.state = load_state(checkpoint_path, device=self.device,
                                         dtype=self.dtype)
-                done = int(round(float(self.state.t))) // self.sub_iterations
+                done = int(round(float(self.state.t))) // t_per_unit
             while done < total:
                 chunk = min(checkpoint_every, total - done)
                 self.state = run(self.state, chunk)

@@ -30,8 +30,12 @@ from the same grouping. Randomness: the chains of training draw from the
 state's generator (so a checkpoint carries them), the reconstructor's
 generator draws the initial chains and the reconstruction.
 
-Not here yet: ``chunks > 1`` (the chunked reconstruction and its fold,
-ROADMAP A7.3), ``display_dict`` (viz, A9) and the data-parallel
+Sample budgets past the card's memory run in chunks
+(:func:`reconstruct_network_sparse_chunked`): each chunk is a sparse
+reconstruction of its own, and the per-pair (sum, count) of the chunks
+merge exactly.
+
+Not here yet: ``display_dict`` (viz, ROADMAP A9) and the data-parallel
 ``psum_axis`` of ``ndl_train`` (A8). The TPU host-link fetch forms of the
 edge decode (uint32 packing, the CSR-slot bit mask, power-of-two
 compaction) are not carried over.
@@ -57,7 +61,7 @@ from onmf_ontf_ndl_tpu_torch.samplers.motif import (
     sample_patches_ensemble, tree_parents, tree_sample)
 
 __all__ = ["NetworkReconstructor", "ndl_train", "reconstruct_network",
-           "reconstruct_network_sparse"]
+           "reconstruct_network_sparse", "reconstruct_network_sparse_chunked"]
 
 
 def ndl_train(
@@ -211,6 +215,91 @@ def reconstruct_network_sparse(W, g, gen, B, *, recons_iter: int, alpha=0.0,
         num_chains=num_chains, method=method, embs=embs, H0=H0)
     ii, jj, sums, cnt = _group_painted(embs, vals_T, g.num_nodes,
                                        include_self=include_self)
+    return ii, jj, sums / cnt, cnt
+
+
+def _merge_grouped(acc, chunk, n: int):
+    """Merge two groupings ``(ii, jj, sums, cnt)`` of distinct pairs into
+    one, ascending in (i, j): a pair in both adds its sums and counts. One
+    int64 key ``i * n + j`` (no wrap at any n), sorted, then a segment
+    sum."""
+    key = torch.cat([acc[0] * n + acc[1], chunk[0] * n + chunk[1]])
+    skey, order = torch.sort(key, stable=True)
+    keys, lengths = torch.unique_consecutive(skey, return_counts=True)
+    sums = torch.segment_reduce(torch.cat([acc[2], chunk[2]])[order], "sum",
+                                lengths=lengths)
+    cnt = torch.segment_reduce(torch.cat([acc[3], chunk[3]])[order], "sum",
+                               lengths=lengths)
+    return keys // n, keys % n, sums, cnt
+
+
+def reconstruct_network_sparse_chunked(W, g, gen, B, *, recons_iter: int,
+                                       chunks: int, cap: int | None = None,
+                                       alpha=0.0, sub_iter=30,
+                                       use_glauber=False, weighted=False,
+                                       num_chains=1, method="bcd", embs=None,
+                                       H0=None):
+    """Sample budgets past the card's memory: the sparse reconstruction in
+    ``chunks`` independent pieces, each piece's per-pair (sum, count)
+    merged into an accumulator of the distinct pairs painted so far.
+
+    Each piece runs ``ceil(recons_iter / chunks)`` samples, rounded up to
+    a multiple of ``num_chains``, on fresh chains from fresh uniform pivots
+    (``chunks`` repetitions of the reference's fresh-chain reconstruction,
+    painted into one pool). Its working set (code iterate, painted values,
+    sort keys) is that of the smaller budget; the accumulator holds the
+    distinct pairs only. A mean merges exactly from (sum, count) pieces:
+    the counts are exact, the sums add in float. Piece c draws from a
+    generator seeded with the c-th of ``chunks`` seeds drawn from ``gen``
+    up front; a single piece draws from ``gen`` itself and equals
+    :func:`reconstruct_network_sparse` with ``include_self=False``.
+
+    Raises ``ValueError``, naming the piece, when the distinct pairs
+    outgrow ``cap`` (default: twice a piece's paints,
+    ``2 m k max(k - 1, 1)``); the check is exact, nothing is truncated.
+    Returns ``(ii, jj, mean, cnt)`` under the contract of
+    :func:`reconstruct_network_sparse` with ``include_self=False``, every
+    slot real (``cnt > 0``), ascending in (i, j).
+
+    ``embs`` and ``H0`` (tests): one entry per piece, as in
+    :func:`_recon_sample_vals`.
+
+    The JAX function's bitonic merge in power-of-two buckets, its
+    partitioned fold (``fold_parts``), the ``ONMF_FOLD_*`` and
+    ``ONMF_CHUNK_PROGRESS`` environment knobs and the uint32 edge packing
+    are left behind: they bound recompiles and memory on the TPU and carry
+    no meaning of their own.
+    """
+    if chunks < 1:
+        raise ValueError(f"chunks must be positive, got {chunks}")
+    k = B.shape[0]
+    chains = max(1, num_chains)
+    per_chunk = -(-recons_iter // chunks)
+    m_chunk = -(-per_chunk // chains) * chains
+    if cap is None:
+        cap = 2 * m_chunk * k * max(k - 1, 1)
+    gens = [gen] * chunks
+    if chunks > 1 and gen is not None:
+        seeds = torch.randint(0, 2**62, (chunks,), generator=gen,
+                              device=gen.device).tolist()
+        gens = [make_generator(seed, gen.device) for seed in seeds]
+    acc = None
+    for c in range(chunks):
+        e, vals_T = _recon_sample_vals(
+            W, g, gens[c], B, recons_iter=per_chunk, alpha=alpha,
+            sub_iter=sub_iter, use_glauber=use_glauber, weighted=weighted,
+            num_chains=num_chains, method=method,
+            embs=None if embs is None else embs[c],
+            H0=None if H0 is None else H0[c])
+        chunk = _group_painted(e, vals_T, g.num_nodes, include_self=False)
+        acc = chunk if acc is None else _merge_grouped(acc, chunk,
+                                                       g.num_nodes)
+        if len(acc[0]) > cap:
+            raise ValueError(
+                f"chunked reconstruction overflowed the {cap}-slot "
+                f"accumulator at chunk {c + 1}/{chunks} ({len(acc[0])} "
+                "distinct pairs); raise cap")
+    ii, jj, sums, cnt = acc
     return ii, jj, sums / cnt, cnt
 
 
@@ -407,16 +496,15 @@ class NetworkReconstructor:
         int64 array of undirected edges, with O(samples) memory;
         ``sparse=None`` picks dense for a :class:`Graph` and sparse for the
         CSR and bitset graphs. ``num_chains`` defaults to the instance's.
-        ``chunks > 1`` (and its ``cap``) is not ported yet (ROADMAP
-        A7.3)."""
-        if chunks > 1:
-            raise NotImplementedError(
-                "chunked sparse reconstruction (chunks > 1) is not ported "
-                "yet: ROADMAP A7.3")
+        ``chunks > 1`` (sparse only) runs the budget in pieces merged
+        through an accumulator of at most ``cap`` distinct pairs: see
+        :func:`reconstruct_network_sparse_chunked`."""
         if num_chains is None:
             num_chains = self.num_chains
         if sparse is None:
             sparse = isinstance(self.G, (BitsetGraph, CsrGraph))
+        if chunks > 1 and not sparse:
+            raise ValueError("chunks > 1 requires the sparse path")
         kw = dict(recons_iter=recons_iter, alpha=alpha,
                   use_glauber=self.is_glauber_recons,
                   weighted=self.weighted_patches, num_chains=num_chains,
@@ -429,8 +517,14 @@ class NetworkReconstructor:
             self.G_recons = simple | simple.T
             self.G_recons_edges = None
             return self.G_recons
-        ii, jj, mean, cnt = reconstruct_network_sparse(
-            self.state.W, self.G, self.gen, self.B, include_self=False, **kw)
+        if chunks > 1:
+            ii, jj, mean, cnt = reconstruct_network_sparse_chunked(
+                self.state.W, self.G, self.gen, self.B, chunks=chunks,
+                cap=cap, **kw)
+        else:
+            ii, jj, mean, cnt = reconstruct_network_sparse(
+                self.state.W, self.G, self.gen, self.B, include_self=False,
+                **kw)
         self.recon_weights = None
         self.G_recons = None
         self.G_recons_edges = _edges_from_sparse_result(ii, jj, mean, cnt)

@@ -1,0 +1,157 @@
+"""Streaming video dictionary learning, in PyTorch.
+
+Counterpart of ``onmf_ontf_ndl_tpu/apps/video.py``. Frames arrive as a
+stream; each frame gives ``num_patches`` random patches and one
+warm-started round of the online-NMF loop (the Markovian-data setting),
+the state threading from frame to frame. The JAX package's ``lax.scan``
+over frames is a Python loop here; on a CUDA tensor every step runs the
+coder kernel (the early stop, or fixed sweeps with ``use_stopping=False``)
+and the dictionary kernel. ``ImageReconstructor(is_stack=True)`` trains
+through :func:`train_video_dict` too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from onmf_ontf_ndl_tpu_torch.data.video import load_video_frames
+from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
+from onmf_ontf_ndl_tpu_torch.models.state import (
+    OnmfState, entry_device, init_state, make_generator)
+from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
+from onmf_ontf_ndl_tpu_torch.ops.patches import (extract_patches,
+                                                 random_patch_corners)
+
+__all__ = ["VideoDictionaryLearner", "train_video_dict"]
+
+
+def train_video_dict(
+    state: OnmfState,
+    frames: torch.Tensor,
+    *,
+    num_patches: int,
+    inner_iterations: int,
+    batch_size: int,
+    patch_size: int,
+    epochs: int = 1,
+    alpha: float = 0.0,
+    beta: float = 1.0,
+    sub_iter: int = 10,
+    stopping_diff: float = 0.01,
+    use_stopping: bool = True,
+    backend: str = "auto",
+    subsample: bool = False,
+    coder: str = "bcd",
+    draws=None,
+) -> OnmfState:
+    """Stream over the frames (F, H, W[, C]) in order, ``epochs`` passes,
+    one warm-started online-NMF round per frame: ``num_patches`` corners
+    from the state's generator, then ``inner_iterations`` steps of the
+    shared loop with ``dict_from="stale"`` and no code tracking.
+
+    ``draws`` (tests): per visited frame, in the order of the visits, a
+    pair ``(corners, inner)`` as in ``apps.image.train_image_dict``:
+    ``corners = (a, b)`` and ``inner`` the inner loop's ``(idx, H0)``
+    draws (``idx`` the batch indices with ``subsample``, else None).
+    """
+    _check_modes("stale", coder)
+    backend = resolve_backend(backend, frames)
+    k = patch_size
+    stop = stopping_diff if use_stopping else None
+    visits = [f for _ in range(epochs) for f in range(frames.shape[0])]
+    for visit, f in enumerate(visits):
+        if draws is not None:
+            corners, inner = draws[visit]
+            corners = tuple(torch.as_tensor(c, device=frames.device)
+                            for c in corners)
+        else:
+            corners = random_patch_corners(state.gen, frames.shape[1:3], k,
+                                           num_patches,
+                                           device=frames.device)
+            inner = None
+        X = extract_patches(frames[f], corners, k)
+        state, _, _ = _train_loop(
+            state, X, None, alpha, beta, stop, inner_iterations, batch_size,
+            subsample, sub_iter, False, "stale", backend=backend,
+            draws=inner, coder=coder)
+    return state
+
+
+class VideoDictionaryLearner:
+    """Streaming learner over a GIF or video; reconstructs single frames
+    through the image path's ``reconstruct``. ``device`` places the frames
+    and the state."""
+
+    def __init__(
+        self,
+        path: str | None = None,
+        frames=None,
+        n_components: int = 100,
+        sub_iterations: int = 10,
+        num_patches: int = 200,
+        batch_size: int = 20,
+        patch_size: int = 7,
+        is_color: bool = True,
+        alpha: float | None = None,
+        beta: float | None = None,
+        max_frames: int | None = None,
+        fast: bool = False,
+        coder: str = "bcd",
+        subsample: bool = False,
+        seed: int = 0,
+        device="cuda",
+        dtype=torch.float32,
+    ):
+        _check_modes("stale", coder)
+        self.device = entry_device(device)
+        if frames is None:
+            if path is None:
+                raise ValueError("provide path or frames")
+            frames = load_video_frames(path, max_frames=max_frames,
+                                       is_color=is_color, dtype=dtype,
+                                       device=self.device)
+        self.frames = torch.as_tensor(frames, dtype=dtype, device=self.device)
+        self.is_color = self.frames.dim() == 4
+        self.n_components = n_components
+        self.sub_iterations = sub_iterations
+        self.num_patches = num_patches
+        self.batch_size = batch_size
+        self.patch_size = patch_size
+        self.alpha = 0.0 if alpha is None else float(alpha)
+        self.beta = 1.0 if beta is None else float(beta)
+        self.fast = fast
+        self.coder = coder
+        # batch_size only takes effect with subsample=True (otherwise
+        # every inner step trains on all num_patches columns)
+        self.subsample = subsample
+        self.dtype = dtype
+        d = (3 if self.is_color else 1) * patch_size**2
+        self.state = init_state(seed, d, n_components, device=self.device,
+                                dtype=dtype)
+
+    @property
+    def W(self):
+        return self.state.W
+
+    def train_dict(self, epochs: int = 1):
+        self.state = train_video_dict(
+            self.state, self.frames,
+            num_patches=self.num_patches,
+            inner_iterations=self.sub_iterations,
+            batch_size=self.batch_size,
+            patch_size=self.patch_size,
+            epochs=epochs, alpha=self.alpha, beta=self.beta,
+            use_stopping=not self.fast,
+            coder=self.coder, subsample=self.subsample,
+        )
+        return self.state.W
+
+    def reconstruct_frame(self, index: int, stride: int = 1,
+                          alpha: float = 1.0):
+        from onmf_ontf_ndl_tpu_torch.apps.image import reconstruct
+
+        return reconstruct(
+            self.frames[index], self.state.W, make_generator(31, self.device),
+            patch_size=self.patch_size, stride=stride, alpha=alpha,
+            method=self.coder,
+        )

@@ -111,7 +111,8 @@ def build() -> dict:
     lib.onmf_fista_sweeps.argtypes = [p, p, p, p, i, i, f, p, i, f, i, i, i,
                                       i, p, i, p]
     lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, i, p]
-    lib.onmf_checkerboard_sweeps.argtypes = [p, i, i, ctypes.c_uint, p, p]
+    lib.onmf_checkerboard_sweeps.argtypes = [p, i, i, ctypes.c_uint, p, i,
+                                             p]
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
                lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
                lib.onmf_checkerboard_sweeps, lib.onmf_tile_columns):
@@ -122,7 +123,8 @@ def build() -> dict:
                      (lib.onmf_coder_sweeps_smem, [i]),
                      (lib.onmf_fista_sweeps_smem, [i, i]),
                      (lib.onmf_fista_head_floats, [i]),
-                     (lib.onmf_fista_slice_floats, [i, i])):
+                     (lib.onmf_fista_slice_floats, [i, i]),
+                     (lib.onmf_checkerboard_smem, [i, i])):
         fn.argtypes = args
         fn.restype = ctypes.c_size_t
     lib.onmf_error_string.argtypes = [i]

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "launch_util.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -1800,18 +1802,6 @@ __global__ void __launch_bounds__(DICT_MAX_THREADS)
   __syncthreads();
   for (int x = t; x < own * r; x += blockDim.x)
     W[first + x] = Ws[(x / r) * GS + x % r];
-}
-
-int launch_smem(const void* fn, size_t smem) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it, or the next launch check reports it
-      return (int)e;
-    }
-  }
-  return 0;
 }
 
 template <bool kBf16>

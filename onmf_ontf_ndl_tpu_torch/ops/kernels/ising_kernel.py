@@ -1,30 +1,41 @@
-"""Hand-written CUDA kernel for red/black heat-bath sweeps of the 2-D Ising
-model.
+"""Hand-written CUDA kernels for red/black heat-bath sweeps of the 2-D
+Ising model.
 
 Counterpart of ``onmf_ontf_ndl_tpu/ops/pallas/ising_kernel.py``
-(``checkerboard_sweeps_pallas``, ``:64``). The source is
-``csrc/ising_kernels.cu``, built into the library of
-:func:`~onmf_ontf_ndl_tpu_torch.ops.kernels._lib.build`. One
-launch per half-sweep updates the sites of one colour in place on the int8
-(n, n) torus; n must be even, and there is no other size limit. What bounds
-it on the card: the lattice traffic (one byte per site and its four
-neighbours) and the integer multiplies of the random bits; the design keeps
-the lattice int8 in device memory and draws the bits in registers.
+(``checkerboard_sweeps_pallas``, ``:64``), which runs every sweep of a call
+with the lattice on chip. The source is ``csrc/ising_kernels.cu``, built
+into the library of :func:`~onmf_ontf_ndl_tpu_torch.ops.kernels._lib.build`.
+The int8 (n, n) torus is updated in place, one colour after the other; n
+must be even. What bounds it on the card: the integer instructions of the
+random bits and of the update, not the lattice's bytes. The design draws
+one Philox call per four sites, gives a thread 4 or 8 sites of a row read
+as one 8- or 16-byte vector (byte arithmetic on the packed words), and
+takes one of three routes from ``(n, nsweeps)`` alone
+(:func:`checkerboard_route`): the lattice resident in the shared memory of
+one CTA or of a thread block cluster of up to 8 (halo rows through
+distributed shared memory) with every sweep in one launch, or in device
+memory with one launch per colour and sweep.
 
 Semantics: each site of the colour being updated flips with the heat-bath
 probability ``sigmoid(-dE / T)``, ``dE = 2 s (H + J sn)``. The TPU's
 random bits cannot be reproduced, so both versions here use a counter-based
-generator, Philox4x32-10 keyed by ``(seed, 0)`` with counter
-``(site, sweep, colour, chain)``; ``u24`` is the top 24 bits of its first
-word, as the Pallas kernel takes its uniform. With ``s`` in {-1, 1} and
-``sn`` in {-4, -2, 0, 2, 4} there are 10 values of dE, so the wrapper
-computes the 10 thresholds ``ceil(p 2^24)`` once (:func:`acceptance_thresholds`)
-and a site flips when ``u24 < threshold``. The kernel and
-:func:`checkerboard_sweeps_plain` are therefore equal site for site.
+generator, Philox4x32-10 keyed by ``(seed, 0)``. The sites of a colour are
+numbered ``q = i (n / 2) + jj`` (row i, the jj-th site of the colour in the
+row, at column ``2 jj + ((i + colour) & 1)``, so ``jj = j >> 1``); the call
+with counter ``(q >> 2, sweep, colour, chain)`` serves four sites, site q
+taking its word ``q & 3``, and ``u24`` is the top 24 bits of that word, as
+the Pallas kernel takes its uniform. With ``s`` in {-1, 1} and ``sn`` in
+{-4, -2, 0, 2, 4} there are 10 values of dE, so the wrapper computes the 10
+thresholds ``ceil(p 2^24)`` once (:func:`acceptance_thresholds`) and a site
+flips when ``u24 < threshold``. The kernels and
+:func:`checkerboard_sweeps_plain` are therefore equal site for site, for
+every even n (a call straddles two rows when ``n / 2`` is not a multiple
+of 4).
 
 The wrapper runs the plain version only for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises, and counts each launch in
-``_lib.LAUNCHES["checkerboard_sweeps"]``.
+tensor it launches a kernel or raises, and counts each launch in
+``_lib.LAUNCHES["checkerboard_sweeps"]``: one for a resident call, two a
+sweep on the device-memory route.
 """
 
 from __future__ import annotations
@@ -38,9 +49,10 @@ from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
     LAUNCHES, _on_cpu, _raise_on_error, _stream, build)
 
 __all__ = ["checkerboard_sweeps", "checkerboard_sweeps_plain",
-           "acceptance_thresholds", "philox4x32"]
+           "checkerboard_route", "acceptance_thresholds", "philox4x32"]
 
 _MASK = 0xFFFFFFFF
+_MAX_N = 1 << 17          # n^2 / 8 calls a colour fit the 32-bit counter
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
@@ -105,7 +117,64 @@ def _check_lattice(lattice: torch.Tensor, batched: bool) -> int:
     n = lattice.shape[-1]
     if n < 2 or n % 2:
         raise ValueError(f"even lattice side required, got {n}")
+    if n > _MAX_N:
+        raise ValueError(f"lattice side {n} above {_MAX_N}: the counter of "
+                         "a Philox call, q >> 2, is one 32-bit word")
     return n
+
+
+# The resident kernel (csrc RES_*): shared memory of a CTA, the bytes
+# before its rows, the largest cluster.
+_RES_SMEM_BYTES = 232448
+_RES_HEAD_BYTES = 64
+_RES_MAX_CLUSTER = 8
+# The crossovers of :func:`checkerboard_route`, from device times on an
+# NVIDIA H100 80GB HBM3 (``chip_compare.py . new routes``: every route on a
+# grid of n and sweeps). A launch of the device-memory route costs ~1.8 us
+# whatever the lattice up to n ~ 800; a resident half-sweep ~0.65 us on one
+# CTA at n = 16 and 1.0 to 1.7 us on a cluster of 8 from n = 64 to 256 (the
+# barrier and one item's latency), 3.5 us at n = 384; a resident call adds
+# ~3 us of its own. So: one CTA up to n = 16; a cluster from 4 sweeps on up
+# to n = 160 and from 16 on up to n = 256; device memory for the rest.
+_SHARED_MAX_N = 16
+_CLUSTER_MIN_SWEEPS = ((160, 4), (256, 16))
+
+
+def _resident_fits(n: int, ctas: int) -> bool:
+    """Whether ``ctas`` CTAs, each with ``ceil(n / ctas)`` rows (the last
+    one the rest, at least one), hold the lattice in shared memory."""
+    band = -(-n // ctas)
+    return ((ctas - 1) * band < n
+            and _RES_HEAD_BYTES + band * n <= _RES_SMEM_BYTES)
+
+
+def checkerboard_route(n: int, nsweeps: int) -> tuple[str, int]:
+    """How :func:`checkerboard_sweeps` runs an (n, n) lattice for
+    ``nsweeps`` sweeps, from these two alone: ``("shared", 1)`` (the
+    lattice resident in one CTA's shared memory, one launch),
+    ``("cluster", c)`` (in bands over a cluster of c CTAs, one launch) or
+    ``("global", 0)`` (device memory, two launches a sweep). The measured
+    crossovers are :data:`_SHARED_MAX_N` and :data:`_CLUSTER_MIN_SWEEPS`."""
+    if n <= _SHARED_MAX_N:
+        return "shared", 1
+    min_sweeps = next((s for top, s in _CLUSTER_MIN_SWEEPS if n <= top), None)
+    if min_sweeps is not None and nsweeps >= min_sweeps:
+        c = next(c for c in (_RES_MAX_CLUSTER, 4, 2) if _resident_fits(n, c))
+        return "cluster", c
+    return "global", 0
+
+
+def _launch(out: torch.Tensor, n: int, nsweeps: int, seed: int, thr,
+            ctas: int) -> int:
+    """Run the kernels of one route (``ctas`` as in
+    :func:`checkerboard_route`) in place on ``out``; returns the launches
+    made."""
+    lib = build()["lib"]
+    with torch.cuda.device(out.device):
+        err = lib.onmf_checkerboard_sweeps(out.data_ptr(), n, int(nsweeps),
+                                           seed, thr, ctas, _stream(out))
+    _raise_on_error("checkerboard_sweeps", err)
+    return 1 if ctas else 2 * int(nsweeps)
 
 
 def checkerboard_sweeps(seed: int, lattice: torch.Tensor, nsweeps: int,
@@ -125,12 +194,9 @@ def checkerboard_sweeps(seed: int, lattice: torch.Tensor, nsweeps: int,
     out = lattice.clone()
     if nsweeps <= 0:
         return out
-    lib = build()["lib"]
-    with torch.cuda.device(out.device):
-        err = lib.onmf_checkerboard_sweeps(out.data_ptr(), n, int(nsweeps),
-                                           seed, thr, _stream(out))
-    _raise_on_error("checkerboard_sweeps", err)
-    LAUNCHES["checkerboard_sweeps"] += 2 * int(nsweeps)
+    _, ctas = checkerboard_route(n, int(nsweeps))
+    LAUNCHES["checkerboard_sweeps"] += _launch(out, n, nsweeps, seed, thr,
+                                               ctas)
     return out
 
 
@@ -148,9 +214,11 @@ def checkerboard_sweeps_plain(seed: int, lattice: torch.Tensor,
     lat = lattice.to(torch.int8)
     batch = lat.shape[:-2]
     dev = lat.device
+    half = n // 2
     chain = torch.arange(math.prod(batch), dtype=torch.int64,
-                         device=dev).view(batch + (1, 1))
-    site = torch.arange(n * n, dtype=torch.int64, device=dev).view(n, n)
+                         device=dev).view(batch + (1,))
+    # one call per four sites of a colour: call g serves q = 4 g .. 4 g + 3
+    calls = torch.arange(-(-n * half // 4), dtype=torch.int64, device=dev)
     ii = torch.arange(n, device=dev)
     parity = (ii[:, None] + ii[None, :]) % 2
     for sweep in range(int(nsweeps)):
@@ -158,7 +226,11 @@ def checkerboard_sweeps_plain(seed: int, lattice: torch.Tensor,
             s = lat.to(torch.int64)
             sn = (torch.roll(s, 1, -2) + torch.roll(s, -1, -2)
                   + torch.roll(s, 1, -1) + torch.roll(s, -1, -1))
-            u24 = philox4x32(site, sweep, colour, chain, seed, 0)[0] >> 8
+            words = torch.stack(
+                philox4x32(calls, sweep, colour, chain, seed, 0), dim=-1)
+            # word q & 3 of call q >> 2, at the site's column pair j >> 1
+            u24 = (words.reshape(batch + (-1,))[..., :n * half] >> 8).view(
+                batch + (n, half)).repeat_interleave(2, dim=-1)
             flip = (parity == colour) & (u24 < thr[(s + 1) // 2 * 5
                                                    + (sn + 4) // 2])
             lat = torch.where(flip, -lat, lat)

@@ -3,7 +3,9 @@
 Counterpart of ``onmf_ontf_ndl_tpu/ops/patches.py``. A data matrix holds one
 k x k patch per column, flattened row-major in (row, col[, channel]) order.
 The regular-grid forms use ``F.unfold``/``F.fold``; the corner-based forms
-use advanced indexing and ``index_put_(accumulate=True)``.
+use advanced indexing and ``index_put_(accumulate=True)``;
+:func:`grid_patch_corners` and :func:`all_patch_corners` give the corners
+of the two regular grids, so the corner-based forms reach the same patches.
 """
 
 from __future__ import annotations
@@ -11,8 +13,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from onmf_ontf_ndl_tpu_torch.models.state import entry_device
+
 __all__ = [
     "random_patch_corners",
+    "grid_patch_corners",
+    "all_patch_corners",
     "extract_patches",
     "extract_patches_grid",
     "overlap_average",
@@ -37,6 +43,31 @@ def random_patch_corners(gen: torch.Generator, img_shape, k: int, num: int,
     b = torch.randint(0, img_shape[1] - k, (num,), generator=gen,
                       device=device)
     return a, b
+
+
+def _grid_corners(ii: torch.Tensor, jj: torch.Tensor):
+    return ii.repeat_interleave(jj.shape[0]), jj.repeat(ii.shape[0])
+
+
+def grid_patch_corners(img_shape, k: int, stride: int, *, device="cuda"):
+    """Strided-grid corners in row-major order, exclusive of the last row
+    and column start (the reference's ``np.arange(0, H - k, stride)``): the
+    corners of ``extract_patches_grid(img, k, stride)``. On ``device`` (the
+    card by default; a CPU run passes ``device="cpu"``)."""
+    device = entry_device(device)
+    return _grid_corners(
+        torch.arange(0, img_shape[0] - k, stride, device=device),
+        torch.arange(0, img_shape[1] - k, stride, device=device))
+
+
+def all_patch_corners(img_shape, k: int, *, device="cuda"):
+    """Every patch position (inclusive of H - k), row-major: the corners
+    of ``extract_patches_grid(img, k, inclusive=True)``, the grey
+    reconstruction's full-coverage grid."""
+    device = entry_device(device)
+    return _grid_corners(
+        torch.arange(0, img_shape[0] - k + 1, device=device),
+        torch.arange(0, img_shape[1] - k + 1, device=device))
 
 
 def _patch_index(corners, k: int):

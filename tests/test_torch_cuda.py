@@ -15,10 +15,12 @@ column about as far as that (r = 8, n = 4133 on an NVIDIA H100 80GB HBM3:
 against itself with its rows permuted; 2.1e-3 in 6 of 131,109 columns;
 ``chip_compare.py . new bf16``), so ``assert_bf16_close`` holds every
 column to the tolerance or to one rounding. The checkerboard kernel
-draws the same bits as its plain version: equal site for site. A small
-network run (20x20 torus) must launch the coder and dictionary kernels,
-and its training on the card (float32) must agree with the CPU (float64)
-from the same draws within 1e-3 relative.
+draws the same bits as its plain version: equal site for site, on every
+route and vector width. A small network run (20x20 torus) must launch the
+coder and dictionary kernels, and its training on the card (float32) must
+agree with the CPU (float64) from the same draws within 1e-3 relative; so
+must a tiny video run, and a reconstruction in 2 chunks must give the CPU's
+pairs and counts exactly and its means within rtol 1e-3 / atol 1e-4.
 """
 
 import numpy as np
@@ -303,6 +305,102 @@ def test_cuda_network_path_launches_kernels_and_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_chunked_reconstruction_matches_cpu(cuda):
+    # chunks=2 on injected samples: the card (float32, coder kernel) against
+    # the CPU (float64) pair for pair; then NetworkReconstructor's chunks=2
+    # from its own generator
+    from onmf_ontf_ndl_tpu_torch.apps.network import (
+        NetworkReconstructor, reconstruct_network_sparse_chunked)
+    from onmf_ontf_ndl_tpu_torch.data.graphs import csr_graph_from_edges
+    from onmf_ontf_ndl_tpu_torch.samplers.motif import path_adj
+
+    g = csr_graph_from_edges(_torus_edges(20), device="cpu")
+    rng = np.random.default_rng(3)
+    B, M, r = path_adj(0, 2), 3000, 16
+    base = rng.integers(0, 400, (M, 1))
+    embs = (base + rng.integers(0, 3, (M, 3)) * 20) % 400
+    W, H0 = rng.random((9, r)), rng.random((r, M))
+    out = {}
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        e = torch.as_tensor(embs, device=device)
+        h = torch.as_tensor(H0, dtype=dtype, device=device)
+        ck.reset_launches()
+        out[str(device)] = reconstruct_network_sparse_chunked(
+            torch.as_tensor(W, dtype=dtype, device=device), g.to(device),
+            None, B, recons_iter=M, chunks=2,
+            embs=[e[:1000], e[1000:]],
+            H0=[h[:, :1000].contiguous(), h[:, 1000:].contiguous()])
+        assert ck.LAUNCHES["coder_sweeps"] == (2 if device == cuda else 0)
+    got, want = out[str(cuda)], out["cpu"]
+    for i in (0, 1, 3):
+        assert torch.equal(got[i].cpu().double(), want[i].double())
+    torch.testing.assert_close(got[2].cpu().double(), want[2], rtol=1e-3,
+                               atol=1e-4)
+
+    ck.reset_launches()
+    rec = NetworkReconstructor(
+        source=g, n_components=16, MCMC_iterations=8, sub_iterations=10,
+        sample_size=200, batch_size=40, k1=0, k2=2, alpha=0.1,
+        num_chains=8, device=cuda)
+    rec.train_dict()
+    edges = rec.reconstruct_network(recons_iter=20000, num_chains=64,
+                                    chunks=2)
+    torch.cuda.synchronize()
+    assert edges.shape[1] == 2 and rec.compute_recons_accuracy() > 0.9
+    with pytest.raises(ValueError, match="chunk 1/2"):
+        rec.reconstruct_network(recons_iter=20000, num_chains=64, chunks=2,
+                                cap=10)
+
+
+@pytest.mark.cuda
+def test_cuda_video_path_launches_kernels_and_matches_cpu(cuda):
+    # a tiny video run on the card (float32, kernels) against the CPU
+    # (float64) from the same draws, fixed sweeps; 1e-3 relative
+    from onmf_ontf_ndl_tpu_torch.apps.video import (VideoDictionaryLearner,
+                                                    train_video_dict)
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+
+    rng = np.random.default_rng(12)
+    frames = rng.random((5, 40, 48, 3))
+    k, r, num, inner = 6, 12, 64, 5
+    W0 = rng.random((3 * k * k, r))
+    draws = [((rng.integers(0, 40 - k, num), rng.integers(0, 48 - k, num)),
+              [(rng.integers(0, num, 32), rng.random((r, 32)))
+               for _ in range(inner - 1)]) for _ in range(10)]
+    out = {}
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        dr = [(tuple(torch.as_tensor(c, device=device) for c in cs),
+               [(torch.as_tensor(i, device=device),
+                 torch.as_tensor(h, dtype=dtype, device=device))
+                for i, h in steps]) for cs, steps in draws]
+        ck.reset_launches()
+        st = train_video_dict(
+            init_state(0, 3 * k * k, r, device=device, dtype=dtype, W=W0),
+            torch.as_tensor(frames, dtype=dtype, device=device),
+            num_patches=num, inner_iterations=inner, batch_size=32,
+            patch_size=k, epochs=2, alpha=0.1, use_stopping=False,
+            subsample=True, draws=dr)
+        assert st.t == 10 * inner
+        if device == cuda:
+            assert ck.LAUNCHES["coder_sweeps"] == 40
+            assert ck.LAUNCHES["dict_update_sweep"] == 40
+        out[str(device)] = st.W.double().cpu()
+    rel = (out[str(cuda)] - out["cpu"]).norm() / out["cpu"].norm()
+    assert float(rel) <= 1e-3
+
+    ck.reset_launches()
+    rec = VideoDictionaryLearner(frames=frames, n_components=r,
+                                 patch_size=k, num_patches=num, device=cuda)
+    W = rec.train_dict()
+    frame = rec.reconstruct_frame(1, stride=2)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["coder_sweeps_earlystop"] == 5 * 9
+    assert ck.LAUNCHES["coder_sweeps"] == 1
+    assert W.device.type == "cuda" and bool((W >= 0).all())
+    assert frame.shape == (40, 48, 3) and bool(torch.isfinite(frame).all())
+
+
+@pytest.mark.cuda
 def test_cuda_refused_launch_raises(cuda, monkeypatch):
     # past the shared-memory limit the shared kernel's launch is refused:
     # the wrapper must raise, and the next launch must still work
@@ -396,19 +494,63 @@ def test_cuda_fista_takes_an_asymmetric_A(cuda, r, use_stopping):
         got, ck.fista_sweeps_plain(A, B, H0, 0.1, 0.01, **kw), **TOL)
 
 
+# (n, sweeps) whose routes by checkerboard_route are one CTA, a cluster and
+# device memory, at every vector width: n % 16 == 0, n % 8 == 0 (rows not
+# 16-byte aligned), and neither (n / 2 not a multiple of 4: a Philox call
+# straddles two rows)
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 16, 200, 1026])
-def test_cuda_checkerboard_kernel_equals_plain(cuda, n):
+@pytest.mark.parametrize("n,sweeps", [
+    (2, 7), (6, 7), (16, 7), (18, 7), (24, 5), (32, 4), (200, 1), (202, 17),
+    (200, 16), (208, 16), (256, 16), (482, 3), (1026, 3), (1032, 3),
+    (1040, 3)])
+def test_cuda_checkerboard_kernel_equals_plain(cuda, n, sweeps):
     rng = np.random.default_rng(n)
     lat = _t(rng.choice(np.array([1, -1], np.int8), (n, n)), cuda)
     lat0 = lat.clone()
+    route, ctas = ik.checkerboard_route(n, sweeps)
     ck.reset_launches()
-    got = ik.checkerboard_sweeps(12345, lat, 7, J=1.0, H=0.1, T=2.3)
+    got = ik.checkerboard_sweeps(12345, lat, sweeps, J=1.0, H=0.1, T=2.3)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["checkerboard_sweeps"] == 14
-    want = ik.checkerboard_sweeps_plain(12345, lat, 7, J=1.0, H=0.1, T=2.3)
+    # one launch for a resident call, two a sweep from device memory
+    assert ck.LAUNCHES["checkerboard_sweeps"] == (
+        2 * sweeps if route == "global" else 1)
+    want = ik.checkerboard_sweeps_plain(12345, lat, sweeps, J=1.0, H=0.1,
+                                        T=2.3)
     assert torch.equal(got, want)
     assert torch.equal(lat, lat0)   # the input lattice is left as it was
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 24, 64, 202, 200, 1022, 1024])
+def test_cuda_checkerboard_every_route_equals_plain(cuda, n):
+    # the routes that checkerboard_route does not pick at this n, too
+    import ctypes
+
+    rng = np.random.default_rng(n)
+    lat = _t(rng.choice(np.array([1, -1], np.int8), (n, n)), cuda)
+    want = ik.checkerboard_sweeps_plain(9, lat, 3, J=1.0, H=-0.2, T=1.7)
+    thr = (ctypes.c_uint * 10)(*ik.acceptance_thresholds(1.0, -0.2, 1.7))
+    ran = []
+    for ctas in (0, 1, 2, 4, 8):
+        if ctas and not ik._resident_fits(n, ctas):
+            continue
+        got = lat.clone()
+        assert ik._launch(got, n, 3, 9, thr, ctas) == (1 if ctas else 6)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), ctas
+        ran.append(ctas)
+    assert 0 in ran and len(ran) >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_checkerboard_refuses_a_band_that_does_not_fit(cuda):
+    import ctypes
+
+    thr = (ctypes.c_uint * 10)(*ik.acceptance_thresholds(1.0, 0.0, 2.0))
+    lat = torch.ones((1024, 1024), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ik._launch(lat, 1024, 1, 0, thr, 1)
+    assert bool((lat == 1).all())
 
 
 @pytest.mark.cuda

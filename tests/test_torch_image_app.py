@@ -170,8 +170,15 @@ def test_gray_pipeline_full_grid():
     assert out.shape == img.shape
     assert (out > 0).all()   # the full grid paints every pixel
     assert np.linalg.norm(out - img) / np.linalg.norm(img) < 0.25
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapp.ImageReconstructor(data=img[None], is_stack=True, device="cpu")
+    # a stack of one matrix trains like the image: grey, d = k^2
+    stack = tapp.ImageReconstructor(
+        data=img[None], is_stack=True, n_components=9, iterations=2,
+        sub_iterations=5, num_patches=40, patch_size=5, dtype=F64,
+        device="cpu")
+    assert stack.is_stack and not stack.is_color
+    assert stack.train_dict().shape == (25, 9) and stack.state.t == 2 * 5
+    with pytest.raises(ValueError, match="is_stack expects"):
+        tapp.ImageReconstructor(data=img, is_stack=True, device="cpu")
 
 
 def test_checkpoint_interop_both_ways(tmp_path):

@@ -4,9 +4,12 @@ distribution, on the CPU.
 
 The Metropolis chains and the trajectory learner replay JAX's draws and
 must agree exactly (chains) or to float64 rounding (learner, rtol 1e-8).
-The checkerboard sampler draws from its own counter-based stream, so it is
-held to the physics: the exact 2x2 Boltzmann distribution and ordering
-below the critical temperature.
+The checkerboard sampler draws from its own counter-based stream (one
+Philox call per four sites of a colour), so it is held to the stream's
+definition, to the physics (the exact 2x2 Boltzmann distribution, ordering
+below the critical temperature), and to a numpy emulation of the CUDA
+kernels' own order of operations: packed 8-byte words, several sites a
+thread, bands of rows with halo rows read from the neighbours' copies.
 """
 
 import numpy as np
@@ -29,6 +32,15 @@ torch.set_num_threads(1)
 
 RNG = np.random.default_rng(36)
 F64 = torch.float64
+# checkerboard_route's choices at the paths' shapes and at its crossovers
+ROUTES = {(2, 1): ("shared", 1), (16, 100): ("shared", 1),
+          (18, 3): ("global", 0), (18, 4): ("cluster", 4),
+          (32, 4): ("cluster", 8), (160, 3): ("global", 0),
+          (160, 4): ("cluster", 8), (162, 15): ("global", 0),
+          (200, 1): ("global", 0), (200, 16): ("cluster", 8),
+          (200, 100): ("cluster", 8), (256, 100): ("cluster", 8),
+          (258, 100): ("global", 0), (1024, 100): ("global", 0),
+          (4096, 100): ("global", 0)}
 
 
 def _t(a):
@@ -109,6 +121,25 @@ def test_philox_known_answers_and_thresholds():
              (0xa4093822, 0x299f31d0),
              (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]:
         assert tuple(int(w) for w in ik.philox4x32(*ctr, *key)) == want
+    # the sampler's stream: site q = i (n / 2) + (j >> 1) of its colour
+    # takes word q & 3 of the call with counter (q >> 2, sweep, colour,
+    # chain). At J = H = 0 every threshold is 2^23, so a site flips exactly
+    # when the top bit of its word is clear, whatever its neighbours do.
+    # n / 2 odd (n = 6, 10: a call straddles two rows), n = 2 (one call a
+    # colour), and a batch of two chains (counter word 3)
+    seed = 4242
+    for n in (2, 6, 10, 16):
+        half = n // 2
+        i, j = np.divmod(np.arange(n * n), n)
+        q = i * half + (j >> 1)
+        for chain, got in enumerate(ik.checkerboard_sweeps_plain(
+                seed, torch.ones((2, n, n), dtype=torch.int8), 1, J=0.0,
+                H=0.0, T=1.0)):
+            words = ik.philox4x32(_t(q >> 2), 0, _t((i + j) & 1), chain,
+                                  seed, 0)
+            word = torch.stack(words)[_t(q & 3), torch.arange(n * n)]
+            want = torch.where((word >> 8) < (1 << 23), -1, 1)
+            assert torch.equal(got.reshape(-1).long(), want), (n, chain)
     thr = ik.acceptance_thresholds(1.0, 0.0, 2.0)
     assert thr[2] == thr[7] == 1 << 23           # dE = 0: p = 1/2
     # sigmoid(x) + sigmoid(-x) = 1, each rounded up
@@ -148,6 +179,132 @@ def test_checkerboard_plain_deterministic_in_seed():
         ik.checkerboard_sweeps_plain(0, _t(random_lattice(5)), 1)
     with pytest.raises(ValueError, match="square"):
         tising.checkerboard_sweeps(0, torch.ones((4, 6), dtype=torch.int8), 1)
+
+
+def philox_np(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 in numpy on uint64 arrays of 32-bit words."""
+    mask = np.uint64(0xFFFFFFFF)
+    c0, c1, c2, c3 = (np.broadcast_to(np.asarray(c, np.uint64), np.shape(c0))
+                      for c in (c0, c1, c2, c3))
+    k0, k1 = np.uint64(k0), np.uint64(k1)
+    for _ in range(10):
+        p0, p1 = np.uint64(0xD2511F53) * c0, np.uint64(0xCD9E8D57) * c2
+        c0, c1, c2, c3 = ((p1 >> np.uint64(32)) ^ c1 ^ k0, p1 & mask,
+                          (p0 >> np.uint64(32)) ^ c3 ^ k1, p0 & mask)
+        k0, k1 = (k0 + np.uint64(0x9E3779B9)) & mask, \
+            (k1 + np.uint64(0xBB67AE85)) & mask
+    return c0, c1, c2, c3
+
+
+def emulate_kernels(lat, nsweeps, seed, thr, ctas):
+    """The CUDA kernels' order of operations in numpy (csrc/ising_kernels.cu).
+
+    ``ctas = 0``: the device-memory route on the whole lattice; else the
+    resident route, each of ``ctas`` CTAs holding a band of ``ceil(n /
+    ctas)`` rows in its own copy and reading the row above and the row
+    below its band from its neighbours' copies as they stand. The vector
+    width comes from n alone: with n % 8 == 0 a row is 8-byte words of four
+    sites each (one Philox call a word, the neighbour counts by byte
+    arithmetic on the packed words, the threshold at
+    ``tab[count + 5 [s = -1]]``); else one Philox call per four sites q,
+    which may straddle two rows, the sites one at a time."""
+    n = lat.shape[0]
+    half = n // 2
+    tab = np.array([thr[9 - k] for k in range(10)], np.uint64)
+    band = n if ctas == 0 else -(-n // ctas)
+    firsts = list(range(0, n, band))
+    assert ctas == 0 or len(firsts) == ctas
+    copies = [lat[f:f + band].copy() for f in firsts]
+    u64 = np.uint64
+    ones = u64(0x0101010101010101)
+    for sweep in range(nsweeps):
+        for colour in (0, 1):
+            for b, first in enumerate(firsts):
+                own = copies[b]
+                count = own.shape[0]
+                above = copies[b - 1][-1]
+                below = copies[(b + 1) % len(copies)][0]
+                if n % 8 == 0:
+                    W = n // 8
+                    i = first + np.arange(count)[:, None]
+                    w = np.arange(W)[None, :]
+                    rnd = philox_np((i * W + w).astype(u64) & u64(0xFFFFFFFF),
+                                    sweep, colour, 0, seed, 0)
+                    words = own.view(u64)
+                    up = np.concatenate([above[None], own[:-1]]).view(u64)
+                    down = np.concatenate([own[1:], below[None]]).view(u64)
+                    bits = (own.view(np.uint8) >> 1) & 1
+                    left = bits[:, (8 * w[0] - 1) % n].astype(u64)
+                    right = bits[:, (8 * w[0] + 8) % n].astype(u64)
+                    m = (words >> u64(1)) & ones
+                    idx = (((up >> u64(1)) & ones) + ((down >> u64(1)) & ones)
+                           + ((m << u64(8)) | left)
+                           + ((m >> u64(8)) | (right << u64(56)))
+                           + m + (m << u64(2)))
+                    p = ((i + colour) & 1).astype(u64)
+                    flip = np.zeros_like(words)
+                    for t in range(4):
+                        sh = u64(8) * (u64(2 * t) + p)
+                        k = ((idx >> sh) & u64(0xF)).astype(np.int64)
+                        hit = (rnd[t] >> u64(8)) < tab[k]
+                        flip |= np.where(hit, u64(0xFE) << sh, u64(0))
+                    copies[b] = (words ^ flip).view(np.int8)
+                else:
+                    ext = np.concatenate([above[None], own,
+                                          below[None]]).astype(np.int64)
+                    q_lo, q_hi = first * half, (first + count) * half
+                    g = np.arange(q_lo >> 2, -(-q_hi // 4))
+                    rnd = philox_np(g.astype(u64), sweep, colour, 0, seed, 0)
+                    for t in range(4):
+                        q = 4 * g + t
+                        live = (q >= q_lo) & (q < q_hi)
+                        qq, u24 = q[live], (rnd[t] >> u64(8))[live]
+                        i = qq // half
+                        j = 2 * (qq - i * half) + ((i + colour) & 1)
+                        l = i - first + 1
+                        s = ext[l, j]
+                        sn = (ext[l - 1, j] + ext[l + 1, j]
+                              + ext[l, (j - 1) % n] + ext[l, (j + 1) % n])
+                        k = ((1 - s) >> 1) * 5 + ((4 - sn) >> 1)
+                        flips = u24 < tab[k]
+                        own[(l - 1)[flips], j[flips]] *= -1
+    return np.concatenate(copies)
+
+
+@pytest.mark.parametrize("nsweeps", range(1, 8))
+@pytest.mark.parametrize("n", [2, 6, 16, 200])
+def test_kernel_emulation_equals_plain_site_for_site(n, nsweeps):
+    lat = random_lattice(n)
+    J, H, T, seed = 1.0, 0.1, 2.3, 1000 + n
+    thr = ik.acceptance_thresholds(J, H, T)
+    want = ik.checkerboard_sweeps_plain(seed, _t(lat), nsweeps, J, H, T)
+    assert n == 2 or (want.numpy() != lat).any()
+    routes = [c for c in (0, 1, 2, 3, 8) if c == 0 or (
+        (c - 1) * -(-n // c) < n)]
+    assert len(routes) >= 2
+    for ctas in routes:
+        got = emulate_kernels(lat.copy(), nsweeps, seed, thr, ctas)
+        np.testing.assert_array_equal(got, want.numpy(), err_msg=str(ctas))
+
+
+def test_checkerboard_route_by_shape_alone():
+    import inspect
+
+    assert list(inspect.signature(ik.checkerboard_route).parameters) == [
+        "n", "nsweeps"]
+    # what the bands can hold: 227 KB a CTA less the table's 64 bytes
+    assert ik._resident_fits(482, 1) and not ik._resident_fits(484, 1)
+    assert ik._resident_fits(1360, 8) and not ik._resident_fits(1376, 8)
+    assert not ik._resident_fits(6, 8)       # a CTA would hold no row
+    for (n, nsweeps), want in ROUTES.items():
+        assert ik.checkerboard_route(n, nsweeps) == want, (n, nsweeps)
+    for n in range(2, 1500, 2):
+        for nsweeps in (1, 3, 10, 100, 10_000):
+            name, ctas = ik.checkerboard_route(n, nsweeps)
+            assert (name, ctas > 1, ctas > 0) in (
+                ("global", False, False), ("shared", False, True),
+                ("cluster", True, True))
+            assert ctas == 0 or ik._resident_fits(n, ctas)
 
 
 def replay_ising_draws(key, state_key, shape, k, r, rounds, num, inner):

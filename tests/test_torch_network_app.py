@@ -11,6 +11,11 @@ package and the numpy oracle, on the CPU in float64.
   1e-8, the golden tolerance of tests/test_onmf.py.
 - Chunked and resumed training equal the uninterrupted run; checkpoints
   cross between the packages both ways.
+- The chunked reconstruction on JAX's per-chunk draws (``fold_in(key, c)``)
+  against the JAX chunked function: counts exactly, means within 1e-6;
+  exact under any split of the same samples (counts equal, sums within
+  1e-12: float addition in another order), including n > 65,536; a single
+  chunk equals the unchunked function bit for bit.
 - End to end at tests/test_network_app.py's configurations.
 """
 
@@ -137,6 +142,149 @@ def test_grouping_and_edges_equal_jax_beyond_65536_nodes(n, include_self):
             tnet._edges_from_sparse_result(ii, jj, sums / cnt, cnt),
             jnet._edges_from_sparse_result(want[0], want[1], means[0],
                                            want[3], n))
+
+
+@pytest.mark.parametrize("rep", ["dense", "csr"])
+@pytest.mark.parametrize("chunks,num_chains", [(2, 1), (3, 4)])
+def test_chunked_reconstruction_equals_jax_on_injected_draws(rep, chunks,
+                                                             num_chains):
+    edges = np.argwhere(np.triu(torus_adjacency(6)))
+    build_t = tg.graph_from_edgelist if rep == "dense" \
+        else tg.csr_graph_from_edges
+    build_j = jg.graph_from_edgelist if rep == "dense" \
+        else jg.csr_graph_from_edges
+    tgraph, jgraph = build_t(edges, device="cpu"), build_j(edges)
+    B = jm.path_adj(1, 1)
+    W = np.random.default_rng(4).random((9, 5))
+    key = jax.random.key(17)
+    total = 250                      # 125 a chunk; 84 -> 84 of 4 chains
+    per_chunk = -(-total // chunks)
+    embs, H0s = [], []
+    for c in range(chunks):
+        e, h, _, B_bytes, parents = replay_recon(
+            jgraph, W, jax.random.fold_in(key, c), B, per_chunk, num_chains)
+        assert e.shape[0] == -(-per_chunk // num_chains) * num_chains
+        embs.append(e)
+        H0s.append(h)
+    want = jnet.reconstruct_network_sparse_chunked(
+        jnp.asarray(W), jgraph, key, B_bytes, parents, recons_iter=total,
+        chunks=chunks, num_chains=num_chains)
+    got = tnet.reconstruct_network_sparse_chunked(
+        torch.as_tensor(W), tgraph, None, B, recons_iter=total,
+        chunks=chunks, num_chains=num_chains, embs=embs, H0=H0s)
+    ii, jj, mean, cnt = got
+    assert (cnt > 0).all()
+    keys = ii * tgraph.num_nodes + jj
+    assert (keys[1:] > keys[:-1]).all()          # ascending, distinct
+    assert_groups_equal(grouped(*got), grouped(*want))
+    # and the sums, pair by pair
+    np.testing.assert_allclose(
+        sorted((mean * cnt).tolist()),
+        sorted((np.asarray(want[2]) * np.asarray(want[3]))[
+            np.asarray(want[3]) > 0].tolist()), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(
+        tnet._edges_from_sparse_result(*got),
+        jnet._edges_from_sparse_result(*want, tgraph.num_nodes))
+
+
+def _ring_samples(n, M, k, seed):
+    """A ring of n nodes as a CsrGraph and M injected samples on it: node
+    tuples around a few sites and around the largest indices (the painted
+    values need no homomorphism)."""
+    u = np.arange(n)
+    g = tg.csr_graph_from_edges(np.stack([u, (u + 1) % n], 1), device="cpu")
+    rng = np.random.default_rng(seed)
+    e = (rng.integers(0, 30, (M, 1)) + rng.integers(0, 3, (M, k))) % n
+    e[:5] = n - 1 - rng.integers(0, 3, (5, k))
+    return g, torch.as_tensor(e), torch.as_tensor(rng.random((6, M)))
+
+
+def _pair_oracle(embs, vals_T):
+    """Per directed pair off the diagonal: (sum, count) of its paints, by a
+    host loop."""
+    M, k = embs.shape
+    out = {}
+    for m in range(M):
+        for q in range(k):
+            for r in range(k):
+                if q != r:
+                    s, c = out.get((int(embs[m, q]), int(embs[m, r])), (0, 0))
+                    out[int(embs[m, q]), int(embs[m, r])] = (
+                        s + float(vals_T[q * k + r, m]), c + 1)
+    return out
+
+
+@pytest.mark.parametrize("n", [40, 70_000, 3_000_000])
+@pytest.mark.parametrize("split", [(300,), (100, 200), (7, 150, 1, 142),
+                                   (60,) * 5])
+def test_chunk_merge_is_exact_under_any_split(n, split):
+    M, k = 300, 3
+    g, embs, H0 = _ring_samples(n, M, k, seed=len(split))
+    W = torch.as_tensor(np.random.default_rng(1).random((k * k, 6)))
+    B = jm.path_adj(0, 2)
+    whole = tnet.reconstruct_network_sparse(
+        W, g, None, B, recons_iter=M, include_self=False, embs=embs, H0=H0)
+    cuts = np.cumsum((0,) + split)
+    pieces = [slice(a, b) for a, b in zip(cuts[:-1], cuts[1:])]
+    got = tnet.reconstruct_network_sparse_chunked(
+        W, g, None, B, recons_iter=M, chunks=len(split), cap=10 * M,
+        embs=[embs[p] for p in pieces],
+        H0=[H0[:, p].contiguous() for p in pieces])
+    for a, b in zip(got[:2] + got[3:], whole[:2] + whole[3:]):
+        assert torch.equal(a, b)                  # pairs and counts
+    torch.testing.assert_close(got[2], whole[2], rtol=0, atol=1e-12)
+    if len(split) == 1:
+        assert torch.equal(got[2], whole[2])
+    _, vals_T = tnet._recon_sample_vals(W, g, None, B, recons_iter=M,
+                                        embs=embs, H0=H0)
+    oracle = _pair_oracle(embs.numpy(), vals_T.numpy())
+    assert int(got[0].max()) == n - 1
+    assert set(zip(got[0].tolist(), got[1].tolist())) == set(oracle)
+    for i, j, mean, c in zip(*(x.tolist() for x in got)):
+        assert c == oracle[i, j][1]
+        assert mean == pytest.approx(oracle[i, j][0] / c, abs=1e-12)
+
+
+def test_chunked_reconstruction_draws_overflow_and_budget():
+    g = tg.csr_graph_from_edges(np.argwhere(np.triu(torus_adjacency(6))),
+                                device="cpu")
+    W = torch.as_tensor(np.random.default_rng(3).random((9, 4)))
+    B = jm.path_adj(0, 2)
+    kw = dict(recons_iter=90, num_chains=4)
+
+    def gen():
+        return torch.Generator().manual_seed(5)
+
+    # one chunk draws from the generator itself: the unchunked function
+    one = tnet.reconstruct_network_sparse_chunked(W, g, gen(), B, chunks=1,
+                                                  **kw)
+    whole = tnet.reconstruct_network_sparse(W, g, gen(), B,
+                                            include_self=False, **kw)
+    for a, b in zip(one, whole):
+        assert torch.equal(a, b)
+    # each chunk rounds its budget up to whole chain steps: 90 / 4 -> 23
+    # -> 24 samples of 6 paints; the same seed gives the same result
+    a = tnet.reconstruct_network_sparse_chunked(W, g, gen(), B, chunks=4,
+                                                **kw)
+    b = tnet.reconstruct_network_sparse_chunked(W, g, gen(), B, chunks=4,
+                                                **kw)
+    assert int(a[3].sum()) == 4 * 24 * 6
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[3], whole[3])        # fresh chains per chunk
+    # the default cap is twice a chunk's paints; an accumulator that
+    # outgrows a given cap raises and names the chunk
+    distinct = len(a[0])
+    with pytest.raises(ValueError, match=r"overflowed the 50-slot .*chunk "
+                                         r"\d/4 \(\d+ distinct pairs\)"):
+        tnet.reconstruct_network_sparse_chunked(W, g, gen(), B, chunks=4,
+                                                cap=50, **kw)
+    ok = tnet.reconstruct_network_sparse_chunked(W, g, gen(), B, chunks=4,
+                                                 cap=distinct, **kw)
+    assert len(ok[0]) == distinct
+    with pytest.raises(ValueError, match="positive"):
+        tnet.reconstruct_network_sparse_chunked(W, g, gen(), B, chunks=0,
+                                                **kw)
 
 
 def test_recons_accuracy_equal_on_both_forms():
@@ -373,8 +521,15 @@ def test_reconstructor_surface(tmp_path):
     A = rec.compute_A_recons(path)
     np.testing.assert_array_equal(A > 0, rec.G_recons.numpy() & ~np.eye(
         3, dtype=bool))
-    with pytest.raises(NotImplementedError, match="A7.3"):
+    # chunks > 1: the sparse path only, pieces merged into one edge array
+    with pytest.raises(ValueError, match="sparse path"):
         rec.reconstruct_network(recons_iter=200, chunks=2)
+    edges = rec.reconstruct_network(recons_iter=200, chunks=2, sparse=True)
+    assert edges.ndim == 2 and edges.shape[1] == 2 and rec.G_recons is None
+    assert (edges[:, 0] < edges[:, 1]).all()
+    assert rec.compute_recons_accuracy() == rec.compute_recons_accuracy(edges)
+    with pytest.raises(ValueError, match="overflowed .* chunk 1/2"):
+        rec.reconstruct_network(recons_iter=200, chunks=2, sparse=True, cap=1)
     with pytest.raises(NotImplementedError, match="A9"):
         rec.display_dict()
     rec.W = np.ones((4, 4))

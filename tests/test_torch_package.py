@@ -17,6 +17,9 @@ import onmf_ontf_ndl_tpu_torch.apps.image
 import onmf_ontf_ndl_tpu_torch.apps.image_tensor
 import onmf_ontf_ndl_tpu_torch.apps.ising
 import onmf_ontf_ndl_tpu_torch.apps.network
+import onmf_ontf_ndl_tpu_torch.apps.video
+import onmf_ontf_ndl_tpu_torch.data.video
+import onmf_ontf_ndl_tpu_torch.ops.patches
 import onmf_ontf_ndl_tpu_torch.data.graphs
 import onmf_ontf_ndl_tpu_torch.data.native as native
 import onmf_ontf_ndl_tpu_torch.models.ontf
@@ -36,6 +39,9 @@ assert "triton" not in sys.modules
 assert p.IsingReconstructor.__name__ == "IsingReconstructor"
 assert p.ImageReconstructorTensor.__name__ == "ImageReconstructorTensor"
 assert p.NetworkReconstructor.__name__ == "NetworkReconstructor"
+assert p.VideoDictionaryLearner.__name__ == "VideoDictionaryLearner"
+assert "VideoDictionaryLearner" in p.__all__
+assert "PIL" not in sys.modules      # the loaders import it when called
 assert coder_kernel.build.cache_info().currsize == 0   # still nothing built
 print("ok", p.ImageReconstructor.__name__)
 """
@@ -58,7 +64,9 @@ def _entry_points(tmp_path):
         ImageReconstructorTensor)
     from onmf_ontf_ndl_tpu_torch.apps.ising import IsingReconstructor
     from onmf_ontf_ndl_tpu_torch.apps.network import NetworkReconstructor
-    from onmf_ontf_ndl_tpu_torch.data import graphs, images
+    from onmf_ontf_ndl_tpu_torch.apps.video import VideoDictionaryLearner
+    from onmf_ontf_ndl_tpu_torch.data import graphs, images, video
+    from onmf_ontf_ndl_tpu_torch.ops import patches
     from onmf_ontf_ndl_tpu_torch.models.ontf import OnlineNTF
     from onmf_ontf_ndl_tpu_torch.models.state import (init_state,
                                                       state_from_numpy)
@@ -73,6 +81,12 @@ def _entry_points(tmp_path):
     np.savetxt(edge_file, edges, fmt="%d", delimiter=",")
     np.save(tmp_path / "spins.npy", np.sign(rng.random((8, 8)) - 0.5))
     spins = str(tmp_path / "spins.npy")
+    from PIL import Image
+
+    gif = str(tmp_path / "clip.gif")
+    stills = [Image.fromarray((rng.random((8, 8, 3)) * 255).astype(np.uint8))
+              for _ in range(2)]
+    stills[0].save(gif, save_all=True, append_images=stills[1:])
     return {
         p.OnlineNMF: lambda **kw: p.OnlineNMF(rng.random((4, 10)),
                                               n_components=2, **kw),
@@ -108,6 +122,15 @@ def _entry_points(tmp_path):
             lambda **kw: graphs.bitset_graph_from_edges(edges, **kw),
         images.load_image: lambda **kw: images.load_image(
             spins, is_matrix=True, **kw),
+        video.load_video_frames: lambda **kw: video.load_video_frames(
+            gif, **kw),
+        VideoDictionaryLearner: lambda **kw: VideoDictionaryLearner(
+            frames=rng.random((2, 8, 8, 3)), n_components=2, patch_size=4,
+            **kw),
+        patches.grid_patch_corners: lambda **kw: patches.grid_patch_corners(
+            (8, 8), 4, 2, **kw),
+        patches.all_patch_corners: lambda **kw: patches.all_patch_corners(
+            (8, 8), 4, **kw),
     }
 
 
@@ -117,7 +140,8 @@ def _entry_points(tmp_path):
     "state_from_numpy", "load_state", "graph_from_edgelist",
     "graph_from_adjacency", "load_edgelist", "load_edgelist_csr",
     "load_edgelist_bitset", "csr_graph_from_edges",
-    "bitset_graph_from_edges", "load_image"])
+    "bitset_graph_from_edges", "load_image", "load_video_frames",
+    "VideoDictionaryLearner", "grid_patch_corners", "all_patch_corners"])
 def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
     # the entry point defaults to device="cuda"; without CUDA a call that
     # names no device raises rather than running on the CPU, and the same
@@ -135,9 +159,12 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
             call(device="cpu")
     else:
         out = call(device="cpu")
-        if name in ("load_image", "csr_graph_from_edges"):
-            assert (out if name == "load_image"
-                    else out.offsets).device.type == "cpu"
+        if name in ("load_image", "load_video_frames"):
+            assert out.device.type == "cpu"
+        elif name == "csr_graph_from_edges":
+            assert out.offsets.device.type == "cpu"
+        elif name.endswith("patch_corners"):
+            assert out[0].device.type == out[1].device.type == "cpu"
 
 
 def test_random_patch_corners_follow_the_generator():
