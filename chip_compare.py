@@ -17,7 +17,11 @@ FISTA's cost per iteration (from calls of 1 and 21 iterations, fixed and
 with a stop of 0 that never converges) beside the call's fixed cost; ``bf16`` is no time but the error
 of ten fixed bf16 FISTA iterations against the plain version, with the
 columns past ``chip_smoke.py``'s ``BF16_TOL`` counted and the worst one
-traced to the iteration and the rounding where it parted.
+traced to the iteration and the rounding where it parted. ``dp`` joins a
+one-rank NCCL group and prints host ms a step of ``dp_train_dict`` beside
+``train_dict`` at the headline shape (50 steps, fixed sweeps and the stop,
+the least of 3 runs), and the Ising learner at ``chip_smoke.py``'s
+``ISING_RUN`` with the group and without (the least of 3).
 The shapes, the modes, the inputs and the timer are ``chip_smoke.py``'s
 (``PATH_SHAPES``, ``FISTA_MODES``, ``gram_inputs``, ``graph_ms``): each
 kernel is timed as a CUDA graph of 20 calls (5 of the sampler's longer
@@ -149,6 +153,74 @@ def checkerboard_times(tag, dev, gen, timed, shapes=None):
         print(json.dumps(line), flush=True)
 
 
+def dp_times(tag, dev):
+    """The data-parallel path on one NCCL rank against the one-process
+    path: host time around synchronised runs (the group's collectives cost
+    the host, not the card)."""
+    import socket
+    import time
+
+    import onmf_ontf_ndl_tpu_torch as lib
+    from chip_smoke import ISING_RUN, headline_data
+    from onmf_ontf_ndl_tpu_torch.apps.ising import IsingReconstructor
+    from onmf_ontf_ndl_tpu_torch.parallel import dp, multihost
+
+    def seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0)
+    try:
+        X = headline_data(dev)
+        steps = 50
+
+        def state():
+            return lib.init_state(2, 300, 25, device=dev)
+
+        dp.dp_train_dict(state(), X, iterations=2,
+                         batch_size_per_device=16384)   # NCCL's set-up
+        for stop in (None, 0.01):
+            kw = dict(iterations=steps + 1, stopping_diff=stop)
+            runs = {"dp_step_ms": lambda: dp.dp_train_dict(
+                        state(), X, batch_size_per_device=16384, **kw),
+                    "train_dict_step_ms": lambda: lib.train_dict(
+                        state(), X, batch_size=16384, track_code=False,
+                        **kw)}
+            line = {"version": tag, "table": "dp", "stopping_diff": stop,
+                    "steps": steps}
+            for name, fn in runs.items():
+                line[name] = 1e3 * min(seconds(fn) for _ in range(3)) / steps
+            print(json.dumps(line), flush=True)
+
+        def ising(group):
+            rec = IsingReconstructor(**ISING_RUN, device=dev)
+            if not group:
+                return rec.ising_mcmc_learning()
+            return dp.dp_ising_learning(
+                rec.state, rec.lattice[None], rec.gen,
+                ising_iterations=rec.ising_iterations,
+                nsteps=rec.ising_subsampling_steps,
+                num_patches_per_device=rec.num_patches,
+                inner_iterations=rec.sub_iterations,
+                batch_size=rec.batch_size, patch_size=rec.patch_size,
+                T=rec.temperature, beta=rec.beta)
+
+        print(json.dumps({"version": tag, "table": "dp", "run": "ising",
+                          "group_seconds": min(seconds(lambda: ising(True))
+                                               for _ in range(3)),
+                          "seconds": min(seconds(lambda: ising(False))
+                                         for _ in range(3))}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
@@ -206,6 +278,8 @@ def main():
         print(json.dumps(line), flush=True)
     for r, n in BF16_SHAPES if "bf16" in only else []:
         bf16_errors(ck, tag, r, n, *gram_inputs(r, n, gen, dev))
+    if "dp" in only:
+        dp_times(tag, dev)
 
 
 if __name__ == "__main__":

@@ -52,10 +52,24 @@ Phases, each printing its findings on a line of its own:
              per second and accuracy; the sparse reconstruction once more
              in 4 chunks, with the peak device memory of both; a short
              card/CPU run.
+9. surfaces - the CLI in process (``cli.main``) on the card: ``ising`` at
+             phase 6's configuration (its state equal to phase 6's),
+             ``network`` at phase 8 (a)'s on an edge-list file of the same
+             graph (accuracy beside (a)'s), ``image`` at d = 300, r = 25,
+             patch 10 on a PNG of phase 4's image (on a .npy lattice, grey,
+             d = 100, where Pillow is missing); ``check_state`` on the
+             final state of every phase from 3 to 8.
+10. parallel - one rank in an NCCL group (``parallel/multihost.py``):
+             ``dp_train_dict`` at the headline shape, fixed sweeps and early
+             stop, equal to ``train_dict`` bit for bit; ``dp_ising_learning``
+             equal to phase 6's learner; the sharded sampler through the
+             group; then the banded sampler in one process (n = 1024 in 4
+             bands, n = 200 in 2, 100 sweeps) against the whole-lattice
+             kernel and its plain version, site for site, all timed.
 
-Phases 3 and 5 to 8 each drive one path of the port (6: two, the Ising path
-and the stacked run) with the launch counts set to 0 before it, and fail
-unless every kernel of that path launched.
+Phases 3 and 5 to 10 each drive one path of the port (6: two, the Ising
+path and the stacked run) with the launch counts set to 0 before it, and
+fail unless every kernel of that path launched.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -91,6 +105,9 @@ KERNELS = {
     "dict_update_sweep": ("onmf_kernels.cu", "coder_kernel.py:629", "main"),
     "checkerboard_sweeps": ("ising_kernels.cu", "ising_kernel.py:64",
                             "ising"),
+    # the banded entry of the sampler (a route of checkerboard_sweeps)
+    "checkerboard_sweeps_band": ("ising_kernels.cu", "ising_kernel.py:64",
+                                 "parallel"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -104,7 +121,16 @@ PATH_KERNELS = {
     "video": ("coder_sweeps_earlystop", "coder_sweeps", "dict_update_sweep"),
     "network": ("coder_sweeps_earlystop", "coder_sweeps",
                 "dict_update_sweep"),
+    "surfaces": ("checkerboard_sweeps", "coder_sweeps_earlystop",
+                 "coder_sweeps", "dict_update_sweep"),
+    "parallel": ("coder_sweeps", "coder_sweeps_earlystop",
+                 "dict_update_sweep", "checkerboard_sweeps",
+                 "checkerboard_sweeps_band"),
 }
+# the final optimizer state of each phase from main to network, for
+# check_state in the surfaces phase, and what phases 9 and 10 compare with
+FINAL_STATES = {}
+REFERENCE = {}
 HEADLINE_N = 131072 + 37   # a ragged last tile
 # The card's published peaks (NVIDIA's H100 SXM datasheet, dense rates):
 # device memory bytes/s, float32 operations/s outside the tensor cores, and
@@ -312,7 +338,7 @@ def phase_kernels(ck, dev):
 
     gen = torch.Generator().manual_seed(0)
     summary = {name: {"max_abs_err": 0.0} for name in KERNELS
-               if name != "checkerboard_sweeps"}
+               if not name.startswith("checkerboard")}
     d = 300
     for r in (25, 100):
         for n in (ck.TN, HEADLINE_N):
@@ -697,8 +723,20 @@ def sparse_dictionary_data(rng, d, r, n):
     return Wt, Wt @ codes + .01 * rng.random((d, n))
 
 
+def headline_data(dev, d=300, r=25, n=131072):
+    """The headline shape's data: (d, n) from a seeded sparse dictionary of
+    rank r, built on the card."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    Wt = torch.rand((d, r), generator=gen, device=dev)
+    Wt = Wt / Wt.norm(dim=0)
+    codes = torch.rand((r, n), generator=gen, device=dev)
+    codes = codes * (torch.rand(codes.shape, generator=gen, device=dev) < .3)
+    return Wt @ codes + .01 * torch.rand((d, n), generator=gen, device=dev)
+
+
 def phase_main(ck, dev):
     import onmf_ontf_ndl_tpu_torch as lib
+    from onmf_ontf_ndl_tpu_torch.utils.profiling import Throughput
 
     ck.reset_launches()
     # the canonical drive: trained W should score like the ground truth
@@ -734,30 +772,29 @@ def phase_main(ck, dev):
 
     # the headline shape: d = 300 (10x10 colour patches), r = 25, 10 sweeps
     d, r, batch, steps = 300, 25, 16384, 50
-    gen = torch.Generator(device=dev).manual_seed(1)
-    Wt = torch.rand((d, r), generator=gen, device=dev)
-    Wt = Wt / Wt.norm(dim=0)
-    codes = torch.rand((r, 131072), generator=gen, device=dev)
-    codes = codes * (torch.rand(codes.shape, generator=gen, device=dev) < .3)
-    X = Wt @ codes + .01 * torch.rand((d, 131072), generator=gen,
-                                      device=dev)
+    X = headline_data(dev)
+    tp = Throughput()
     for coder, stop in (("bcd", None), ("bcd", 0.01), ("fista", None)):
         st = lib.init_state(2, d, r, device=dev)
         st, _ = lib.train_dict(st, X, iterations=3, batch_size=batch,
                                stopping_diff=stop, coder=coder)
         torch.cuda.synchronize()
+        # the phase's timer and the port's Throughput around the same run
         t0 = time.perf_counter()
-        st, code = lib.train_dict(st, X, iterations=steps + 1,
-                                  batch_size=batch, stopping_diff=stop,
-                                  coder=coder)
-        torch.cuda.synchronize()
+        with tp.measure(items=steps * batch):
+            st, code = lib.train_dict(st, X, iterations=steps + 1,
+                                      batch_size=batch, stopping_diff=stop,
+                                      coder=coder)
+            tp.fence((st, code))
         dt = time.perf_counter() - t0
         if not (torch.isfinite(st.W).all() and torch.isfinite(code).all()
                 and (st.W >= 0).all()):
             raise AssertionError("non-finite or negative training state")
         emit("main", check="throughput", coder=coder, stopping_diff=stop,
              d=d, r=r, batch=batch, steps=steps, step_ms=1e3 * dt / steps,
-             patches_per_s=steps * batch / dt)
+             patches_per_s=steps * batch / dt,
+             throughput_patches_per_s=tp.items_per_sec)
+    FINAL_STATES["main"] = st
     # eager per-step overhead: a batch so small that the card is idle
     st = lib.init_state(3, d, r, device=dev)
     lib.train_dict(st, X, iterations=3, batch_size=128, stopping_diff=None)
@@ -839,6 +876,7 @@ def phase_image(dev, img):
          recon_err_initial_w=masked_err(out0, img), history=rec.state.t)
     if not masked_err(out, img) < masked_err(out0, img):
         raise AssertionError("training did not lower the recon error")
+    FINAL_STATES["image"] = rec.state
 
     with tempfile.TemporaryDirectory(
             dir=Path(__file__).resolve().parent) as tmp:
@@ -880,6 +918,7 @@ def phase_tensor(ck, dev, img):
     torch.cuda.synchronize()
     recon_s = time.perf_counter() - t0
     launches = check_launches(ck, "tensor")
+    FINAL_STATES["tensor"] = rec.state
     W0 = init_state(3, 1200, 100, device=dev).W
     out0 = reconstruct(img, W0 / W0.norm(dim=0).clamp_min(1.0),
                        make_generator(29, dev), patch_size=20, stride=2,
@@ -923,6 +962,15 @@ def phase_tensor(ck, dev, img):
     return launches
 
 
+# Phase 6's configuration (benchmarks/run_all.py's), which the CLI's and the
+# data-parallel runs of phases 9 and 10 repeat: every key is an IsingConfig
+# field
+ISING_RUN = dict(n_components=100, lattice_size=200, ising_iterations=20,
+                 temperature=5.0, ising_subsampling_steps=40000,
+                 sub_iterations=20, batch_size=50, num_patches=1000,
+                 patch_size=20, beta=1.0, seed=5)
+
+
 def phase_ising(ck, dev):
     """The Ising path at benchmarks/run_all.py's configuration: r = 100,
     lattice 200, 20 rounds at T = 5, 40000 subsampling steps (one sweep a
@@ -933,11 +981,7 @@ def phase_ising(ck, dev):
     from onmf_ontf_ndl_tpu_torch.models.state import init_state
 
     ck.reset_launches()
-    rec = IsingReconstructor(
-        n_components=100, lattice_size=200, ising_iterations=20,
-        temperature=5.0, ising_subsampling_steps=40000, sub_iterations=20,
-        batch_size=50, num_patches=1000, patch_size=20, beta=1.0,
-        device=dev, seed=5)
+    rec = IsingReconstructor(**ISING_RUN, device=dev)
     lat0 = rec.lattice.clone()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -949,6 +993,9 @@ def phase_ising(ck, dev):
     torch.cuda.synchronize()
     recon_s = time.perf_counter() - t0
     launches = check_launches(ck, "ising")
+    FINAL_STATES["ising"] = rec.state
+    REFERENCE["ising"] = (rec.state, dict_stack, errors, rec.lattice)
+    REFERENCE["ising_learn_seconds"] = learn_s
     emit("ising", learn_seconds=learn_s, recon_seconds=recon_s,
          errors_len=len(errors), error_first=float(errors[0]),
          error_last=float(errors[-1]),
@@ -1020,6 +1067,7 @@ def phase_stack(ck, dev):
     out = rec.reconstruct_image(data=stack[0])
     torch.cuda.synchronize()
     launches = check_launches(ck, "stack")
+    FINAL_STATES["stack"] = rec.state
     err = float(torch.linalg.norm(out - stack[0])
                 / torch.linalg.norm(stack[0]))
     emit("stack", stack=list(stack.shape),
@@ -1071,6 +1119,7 @@ def phase_video(ck, dev):
     torch.cuda.synchronize()
     recon_s = time.perf_counter() - t0
     launches = check_launches(ck, "video")
+    FINAL_STATES["video"] = rec.state
     out0 = reconstruct(frames[8], W0 / W0.norm(dim=0).clamp_min(1.0),
                        make_generator(31, dev), patch_size=7)
     e, e0 = masked_err(out, frames[8]), masked_err(out0, frames[8])
@@ -1188,6 +1237,7 @@ def phase_network(ck, dev):
     base = NetworkReconstructor(source=graphs["a"], device=dev, **conf_a)
     base.reconstruct_network(**recon_a)
     acc0 = base.compute_recons_accuracy()
+    REFERENCE["network_a_accuracy_initial_w"] = acc0
 
     ck.reset_launches()
     runs, peak = {}, {}
@@ -1227,7 +1277,9 @@ def phase_network(ck, dev):
                       recon_chain_steps=recon_steps,
                       train_chain_steps_per_s=train_rate,
                       recon_chain_steps_per_s=recon_rate, accuracy=acc)
+        FINAL_STATES[f"network_{tag}"] = rec.state
         if tag == "a":
+            REFERENCE["network_a_accuracy"] = acc
             fields.update(accuracy_initial_w=acc0,
                           recon_edges=int(out.sum()) // 2)
             ok = ok and tuple(out.shape) == (n, n) and acc > acc0
@@ -1286,6 +1338,259 @@ def phase_network(ck, dev):
     return launches
 
 
+def cli_flags(conf: dict) -> list:
+    """CLI flags of config fields: ``--field-name value``."""
+    return [x for key, value in conf.items()
+            for x in ("--" + key.replace("_", "-").lower(), str(value))]
+
+
+def phase_surfaces(ck, dev):
+    """The CLI in process on the card (``--device`` is the default,
+    ``cuda``) at the configurations of phases 6, 8 (a) and 4; then
+    ``check_state`` on every phase's final state."""
+    from onmf_ontf_ndl_tpu_torch import cli
+    from onmf_ontf_ndl_tpu_torch.samplers.ising import (checkerboard_sweeps,
+                                                        init_lattice)
+    from onmf_ontf_ndl_tpu_torch.models.state import make_generator
+    from onmf_ontf_ndl_tpu_torch.utils.debug import check_state
+
+    ck.reset_launches()
+    with tempfile.TemporaryDirectory(
+            dir=Path(__file__).resolve().parent) as tmp:
+        tmp = Path(tmp)
+
+        def run(cmd, flags):
+            out = tmp / cmd
+            t0 = time.perf_counter()
+            if cli.main(["--out-dir", str(out), cmd] + flags) != 0:
+                raise AssertionError(f"cli {cmd} failed")
+            torch.cuda.synchronize()
+            meta = json.loads((out / "run.json").read_text())
+            return out, meta, dict(
+                seconds_with_setup=time.perf_counter() - t0,
+                wall_seconds=meta["wall_seconds"],
+                dict_png=meta.get("dict_png", "written"),
+                artifacts=sorted(p.name for p in out.iterdir()))
+
+        # ising at phase 6's configuration: the state equals phase 6's
+        out, meta, info = run("ising", cli_flags(ISING_RUN))
+        saved = np.load(out / "state.npz")
+        ref, _, errors, _ = REFERENCE["ising"]
+        ref_arrays = {f: getattr(ref, f).cpu().numpy() for f in "WABC"}
+        bitwise = all(np.array_equal(saved[f], ref_arrays[f]) for f in "WABC")
+        diff = max(float(np.abs(saved[f] - ref_arrays[f]).max())
+                   for f in "WABC")
+        emit("surfaces", cmd="ising", **info,
+             state_vs_phase_ising="bitwise" if bitwise else "atol 2e-5",
+             max_abs_diff=diff, history=float(saved["t"]),
+             final_surrogate_error=meta["final_surrogate_error"],
+             phase_ising_final_error=float(errors[-1]))
+        if not (bitwise or diff <= 2e-5) or float(saved["t"]) != ref.t:
+            raise AssertionError(f"cli ising differs from phase 6: {diff}")
+
+        # network at phase 8 (a)'s configuration, on an edge-list file of
+        # the same graph (its nodes in the file's order)
+        edges_fn, _, conf, recon = NETWORK_RUNS["a"]
+        np.savetxt(tmp / "ba.txt", edges_fn(), fmt="%d", delimiter=",")
+        _, meta, info = run("network", [
+            "--source", str(tmp / "ba.txt"), *cli_flags(conf),
+            "--recons-iter", str(recon["recons_iter"]),
+            "--recons-chains", str(recon["num_chains"])])
+        acc, acc0 = (meta["recons_accuracy"],
+                     REFERENCE["network_a_accuracy_initial_w"])
+        emit("surfaces", cmd="network", **info, accuracy=acc,
+             phase_network_a_accuracy=REFERENCE["network_a_accuracy"],
+             accuracy_initial_w=acc0)
+        if not acc > acc0:
+            raise AssertionError(f"cli network accuracy {acc} <= {acc0}")
+
+        # image at the headline width: a PNG of phase 4's image where
+        # Pillow is there, else a lattice saved as .npy (grey, d = 100)
+        try:
+            from PIL import Image
+        except ImportError:
+            Image = None
+        flags = ["--n-components", "25", "--patch-size", "10",
+                 "--iterations", "5", "--num-patches", "16384",
+                 "--sub-iterations", "10", "--recons-resolution", "2",
+                 "--seed", "4"]
+        if Image is not None:
+            Image.fromarray((synthetic_image(7) * 255).astype(np.uint8)).save(
+                tmp / "image.png")
+            flags += ["--path", str(tmp / "image.png")]
+            source, d = "png", 300
+        else:
+            lat = checkerboard_sweeps(3, init_lattice(
+                make_generator(14, dev), 1024), 16, T=2.5)
+            np.save(tmp / "lattice.npy", lat.cpu().numpy())
+            flags += ["--path", str(tmp / "lattice.npy"), "--is-matrix",
+                      "true", "--is-color", "false"]
+            source, d = "npy lattice (Pillow missing)", 100
+        out, meta, info = run("image", flags)
+        saved, rec = np.load(out / "state.npz"), np.load(out / "recons.npy")
+        emit("surfaces", cmd="image", **info, input=source, d=d,
+             W_shape=list(saved["W"].shape), recons_shape=list(rec.shape))
+        if saved["W"].shape != (d, 25) or not np.isfinite(rec).all():
+            raise AssertionError("cli image: bad dictionary or recons")
+    launches = check_launches(ck, "surfaces")
+    for name, st in FINAL_STATES.items():
+        check_state(st, name=name)
+        emit("surfaces", check="check_state", state=name, ok=True)
+    return launches
+
+
+def banded_plain(seed, lat, nsweeps, bands, **kw):
+    """The banded sweeps through the plain version of the banded entry:
+    the halo rows are the neighbours' rows before each colour."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.ising_kernel import (
+        checkerboard_band_half_plain as half)
+
+    rows = lat.shape[0] // bands
+    parts = [lat[i * rows:(i + 1) * rows] for i in range(bands)]
+    for sweep in range(nsweeps):
+        for colour in (0, 1):
+            halos = [(parts[i - 1][-1], parts[(i + 1) % bands][0])
+                     for i in range(bands)]
+            parts = [half(seed, p, a, b, i * rows, sweep, colour, **kw)
+                     for i, (p, (a, b)) in enumerate(zip(parts, halos))]
+    return torch.cat(parts)
+
+
+def phase_parallel(ck, dev, gen):
+    """One rank in an NCCL group: the data-parallel trainers equal the
+    one-process ones (an all-reduce over one rank is the identity), the
+    sharded sampler runs its banded kernel; then the banded sampler in one
+    process against the whole-lattice kernel and the plain version.
+    Returns the path's launches and the banded entry's summary."""
+    import socket
+
+    import torch.distributed as dist
+
+    import onmf_ontf_ndl_tpu_torch as lib
+    from onmf_ontf_ndl_tpu_torch.apps.ising import IsingReconstructor
+    from onmf_ontf_ndl_tpu_torch.models.state import make_generator
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel as ik
+    from onmf_ontf_ndl_tpu_torch.parallel import dp, multihost
+    from onmf_ontf_ndl_tpu_torch.parallel.ising_sharded import (
+        banded_checkerboard_sweeps, sharded_checkerboard_sweeps)
+    from onmf_ontf_ndl_tpu_torch.samplers.ising import init_lattice
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        ck.reset_launches()
+        X = headline_data(dev)
+        # NCCL sets its communicator up at the first collective: one step
+        # before the timed runs
+        dp.dp_train_dict(lib.init_state(2, 300, 25, device=dev), X,
+                         iterations=2, batch_size_per_device=16384)
+        steps = 50
+        for stop in (None, 0.01):
+            kw = dict(iterations=steps + 1, stopping_diff=stop)
+            runs = {
+                "dp": lambda: dp.dp_train_dict(
+                    lib.init_state(2, 300, 25, device=dev), X,
+                    batch_size_per_device=16384, **kw),
+                "one": lambda: lib.train_dict(
+                    lib.init_state(2, 300, 25, device=dev), X,
+                    batch_size=16384, track_code=False, **kw)[0]}
+            step_ms = {}
+            for name, fn in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[name] = fn()
+                torch.cuda.synchronize()
+                step_ms[name] = 1e3 * (time.perf_counter() - t0) / steps
+            got, want = runs["dp"], runs["one"]
+            equal = got.t == want.t and all(
+                torch.equal(getattr(got, f), getattr(want, f)) for f in "WAB")
+            emit("parallel", check="dp_train_dict_vs_train_dict",
+                 stopping_diff=stop, d=300, r=25, batch=16384, steps=steps,
+                 bitwise_equal=equal, dp_step_ms=step_ms["dp"],
+                 train_dict_step_ms=step_ms["one"])
+            if not equal:
+                raise AssertionError(f"dp_train_dict (stop {stop}) differs "
+                                     "from train_dict")
+        # dp_ising_learning from phase 6's construction: phase 6's learner
+        rec = IsingReconstructor(**ISING_RUN, device=dev)
+        t0 = time.perf_counter()
+        st, stack, errors, lat = dp.dp_ising_learning(
+            rec.state, rec.lattice[None], rec.gen,
+            ising_iterations=rec.ising_iterations,
+            nsteps=rec.ising_subsampling_steps,
+            num_patches_per_device=rec.num_patches,
+            inner_iterations=rec.sub_iterations, batch_size=rec.batch_size,
+            patch_size=rec.patch_size, T=rec.temperature, beta=rec.beta)
+        torch.cuda.synchronize()
+        learn_s = time.perf_counter() - t0
+        ref, ref_stack, ref_errors, ref_lat = REFERENCE["ising"]
+        pairs = [(getattr(st, f), getattr(ref, f)) for f in "WABC"] + [
+            (stack, ref_stack), (errors, ref_errors)]
+        bitwise = torch.equal(lat, ref_lat) and all(
+            torch.equal(a, b) for a, b in pairs)
+        diff = max(float((a - b).abs().max()) for a, b in pairs)
+        emit("parallel", check="dp_ising_learning_vs_phase_ising",
+             learn_seconds=learn_s,
+             phase_ising_learn_seconds=REFERENCE["ising_learn_seconds"],
+             equal="bitwise" if bitwise else "atol 2e-5", max_abs_diff=diff,
+             lattice_equal=bool(torch.equal(lat, ref_lat)))
+        if not (bitwise or (diff <= 2e-5 and torch.equal(lat, ref_lat))):
+            raise AssertionError(f"dp_ising_learning differs: {diff}")
+        # the sharded sampler over the group: one band, the whole lattice
+        lat0 = init_lattice(make_generator(13, dev), 200)
+        band = sharded_checkerboard_sweeps(21, lat0, 100, T=2.5)
+        mismatched = int((band != ik.checkerboard_sweeps(
+            21, lat0, 100, T=2.5)).sum())
+        emit("parallel", check="sharded_one_rank", n=200, sweeps=100,
+             mismatched_sites=mismatched)
+        if mismatched:
+            raise AssertionError(f"sharded sampler: {mismatched} sites")
+        launches = check_launches(ck, "parallel")
+    finally:
+        multihost.shutdown()
+
+    summary = {}
+    kw = dict(J=1.0, H=0.0, T=2.5)
+    for n, bands in ((1024, 4), (200, 2)):
+        lat = (1 - 2 * torch.randint(0, 2, (n, n), generator=gen)).to(
+            torch.int8).to(dev)
+        before = ik.LAUNCHES["checkerboard_sweeps_band"]
+        got = banded_checkerboard_sweeps(n, lat, 100, bands, **kw)
+        launched = ik.LAUNCHES["checkerboard_sweeps_band"] - before
+        whole = ik.checkerboard_sweeps(n, lat, 100, **kw)
+        want, plain_ms = timed_once(lambda: banded_plain(n, lat, 100, bands,
+                                                         **kw))
+        vs_whole, vs_plain = (int((got != whole).sum()),
+                              int((got != want).sum()))
+        err = float((got.float() - want.float()).abs().max())
+        ms = graph_ms(lambda: banded_checkerboard_sweeps(n, lat, 100, bands,
+                                                         **kw), reps=2)
+        route = ik.checkerboard_route(n, 100)
+        whole_ms = graph_ms(lambda: ik.checkerboard_sweeps(n, lat, 100, **kw),
+                            reps=20 if route[1] else 5)
+        bound_ms, by = checkerboard_bound(n, 100)
+        emit("parallel", kernel="checkerboard_sweeps_band", n=n, bands=bands,
+             sweeps=100, launches=launched, mismatched_vs_whole=vs_whole,
+             mismatched_vs_plain=vs_plain,
+             changed_sites=int((want != lat).sum()), max_abs_err=err, ms=ms,
+             whole_lattice_ms=whole_ms, whole_lattice_route=list(route),
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+             share=bound_ms / ms)
+        if vs_whole or vs_plain or launched != 2 * 100 * bands:
+            raise AssertionError(f"banded sampler n={n}: {vs_whole} / "
+                                 f"{vs_plain} sites differ, {launched} "
+                                 "launches")
+        if n == 1024:
+            summary = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by)
+    return launches, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1306,10 +1611,13 @@ def main():
     launches["stack"] = phase_stack(ck, dev)
     launches["video"] = phase_video(ck, dev)
     launches["network"] = phase_network(ck, dev)
+    launches["surfaces"] = phase_surfaces(ck, dev)
+    launches["parallel"], summary["checkerboard_sweeps_band"] = (
+        phase_parallel(ck, dev, torch.Generator().manual_seed(15)))
     emit("done", seconds=time.perf_counter() - t0)
     # library_ms: no single PyTorch call computes any of these functions
     # (each is a loop: Gauss-Seidel sweeps, FISTA or column BCD with a
-    # per-tile stop, a Philox heat-bath sampler)
+    # per-tile stop, a Philox heat-bath sampler, whole or in bands)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": PALLAS + replaces,
                 "launches": launches[path][name],

@@ -19,7 +19,8 @@ import torch
 
 from onmf_ontf_ndl_tpu_torch.data.images import (downscale_local_mean,
                                                  load_image)
-from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _train_loop,
+                                                 rank_generator)
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import nonneg_code
@@ -52,6 +53,7 @@ def train_image_dict(
     subsample: bool = False,
     coder: str = "bcd",
     draws=None,
+    group=None,
 ) -> OnmfState:
     """Streaming trainer: each outer iteration samples ``num_patches``
     random patches and runs ``inner_iterations`` online-NMF steps on them
@@ -59,18 +61,21 @@ def train_image_dict(
 
     ``draws`` (tests): per outer iteration a pair ``(corners, inner)``,
     ``corners = (a, b)`` and ``inner`` the inner loop's ``(idx, H0)``
-    draws, replacing the generator.
+    draws, replacing the generator. ``group``: a process group; each rank
+    draws its own patches (from its rank generator) and the inner steps
+    sum their statistics over the group.
     """
     _check_modes(dict_from, coder)
     backend = resolve_backend(backend, img)
     k = patch_size
+    gen = rank_generator(state.gen, group) if draws is None else None
     for o in range(outer_iterations):
         if draws is not None:
             corners, inner = draws[o]
             corners = tuple(torch.as_tensor(c, device=img.device)
                             for c in corners)
         else:
-            corners = random_patch_corners(state.gen, img.shape[:2], k,
+            corners = random_patch_corners(gen, img.shape[:2], k,
                                            num_patches, device=img.device)
             inner = None
         X = extract_patches(img, corners, k)
@@ -78,7 +83,7 @@ def train_image_dict(
             state, X, None, alpha, beta,
             stopping_diff if use_stopping else None, inner_iterations,
             batch_size, subsample, sub_iter, False, dict_from,
-            backend=backend, draws=inner, coder=coder)
+            backend=backend, draws=inner, coder=coder, group=group)
     return state
 
 
@@ -296,6 +301,15 @@ class ImageReconstructor:
 
         np.save(filename, self.extract_patches(num_patches).cpu().numpy())
         return filename
+
+    def display_dictionary(self, W=None, save_path: str | None = None,
+                           show: bool = False):
+        """Dictionary patch grid (``utils/viz.py``)."""
+        from onmf_ontf_ndl_tpu_torch.utils.viz import display_dictionary
+
+        return display_dictionary(
+            W if W is not None else self.W, self.patch_size,
+            is_color=self.is_color, save_path=save_path, show=show)
 
     def reconstruct_image_color(self, path: str | None = None, data=None,
                                 recons_resolution: int = 1,

@@ -238,3 +238,11 @@ class ImageReconstructorTensor:
             data, self.W, make_generator(29, self.device), patch_size=k,
             alpha=self.alpha, full_grid=True, sub_iter=self.coder_sub_iter,
             method=self._coder_method)
+
+    def display_second_dictionary(self, H, save_path: str | None = None,
+                                  show: bool = False):
+        """Heatmap of the second (channel) factor (``utils/viz.py``)."""
+        from onmf_ontf_ndl_tpu_torch.utils.viz import display_second_dictionary
+
+        return display_second_dictionary(
+            H, patch_size=self.patch_size, save_path=save_path, show=show)

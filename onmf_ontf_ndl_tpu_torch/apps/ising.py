@@ -15,13 +15,19 @@ sequential Metropolis chain; ``"checkerboard"`` runs red/black sweeps
 covering at least as many single-site updates, through the CUDA kernel on a
 CUDA lattice; ``"checkerboard_pallas"`` is an alias of ``"checkerboard"``.
 The sweeps' seed is drawn per round from the driver's generator.
+
+With a process group (``parallel/dp.py::dp_ising_learning``) each rank
+advances its own lattice from its own rank generator and the statistics of
+every inner step are summed over the group, as the JAX learner's
+``psum_axis`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _train_loop,
+                                                 rank_generator)
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
@@ -32,7 +38,8 @@ from onmf_ontf_ndl_tpu_torch.samplers.ising import (checkerboard_sweeps,
                                                     metropolis_chain)
 from onmf_ontf_ndl_tpu_torch.utils.metrics import surrogate_error
 
-__all__ = ["IsingReconstructor", "ising_trajectory_learning"]
+__all__ = ["IsingReconstructor", "ising_trajectory_learning",
+           "display_errors"]
 
 _SAMPLERS = ("exact", "checkerboard", "checkerboard_pallas")
 
@@ -63,6 +70,7 @@ def ising_trajectory_learning(
     subsample: bool = False,
     coder: str = "bcd",
     draws=None,
+    group=None,
 ):
     """Trajectory learner. Returns ``(state, dict_stack, errors, lattice,
     trajectory)``: ``dict_stack`` (ising_iterations+1, d, r), ``errors``
@@ -73,6 +81,9 @@ def ising_trajectory_learning(
     samplers' randomness; the state's own generator draws the inner loop's.
     ``draws`` (tests): per round (the initial one first) a pair
     ``(corners, inner)`` as in ``apps.image.train_image_dict``.
+    ``group``: a process group; ``gen`` becomes this rank's generator
+    (:func:`~onmf_ontf_ndl_tpu_torch.models.onmf.rank_generator`) and the
+    inner steps sum their statistics over the group.
     """
     if sampler not in _SAMPLERS:
         raise ValueError(f"sampler must be one of {_SAMPLERS}, got {sampler!r}")
@@ -80,6 +91,7 @@ def ising_trajectory_learning(
     backend = resolve_backend(backend, state.W)
     k, n = patch_size, lattice.shape[0]
     stop = stopping_diff if use_stopping else None
+    gen = rank_generator(gen, group)
 
     def train_round(st, lat, rnd):
         if draws is not None:
@@ -94,7 +106,7 @@ def ising_trajectory_learning(
         st, _, _ = _train_loop(
             st, X, None, alpha, beta, stop, inner_iterations, batch_size,
             subsample, sub_iter, False, "stale", backend=backend,
-            draws=inner, coder=coder)
+            draws=inner, coder=coder, group=group)
         return st
 
     def advance(lat):
@@ -231,3 +243,25 @@ class IsingReconstructor:
         return reconstruct(data, self.W, make_generator(23, self.device),
                            patch_size=k, alpha=self.alpha, full_grid=True,
                            method=self.coder)
+
+
+def display_errors(error_files: dict, *, lattice_sites: float = 40000.0,
+                   total_updates: float = 500.0,
+                   save_path: str | None = None, show: bool = False):
+    """Errors-over-subsampling comparison plot: one surrogate error trace
+    per subsampling epoch, x rescaled to a common span of
+    ``total_updates``, y normalized by the lattice site count.
+
+    ``error_files`` maps a label (e.g. "subsampling epoch of 1000") to a
+    saved ``errors`` .npy path, an array or a tensor.
+    """
+    import numpy as np
+
+    from onmf_ontf_ndl_tpu_torch.utils.viz import display_errors_comparison
+
+    traces = {label: np.load(src) if isinstance(src, str) else src
+              for label, src in error_files.items()}
+    return display_errors_comparison(
+        traces, total_updates=total_updates, normalize=lattice_sites,
+        xlabel="effective epoch", ylabel="surrogate error / site",
+        save_path=save_path, show=show)

@@ -35,10 +35,12 @@ Sample budgets past the card's memory run in chunks
 reconstruction of its own, and the per-pair (sum, count) of the chunks
 merge exactly.
 
-Not here yet: ``display_dict`` (viz, ROADMAP A9) and the data-parallel
-``psum_axis`` of ``ndl_train`` (A8). The TPU host-link fetch forms of the
-edge decode (uint32 packing, the CSR-slot bit mask, power-of-two
-compaction) are not carried over.
+Data parallelism (``parallel/dp.py``): ``ndl_train(group=...)`` samples
+each rank's chains from its rank generator and sums the statistics over
+the group (the JAX ``psum_axis``); the sharded reconstruction merges the
+ranks' per-pair (sum, count) with :func:`_merge_grouped`. The TPU
+host-link fetch forms of the edge decode (uint32 packing, the CSR-slot bit
+mask, power-of-two compaction) are not carried over.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ import torch
 from onmf_ontf_ndl_tpu_torch.data.graphs import (
     BitsetGraph, CsrGraph, Graph, graph_from_adjacency, host_csr,
     load_edgelist)
-from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _train_loop,
+                                                 rank_generator)
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import nonneg_code
@@ -87,6 +90,7 @@ def ndl_train(
     discard_first: bool = True,
     coder: str = "bcd",
     draws=None,
+    group=None,
 ):
     """NDL training. Returns ``(state, code, emb)``; ``code`` is the
     (r, sample_size) sum of the codes of every iteration but the first
@@ -99,7 +103,9 @@ def ndl_train(
     ``sample_size`` rounds up to a multiple of ``num_chains``.
     ``draws`` (tests): per iteration ``(X, inner)``, the (k^2,
     sample_size) patch matrix in place of the chains' and the inner
-    steps' ``(idx, H0)`` draws for ``_train_loop`` (None: drawn)."""
+    steps' ``(idx, H0)`` draws for ``_train_loop`` (None: drawn).
+    ``group``: a process group; each rank runs its own chains, drawn from
+    its rank generator, and the statistics are summed over the group."""
     _check_modes("stale", coder)
     backend = resolve_backend(backend, state.W)
     k = B.shape[0]
@@ -112,19 +118,20 @@ def ndl_train(
     code = torch.zeros((state.r, sample_size), dtype=dtype,
                        device=state.W.device)
     stop = stopping_diff if use_stopping else None
+    chain_gen = rank_generator(state.gen, group) if draws is None else None
     for i in range(mcmc_iterations):
         inner = None
         if draws is not None:
             X, inner = draws[i]
         else:
             X, chains = sample_patches_ensemble(
-                state.gen, g, chains, B, per, use_glauber=use_glauber,
+                chain_gen, g, chains, B, per, use_glauber=use_glauber,
                 weighted=weighted)
         state, code, _ = _train_loop(
             state, X.to(dtype), code, alpha, beta, stop, inner_iterations,
             batch_size, subsample, sub_iter,
             not (discard_first and i == 0), "stale", backend=backend,
-            draws=inner, coder=coder)
+            draws=inner, coder=coder, group=group)
     return state, code, chains.reshape(emb0.shape)
 
 
@@ -572,10 +579,16 @@ class NetworkReconstructor:
         """Original node label -> array index."""
         return self.G.node_ids.index(label)
 
-    def display_dict(self, title: str = "", save_filename=None,
+    def display_dict(self, title: str = "", save_filename: str | None = None,
                      show: bool = False):
-        raise NotImplementedError(
-            "display_dict waits for the viz surface: ROADMAP A9")
+        """Motif-dictionary grid (``utils/viz.py``)."""
+        from onmf_ontf_ndl_tpu_torch.utils.viz import (
+            display_network_dictionary)
+
+        k = self.k1 + self.k2 + 1
+        return display_network_dictionary(
+            self.W, k, title=title or None, save_path=save_filename,
+            show=show)
 
     def show_cov(self, save_path=None, show=False):
         """Trace-normalized covariance of the accumulated code matrix."""

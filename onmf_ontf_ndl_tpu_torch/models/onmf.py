@@ -22,6 +22,14 @@ Semantics kept from the JAX module:
 Randomness comes from ``state.gen``. ``draws=`` replaces the sampler with
 per-step ``(idx, H0)`` pairs given from outside (tests use it to replay the
 JAX draws, whose threefry stream torch cannot reproduce).
+
+Data parallelism (``parallel/dp.py``): with a ``torch.distributed`` process
+group, each rank codes its own columns and the step ``all_reduce``s (SUM)
+the statistics ``H Hᵀ``, ``H Xᵀ`` and ``X Xᵀ`` before it forms the
+aggregates, where the JAX step ``psum``s them over its mesh axis; every
+rank then runs the same dictionary update, so the replicas stay equal. The
+ranks draw their batches and ``H0`` from a rank generator
+(:func:`rank_generator`).
 """
 
 from __future__ import annotations
@@ -36,7 +44,56 @@ from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
 from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 
-__all__ = ["OnlineNMF", "onmf_step", "train_dict"]
+__all__ = ["OnlineNMF", "onmf_step", "train_dict", "rank_generator"]
+
+# Set by ``utils/debug.py::debug_nans``: check each step's new state and
+# code, at the cost of a sync a step. Off, the step reads this flag only.
+_DEBUG_NANS = False
+
+_GOLDEN = 0x9E3779B97F4A7C15   # odd: rank r's seed offset is r times it
+
+
+def rank_generator(gen: torch.Generator, group) -> torch.Generator:
+    """The generator of this rank's draws in a data-parallel run.
+
+    Every rank draws one seed from ``gen`` alike (the replicas' generators
+    stay equal) and seeds a generator on ``gen``'s device with it, offset
+    by the rank, so the ranks' draws differ. Without a group, or with one
+    rank, it is ``gen`` itself: a one-rank run equals the run without a
+    group draw for draw."""
+    if group is None:
+        return gen
+    import torch.distributed as dist
+
+    if dist.get_world_size(group) == 1:
+        return gen
+    seed = int(torch.randint(0, 2**62, (1,), generator=gen,
+                             device=gen.device))
+    rank = dist.get_rank(group)
+    return make_generator((seed + rank * _GOLDEN) % 2**63, gen.device)
+
+
+def _all_reduce(tensors, group) -> list:
+    """The sums over ``group`` of ``tensors``, in one collective: flat in
+    one buffer, one call a step where separate calls would make two or
+    three."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def _check_finite(st, H, t: float) -> None:
+    """``debug_nans``: raise naming the step and the fields that are not
+    finite (one sync)."""
+    fields = {"code": H, "W": st.W, "A": st.A, "B": st.B, "C": st.C}
+    ok = torch.stack([torch.isfinite(v).all() for v in fields.values()])
+    bad = [name for name, good in zip(fields, ok.tolist()) if not good]
+    if bad:
+        raise FloatingPointError(
+            f"step t={t:g}: non-finite {', '.join(bad)}")
 
 
 def _check_modes(dict_from: str, coder: str) -> None:
@@ -99,7 +156,7 @@ def onmf_step(
 
 def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
                 stopping_diff, dict_from: str, backend: str = "torch",
-                coder: str = "bcd"):
+                coder: str = "bcd", group=None):
     """One step: code, aggregates, dictionary update.
 
     backend="cuda" runs the coder kernel of ``coder`` (fixed iterations, or
@@ -107,6 +164,10 @@ def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
     kernel; the result agrees with the torch path to float32 accumulation
     order (the stopping kernels also up to the stopping tolerance on
     batches wider than one tile, PARITY.md #8).
+
+    ``group``: a process group over which ``Xb`` is column-sharded; the
+    statistics are summed over it, so the step equals the one-process step
+    on the concatenated batch (with the stop, the stop is shard-local).
     """
     W, A, B, C = st.W, st.A, st.B, st.C
     use_stopping = stopping_diff is not None
@@ -141,9 +202,15 @@ def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
     w_t = t ** (-float(beta))
     hht = H @ H.T
     hxt = H @ Xb.T
+    xxt = Xb @ Xb.T if st.tracks_xxt else None
+    if group is not None:
+        if xxt is None:
+            hht, hxt = _all_reduce([hht, hxt], group)
+        else:
+            hht, hxt, xxt = _all_reduce([hht, hxt, xxt], group)
     A1 = (1.0 - w_t) * A + w_t * hht
     B1 = (1.0 - w_t) * B + w_t * hxt
-    C1 = (1.0 - w_t) * C + w_t * (Xb @ Xb.T) if st.tracks_xxt else C
+    C1 = (1.0 - w_t) * C + w_t * xxt if st.tracks_xxt else C
     A_u, B_u = (A, B) if dict_from == "stale" else (A1, B1)
     if use_cuda:
         from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
@@ -152,7 +219,10 @@ def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
         W1 = dict_update_sweep(W, A_u.contiguous(), B_u.contiguous())
     else:
         W1 = dict_update_bcd(W, A_u, B_u)
-    return dataclasses.replace(st, W=W1, A=A1, B=B1, C=C1, t=t), H
+    st = dataclasses.replace(st, W=W1, A=A1, B=B1, C=C1, t=t)
+    if _DEBUG_NANS:
+        _check_finite(st, H, t)
+    return st, H
 
 
 def _train_loop(
@@ -173,9 +243,13 @@ def _train_loop(
     sampling: str = "iid",
     draws=None,
     coder: str = "bcd",
+    group=None,
 ):
     """``iterations - 1`` steps (the JAX ``_train_scan``); every training
-    path funnels through here. ``code`` is updated in place."""
+    path funnels through here. ``code`` is updated in place. With a
+    ``group``, ``X`` is this rank's shard: the pool permutation of block
+    sampling is drawn alike on every rank (as the JAX scan draws it from
+    the replicated key), the batches and ``H0`` from the rank generator."""
     if sampling not in ("iid", "block"):
         raise ValueError(f"sampling must be 'iid' or 'block', got {sampling!r}")
     n = X.shape[1]
@@ -187,6 +261,8 @@ def _train_loop(
         # cheap, so the block is gathered rather than sliced from a tiled copy
         perm = torch.randperm(n, generator=gen, device=X.device)
         offsets = torch.arange(batch_size, device=X.device)
+    if draws is None:
+        gen = rank_generator(gen, group)
     metrics = []
     st = state
     for step, i in enumerate(range(1, max(iterations, 1))):
@@ -208,7 +284,8 @@ def _train_loop(
             H0 = torch.rand((st.r, Xb.shape[1]), generator=gen,
                             dtype=X.dtype, device=X.device)
         st, H = _step_inner(st, Xb, t0 + i, H0, alpha, beta, sub_iter,
-                            stopping_diff, dict_from, backend, coder=coder)
+                            stopping_diff, dict_from, backend, coder=coder,
+                            group=group)
         if track_code:
             if idx is None:
                 code += H

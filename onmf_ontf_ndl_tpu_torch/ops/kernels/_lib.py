@@ -33,7 +33,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # of the library. Only the wrappers' kernel branch adds to it.
 LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
             "fista_sweeps": 0, "dict_update_sweep": 0,
-            "checkerboard_sweeps": 0}
+            "checkerboard_sweeps": 0, "checkerboard_sweeps_band": 0}
 
 
 def reset_launches() -> None:
@@ -113,9 +113,13 @@ def build() -> dict:
     lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, i, p]
     lib.onmf_checkerboard_sweeps.argtypes = [p, i, i, ctypes.c_uint, p, i,
                                              p]
+    u = ctypes.c_uint
+    lib.onmf_checkerboard_band_half.argtypes = [p, p, p, i, i, i, u, u, u, p,
+                                                p]
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
                lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
-               lib.onmf_checkerboard_sweeps, lib.onmf_tile_columns):
+               lib.onmf_checkerboard_sweeps, lib.onmf_checkerboard_band_half,
+               lib.onmf_tile_columns):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
     for fn, args in ((lib.onmf_earlystop_slice_floats, [i]),

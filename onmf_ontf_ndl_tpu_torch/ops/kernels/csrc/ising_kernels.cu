@@ -37,6 +37,10 @@
 //       the cluster barrier stands between the colours;
 //     device memory: one launch per colour and sweep over the whole card,
 //       the lattice (inside the 50 MB L2 up to n ~ 5000) updated in place.
+//   * a banded entry (onmf_checkerboard_band_half) runs the device-memory
+//     kernel on one row band of a lattice sharded over processes, with the
+//     halo rows that the neighbours sent; the global row index keys the
+//     counters, so the bands together equal the whole lattice site for site.
 //
 // A word that one thread rewrites may be read by another as a neighbour
 // row in the same half-sweep: only its bytes of the colour change, and a
@@ -373,12 +377,19 @@ __global__ void __launch_bounds__(RES_THREADS, 1)
   copy_rows<kWords>(mine, base, (size_t)rows.count * n, tid, nthreads);
 }
 
-// The device-memory route: one colour of one sweep, the whole lattice; a
-// grid of (items, rows) blocks for the word paths.
+// The device-memory route: one colour of one sweep over `count` rows from
+// row `first` of the lattice, held at `lat` (row stride n), with `above` the
+// row before the first and `below` the row after the last (the whole
+// lattice: first 0, count n, its last and first rows; a band of a sharded
+// lattice: the halo rows its neighbours sent). Philox counters and parities
+// follow the global row index, so a band computes its sites' bits exactly
+// as the whole lattice does. A grid of (items, rows) blocks for the word
+// paths.
 template <int kWords>
 __global__ void __launch_bounds__(HALF_THREADS)
-    checkerboard_half_kernel(int8_t* lat, int n, uint32_t seed,
-                             uint32_t sweep, uint32_t colour,
+    checkerboard_half_kernel(int8_t* lat, const int8_t* above,
+                             const int8_t* below, int n, int first, int count,
+                             uint32_t seed, uint32_t sweep, uint32_t colour,
                              Thresholds thr) {
   __shared__ uint32_t tab[10];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -387,11 +398,11 @@ __global__ void __launch_bounds__(HALF_THREADS)
   __syncthreads();
   Rows rows;
   rows.n = n;
-  rows.first = 0;
-  rows.count = n;
+  rows.first = first;
+  rows.count = count;
   rows.base = lat;
-  rows.above = lat + (size_t)(n - 1) * n;
-  rows.below = lat;
+  rows.above = above;
+  rows.below = below;
   update_colour<kWords>(
       rows, blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x,
       blockIdx.y * blockDim.y + threadIdx.y, gridDim.y * blockDim.y,
@@ -450,28 +461,49 @@ int launch_resident(int8_t* lat, int n, int nsweeps, uint32_t seed,
   return (int)cudaGetLastError();
 }
 
+// One launch of checkerboard_half_kernel over `count` rows from `first`.
 template <int kWords>
-int launch_halves(int8_t* lat, int n, int nsweeps, uint32_t seed,
-                  const Thresholds& th, cudaStream_t stream) {
+int launch_half(int8_t* lat, const int8_t* above, const int8_t* below, int n,
+                int first, int count, uint32_t seed, uint32_t sweep,
+                uint32_t colour, const Thresholds& th, cudaStream_t stream) {
   const dim3 block = block_shape<kWords>(n, HALF_THREADS);
   dim3 grid;
   if (kWords == 0) {
-    const long long calls = ((long long)n * (n / 2) + 3) / 4;
+    // the Philox calls that serve the rows' sites, the partial first and
+    // last ones included
+    const long long half = n / 2;
+    const long long calls = ((first + count) * half + 3) / 4 -
+                            ((long long)first * half) / 4;
     grid = dim3((unsigned int)((calls + HALF_THREADS - 1) / HALF_THREADS));
   } else {
     const int per_row = n / (8 * (kWords == 0 ? 1 : kWords));
-    const int rows = (n + (int)block.y - 1) / (int)block.y;
+    const int rows = (count + (int)block.y - 1) / (int)block.y;
     grid = dim3((per_row + block.x - 1) / block.x,
                 rows < 65535 ? rows : 65535);
   }
+  checkerboard_half_kernel<kWords><<<grid, block, 0, stream>>>(
+      lat, above, below, n, first, count, seed, sweep, colour, th);
+  return (int)cudaGetLastError();
+}
+
+template <int kWords>
+int launch_halves(int8_t* lat, int n, int nsweeps, uint32_t seed,
+                  const Thresholds& th, cudaStream_t stream) {
   for (int sw = 0; sw < nsweeps; ++sw)
     for (uint32_t colour = 0; colour < 2; ++colour) {
-      checkerboard_half_kernel<kWords><<<grid, block, 0, stream>>>(
-          lat, n, seed, (uint32_t)sw, colour, th);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
+      const int e = launch_half<kWords>(lat, lat + (size_t)(n - 1) * n, lat,
+                                        n, 0, n, seed, (uint32_t)sw, colour,
+                                        th, stream);
+      if (e) return e;
     }
   return 0;
+}
+
+// The kernels' table: by count of -1 neighbours + 5 [s = -1] = 9 - k.
+Thresholds kernel_table(const unsigned int* thr) {
+  Thresholds th;
+  for (int k = 0; k < 10; ++k) th.t[9 - k] = thr[k];
+  return th;
 }
 
 }  // namespace
@@ -493,9 +525,7 @@ int onmf_checkerboard_sweeps(int8_t* lat, int n, int nsweeps,
                              int ctas, void* stream) {
   if (n < 2 || n % 2 || ctas < 0 || ctas > RES_MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
-  // the kernels' table: by count of -1 neighbours + 5 [s = -1] = 9 - k
-  Thresholds th;
-  for (int k = 0; k < 10; ++k) th.t[9 - k] = thr[k];
+  const Thresholds th = kernel_table(thr);
   cudaStream_t s = (cudaStream_t)stream;
   const int words = n % 16 == 0 ? 2 : n % 8 == 0 ? 1 : 0;
   if (ctas == 0) {
@@ -510,6 +540,38 @@ int onmf_checkerboard_sweeps(int8_t* lat, int n, int nsweeps,
     return launch_resident<2>(lat, n, nsweeps, seed, th, ctas, s);
   if (words >= 1) return launch_resident<1>(lat, n, nsweeps, seed, th, ctas, s);
   return launch_resident<0>(lat, n, nsweeps, seed, th, ctas, s);
+}
+
+// One colour of one sweep on a band of a row-sharded (n, n) lattice, in
+// place: `count` rows from global row `first` at `band` (row stride n),
+// `above` and `below` the halo rows (the row before the band's first and
+// the row after its last, from the neighbouring bands). One launch of the
+// device-memory kernel. The packed paths need their rows aligned to their
+// vector (16 or 8 bytes); other pointers take the site-at-a-time path,
+// which computes the same bits.
+int onmf_checkerboard_band_half(int8_t* band, const int8_t* above,
+                                const int8_t* below, int n, int first,
+                                int count, unsigned int seed,
+                                unsigned int sweep, unsigned int colour,
+                                const unsigned int* thr, void* stream) {
+  if (n < 2 || n % 2 || first < 0 || count < 1 || first > n - count ||
+      colour > 1)
+    return (int)cudaErrorInvalidValue;
+  const Thresholds th = kernel_table(thr);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t any =
+      (uintptr_t)band | (uintptr_t)above | (uintptr_t)below;
+  const int words = n % 16 == 0 && any % 16 == 0  ? 2
+                    : n % 8 == 0 && any % 8 == 0 ? 1
+                                                 : 0;
+  if (words == 2)
+    return launch_half<2>(band, above, below, n, first, count, seed, sweep,
+                          colour, th, s);
+  if (words == 1)
+    return launch_half<1>(band, above, below, n, first, count, seed, sweep,
+                          colour, th, s);
+  return launch_half<0>(band, above, below, n, first, count, seed, sweep,
+                        colour, th, s);
 }
 
 }  // extern "C"

@@ -32,10 +32,20 @@ flips when ``u24 < threshold``. The kernels and
 every even n (a call straddles two rows when ``n / 2`` is not a multiple
 of 4).
 
-The wrapper runs the plain version only for a CPU tensor; for a CUDA
-tensor it launches a kernel or raises, and counts each launch in
-``_lib.LAUNCHES["checkerboard_sweeps"]``: one for a resident call, two a
-sweep on the device-memory route.
+A banded entry serves a lattice sharded by rows over processes
+(``parallel/ising_sharded.py``): :func:`checkerboard_band_half` runs one
+colour of one sweep on a band of rows from global row ``first``, with the
+two halo rows that the neighbouring bands sent, through the device-memory
+kernel. Counters and parities follow the global row, so the bands together
+equal :func:`checkerboard_sweeps` site for site; where a band starts inside
+a Philox call (``n / 2`` not a multiple of 4) it computes that call too.
+:func:`checkerboard_band_half_plain` is its plain version.
+
+The wrappers run the plain version only for a CPU tensor; for a CUDA
+tensor they launch a kernel or raise, and count each launch in
+``_lib.LAUNCHES``: ``"checkerboard_sweeps"`` one for a resident call, two a
+sweep on the device-memory route; ``"checkerboard_sweeps_band"`` one a
+band and colour.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
     LAUNCHES, _on_cpu, _raise_on_error, _stream, build)
 
 __all__ = ["checkerboard_sweeps", "checkerboard_sweeps_plain",
+           "checkerboard_band_half", "checkerboard_band_half_plain",
            "checkerboard_route", "acceptance_thresholds", "philox4x32"]
 
 _MASK = 0xFFFFFFFF
@@ -200,6 +211,32 @@ def checkerboard_sweeps(seed: int, lattice: torch.Tensor, nsweeps: int,
     return out
 
 
+def _u24(seed: int, first: int, rows: int, n: int, sweep: int, colour: int,
+         chain) -> torch.Tensor:
+    """The 24-bit uniforms of the sites of ``colour`` in rows ``first`` ..
+    ``first + rows - 1``, each repeated over its column pair (``rows``,
+    n); ``chain`` (int64, broadcast) is counter word 3. Call g serves
+    q = 4 g .. 4 g + 3; site q takes word q & 3."""
+    half = n // 2
+    q_lo = first * half
+    g0 = q_lo >> 2
+    calls = torch.arange(g0, -(-(q_lo + rows * half) // 4), dtype=torch.int64,
+                         device=chain.device)
+    words = torch.stack(philox4x32(calls, sweep, colour, chain, seed, 0),
+                        dim=-1)
+    batch = words.shape[:-2]
+    skip = q_lo - 4 * g0
+    u24 = words.reshape(batch + (-1,))[..., skip:skip + rows * half] >> 8
+    return u24.view(batch + (rows, half)).repeat_interleave(2, dim=-1)
+
+
+def _flip(lat, s, sn, u24, thr, parity, colour):
+    """The heat-bath update of the sites of ``colour``: flip where the
+    site's uniform is below its threshold."""
+    flip = (parity == colour) & (u24 < thr[(s + 1) // 2 * 5 + (sn + 4) // 2])
+    return torch.where(flip, -lat, lat)
+
+
 def checkerboard_sweeps_plain(seed: int, lattice: torch.Tensor,
                               nsweeps: int, J: float = 1.0, H: float = 0.0,
                               T: float = 0.5) -> torch.Tensor:
@@ -214,11 +251,8 @@ def checkerboard_sweeps_plain(seed: int, lattice: torch.Tensor,
     lat = lattice.to(torch.int8)
     batch = lat.shape[:-2]
     dev = lat.device
-    half = n // 2
     chain = torch.arange(math.prod(batch), dtype=torch.int64,
                          device=dev).view(batch + (1,))
-    # one call per four sites of a colour: call g serves q = 4 g .. 4 g + 3
-    calls = torch.arange(-(-n * half // 4), dtype=torch.int64, device=dev)
     ii = torch.arange(n, device=dev)
     parity = (ii[:, None] + ii[None, :]) % 2
     for sweep in range(int(nsweeps)):
@@ -226,12 +260,81 @@ def checkerboard_sweeps_plain(seed: int, lattice: torch.Tensor,
             s = lat.to(torch.int64)
             sn = (torch.roll(s, 1, -2) + torch.roll(s, -1, -2)
                   + torch.roll(s, 1, -1) + torch.roll(s, -1, -1))
-            words = torch.stack(
-                philox4x32(calls, sweep, colour, chain, seed, 0), dim=-1)
-            # word q & 3 of call q >> 2, at the site's column pair j >> 1
-            u24 = (words.reshape(batch + (-1,))[..., :n * half] >> 8).view(
-                batch + (n, half)).repeat_interleave(2, dim=-1)
-            flip = (parity == colour) & (u24 < thr[(s + 1) // 2 * 5
-                                                   + (sn + 4) // 2])
-            lat = torch.where(flip, -lat, lat)
+            lat = _flip(lat, s, sn, _u24(seed, 0, n, n, sweep, colour, chain),
+                        thr, parity, colour)
     return lat
+
+
+def _check_band(band, above, below, first: int, colour: int) -> tuple:
+    if band.dim() != 2 or above.shape != (band.shape[1],) \
+            or below.shape != (band.shape[1],):
+        raise ValueError(
+            f"checkerboard_band_half needs a (rows, n) band and two (n,) "
+            f"halo rows, got {tuple(band.shape)}, {tuple(above.shape)}, "
+            f"{tuple(below.shape)}")
+    rows, n = band.shape
+    if n < 2 or n % 2 or n > _MAX_N:
+        raise ValueError(f"even lattice side up to {_MAX_N} required, "
+                         f"got {n}")
+    if not 0 <= first <= n - rows:
+        raise ValueError(f"rows {first}..{first + rows - 1} are not rows of "
+                         f"an ({n}, {n}) lattice")
+    if colour not in (0, 1):
+        raise ValueError(f"colour must be 0 or 1, got {colour}")
+    return rows, n
+
+
+def checkerboard_band_half(seed: int, band: torch.Tensor,
+                           above: torch.Tensor, below: torch.Tensor,
+                           first: int, sweep: int, colour: int,
+                           J: float = 1.0, H: float = 0.0,
+                           T: float = 0.5) -> torch.Tensor:
+    """One colour of sweep ``sweep`` on ``band``, rows ``first`` ..
+    ``first + rows - 1`` of an (n, n) int8 +-1 torus, with ``above`` the
+    lattice row before the band and ``below`` the row after it (torus
+    wrap-around); updates ``band`` in place and returns it. The colour's
+    sites draw exactly the bits that :func:`checkerboard_sweeps` draws for
+    them in that sweep."""
+    rows, n = _check_band(band, above, below, int(first), int(colour))
+    if _on_cpu(band, above, below):
+        return band.copy_(checkerboard_band_half_plain(
+            seed, band, above, below, first, sweep, colour, J, H, T))
+    if any(t.dtype != torch.int8 or not t.is_contiguous()
+           for t in (band, above, below)):
+        raise TypeError("checkerboard_band_half: the band and the halo rows "
+                        "must be contiguous int8 tensors")
+    seed = _check_seed(seed)
+    thr = (ctypes.c_uint * 10)(*acceptance_thresholds(J, H, T))
+    lib = build()["lib"]
+    with torch.cuda.device(band.device):
+        err = lib.onmf_checkerboard_band_half(
+            band.data_ptr(), above.data_ptr(), below.data_ptr(), n,
+            int(first), rows, seed, int(sweep), int(colour), thr,
+            _stream(band))
+    _raise_on_error("checkerboard_band_half", err)
+    LAUNCHES["checkerboard_sweeps_band"] += 1
+    return band
+
+
+def checkerboard_band_half_plain(seed: int, band: torch.Tensor,
+                                 above: torch.Tensor, below: torch.Tensor,
+                                 first: int, sweep: int, colour: int,
+                                 J: float = 1.0, H: float = 0.0,
+                                 T: float = 0.5) -> torch.Tensor:
+    """Plain PyTorch :func:`checkerboard_band_half`; returns the new band
+    (the inputs are not changed)."""
+    rows, n = _check_band(band, above, below, int(first), int(colour))
+    seed = _check_seed(seed)
+    dev = band.device
+    thr = torch.tensor(acceptance_thresholds(J, H, T), dtype=torch.int64,
+                       device=dev)
+    lat = band.to(torch.int8)
+    s = lat.to(torch.int64)
+    up = torch.cat([above.to(torch.int64)[None], s[:-1]])
+    down = torch.cat([s[1:], below.to(torch.int64)[None]])
+    sn = up + down + torch.roll(s, 1, -1) + torch.roll(s, -1, -1)
+    ii = torch.arange(first, first + rows, device=dev)
+    parity = (ii[:, None] + torch.arange(n, device=dev)[None, :]) % 2
+    chain = torch.zeros((1,), dtype=torch.int64, device=dev)
+    return _flip(lat, s, sn, _u24(seed, int(first), rows, n, int(sweep),
+                                  int(colour), chain), thr, parity, colour)

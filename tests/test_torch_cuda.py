@@ -16,7 +16,8 @@ against itself with its rows permuted; 2.1e-3 in 6 of 131,109 columns;
 ``chip_compare.py . new bf16``), so ``assert_bf16_close`` holds every
 column to the tolerance or to one rounding. The checkerboard kernel
 draws the same bits as its plain version: equal site for site, on every
-route and vector width. A small network run (20x20 torus) must launch the
+route and vector width; so do its banded entry's bands, 1 to 4 of them,
+with the halo rows copied, against the whole lattice. A small network run (20x20 torus) must launch the
 coder and dictionary kernels, and its training on the card (float32) must
 agree with the CPU (float64) from the same draws within 1e-3 relative; so
 must a tiny video run, and a reconstruction in 2 chunks must give the CPU's
@@ -563,3 +564,73 @@ def test_cuda_new_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="even"):
         ik.checkerboard_sweeps(
             0, torch.ones((5, 5), dtype=torch.int8, device=cuda), 1)
+
+
+# the banded entry of the sampler (parallel/ising_sharded.py): bands of a
+# lattice in one process, the halo rows copied between them, against the
+# plain whole-lattice sweeps: n % 16 == 0, and n = 200 (n % 8 == 0, with
+# bands of 100 and 50 rows: n / 2 % 4 == 0) and 6 (a Philox call straddles
+# rows and bands start inside one)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 200, 1024, 6])
+@pytest.mark.parametrize("bands", [1, 2, 3, 4])
+def test_cuda_banded_checkerboard_equals_plain(cuda, n, bands):
+    from onmf_ontf_ndl_tpu_torch.parallel.ising_sharded import (
+        banded_checkerboard_sweeps)
+
+    if n % bands:
+        pytest.skip(f"{bands} equal bands do not split {n} rows")
+    rng = np.random.default_rng(n + bands)
+    lat = _t(rng.choice(np.array([1, -1], np.int8), (n, n)), cuda)
+    ck.reset_launches()
+    got = banded_checkerboard_sweeps(77, lat, 5, bands, J=1.0, H=0.1, T=2.3)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["checkerboard_sweeps_band"] == 2 * 5 * bands
+    assert ck.LAUNCHES["checkerboard_sweeps"] == 0
+    want = ik.checkerboard_sweeps_plain(77, lat, 5, J=1.0, H=0.1, T=2.3)
+    assert int((want != lat).sum()) > 0
+    assert torch.equal(got, want)
+    # one band and colour against the band's plain version, misaligned
+    # rows too (the site-at-a-time path)
+    rows = n // bands
+    buf = torch.empty(rows * n + 1, dtype=torch.int8, device=cuda)
+    band = buf[1:].view(rows, n)
+    band.copy_(lat[:rows])
+    above, below = lat[-1].clone(), lat[rows % n].clone()
+    want = ik.checkerboard_band_half_plain(5, band, above, below, 0, 3, 1)
+    assert torch.equal(ik.checkerboard_band_half(5, band, above, below, 0, 3,
+                                                 1), want)
+
+
+@pytest.mark.cuda
+def test_cuda_band_never_runs_the_plain_version(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA band")
+
+    monkeypatch.setattr(ik, "checkerboard_band_half_plain", refuse)
+    lat = torch.ones((16, 16), dtype=torch.int8, device=cuda)
+    ck.reset_launches()
+    ik.checkerboard_band_half(1, lat[:8], lat[-1], lat[8], 0, 0, 0, T=5.0)
+    assert ck.LAUNCHES["checkerboard_sweeps_band"] == 1
+    with pytest.raises(TypeError):
+        ik.checkerboard_band_half(1, lat[:8].float(), lat[-1], lat[8], 0, 0,
+                                  0)
+    with pytest.raises(ValueError, match="rows"):
+        ik.checkerboard_band_half(1, lat[:8], lat[-1], lat[8], 9, 0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_multihost_takes_nccl(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from onmf_ontf_ndl_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator_address=f"file://{tmp_path}/pg",
+                         num_processes=1, process_id=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        assert multihost.process_count() == 1
+        assert torch.cuda.current_device() == 0
+    finally:
+        multihost.shutdown()
+    assert not multihost.is_initialized()

@@ -287,6 +287,39 @@ def test_kernel_emulation_equals_plain_site_for_site(n, nsweeps):
         np.testing.assert_array_equal(got, want.numpy(), err_msg=str(ctas))
 
 
+@pytest.mark.parametrize("n,bands", [(2, 1), (6, 2), (6, 3), (12, 2),
+                                     (12, 4), (16, 4), (20, 5), (24, 3),
+                                     (200, 2), (200, 8)])
+def test_banded_sweeps_equal_plain_site_for_site(n, bands):
+    # the banded entry's plain version, band by band with the halo rows
+    # copied before each colour, equals the whole lattice: n / 2 % 4 != 0
+    # (n = 6, 12, 20) puts band edges inside a Philox call
+    from onmf_ontf_ndl_tpu_torch.parallel.ising_sharded import (
+        banded_checkerboard_sweeps)
+
+    lat = _t(random_lattice(n))
+    want = ik.checkerboard_sweeps_plain(7 + n, lat, 3, 1.0, -0.1, 2.1)
+    got = banded_checkerboard_sweeps(7 + n, lat, 3, bands, 1.0, -0.1, 2.1)
+    assert got.dtype == torch.int8
+    assert torch.equal(got, want)
+
+
+def test_band_half_checks_its_arguments():
+    lat = torch.ones((8, 8), dtype=torch.int8)
+    band, above, below = lat[:4].clone(), lat[7], lat[4]
+    want = ik.checkerboard_band_half_plain(3, band, above, below, 0, 0, 1)
+    assert torch.equal(band, lat[:4])          # the plain version copies
+    assert ik.checkerboard_band_half(3, band, above, below, 0, 0, 1) is band
+    assert torch.equal(band, want)
+    for bad, match in (((band, above[:5], below, 0, 0, 0), "halo rows"),
+                       ((band, above, below, 5, 0, 0), "rows 5..8"),
+                       ((band, above, below, 0, 0, 2), "colour"),
+                       ((torch.ones((2, 5), dtype=torch.int8),
+                         torch.ones(5), torch.ones(5), 0, 0, 0), "even")):
+        with pytest.raises(ValueError, match=match):
+            ik.checkerboard_band_half(3, *bad)
+
+
 def test_checkerboard_route_by_shape_alone():
     import inspect
 

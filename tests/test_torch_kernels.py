@@ -121,9 +121,12 @@ def test_cpu_wrappers_take_the_plain_path_without_launching():
     ck.dict_update_sweep(_t(W), _t(A), _t(H0 @ X.T))
     ising_kernel.checkerboard_sweeps(0, torch.ones((4, 4), dtype=torch.int8),
                                      1)
+    lat = torch.ones((4, 4), dtype=torch.int8)
+    ising_kernel.checkerboard_band_half(0, lat[:2], lat[3], lat[2], 0, 0, 0)
     assert ck.LAUNCHES == {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
                            "fista_sweeps": 0, "dict_update_sweep": 0,
-                           "checkerboard_sweeps": 0}
+                           "checkerboard_sweeps": 0,
+                           "checkerboard_sweeps_band": 0}
 
 
 def test_argument_checks():

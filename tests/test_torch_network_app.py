@@ -19,6 +19,8 @@ package and the numpy oracle, on the CPU in float64.
 - End to end at tests/test_network_app.py's configurations.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -530,8 +532,9 @@ def test_reconstructor_surface(tmp_path):
     assert rec.compute_recons_accuracy() == rec.compute_recons_accuracy(edges)
     with pytest.raises(ValueError, match="overflowed .* chunk 1/2"):
         rec.reconstruct_network(recons_iter=200, chunks=2, sparse=True, cap=1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        rec.display_dict()
+    out = rec.display_dict(title="motifs",
+                           save_filename=str(tmp_path / "dict.png"))
+    assert out == str(tmp_path / "dict.png") and os.path.getsize(out) > 0
     rec.W = np.ones((4, 4))
     assert rec.state.W.dtype == F64
     with pytest.raises(ValueError, match="source or adjacency"):

@@ -27,6 +27,16 @@ import onmf_ontf_ndl_tpu_torch.ops.unfold
 import onmf_ontf_ndl_tpu_torch.samplers.ising
 import onmf_ontf_ndl_tpu_torch.samplers.motif
 import onmf_ontf_ndl_tpu_torch.utils
+import onmf_ontf_ndl_tpu_torch.cli
+import onmf_ontf_ndl_tpu_torch.utils.config
+import onmf_ontf_ndl_tpu_torch.utils.debug
+import onmf_ontf_ndl_tpu_torch.utils.profiling
+import onmf_ontf_ndl_tpu_torch.utils.viz
+import onmf_ontf_ndl_tpu_torch.parallel.auto
+import onmf_ontf_ndl_tpu_torch.parallel.dp
+import onmf_ontf_ndl_tpu_torch.parallel.ising_sharded
+import onmf_ontf_ndl_tpu_torch.parallel.mesh
+import onmf_ontf_ndl_tpu_torch.parallel.multihost
 from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel, ising_kernel
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("onmf_ontf_ndl_tpu.") or m == "onmf_ontf_ndl_tpu"
@@ -42,6 +52,7 @@ assert p.NetworkReconstructor.__name__ == "NetworkReconstructor"
 assert p.VideoDictionaryLearner.__name__ == "VideoDictionaryLearner"
 assert "VideoDictionaryLearner" in p.__all__
 assert "PIL" not in sys.modules      # the loaders import it when called
+assert "matplotlib" not in sys.modules   # viz imports it when called
 assert coder_kernel.build.cache_info().currsize == 0   # still nothing built
 print("ok", p.ImageReconstructor.__name__)
 """
@@ -70,7 +81,12 @@ def _entry_points(tmp_path):
     from onmf_ontf_ndl_tpu_torch.models.ontf import OnlineNTF
     from onmf_ontf_ndl_tpu_torch.models.state import (init_state,
                                                       state_from_numpy)
+    from onmf_ontf_ndl_tpu_torch.parallel import dp, ising_sharded, multihost
+    from onmf_ontf_ndl_tpu_torch.utils import config
     from onmf_ontf_ndl_tpu_torch.utils.checkpoint import load_state
+
+    def cpu_state(track_xxt=False):
+        return init_state(0, 4, 2, device="cpu", track_xxt=track_xxt)
 
     rng = np.random.default_rng(0)
     img = rng.random((16, 16, 3))
@@ -87,6 +103,7 @@ def _entry_points(tmp_path):
     stills = [Image.fromarray((rng.random((8, 8, 3)) * 255).astype(np.uint8))
               for _ in range(2)]
     stills[0].save(gif, save_all=True, append_images=stills[1:])
+    stills[0].save(tmp_path / "img.png")
     return {
         p.OnlineNMF: lambda **kw: p.OnlineNMF(rng.random((4, 10)),
                                               n_components=2, **kw),
@@ -131,6 +148,54 @@ def _entry_points(tmp_path):
             (8, 8), 4, 2, **kw),
         patches.all_patch_corners: lambda **kw: patches.all_patch_corners(
             (8, 8), 4, **kw),
+        # the configs build their app on the card by default
+        config.ImageConfig: lambda **kw: config.ImageConfig(
+            path=spins, is_matrix=True, is_color=False, patch_size=4,
+            **kw).build(),
+        config.TensorConfig: lambda **kw: config.TensorConfig(
+            path=str(tmp_path / "img.png"), patch_size=4, **kw).build(),
+        config.IsingConfig: lambda **kw: config.IsingConfig(
+            lattice_size=8, patch_size=4, n_components=2, **kw).build(),
+        config.NetworkConfig: lambda **kw: config.NetworkConfig(
+            source=str(edge_file), k2=2, n_components=2,
+            representation="csr", **kw).build(),
+        config.VideoConfig: lambda **kw: config.VideoConfig(
+            path=gif, patch_size=4, n_components=2, **kw).build(),
+        # the data-parallel and sharded entry points (a one-rank gloo group)
+        dp.shard_batch: lambda **kw: dp.shard_batch(rng.random((4, 6)), **kw),
+        dp.dp_onmf_step: lambda **kw: dp.dp_onmf_step(
+            cpu_state(), rng.random((4, 6)), **kw),
+        dp.dp_train_dict: lambda **kw: dp.dp_train_dict(
+            cpu_state(), rng.random((4, 6)), iterations=2,
+            batch_size_per_device=3, **kw),
+        dp.dp_train_image_dict: lambda **kw: dp.dp_train_image_dict(
+            cpu_state(), rng.random((6, 6)), outer_iterations=1,
+            num_patches_per_device=3, inner_iterations=2,
+            batch_size_per_device=3, patch_size=2, **kw),
+        dp.dp_train_tensor_dict: lambda **kw: dp.dp_train_tensor_dict(
+            cpu_state(), rng.random((4, 3, 2)), mode=0, iterations=2,
+            batch_size_per_device=3, sub_iterations=1, **kw),
+        dp.dp_ising_learning: lambda **kw: dp.dp_ising_learning(
+            cpu_state(track_xxt=True), np.ones((1, 8, 8), np.int8),
+            torch.Generator(), ising_iterations=1, nsteps=1,
+            num_patches_per_device=3, inner_iterations=2, batch_size=3,
+            patch_size=2, **kw),
+        dp.dp_ndl_train: lambda **kw: dp.dp_ndl_train(
+            init_state(0, 9, 2, device="cpu"), graphs.graph_from_adjacency(
+                ring + ring.T, device="cpu"), np.arange(3)[None],
+            np.eye(3, k=1, dtype=int), mcmc_iterations=1,
+            sample_size_per_device=4, inner_iterations=2, batch_size=2,
+            **kw),
+        dp.dp_reconstruct_network_sparse:
+            lambda **kw: dp.dp_reconstruct_network_sparse(
+                init_state(0, 9, 2, device="cpu").W,
+                graphs.graph_from_adjacency(ring + ring.T, device="cpu"),
+                torch.Generator(), np.eye(3, k=1, dtype=int),
+                recons_iter_per_device=4, **kw),
+        ising_sharded.sharded_checkerboard_sweeps:
+            lambda **kw: ising_sharded.sharded_checkerboard_sweeps(
+                1, np.ones((8, 8), np.int8), 1, **kw),
+        multihost.initialize: lambda **kw: multihost.initialize(**kw),
     }
 
 
@@ -141,12 +206,20 @@ def _entry_points(tmp_path):
     "graph_from_adjacency", "load_edgelist", "load_edgelist_csr",
     "load_edgelist_bitset", "csr_graph_from_edges",
     "bitset_graph_from_edges", "load_image", "load_video_frames",
-    "VideoDictionaryLearner", "grid_patch_corners", "all_patch_corners"])
+    "VideoDictionaryLearner", "grid_patch_corners", "all_patch_corners",
+    "ImageConfig", "TensorConfig", "IsingConfig", "NetworkConfig",
+    "VideoConfig", "shard_batch", "dp_onmf_step", "dp_train_dict",
+    "dp_train_image_dict", "dp_train_tensor_dict", "dp_ising_learning",
+    "dp_ndl_train", "dp_reconstruct_network_sparse",
+    "sharded_checkerboard_sweeps", "initialize"])
 def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
     # the entry point defaults to device="cuda"; without CUDA a call that
     # names no device raises rather than running on the CPU, and the same
-    # call with device="cpu" runs (load_state: up to the missing file)
+    # call with device="cpu" runs (load_state: up to the missing file;
+    # the data-parallel entry points in a one-rank gloo group)
     import inspect
+
+    import torch.distributed as dist
 
     fn, call = next((fn, call) for fn, call in _entry_points(tmp_path).items()
                     if fn.__name__ == name)
@@ -157,14 +230,39 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
     if name == "load_state":
         with pytest.raises(FileNotFoundError):
             call(device="cpu")
-    else:
+        return
+    grouped = name.startswith(("dp_", "shard")) or name == "initialize"
+    if grouped:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                                world_size=1, rank=0)
+    try:
         out = call(device="cpu")
-        if name in ("load_image", "load_video_frames"):
-            assert out.device.type == "cpu"
-        elif name == "csr_graph_from_edges":
-            assert out.offsets.device.type == "cpu"
-        elif name.endswith("patch_corners"):
-            assert out[0].device.type == out[1].device.type == "cpu"
+    finally:
+        if grouped:
+            dist.destroy_process_group()
+    if name in ("load_image", "load_video_frames"):
+        assert out.device.type == "cpu"
+    elif name == "csr_graph_from_edges":
+        assert out.offsets.device.type == "cpu"
+    elif name.endswith("patch_corners"):
+        assert out[0].device.type == out[1].device.type == "cpu"
+
+
+def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
+    # --device is the config's field: "cuda" unless given; without CUDA
+    # the run raises before it writes anything, with --device cpu it runs
+    from onmf_ontf_ndl_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["ising", "--lattice-size", "8", "--patch-size", "4",
+            "--n-components", "2", "--ising-iterations", "1",
+            "--ising-subsampling-steps", "64", "--sub-iterations", "2",
+            "--num-patches", "4", "--batch-size", "2"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--out-dir", str(tmp_path / "card")] + args)
+    assert not (tmp_path / "card" / "run.json").exists()
+    assert cli.main(["--out-dir", str(tmp_path / "cpu")] + args
+                    + ["--device", "cpu"]) == 0
 
 
 def test_random_patch_corners_follow_the_generator():
