@@ -10,14 +10,20 @@ directory that ``.gitignore`` lists; TAG labels its lines; KERNEL names
 (``dict``, ``coder``, ``fista``, ``checker``) keep the run to those tables
 (``checker`` is the checkerboard sampler at ``PATH_SHAPES``, by the
 wrapper's own route and, where the package has the resident kernels, by
-every other route that holds the lattice). Three more tables come only
+every other route that holds the lattice). The other tables come only
 when named: ``routes`` times every route of the sampler on a grid of
 (n, sweeps) around the crossovers of ``checkerboard_route``; ``iter`` is
 FISTA's cost per iteration (from calls of 1 and 21 iterations, fixed and
 with a stop of 0 that never converges) beside the call's fixed cost; ``bf16`` is no time but the error
 of ten fixed bf16 FISTA iterations against the plain version, with the
 columns past ``chip_smoke.py``'s ``BF16_TOL`` counted and the worst one
-traced to the iteration and the rounding where it parted. ``dp`` joins a
+traced to the iteration and the rounding where it parted. ``ws`` times the
+coders past their shared-memory ranks at ``chip_smoke.py``'s
+``LARGE_RANK_SHAPES``: FISTA in each mode whose route there is the
+workspace (the wide kernel; a package from before it runs its one thread
+per column kernel), and the early stop's workspace kernel beside it as a
+control (the same kernel in both versions); a CUDA graph of 3 calls,
+replayed twice, the lesser mean kept. ``dp`` joins a
 one-rank NCCL group and prints host ms a step of ``dp_train_dict`` beside
 ``train_dict`` at the headline shape (50 steps, fixed sweeps and the stop,
 the least of 3 runs), and the Ising learner at ``chip_smoke.py``'s
@@ -37,8 +43,8 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import (BF16_TOL, FISTA_MODES, PATH_SHAPES, TOL, gram_inputs,
-                        graph_ms)
+from chip_smoke import (BF16_TOL, FISTA_MODES, LARGE_RANK_SHAPES,
+                        PATH_SHAPES, TOL, gram_inputs, graph_ms)
 
 # one warp's worth of rows (d = 32) before the paths' (d, r)
 DICT_SHAPES = [(32, 25)] + PATH_SHAPES["dict_update_sweep"]
@@ -48,6 +54,35 @@ ITER_SHAPES = [(25, 16384), (25, 131072 + 37), (100, 100)]
 # furthest, also at the headline n
 BF16_SHAPES = [(r, n) for r in (1, 8, 25, 33, 100, 128)
                for n in (500, 4133)] + [(8, 131072 + 37)]
+
+
+# the workspace table's FISTA modes: ten iterations (fixed, the 0.01 stop,
+# the bf16 product) and one bf16 iteration, as chip_smoke.py's
+# large_rank_kernels runs them
+WS_MODES = {"fixed": dict(sub_iter=10, use_stopping=False),
+            "stop": dict(sub_iter=10),
+            "bf16": dict(sub_iter=10, use_stopping=False, bf16_matmul=True),
+            "bf16_one_iteration": dict(sub_iter=1, use_stopping=False,
+                                       bf16_matmul=True)}
+
+
+def ws_times(ck, tag, dev, gen):
+    """Device ms of the coders past their shared ranks at
+    LARGE_RANK_SHAPES (see the module docstring)."""
+    for r, n in LARGE_RANK_SHAPES:
+        A, B, H0 = gram_inputs(r, n, gen, dev)
+        line = {"version": tag, "table": "ws", "r": r, "n": n}
+        for mode, kw in WS_MODES.items():
+            name = "fista_sweeps_stop" if mode == "stop" else "fista_sweeps"
+            if ck.kernel_route(name, r) == "workspace":
+                line[f"fista_{mode}_ms"] = graph_ms(
+                    lambda: ck.fista_sweeps(A, B, H0, 0.1, 0.01, **kw),
+                    reps=3, replays=2)
+        if ck.kernel_route("coder_sweeps_earlystop", r) == "workspace":
+            line["coder_sweeps_earlystop_ms"] = graph_ms(
+                lambda: ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01),
+                reps=3, replays=2)
+        print(json.dumps(line), flush=True)
 
 
 def bf16_errors(ck, tag, r, n, A, B, H0):
@@ -278,6 +313,8 @@ def main():
         print(json.dumps(line), flush=True)
     for r, n in BF16_SHAPES if "bf16" in only else []:
         bf16_errors(ck, tag, r, n, *gram_inputs(r, n, gen, dev))
+    if "ws" in only:
+        ws_times(ck, tag, dev, gen)
     if "dp" in only:
         dp_times(tag, dev)
 

@@ -13,8 +13,10 @@ Phases, each printing its findings on a line of its own:
              FISTA over one iteration at that tolerance and over ten at
              atol 1.5e-3, each outside the f32 tolerance of the f32 plain
              version; the coders past their shared-memory ranks (the
-             workspace kernels) at r in {128, 256}, and 101 for the
-             stopping modes, n = 131072 + 37. Then the dictionary kernel,
+             workspace kernels, FISTA's wide kernel) at
+             ``LARGE_RANK_SHAPES``: r in {128, 256} and 101 for the
+             stopping modes at n = 131072 + 37, r = 512 at n = 16384, each
+             with its kernel, bound and share. Then the dictionary kernel,
              the three coders and the checkerboard sampler at the paths'
              shapes (``PATH_SHAPES``), each with its route, device time,
              bound and share of the bound; the sampler equal to its plain
@@ -75,6 +77,7 @@ Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
 """
 
+import ctypes
 import json
 import math
 import subprocess
@@ -167,6 +170,21 @@ PATH_SHAPES = {
                      (100, 100, "bf16")],
     "checkerboard_sweeps": [(16, 100), (200, 1), (200, 100), (1024, 100),
                             (4096, 100)],
+}
+# The coders past their shared-memory ranks, d = 300: (r, n). r = 101 runs
+# the two stopping modes only (the others are on their shared kernels
+# there); r = 512 on one wave of 128 tiles, so that the workspace kernels
+# of before the wide FISTA kernel stay within the smoke's time.
+LARGE_RANK_SHAPES = [(101, HEADLINE_N), (128, HEADLINE_N),
+                     (256, HEADLINE_N), (512, 16384)]
+# The CUDA kernel of each coder's route (kernel_route)
+ROUTE_KERNELS = {
+    ("coder_sweeps", "shared"): "coder_lanes_kernel",
+    ("coder_sweeps", "workspace"): "coder_sweeps_ws_kernel",
+    ("coder_sweeps_earlystop", "shared"): "coder_es_lanes_kernel",
+    ("coder_sweeps_earlystop", "workspace"): "coder_es_ws_kernel",
+    ("fista_sweeps", "shared"): "fista_tiled_kernel",
+    ("fista_sweeps", "workspace"): "fista_wide_kernel",
 }
 # 10 fixed iterations (the main path's FISTA step); the tensor path's up to
 # 100 iterations with the 0.01 stop, in f32 and with the bf16 product
@@ -444,6 +462,15 @@ def path_shape_kernels(ck, dev, gen):
                 != ck.fista_tile_config(r, bool(use_stopping))[3]:
             raise AssertionError(f"fista_tile_config's shared-memory size "
                                  f"at r={r} differs from the kernel's")
+    out = (ctypes.c_int * 9)()
+    for r, use_stopping in [(r, s) for r in (129, 132, 133, 136, 137, 256,
+                                             384, 385, 512, 1248)
+                            for s in (0, 1)] + [(101, 1), (128, 1)]:
+        lib.onmf_fista_wide_config(r, use_stopping, out)
+        regime, *shape = ck.fista_wide_config(r, bool(use_stopping))
+        if [int(regime == "resident"), *map(int, shape)] != list(out):
+            raise AssertionError(f"fista_wide_config at r={r} differs from "
+                                 f"the kernel's: {list(out)}")
     for r in (1, 16, 25, 33, 100, 128):
         L, Q, _ = ck.coder_lanes_config(r)
         if lib.onmf_coder_sweeps_smem(r) != 4 * r * L * Q:
@@ -586,13 +613,24 @@ def stop_tiles_check(ck, label, got, want, sweeps, args, kw):
     return worst, moved
 
 
+def cuda_kernel(ck, name, r, kw):
+    """The CUDA kernel that coder ``name`` launches at rank r with the
+    wrapper's keywords ``kw`` (FISTA's wide kernel with its regime)."""
+    stop = name == "fista_sweeps" and kw.get("use_stopping", True)
+    route = ck.kernel_route("fista_sweeps_stop" if stop else name, r)
+    kernel = ROUTE_KERNELS[(name, route)]
+    if kernel == "fista_wide_kernel":
+        kernel += f" ({ck.fista_wide_config(r, stop)[0]})"
+    return kernel
+
+
 def large_rank_kernels(ck, dev, gen):
-    """The coders past their shared-memory ranks (the workspace kernels;
-    fixed-sweep coder_sweeps and FISTA still shared at r = 128) at
-    n = 131072 + 37, kernel against plain, with CUDA-event times of both:
-    r in {128, 256} for every mode and r = 101 for the stopping modes."""
-    d, n = 300, HEADLINE_N
-    for r in (101, 128, 256):
+    """The coders past their shared-memory ranks at LARGE_RANK_SHAPES
+    (fixed-sweep coder_sweeps and FISTA still shared at r = 128), kernel
+    against plain, with CUDA-event times of both, the kernel that ran, its
+    bound and its share."""
+    d = 300
+    for r, n in LARGE_RANK_SHAPES:
         W = torch.rand((d, r), generator=gen)
         W = (W / W.norm(dim=0)).to(dev)
         X = torch.rand((d, n), generator=gen).to(dev)
@@ -626,10 +664,13 @@ def large_rank_kernels(ck, dev, gen):
             err = compare(label, got, plain(*args, **kw), tol)
             ms = cuda_ms(lambda: kernel(*args, **kw), 5)
             plain_ms = cuda_ms(lambda: plain(*args, **kw), 2)
+            bound_ms, by = coder_bound(name, r, n, args, kw)
             emit("kernels", kernel=name, mode=mode or None, r=r, n=n, d=d,
-                 route=ck.kernel_route(route_name, r), max_abs_err=err,
+                 route=ck.kernel_route(route_name, r),
+                 cuda_kernel=cuda_kernel(ck, name, r, kw), max_abs_err=err,
                  atol=tol["atol"], rtol=tol["rtol"], ms=ms,
-                 plain_ms=plain_ms)
+                 plain_ms=plain_ms, bound_ms=bound_ms, by=by,
+                 share=bound_ms / ms)
 
 
 def checkerboard_kernels(dev, gen):

@@ -131,6 +131,8 @@ def build() -> dict:
                      (lib.onmf_checkerboard_smem, [i, i])):
         fn.argtypes = args
         fn.restype = ctypes.c_size_t
+    lib.onmf_fista_wide_config.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.onmf_fista_wide_config.restype = None
     lib.onmf_error_string.argtypes = [i]
     lib.onmf_error_string.restype = ctypes.c_char_p
     if lib.onmf_tile_columns() != TN:

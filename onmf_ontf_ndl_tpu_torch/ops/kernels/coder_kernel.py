@@ -76,7 +76,22 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   Shared memory: ``r R4 + 2 TN RS`` floats for fixed iterations (``R4`` =
   r rounded up to a multiple of 4, ``RS`` = ``R4`` or ``R4 + 4``, whichever
   has an odd quarter; r <= 128), plus both Grams and six vectors for the
-  stop (r <= 100: 225 KB, one block per SM).
+  stop (r <= 100: 225 KB, one block per SM). Past those ranks the wide
+  kernel (``fista_wide_kernel``, :func:`fista_wide_config`) carries the
+  same register tiling to ranks whose A and tiles do not fit an SM: one
+  block of up to 512 threads per tile and SM, the grid striding over the
+  tiles, the rows of the product in passes of up to 128, A^T staged from a
+  table in device memory in chunks of 32 rows j by ``cp.async`` into two
+  shared buffers, Y in shared memory up to :data:`FW_RESIDENT_MAX_RANK`
+  ("resident") and past it in the block's workspace slice, staged with
+  each chunk ("streamed"); the new columns go to the slice, and one
+  barrier after the last pass H and Y are updated. With the stop (kernels
+  of their own) the two Grams come from register blocks over the tile
+  staged transposed in shared memory (4 x 4, or 8 x 8 where those would
+  take the threads more than two rounds), in column chunks, stored as
+  float4 row segments, and the decision is the tiled kernel's; the Grams
+  and power vectors stay in shared memory up to r = 136 and go to the
+  slice past it.
 - :func:`dict_update_sweep` replaces ``dict_update_sweep`` (``:629``): one
   column-BCD pass over W in residual form. ``G = W A - B^T`` is formed
   once in shared memory; column j then needs ``G[:, j]`` and the input
@@ -93,20 +108,22 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
 **Ranks.** Each coder has two kernels, chosen by :func:`kernel_route`
 from r alone: ``"shared"`` keeps A, the tiles and the Grams in one block's
 shared memory and registers (the kernels above; the limits are
-:data:`SMEM_MAX_RANK`); ``"workspace"`` runs one thread per column, reads
-A from device memory (L2) and keeps the tiles, the Grams and the power
-vectors in a device workspace, one slice per resident block, the grid
-striding over the tiles (``coder_sweeps`` sweeps each column in place in
-its output). Both
+:data:`SMEM_MAX_RANK`); ``"workspace"`` keeps the tiles, the Grams and the
+power vectors in a device workspace, one slice per resident block, the
+grid striding over the tiles. For ``coder_sweeps`` and the early stop it
+runs one thread per column and reads A from device memory (L2)
+(``coder_sweeps`` sweeps each column in place in its output); for FISTA
+it is the wide kernel above. Both
 serve every r up to :data:`MAX_RANK` = 1248, the largest r whose Gram the
 JAX wrappers keep in their kernel (``round_up(r, 8)^2 * 4 B <= 6 MiB``,
 ``pallas/coder_kernel.py:147``). Past it the wrappers do what the JAX
 wrappers do: the same maths without a kernel (``ops.coder._code_impl``,
 whose early stop is the whole-batch rule, and ``_fista_impl``), on the
 tensor's device; ``"unfused"`` routes count no launch. What bounds the
-workspace form: each of the sweeps' and the Grams' loads goes to L1/L2 in
-place of shared memory (the Gram loop takes one pair per warp, the lanes
-along the tile's rows, so that its loads are contiguous).
+workspace form of the two Gauss-Seidel coders: each of the sweeps' and the
+Grams' loads goes to L1/L2 in place of shared memory (the Gram loop takes
+one pair per warp, the lanes along the tile's rows, so that its loads are
+contiguous).
 
 The TPU blocking (``block_rows``/``_block_corr``, the (8, 128) padding of
 ``_tile_plan``, SMEM staging) is not carried over.
@@ -130,7 +147,8 @@ __all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
            "coder_sweeps_earlystop_plain", "fista_sweeps_plain",
            "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
            "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route", "dict_route",
-           "coder_lanes_config", "fista_tile_config"]
+           "coder_lanes_config", "fista_tile_config", "fista_wide_config",
+           "FW_RESIDENT_MAX_RANK"]
 
 # Largest rank each coder runs as a kernel: the JAX kernels' limit
 # round_up(r, 8)^2 * 4 B <= 6 MiB, for every mode.
@@ -143,9 +161,16 @@ SMEM_MAX_RANK = {
     "fista_sweeps_stop": 100,       # + both Grams, as the early stop
 }
 # Workspace of the workspace kernels: at most this many bytes of slices,
-# and at most this many resident blocks per SM.
+# and at most this many resident blocks per SM (the wide FISTA kernel: one).
 _WS_BYTES = 1 << 30
 _WS_BLOCKS_PER_SM = 8
+# The wide FISTA kernel (csrc FW_*): threads, rows j of a staged chunk, the
+# largest rank whose tile of Y stays in shared memory, and the shared floats
+# a transposed Gram chunk may take (224 KB: r = 384's Y and chunks).
+_FW_MAX_THREADS = 512
+_FW_CHUNK = 32
+FW_RESIDENT_MAX_RANK = 384
+_FW_SMEM_FLOATS = 57344
 
 
 def kernel_route(name: str, r: int) -> str:
@@ -195,6 +220,48 @@ def fista_tile_config(r: int, use_stopping: bool = False):
     return threads, stride, lanes, 4 * floats
 
 
+def fista_wide_config(r: int, use_stopping: bool = False):
+    """``(regime, threads, passes, rows, chunk, gram_block, gram_cols,
+    grams_shared, smem_bytes)`` of the wide :func:`fista_sweeps` kernel at
+    rank ``r``, from ``r`` and the mode alone (csrc ``fw_config``): Y
+    ``"resident"`` in shared memory up to :data:`FW_RESIDENT_MAX_RANK`,
+    else ``"streamed"`` from the workspace; 16 threads per 4-row block of a
+    pass, in whole warps; passes over the row blocks (at most 32 a pass)
+    and rows a pass; rows j of a staged chunk of A^T (and streamed, of Y);
+    with the stop, the side of the Grams' register blocks (8 where 4 x 4
+    blocks would take the threads more than two rounds, else 4), the
+    columns of a Gram chunk (the largest power of two up to TN whose
+    transposed tile fits 224 KB), whether both Grams and six power vectors
+    fit 224 KB of shared memory beside a Gram chunk (else they live in the
+    workspace); the block's shared memory."""
+    name = "fista_sweeps_stop" if use_stopping else "fista_sweeps"
+    if kernel_route(name, r) != "workspace":
+        raise ValueError(f"no wide {name} kernel at r={r}")
+    nb = -(-r // 4)
+    passes = -(-nb // (_FW_MAX_THREADS // 16))
+    blocks = -(-nb // passes)
+    threads = -(-blocks * 16 // 32) * 32
+    resident = r <= FW_RESIDENT_MAX_RANK
+    product = (2 * _FW_CHUNK * (4 * blocks + (0 if resident else TN))
+               + (r * TN if resident else 0))
+    side = 8 if nb * (nb + 1) // 2 > 2 * threads else 4
+    rows = -(-r // side) * side            # a Gram's rows and row stride
+    stride = rows if (rows // 4) % 2 else rows + 4   # the staged tile's
+    cols = TN
+    while cols > 1 and cols * stride > _FW_SMEM_FLOATS:
+        cols //= 2
+    vectors, grams = -(-6 * r // 4) * 4, 2 * rows * rows
+    shared = (use_stopping
+              and vectors + grams + cols * stride <= _FW_SMEM_FLOATS)
+    floats = product
+    if shared:
+        floats = vectors + max(product, grams + cols * stride)
+    elif use_stopping:
+        floats = max(product, cols * stride)
+    return ("resident" if resident else "streamed", threads, passes,
+            4 * blocks, _FW_CHUNK, side, cols, shared, 4 * floats)
+
+
 # The dictionary kernel (csrc dict_lanes, dict_threads, dict_smem_floats):
 # threads and shared memory of one CTA, the largest cluster, and the G
 # cells per CTA past which more CTAs share the rows.
@@ -242,14 +309,15 @@ def dict_route(d: int, r: int) -> tuple[str, int]:
     return ("shared" if c == 1 else "cluster"), c
 
 
-def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0):
+def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0,
+               per_sm: int = _WS_BLOCKS_PER_SM):
     """The workspace of a workspace kernel and its block count: one slice
     of ``slice_floats`` per block (after ``head_floats`` shared by all),
-    as many blocks as there are tiles, up to :data:`_WS_BLOCKS_PER_SM`
-    per SM and :data:`_WS_BYTES` of slices."""
+    as many blocks as there are tiles, up to ``per_sm`` per SM and
+    :data:`_WS_BYTES` of slices."""
     tiles = -(-B.shape[1] // TN)
     sms = torch.cuda.get_device_properties(B.device).multi_processor_count
-    blocks = max(1, min(tiles, _WS_BLOCKS_PER_SM * sms,
+    blocks = max(1, min(tiles, per_sm * sms,
                         _WS_BYTES // (4 * slice_floats)))
     ws = torch.empty(head_floats + blocks * slice_floats,
                      dtype=torch.float32, device=B.device)
@@ -381,7 +449,7 @@ def fista_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
     if route == "workspace":
         ws, blocks = _workspace(
             B, lib.onmf_fista_slice_floats(r, int(use_stopping)),
-            lib.onmf_fista_head_floats(r))
+            lib.onmf_fista_head_floats(r), per_sm=1)
     with torch.cuda.device(B.device):
         err = lib.onmf_fista_sweeps(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,

@@ -20,7 +20,9 @@
 //     kernels' largest rank), the tiles, the Grams and the power vectors in
 //     a device workspace, one slice per resident block, the grid striding
 //     over the tiles: coder_sweeps_ws_kernel (each column kept in the
-//     output itself), coder_es_ws_kernel, fista_ws_kernel.
+//     output itself), coder_es_ws_kernel, and for FISTA fista_wide_kernel
+//     (A^T staged through shared memory in chunks, the tile of Y in shared
+//     memory or, past FW_RESIDENT_MAX_RANK, in the workspace).
 // The dictionary update runs dict_update_kernel on one CTA or a cluster,
 // or dict_update_single_kernel past the cluster's shared memory, chosen by
 // the wrapper from (d, r) alone.
@@ -157,11 +159,9 @@ __device__ float psd_lambda_ub(const float* G, int r) {
 }
 
 // Grams over one tile's TN columns, upper triangle (k <= l) mirrored:
-// Gd = D D^T and Gh = O O^T, with D = P - O when kDiff and D = P otherwise.
-// Columns outside the batch hold 0 in P and O. Workspace tiles, row stride
-// TN: one pair per warp, the lanes over the columns, so that each load is
-// one contiguous row segment.
-template <bool kDiff>
+// Gd = D D^T and Gh = O O^T, with D = P - O. Columns outside the batch hold
+// 0 in P and O. Workspace tiles, row stride TN: one pair per warp, the lanes
+// over the columns, so that each load is one contiguous row segment.
 __device__ void tile_grams(const float* P, const float* O, float* Gd,
                            float* Gh, int r) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -171,8 +171,7 @@ __device__ void tile_grams(const float* P, const float* O, float* Gd,
       float gd = 0.f, gh = 0.f;
       for (int cc = lane; cc < TN; cc += 32) {
         const float ok = O[k * TN + cc], ol = O[l * TN + cc];
-        const float dk = kDiff ? P[k * TN + cc] - ok : P[k * TN + cc];
-        const float dl = kDiff ? P[l * TN + cc] - ol : P[l * TN + cc];
+        const float dk = P[k * TN + cc] - ok, dl = P[l * TN + cc] - ol;
         gd = fmaf(dk, dl, gd);
         gh = fmaf(ok, ol, gh);
       }
@@ -278,7 +277,7 @@ __global__ void coder_es_ws_kernel(const float* __restrict__ A,
                      1.0f / sqrtf((float)i + 10.0f));
       }
       __syncthreads();
-      tile_grams<true>(Hs, Os, Gd, Gh, r);
+      tile_grams(Hs, Os, Gd, Gh, r);
       __syncthreads();
       if (t < 32) {
         const int cv = stop_decision(Gd, Gh, v0, vd, vh, wd, wh, r, stop2,
@@ -913,8 +912,8 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 // A transposed into (r, R4) rows (R4 = r rounded up to a multiple of 4,
 // zero padded), bf16-rounded when kBf16: the layout the FISTA kernel reads.
-// The workspace FISTA kernel reads it from device memory; the tiled one
-// builds the same table in shared memory itself.
+// The wide FISTA kernel stages it from device memory; the tiled one builds
+// the same table in shared memory itself.
 template <bool kBf16>
 __device__ __forceinline__ void fill_At(const float* __restrict__ A,
                                         float* At, int r, int begin,
@@ -932,134 +931,6 @@ __global__ void fista_prep_kernel(const float* __restrict__ A, int r,
                                   float* __restrict__ At) {
   fill_At<kBf16>(A, At, r, blockIdx.x * blockDim.x + threadIdx.x,
                  gridDim.x * blockDim.x);
-}
-
-// Floats of the FISTA workspace: the shared (r, R4) table of A^T
-// first, then one slice per block (the H, Y and new-column tiles, and with
-// use_stopping both Grams and five r-vectors).
-__host__ __device__ size_t fista_head_floats(int r) {
-  return (size_t)r * ((r + 3) & ~3);
-}
-
-__host__ __device__ size_t fista_slice_floats(int r, int use_stopping) {
-  size_t floats = 3 * (size_t)r * TN;
-  if (use_stopping) floats += 2 * (size_t)r * r + 5 * (size_t)r;
-  return floats;
-}
-
-// The workspace form of FISTA (past the shared-memory ranks): one thread
-// per column of a tile of TN columns, A^T (rows padded to R4 = a multiple
-// of 4, built by fista_prep_kernel) in device memory, the H, Y and
-// new-column tiles in the block's workspace slice, the grid striding over
-// the tiles. A thread forms four rows of A Y at a time: one float4 of A^T
-// and one element of Y per four multiply-adds, each row summed over j in
-// order. kBf16 rounds A and Y to bf16 before the multiply-add (accumulation
-// stays f32). With use_stopping the tile stops as coder_es_ws_kernel does, on
-// the Grams of the step delta (kept in the spent Y slot) and of the old H;
-// the momentum t is per tile and stops with it. What bounds it: r^2
-// multiply-adds per column and iteration, each with an L1 load.
-template <bool kBf16>
-__global__ void fista_ws_kernel(const float* __restrict__ B,
-                                const float* __restrict__ H0,
-                                float* __restrict__ H, int r, int n,
-                                float alpha,
-                                const float* __restrict__ inv_L_ptr,
-                                float stop, int sub_iter, int use_stopping,
-                                int pi_iters, float* __restrict__ ws) {
-  constexpr int S = TN;      // tile row stride
-  const int R4 = (r + 3) & ~3;
-  const int t = threadIdx.x;
-  const float* At = ws;      // (r, R4): At[j * R4 + k] = A[k, j]
-  float* Hs = ws + fista_head_floats(r)
-              + (size_t)blockIdx.x * fista_slice_floats(r, use_stopping);
-  float* Ys = Hs + r * S;    // (r, S) extrapolated point; the step delta
-                             // during the stop test
-  float* hn = Ys + r * S + t;  // (r, TN) new columns, element k at hn[k * TN]
-  float* Gd = Ys + 2 * r * S;  // stop mode only: (r, r) delta Gram,
-  float* Gh = Gd + r * r;    // (r, r) iterate Gram,
-  float* v0 = Gh + r * r;    // and five (r) vectors as in coder_es_ws_kernel
-  float* vd = v0 + r;
-  float* vh = vd + r;
-  float* wd = vh + r;
-  float* wh = wd + r;
-  __shared__ int conv;
-
-  const float inv_L = *inv_L_ptr;
-  const float stop2 = stop * stop;
-  const int tiles = (n + TN - 1) / TN;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int c = tile * TN + t;
-    const bool active = c < n;
-    for (int k = 0; k < r; ++k) {
-      const float h = active ? H0[(size_t)k * n + c] : 0.f;
-      Hs[k * S + t] = h;
-      Ys[k * S + t] = h;
-    }
-    if (use_stopping) init_power_vectors(v0, vd, vh, r);
-    if (t == 0) conv = 0;
-    float tmom = 1.f;
-    __syncthreads();
-
-    for (int i = 0; i < sub_iter; ++i) {
-      if (conv) break;  // set only in stop mode, read after a barrier
-      const float tn = 0.5f * (1.f + sqrtf(1.f + 4.f * tmom * tmom));
-      const float mom = (tmom - 1.f) / tn;
-      tmom = tn;
-      if (active) {
-        const float* y = Ys + t;
-        for (int k0 = 0; k0 < r; k0 += 4) {
-          float g[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int j = 0; j < r; ++j) {
-            const float yj = kBf16 ? bf16_round(y[j * S]) : y[j * S];
-            const float4 a =
-                *reinterpret_cast<const float4*>(At + j * R4 + k0);
-            g[0] = fmaf(a.x, yj, g[0]);
-            g[1] = fmaf(a.y, yj, g[1]);
-            g[2] = fmaf(a.z, yj, g[2]);
-            g[3] = fmaf(a.w, yj, g[3]);
-          }
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int k = k0 + q;
-            if (k < r)
-              hn[k * TN] = fmaxf(
-                  y[k * S] - inv_L * (g[q] - __ldg(B + (size_t)k * n + c)
-                                      + alpha), 0.f);
-          }
-        }
-      }
-      if (!use_stopping) {  // columns are independent: no barrier
-        if (active)
-          for (int k = 0; k < r; ++k) {
-            const float h = Hs[k * S + t];
-            Hs[k * S + t] = hn[k * TN];
-            Ys[k * S + t] = hn[k * TN] + mom * (hn[k * TN] - h);
-          }
-        continue;
-      }
-      for (int k = 0; k < r; ++k)
-        Ys[k * S + t] = active ? hn[k * TN] - Hs[k * S + t] : 0.f;
-      __syncthreads();
-      tile_grams<false>(Ys, Hs, Gd, Gh, r);
-      __syncthreads();
-      if (t < 32) {
-        const int cv = stop_decision(Gd, Gh, v0, vd, vh, wd, wh, r, stop2,
-                                     pi_iters);
-        if (t == 0) conv = cv;
-      }
-      // the step applies in the sweep that converges too
-      if (active)
-        for (int k = 0; k < r; ++k) {
-          const float d = Ys[k * S + t];
-          Hs[k * S + t] = hn[k * TN];
-          Ys[k * S + t] = hn[k * TN] + mom * d;
-        }
-      __syncthreads();
-    }
-    if (active)
-      for (int k = 0; k < r; ++k) H[(size_t)k * n + c] = Hs[k * S + t];
-    __syncthreads();  // conv and the tiles are reused by the next tile
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1218,24 +1089,25 @@ __device__ void ft_tile_grams(const float* Dt, const float* Ot, float* Gd,
   }
 }
 
-// w = G v for a symmetric (r, r) G, one thread per row (threads ti, ti +
-// nth, ... of this Gram's half of the block); row k is read as column k, a
-// warp's loads consecutive. With ab, the rows' absolute sums too.
+// w = G v for a symmetric (r, r) G of row stride gs, one thread per row
+// (threads ti, ti + nth, ... of this Gram's half of the block); row k is
+// read as column k, a warp's loads consecutive. With ab, the rows'
+// absolute sums too.
 __device__ __forceinline__ void ft_matvec(const float* G, const float* v,
-                                          float* w, float* ab, int r, int ti,
-                                          int nth) {
+                                          float* w, float* ab, int r, int gs,
+                                          int ti, int nth) {
   for (int k = ti; k < r; k += nth) {
     float a[4] = {}, s[4] = {};
     int l = 0;
     for (; l + 4 <= r; l += 4)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float gv = G[(l + q) * r + k];
+        const float gv = G[(l + q) * gs + k];
         a[q] = fmaf(gv, v[l + q], a[q]);
         s[q] += fabsf(gv);
       }
     for (; l < r; ++l) {
-      const float gv = G[l * r + k];
+      const float gv = G[l * gs + k];
       a[0] = fmaf(gv, v[l], a[0]);
       s[0] += fabsf(gv);
     }
@@ -1267,12 +1139,13 @@ __device__ __forceinline__ float ft_rayleigh(const float* v, const float* w,
 
 // es_stop_decision on the whole block: the lower half of the warps on Gd
 // (vectors vd, wd, scratch ad), the upper on Gh (vh, wh, ah); the bounds
-// meet in xch. Call after a barrier, from every thread of at least two
-// warps; returns the same decision (1 = converged) in every thread.
+// meet in xch. The Grams' row stride is gs. Call after a barrier, from
+// every thread of at least two warps; returns the same decision (1 =
+// converged) in every thread.
 __device__ int ft_stop_decision(const float* Gd, const float* Gh, float* vd,
                                 float* vh, float* wd, float* wh, float* ad,
-                                float* ah, float* xch, int r, float stop2,
-                                int pi_iters) {
+                                float* ah, float* xch, int r, int gs,
+                                float stop2, int pi_iters) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nd = (int)(blockDim.x >> 6);  // warps on Gd
   const bool second = warp >= nd;
@@ -1286,12 +1159,12 @@ __device__ int ft_stop_decision(const float* Gd, const float* Gh, float* vd,
   for (int k = ti; k < r; k += nth)
     v[k] += 0.05f * (0.5f + (float)((k * 40503) % 65536) / 65536.0f);
   __syncthreads();
-  ft_matvec(G, v, w, ab, r, ti, nth);
+  ft_matvec(G, v, w, ab, r, gs, ti, nth);
   __syncthreads();
   if (wi == 0) {  // min(trace, max absolute row sum)
     float tr = 0.f, rowmax = 0.f;
     for (int k = lane; k < r; k += 32) {
-      tr += G[k * r + k];
+      tr += G[k * gs + k];
       rowmax = fmaxf(rowmax, ab[k]);
     }
     tr = warp_sum(tr);
@@ -1300,7 +1173,7 @@ __device__ int ft_stop_decision(const float* Gd, const float* Gh, float* vd,
   }
   ft_normalise(v, w, r, ti, nth);
   __syncthreads();
-  ft_matvec(G, v, w, nullptr, r, ti, nth);
+  ft_matvec(G, v, w, nullptr, r, gs, ti, nth);
   __syncthreads();
   if (wi == 0) {
     const float lb = ft_rayleigh(v, w, r);
@@ -1316,7 +1189,7 @@ __device__ int ft_stop_decision(const float* Gd, const float* Gh, float* vd,
   for (int it = 0; it < pi_iters; ++it) {
     ft_normalise(v, w, r, ti, nth);
     __syncthreads();
-    ft_matvec(G, v, w, nullptr, r, ti, nth);
+    ft_matvec(G, v, w, nullptr, r, gs, ti, nth);
     __syncthreads();
   }
   if (wi == 0) {
@@ -1476,7 +1349,7 @@ __global__ void __launch_bounds__(512)
       else
         ft_tile_grams<1>(Ys, Ht, Gd, Gh, r, RS);
       __syncthreads();
-      cv = ft_stop_decision(Gd, Gh, vd, vh, wd, wh, ad, ah, xch, r, stop2,
+      cv = ft_stop_decision(Gd, Gh, vd, vh, wd, wh, ad, ah, xch, r, r, stop2,
                             pi_iters);
     }
     // H = Hn, Y = Hn + mom (Hn - H): in the iteration that converges too
@@ -1506,6 +1379,485 @@ __global__ void __launch_bounds__(512)
   for (int x = t; x < r * TN; x += blockDim.x) {
     const int k = x / TN, c = x % TN;
     if (tile0 + c < (size_t)n) H[(size_t)k * n + tile0 + c] = Ht[c * RS + k];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide FISTA kernel, past the shared-memory kernel's ranks (r > 128, or
+// r > 100 with the stop) up to the JAX kernels' 1248: fista_wide_kernel.
+//
+// Replaces fista_sweeps (pallas/coder_kernel.py:579) at those ranks with
+// fista_tiled_kernel's function: the tile of TN columns, the per-tile
+// momentum and stop, the step applied in the iteration that converges,
+// each output of A Y summed over j in order (A and Y bf16-rounded first
+// with kBf16). What bounds it: r^2 multiply-adds per column and iteration,
+// and with the stop as many again for the two Grams, on the CUDA cores: at
+// r = 256, n = 131,109 and ten iterations 2.6 ms at 67e12/s, against
+// 0.12 ms for its bytes. Neither A (256 KB at r = 256) nor the tiles fit
+// one SM's shared memory with A's table beside them. One thread per column
+// with A read through L1/L2 (fista_ws_kernel) took one L1 load per four
+// multiply-adds, kept H, Y and the new columns in a workspace of eight
+// slices per SM (~415 MB at r = 256, so Y's loads went to device memory)
+// and decided the stop on one warp: 4.5% of the bound. What the design
+// does about it:
+//   * One block per tile, one block per SM, the grid (one block per SM)
+//     striding over the tiles, so the workspace is one slice per SM and
+//     stays in L2 (34 MB at r = 256).
+//   * The product is fista_tiled_kernel's register tiling: a thread owns
+//     4 rows x 8 columns of A Y and each step over j takes one float4 of
+//     A^T (a broadcast) and two of Y for 32 multiply-adds. The block's
+//     threads cover at most FW_ROW_BLOCKS row blocks (128 rows); the rest
+//     of the rows are further passes over the same Y. A^T comes from the
+//     table fista_prep_kernel writes to the head of the workspace, in
+//     chunks of FW_CHUNK rows j and the pass's rows k, staged into shared
+//     memory by cp.async, two buffers, so the next chunk's copy overlaps
+//     this one's multiply-adds. Each output is still summed over j in
+//     order, across chunks, in one accumulator.
+//   * Two regimes from r alone (fw_config): up to FW_RESIDENT_MAX_RANK the
+//     tile of Y lives in shared memory ("resident", 192 KB at r = 384);
+//     past it Y lives in the workspace slice and each chunk of A^T comes
+//     with its FW_CHUNK rows of Y ("streamed").
+//   * A pass writes its new columns Hn to the workspace slice (each thread
+//     its own outputs), so Y stays whole until every pass has read it; one
+//     barrier, then H = Hn and Y = Hn + mom (Hn - H) element by element.
+//   * With the stop (a kernel of its own, kStop, so that the fixed
+//     iterations do not carry the Grams' registers), the Grams Gd = D D^T
+//     (D = Hn - H) and Gh = H H^T come from register blocks of their upper
+//     triangles over the tile staged transposed in shared memory (over Y
+//     and the chunk buffers, free between the product and the update), in
+//     column chunks of gram_cols columns, each entry summed over the
+//     columns in order and carried from chunk to chunk. The blocks are
+//     4 x 4 (two float4 loads a column for 16 multiply-adds) or, where
+//     those would take the threads more than two rounds, 8 x 8 (four for
+//     64); a block and its mirror are stored as float4 row segments (4 x 4
+//     blocks and scalar stores, the mirror's each to a sector of its own,
+//     took twice as long a call at r = 512 on an H100).
+//     The decision is fista_tiled_kernel's (ft_stop_decision: each Gram's
+//     power steps on half of the block's warps, one thread per row). Up to
+//     r = 136 the Grams and the power vectors fit shared memory beside the
+//     staged tile and stay there; past it they go to the slice, and the
+//     decision's power steps read them from L2 or device memory.
+//   * The loops over a tile in device memory (H0's tile, the staging of
+//     the Grams' tiles, the update, the store) keep eight loads in flight
+//     a thread: one at a time, each waited for its latency.
+//   * The kernel is launched while the step-size kernel still runs and
+//     waits for inv_L before its first step (griddepcontrol.wait).
+constexpr int FW_MAX_THREADS = 512;
+constexpr int FW_ROW_BLOCKS = FW_MAX_THREADS / FT_COL_GROUPS;  // 32 a pass
+constexpr int FW_CHUNK = 32;               // rows j of a staged chunk
+constexpr int FW_RESIDENT_MAX_RANK = 384;  // Y in shared memory up to here
+constexpr int FW_SMEM_FLOATS = 57344;      // 224 KB: r = 384's Y and chunks
+
+// The wide kernel's shape at rank r, from r and the mode alone (twin:
+// coder_kernel.fista_wide_config): Y resident or streamed, threads (16
+// per row block of a pass, in whole warps), passes over the row blocks,
+// rows a pass; with the stop, the side of the Grams' register blocks (4,
+// or 8 where 4 x 4 blocks would take the block's threads more than two
+// rounds), the Grams' rows and row stride (r to a multiple of the block
+// side), the transposed tile's row stride (at least that, with an odd
+// quarter), the columns of a Gram chunk (the largest power of two up to TN
+// whose transposed tile fits FW_SMEM_FLOATS), whether the Grams and the
+// power vectors fit shared memory beside a Gram chunk (fw_vec_floats
+// floats of vectors first, then the Grams); and the shared floats.
+struct FwConfig {
+  int resident, threads, passes, rows, gram_block, gram_rows, gram_stride,
+      gram_cols, gram_smem;
+  size_t smem_floats;
+};
+
+__host__ __device__ inline size_t fw_vec_floats(int r) {
+  return (6 * (size_t)r + 3) & ~(size_t)3;
+}
+
+__host__ __device__ inline FwConfig fw_config(int r, int use_stopping) {
+  FwConfig c;
+  const int nb = (r + 3) >> 2;
+  c.passes = (nb + FW_ROW_BLOCKS - 1) / FW_ROW_BLOCKS;
+  const int rb = (nb + c.passes - 1) / c.passes;
+  c.rows = 4 * rb;
+  c.threads = (rb * FT_COL_GROUPS + 31) / 32 * 32;
+  c.resident = r <= FW_RESIDENT_MAX_RANK;
+  const size_t product = 2 * (size_t)FW_CHUNK * (c.rows + (c.resident ? 0 : TN))
+                         + (c.resident ? (size_t)r * TN : 0);
+  c.gram_block = nb * (nb + 1) / 2 > 2 * c.threads ? 8 : 4;
+  c.gram_rows = (r + c.gram_block - 1) / c.gram_block * c.gram_block;
+  c.gram_stride = (c.gram_rows >> 2) & 1 ? c.gram_rows : c.gram_rows + 4;
+  c.gram_cols = TN;
+  while (c.gram_cols > 1
+         && (size_t)c.gram_cols * c.gram_stride > FW_SMEM_FLOATS)
+    c.gram_cols >>= 1;
+  const size_t staged = (size_t)c.gram_cols * c.gram_stride;
+  const size_t grams = 2 * (size_t)c.gram_rows * c.gram_rows;
+  c.gram_smem = use_stopping
+      && fw_vec_floats(r) + grams + staged <= FW_SMEM_FLOATS;
+  c.smem_floats = product;
+  if (c.gram_smem) {
+    c.smem_floats = fw_vec_floats(r)
+                    + (product > grams + staged ? product : grams + staged);
+  } else if (use_stopping && staged > product) {
+    c.smem_floats = staged;
+  }
+  return c;
+}
+
+// The FISTA workspace: the (r, R4) table of A^T first, then one slice per
+// block: H and the new columns (and streamed, Y) as (r, TN) tiles, and
+// with the stop, where they do not fit shared memory, both Grams and six
+// r-vectors; a slice is a whole number of 128-byte lines.
+__host__ __device__ inline size_t fista_head_floats(int r) {
+  return (size_t)r * ((r + 3) & ~3);
+}
+
+__host__ __device__ inline size_t fw_slice_floats(int r, int use_stopping) {
+  size_t floats = (r <= FW_RESIDENT_MAX_RANK ? 2 : 3) * (size_t)r * TN;
+  const FwConfig c = fw_config(r, use_stopping);
+  if (use_stopping && !c.gram_smem)
+    floats += 2 * (size_t)c.gram_rows * c.gram_rows + fw_vec_floats(r);
+  return (floats + 31) & ~(size_t)31;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool copy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(copy ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage chunk j0..j0 + FW_CHUNK - 1 of A^T's rows, columns kp..kp + P - 1
+// (as (FW_CHUNK, P)), and when streamed the same rows of Y (as
+// (FW_CHUNK, TN)), into shared memory: one commit group.
+template <bool kRes>
+__device__ __forceinline__ void fw_stage(float* Ab, float* Yb,
+                                         const float* At, const float* Yw,
+                                         int r, int R4, int P, int j0,
+                                         int kp) {
+  const int q4 = P >> 2;
+  for (int s = threadIdx.x; s < FW_CHUNK * q4; s += blockDim.x) {
+    const int jj = s / q4, q = s - jj * q4;
+    const int j = j0 + jj, k = kp + 4 * q;
+    const bool ok = j < r && k < R4;
+    cp_async16(Ab + jj * P + 4 * q, ok ? At + (size_t)j * R4 + k : At, ok);
+  }
+  if (!kRes)
+    for (int s = threadIdx.x; s < FW_CHUNK * (TN / 4); s += blockDim.x) {
+      const int jj = s / (TN / 4), q = s % (TN / 4);
+      const int j = j0 + jj;
+      cp_async16(Yb + jj * TN + 4 * q, j < r ? Yw + (size_t)j * TN + 4 * q : Yw,
+                 j < r);
+    }
+  cp_async_commit();
+}
+
+// One column chunk of M M^T into G (gram_rows rows of stride gs): the
+// upper triangle's S x S blocks over the block's threads, each summed over
+// the chunk's `cols` columns of the transposed tile Mt (cols, RS; rows
+// past r hold 0) in order, from the sums of the chunks before (carry) or
+// from 0, and written with its mirror, a float4 a row segment. (An 8 x 8
+// block summed as two 4 x 8 halves, 32 accumulators in place of 64 and
+// three float4 loads a column for 32 multiply-adds, was slower at r = 256
+// and 512 on an H100.)
+template <int S>
+__device__ void fw_gram_chunk(const float* Mt, float* G, int r, int RS,
+                              int gs, int cols, bool carry) {
+  const int nb = (r + S - 1) / S, blocks = nb * (nb + 1) / 2;
+  int kb = 0, rem = threadIdx.x;  // item = (kb, lb), lb = kb + rem
+  for (int item = threadIdx.x; item < blocks;
+       item += blockDim.x, rem += blockDim.x) {
+    while (rem >= nb - kb) {
+      rem -= nb - kb;
+      ++kb;
+    }
+    const int lb = kb + rem;
+    float* gk = G + (size_t)S * kb * gs + S * lb;  // the block's first row
+    float g[S][S];
+#pragma unroll
+    for (int a = 0; a < S; ++a)
+#pragma unroll
+      for (int q = 0; q < S; q += 4) {
+        const float4 v = carry ? ld4(gk + (size_t)a * gs + q)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        g[a][q] = v.x;
+        g[a][q + 1] = v.y;
+        g[a][q + 2] = v.z;
+        g[a][q + 3] = v.w;
+      }
+    const float* mk = Mt + S * kb;
+    const float* ml = Mt + S * lb;
+#pragma unroll 2
+    for (int c = 0; c < cols; ++c) {
+      float pk[S], pl[S];
+#pragma unroll
+      for (int q = 0; q < S; q += 4) {
+        const float4 vk = ld4(mk + c * RS + q), vl = ld4(ml + c * RS + q);
+        pk[q] = vk.x, pk[q + 1] = vk.y, pk[q + 2] = vk.z, pk[q + 3] = vk.w;
+        pl[q] = vl.x, pl[q + 1] = vl.y, pl[q + 2] = vl.z, pl[q + 3] = vl.w;
+      }
+#pragma unroll
+      for (int a = 0; a < S; ++a)
+#pragma unroll
+        for (int b = 0; b < S; ++b) g[a][b] = fmaf(pk[a], pl[b], g[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < S; ++a)
+#pragma unroll
+      for (int q = 0; q < S; q += 4)
+        st4(gk + (size_t)a * gs + q, g[a][q], g[a][q + 1], g[a][q + 2],
+            g[a][q + 3]);
+    if (kb != lb) {  // the mirror block; a diagonal block is whole already
+      float* gl = G + (size_t)S * lb * gs + S * kb;
+#pragma unroll
+      for (int b = 0; b < S; ++b)
+#pragma unroll
+        for (int q = 0; q < S; q += 4)
+          st4(gl + (size_t)b * gs + q, g[q][b], g[q + 1][b], g[q + 2][b],
+              g[q + 3][b]);
+    }
+  }
+}
+
+// kStop: with the stop (a kernel of its own, so that the fixed-iteration
+// kernels keep the Grams' registers out of the product's).
+template <bool kBf16, bool kRes, bool kStop>
+__global__ void __launch_bounds__(FW_MAX_THREADS, 1)
+    fista_wide_kernel(const float* __restrict__ B,
+                      const float* __restrict__ H0, float* __restrict__ H,
+                      int r, int n, float alpha, const float* inv_L_ptr,
+                      float stop, int sub_iter, int pi_iters,
+                      float* __restrict__ ws) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int use_stopping = kStop;
+  const FwConfig cfg = fw_config(r, use_stopping);
+  const int R4 = (r + 3) & ~3, nb = R4 >> 2;
+  const int P = cfg.rows, TC = cfg.gram_cols;
+  // a Gram's rows and row stride; the transposed tile chunk's row stride
+  const int RG = cfg.gram_rows, MS = cfg.gram_stride;
+  const int nchunks = (r + FW_CHUNK - 1) / FW_CHUNK;
+  const float* At = ws;  // (r, R4): At[j * R4 + k] = A[k, j]; 0 past r
+  float* Hs = ws + fista_head_floats(r)
+              + (size_t)blockIdx.x * fw_slice_floats(r, use_stopping);
+  float* Xs = Hs + (size_t)r * TN;  // (r, TN) the new columns Hn
+  float* Yw = Xs + (size_t)r * TN;  // streamed: (r, TN) Y
+  // shared: with the Grams in shared memory, the six power vectors first;
+  // then resident, Y (r, TN) and two (FW_CHUNK, P) chunks of A^T, or
+  // streamed, two chunks of A^T and two (FW_CHUNK, TN) of Y; with the stop
+  // (between the product and the update) over them the Grams, where they
+  // fit, and the transposed tile chunk (TC, MS)
+  float* sm = smem + (cfg.gram_smem ? fw_vec_floats(r) : 0);
+  float* Y = kRes ? sm : Yw;
+  float* Abuf = kRes ? sm + (size_t)r * TN : sm;
+  float* Ybuf = Abuf + 2 * FW_CHUNK * P;
+  float* Gd = cfg.gram_smem ? sm : Xs + (size_t)(kRes ? 1 : 2) * r * TN;
+  float* Gh = Gd + (size_t)RG * RG;  // (RG, RG) Grams, row stride RG
+  float* vd = cfg.gram_smem ? smem : Gh + (size_t)RG * RG;
+  float* vh = vd + r;              // carried eigenvector estimates,
+  float* wd = vh + r;              // the power steps' products
+  float* wh = wd + r;
+  float* ad = wh + r;              // and absolute row sums
+  float* ah = ad + r;
+  float* Mt = cfg.gram_smem ? sm + 2 * (size_t)RG * RG : sm;
+  __shared__ float xch[4];
+
+  const int t = threadIdx.x;
+  const int rbl = t / FT_COL_GROUPS;  // this thread's row block in a pass
+  const int cbase = 4 * (t % FT_COL_GROUPS);
+  const int tc_shift = __ffs(TC) - 1;
+  const float stop2 = stop * stop;
+  float inv_L = 0.f;
+  const int tiles = (n + TN - 1) / TN;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t tile0 = (size_t)tile * TN;
+    // the tile of H0, eight loads in flight a thread
+    for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
+      float h[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int x = x0 + q * blockDim.x, c = x % TN;
+        h[q] = x < r * TN && tile0 + c < (size_t)n
+            ? H0[(size_t)(x / TN) * n + tile0 + c] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int x = x0 + q * blockDim.x;
+        if (x < r * TN) {
+          Hs[x] = h[q];
+          Y[x] = h[q];
+        }
+      }
+    }
+    if (kStop)
+      for (int k = t; k < r; k += blockDim.x)
+        vd[k] = vh[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
+    if (tile == (int)blockIdx.x) {
+      // the step-size kernel may still be running (programmatic dependent
+      // launch): wait for it, and for its inv_L, only now
+      asm volatile("griddepcontrol.wait;" ::: "memory");
+      inv_L = *reinterpret_cast<const volatile float*>(inv_L_ptr);
+    }
+    float tmom = 1.f;
+    __syncthreads();
+
+    for (int it = 0; it < sub_iter; ++it) {
+      const float tn = 0.5f * (1.f + sqrtf(1.f + 4.f * tmom * tmom));
+      const float mom = (tmom - 1.f) / tn;
+      tmom = tn;
+      for (int p = 0; p < cfg.passes; ++p) {
+        const int kp = p * P, kb = (kp >> 2) + rbl;
+        const bool live = 4 * rbl < P && kb < nb;
+        float acc[FT_ROWS][FT_COLS] = {};
+        fw_stage<kRes>(Abuf, Ybuf, At, Yw, r, R4, P, 0, kp);
+        for (int ch = 0; ch < nchunks; ++ch) {
+          const int buf = ch & 1;
+          if (ch + 1 < nchunks) {
+            fw_stage<kRes>(Abuf + (buf ^ 1) * FW_CHUNK * P,
+                           Ybuf + (buf ^ 1) * FW_CHUNK * TN, At, Yw, r, R4, P,
+                           (ch + 1) * FW_CHUNK, kp);
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();  // the chunk is in
+          const float* Ab = Abuf + buf * FW_CHUNK * P + 4 * rbl;
+          const float* Yc = kRes ? Y + (size_t)ch * FW_CHUNK * TN
+                                 : Ybuf + buf * FW_CHUNK * TN;
+          const int jn = min(FW_CHUNK, r - ch * FW_CHUNK);
+          if (live) {
+#pragma unroll 4
+            for (int jj = 0; jj < jn; ++jj) {
+              const float4 av = ld4(Ab + jj * P);
+              const float4 y0 = ld4(Yc + jj * TN + cbase);
+              const float4 y1 = ld4(Yc + jj * TN + cbase + 64);
+              const float a4[4] = {av.x, av.y, av.z, av.w};
+              float y[FT_COLS] = {y0.x, y0.y, y0.z, y0.w,
+                                  y1.x, y1.y, y1.z, y1.w};
+              if constexpr (kBf16) {
+#pragma unroll
+                for (int e = 0; e < FT_COLS; ++e) y[e] = bf16_round(y[e]);
+              }
+#pragma unroll
+              for (int a = 0; a < FT_ROWS; ++a)
+#pragma unroll
+                for (int e = 0; e < FT_COLS; ++e)
+                  acc[a][e] = fmaf(a4[a], y[e], acc[a][e]);
+            }
+          }
+          __syncthreads();  // the buffer is refilled two chunks on
+        }
+        if (live) {
+          // this pass's new columns; zero outside the batch
+#pragma unroll
+          for (int a = 0; a < FT_ROWS; ++a) {
+            const int k = 4 * kb + a;
+            if (k >= r) break;
+            const float4 y0 = ld4(Y + (size_t)k * TN + cbase);
+            const float4 y1 = ld4(Y + (size_t)k * TN + cbase + 64);
+            const float y[FT_COLS] = {y0.x, y0.y, y0.z, y0.w,
+                                      y1.x, y1.y, y1.z, y1.w};
+            float hn[FT_COLS];
+#pragma unroll
+            for (int e = 0; e < FT_COLS; ++e) {
+              const size_t cl = tile0 + cbase + 64 * (e >> 2) + (e & 3);
+              hn[e] = cl < (size_t)n
+                  ? fmaxf(y[e] - inv_L * (acc[a][e]
+                                          - __ldg(B + (size_t)k * n + cl)
+                                          + alpha), 0.f)
+                  : 0.f;
+            }
+            st4(Xs + (size_t)k * TN + cbase, hn[0], hn[1], hn[2], hn[3]);
+            st4(Xs + (size_t)k * TN + cbase + 64, hn[4], hn[5], hn[6],
+                hn[7]);
+          }
+        }
+      }
+      __syncthreads();  // every new column is in; Y has been read
+      int cv = 0;
+      if constexpr (kStop) {
+        for (int gi = 0; gi < 2; ++gi) {
+          for (int c0 = 0; c0 < TN; c0 += TC) {
+            // transposed, eight loads in flight a thread
+            for (int x0 = t; x0 < RG * TC; x0 += 8 * blockDim.x) {
+              float v[8];
+#pragma unroll
+              for (int q = 0; q < 8; ++q) {
+                const int x = x0 + q * blockDim.x;
+                const int k = x >> tc_shift, cc = x & (TC - 1);
+                v[q] = 0.f;
+                if (x < RG * TC && k < r) {
+                  const float h = Hs[(size_t)k * TN + c0 + cc];
+                  v[q] = gi ? h : Xs[(size_t)k * TN + c0 + cc] - h;
+                }
+              }
+#pragma unroll
+              for (int q = 0; q < 8; ++q) {
+                const int x = x0 + q * blockDim.x;
+                if (x < RG * TC)
+                  Mt[(x & (TC - 1)) * MS + (x >> tc_shift)] = v[q];
+              }
+            }
+            __syncthreads();
+            if (cfg.gram_block == 8)
+              fw_gram_chunk<8>(Mt, gi ? Gh : Gd, r, MS, RG, TC, c0 > 0);
+            else
+              fw_gram_chunk<4>(Mt, gi ? Gh : Gd, r, MS, RG, TC, c0 > 0);
+            __syncthreads();
+          }
+        }
+        cv = ft_stop_decision(Gd, Gh, vd, vh, wd, wh, ad, ah, xch, r, RG,
+                              stop2, pi_iters);
+      }
+      // H = Hn, Y = Hn + mom (Hn - H): in the iteration that converges
+      // too; four float4 loads of each tile in flight a thread
+      for (int x0 = 4 * t; x0 < r * TN; x0 += 16 * blockDim.x) {
+        float4 hn[4], h[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int x = x0 + 4 * q * blockDim.x;
+          if (x < r * TN) {
+            hn[q] = ld4(Xs + x);
+            h[q] = ld4(Hs + x);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int x = x0 + 4 * q * blockDim.x;
+          if (x < r * TN) {
+            st4(Hs + x, hn[q].x, hn[q].y, hn[q].z, hn[q].w);
+            st4(Y + x, hn[q].x + mom * (hn[q].x - h[q].x),
+                hn[q].y + mom * (hn[q].y - h[q].y),
+                hn[q].z + mom * (hn[q].z - h[q].z),
+                hn[q].w + mom * (hn[q].w - h[q].w));
+          }
+        }
+      }
+      __syncthreads();
+      if (cv) break;  // the same in every thread
+    }
+    for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
+      float h[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int x = x0 + q * blockDim.x;
+        h[q] = x < r * TN ? Hs[x] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int x = x0 + q * blockDim.x, c = x % TN;
+        if (x < r * TN && tile0 + c < (size_t)n)
+          H[(size_t)(x / TN) * n + tile0 + c] = h[q];
+      }
+    }
+    __syncthreads();  // the tiles are reused by the next tile
   }
 }
 
@@ -1864,7 +2216,19 @@ size_t onmf_earlystop_slice_floats(int r) { return es_slice_floats(r); }
 size_t onmf_fista_head_floats(int r) { return fista_head_floats(r); }
 
 size_t onmf_fista_slice_floats(int r, int use_stopping) {
-  return fista_slice_floats(r, use_stopping);
+  return fw_slice_floats(r, use_stopping);
+}
+
+// fista_wide_kernel's shape at rank r (fw_config) into out[0..8]: Y
+// resident (1) or streamed (0), threads, passes, rows a pass, rows j a
+// chunk, the side of a Gram block, columns a Gram chunk, the Grams in
+// shared memory (1) or the workspace (0), shared bytes.
+void onmf_fista_wide_config(int r, int use_stopping, int* out) {
+  const FwConfig c = fw_config(r, use_stopping);
+  const int v[9] = {c.resident, c.threads, c.passes, c.rows, FW_CHUNK,
+                    c.gram_block, c.gram_cols, c.gram_smem,
+                    (int)(sizeof(float) * c.smem_floats)};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
 int onmf_tile_columns(void) { return TN; }
@@ -1925,15 +2289,29 @@ int onmf_coder_sweeps_earlystop(const float* A, const float* B,
 
 // The step size into inv_L (one float of device scratch, from
 // lipschitz_iters power steps), then the sweeps, which read it. ws == NULL:
-// the shared-memory kernel, one block per tile; otherwise the A^T table is
-// written to the head of ws and the workspace kernel runs on `blocks` blocks.
+// the shared-memory kernel, one block per tile; otherwise (past the
+// shared-memory ranks) the A^T table is written to the head of ws first and
+// the wide kernel runs on `blocks` blocks, one slice of ws each.
 int onmf_fista_sweeps(const float* A, const float* B, const float* H0,
                       float* H, int r, int n, float alpha, float* inv_L,
                       int lipschitz_iters, float stop, int sub_iter,
                       int use_stopping, int pi_iters, int bf16_matmul,
                       float* ws, int blocks, void* stream) {
-  if (!ws && r > (use_stopping ? FISTA_STOP_MAX_RANK : FISTA_MAX_RANK))
+  const int max_smem_rank = use_stopping ? FISTA_STOP_MAX_RANK
+                                         : FISTA_MAX_RANK;
+  if (ws ? r <= max_smem_rank : r > max_smem_rank)
     return (int)cudaErrorInvalidValue;
+  if (ws) {
+    const int cells = r * ((r + 3) & ~3);
+    if (bf16_matmul)
+      fista_prep_kernel<true><<<(cells + 255) / 256, 256, 0,
+                                (cudaStream_t)stream>>>(A, r, ws);
+    else
+      fista_prep_kernel<false><<<(cells + 255) / 256, 256, 0,
+                                 (cudaStream_t)stream>>>(A, r, ws);
+    const int e = (int)cudaGetLastError();
+    if (e) return e;
+  }
   const int in_smem = r <= STEP_SMEM_MAX_RANK;
   const size_t step_smem =
       sizeof(float) * (2 * (size_t)r + (in_smem ? (size_t)r * (r | 1) : 0));
@@ -2006,30 +2384,17 @@ int onmf_dict_update_sweep(const float* W_in, const float* A, const float* B,
 
 namespace {
 
-template <bool kBf16>
-int launch_fista(const float* A, const float* B, const float* H0, float* H,
-                 int r, int n, float alpha, const float* inv_L, float stop,
-                 int sub_iter, int use_stopping, int pi_iters, float* ws,
-                 int blocks, cudaStream_t stream) {
-  if (ws) {
-    const int cells = r * ((r + 3) & ~3);
-    fista_prep_kernel<kBf16><<<(cells + 255) / 256, 256, 0, stream>>>(A, r,
-                                                                      ws);
-    int e = (int)cudaGetLastError();
-    if (e) return e;
-    fista_ws_kernel<kBf16><<<blocks, TN, 0, stream>>>(
-        B, H0, H, r, n, alpha, inv_L, stop, sub_iter, use_stopping, pi_iters,
-        ws);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = onmf_fista_sweeps_smem(r, use_stopping);
-  int e = launch_smem((const void*)fista_tiled_kernel<kBf16>, smem);
+// Launch `kernel` while the step-size kernel before it in the stream still
+// runs (programmatic dependent launch); the kernel waits for it before it
+// reads inv_L.
+template <typename... KArgs, typename... Args>
+int launch_after_step_size(void (*kernel)(KArgs...), int blocks, int threads,
+                           size_t smem, cudaStream_t stream, Args... args) {
+  int e = launch_smem((const void*)kernel, smem);
   if (e) return e;
-  // launched while the step-size kernel before it in the stream still
-  // runs; the kernel waits for it before it reads inv_L
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + TN - 1) / TN);
-  cfg.blockDim = dim3(ft_threads(r));
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -2037,14 +2402,35 @@ int launch_fista(const float* A, const float* B, const float* H0, float* H,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = (int)cudaLaunchKernelEx(&cfg, fista_tiled_kernel<kBf16>, A, B, H0, H, r,
-                              n, alpha, inv_L, stop, sub_iter, use_stopping,
-                              pi_iters);
+  e = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e) {
     cudaGetLastError();
     return e;
   }
   return (int)cudaGetLastError();
+}
+
+template <bool kBf16>
+int launch_fista(const float* A, const float* B, const float* H0, float* H,
+                 int r, int n, float alpha, const float* inv_L, float stop,
+                 int sub_iter, int use_stopping, int pi_iters, float* ws,
+                 int blocks, cudaStream_t stream) {
+  if (ws) {
+    const FwConfig c = fw_config(r, use_stopping);
+    auto kernel = c.resident
+        ? (use_stopping ? fista_wide_kernel<kBf16, true, true>
+                        : fista_wide_kernel<kBf16, true, false>)
+        : (use_stopping ? fista_wide_kernel<kBf16, false, true>
+                        : fista_wide_kernel<kBf16, false, false>);
+    return launch_after_step_size(kernel, blocks, c.threads,
+                                  sizeof(float) * c.smem_floats, stream, B,
+                                  H0, H, r, n, alpha, inv_L, stop, sub_iter,
+                                  pi_iters, ws);
+  }
+  return launch_after_step_size(
+      fista_tiled_kernel<kBf16>, (n + TN - 1) / TN, ft_threads(r),
+      onmf_fista_sweeps_smem(r, use_stopping), stream, A, B, H0, H, r, n,
+      alpha, inv_L, stop, sub_iter, use_stopping, pi_iters);
 }
 
 }  // namespace

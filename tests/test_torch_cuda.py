@@ -169,10 +169,17 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fixed", "earlystop", "fista_fixed",
-                                  "fista_stop", "fista_bf16"])
-@pytest.mark.parametrize("r", [101, 128, 129, 256])
-@pytest.mark.parametrize("n", [ck.TN, 131072 + 37])
+@pytest.mark.parametrize("mode,r,n", [
+    (mode, r, n) for mode in ("fixed", "earlystop", "fista_fixed",
+                              "fista_stop", "fista_bf16")
+    for r in (101, 128, 129, 256) for n in (ck.TN, 131072 + 37)] + [
+    # FISTA's wide kernel on both sides of its regime boundary (Y in shared
+    # memory up to FW_RESIDENT_MAX_RANK, streamed past it) and at the JAX
+    # kernels' limit, three tiles with a ragged one there
+    (mode, r, n) for mode in ("fista_fixed", "fista_stop", "fista_bf16")
+    for r, n in [(r, n) for r in (ck.FW_RESIDENT_MAX_RANK,
+                                  ck.FW_RESIDENT_MAX_RANK + 1, 512)
+                 for n in (ck.TN, 131072 + 37)] + [(ck.MAX_RANK, 300)]])
 def test_cuda_coder_kernels_take_large_ranks(cuda, mode, r, n):
     # every case above a kernel's shared-memory limit raised ValueError
     # before the workspace kernels; now each launches a kernel and agrees
@@ -469,21 +476,33 @@ def test_cuda_fista_bf16_parts_only_at_a_rounding(cuda, r, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("use_stopping", [False, True])
-@pytest.mark.parametrize("r", [8, 25, 100, 128, 256])
+@pytest.mark.parametrize("r", [8, 25, 100, 128, 256, 384, 385, 512, 1248])
 def test_cuda_fista_takes_an_asymmetric_A(cuda, r, use_stopping):
     # the step size comes from A v and the product is A Y, as the plain
     # version forms them: an A that is not symmetric must agree too (the
     # step-size kernel in shared memory and, at r = 256, from device
     # memory). A near-identity Gram plus a shear: 16 power steps have not
     # converged, and on the transpose they end at another step size, which
-    # moves the result by 2e-3 (r = 8) to 1.2 (r = 256)
+    # moves the result by 2e-3 (r = 8) to 1.2 (r = 256). Past r = 256 (the
+    # wide kernel's regimes and the JAX limit) the same inputs reach
+    # |H| ~ 150-450 (300 rows give a singular Gram past r = 300, and the
+    # shear grows as sqrt(r)), where float32 cancellation alone puts the
+    # plain version 5e-5 to 2e-4 from float64 on small entries: there the
+    # dictionary has 2 r rows, the shear is scaled by sqrt(256 / r) and B
+    # by 1 / sqrt(d), which keeps |H| ~ 10 (plain float32 within 6e-6 of
+    # float64 at r = 384 to 1248)
+    wide = r > 256
+    d = 2 * r if wide else 300
     rng = np.random.default_rng(r)
-    W = rng.standard_normal((300, r)).astype(np.float32)
+    W = rng.standard_normal((d, r)).astype(np.float32)
     W /= np.linalg.norm(W, axis=0)
-    B = np.abs(W).T @ rng.random((300, 500)).astype(np.float32)
+    B = np.abs(W).T @ rng.random((d, 500)).astype(np.float32)
+    if wide:
+        B /= np.float32(np.sqrt(d))
     H0 = rng.random((r, 500)).astype(np.float32)
+    shear = 0.1 * float(np.sqrt(256 / r)) if wide else 0.1
     A = W.T @ W + np.triu(
-        0.1 * rng.standard_normal((r, r)).astype(np.float32), 1)
+        shear * rng.standard_normal((r, r)).astype(np.float32), 1)
     A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
     assert not torch.equal(A, A.T)
     kw = dict(sub_iter=10, use_stopping=use_stopping)

@@ -403,6 +403,232 @@ def test_bf16_fista_in_another_sum_order_parts_only_at_a_rounding(r, n):
     assert 0 <= parted <= max(1, n // 500)
 
 
+# float32 PyTorch emulation of the wide FISTA kernel's order of operations
+# (fista_wide_kernel, past the shared ranks), against the Pallas kernel in
+# interpret mode with its tile set to the port's TN and against the plain
+# version. fmaf is a float32 multiply-add rounded once.
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _warp_sum(lanes):
+    """warp_sum's butterfly over 32 lanes' partial sums."""
+    idx = torch.arange(32)
+    m = 16
+    while m:
+        lanes = lanes + lanes[idx ^ m]
+        m //= 2
+    return lanes[0]
+
+
+def _lane_dot(x, y):
+    """sum of fmaf(x[k], y[k]) with lane k % 32 summing its k in order, then
+    warp_sum (ft_normalise, ft_rayleigh)."""
+    m = -(-x.shape[0] // 32)
+    xp, yp = torch.zeros(32 * m), torch.zeros(32 * m)
+    xp[:x.shape[0]], yp[:y.shape[0]] = x, y
+    acc = torch.zeros(32)
+    for i in range(m):
+        acc = _fma(xp[32 * i:32 * i + 32], yp[32 * i:32 * i + 32], acc)
+    return _warp_sum(acc)
+
+
+def _row_matvec(G, v):
+    """ft_matvec: one thread per row k of w = G v, four partial sums over
+    l = q (mod 4) in order (the tail into the first), then (a0 + a1) +
+    (a2 + a3); the absolute row sums alike."""
+    r = G.shape[0]
+    a = [torch.zeros(r) for _ in range(4)]
+    s = [torch.zeros(r) for _ in range(4)]
+    for l in range(r):
+        q = l % 4 if l < r - r % 4 else 0
+        a[q] = _fma(G[l], v[l], a[q])
+        s[q] = s[q] + G[l].abs()
+    return (a[0] + a[1]) + (a[2] + a[3]), (s[0] + s[1]) + (s[2] + s[3])
+
+
+def _normalise(w):
+    return w / torch.clamp_min(torch.sqrt(_lane_dot(w, w)), 1e-30)
+
+
+def _rayleigh(v, w):
+    return _lane_dot(v, w) / torch.clamp_min(_lane_dot(v, v), 1e-30)
+
+
+def _wide_decision(Gd, Gh, vs, stop2, pi_iters):
+    """ft_stop_decision on both Grams; updates the vectors ``vs`` [vd, vh]
+    in place and returns True when the tile converged."""
+    r = Gd.shape[0]
+    v0 = ck._fixed_start(r, torch.float32, "cpu")
+    ws, lb, ub = [], [], []
+    for i, G in enumerate((Gd, Gh)):
+        v = _fma(torch.full((r,), 0.05), v0, vs[i])
+        w, ab = _row_matvec(G, v)
+        trace = _warp_sum(torch.zeros(32).index_add_(
+            0, torch.arange(r) % 32, torch.diagonal(G)))
+        ub.append(torch.minimum(trace, ab.max()))
+        v = _normalise(w)
+        w, _ = _row_matvec(G, v)
+        lb.append(_rayleigh(v, w))
+        vs[i], ws = v, ws + [w]
+    if bool(ub[0] <= stop2 * lb[1]) or bool(lb[0] > stop2 * ub[1]):
+        return bool(ub[0] <= stop2 * lb[1])
+    lam = []
+    for i, G in enumerate((Gd, Gh)):
+        v, w = vs[i], ws[i]
+        for _ in range(pi_iters):
+            v = _normalise(w)
+            w, _ = _row_matvec(G, v)
+        vs[i] = v
+        lam.append(_rayleigh(v, w))
+    return bool(lam[0] <= stop2 * lam[1])
+
+
+def _emulate_fista_wide(A, B, H0, alpha, stop, sub_iter, use_stopping,
+                        bf16=False, pi_iters=12):
+    """fista_wide_kernel: per tile of TN columns, the rows in passes of
+    ``rows``, each pass's sum over j in staged chunks of ``chunk`` rows,
+    one fmaf accumulator per output carried across the chunks (A and Y
+    rounded to bf16 first in bf16 mode); the new columns of every pass
+    before H and Y are updated; with the stop, each Gram's upper blocks
+    (4 x 4 or 8 x 8: the same sums) summed over column chunks of
+    ``gram_cols`` in order (carried from chunk to chunk), mirrored, then
+    ft_stop_decision's per-row power steps; the step applied in the
+    converging iteration too, and the tile's own momentum."""
+    r, n = B.shape
+    _, _, passes, rows, chunk, _, gram_cols, _, _ = ck.fista_wide_config(
+        r, use_stopping)
+    inv_L = ck._inv_lipschitz(A, max(16, pi_iters))
+    Ar = _bf16(A) if bf16 else A
+    stop2 = torch.tensor(stop, dtype=torch.float32) ** 2
+    out = torch.empty_like(B)
+    for t0 in range(0, n, ck.TN):
+        w = min(ck.TN, n - t0)
+        H, b = torch.zeros((r, ck.TN)), torch.zeros((r, ck.TN))
+        H[:, :w], b[:, :w] = H0[:, t0:t0 + w], B[:, t0:t0 + w]
+        Y, tm = H.clone(), torch.tensor(1.0)
+        vs = [ck._fixed_start(r, torch.float32, "cpu")] * 2
+        for _ in range(sub_iter):
+            tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tm * tm))
+            mom, tm = (tm - 1.0) / tn, tn
+            Yr = _bf16(Y) if bf16 else Y
+            Hn = torch.zeros_like(Y)
+            for p in range(passes):
+                k = slice(p * rows, min(r, (p + 1) * rows))
+                acc = torch.zeros((k.stop - k.start, ck.TN))
+                for j0 in range(0, r, chunk):
+                    for j in range(j0, min(r, j0 + chunk)):
+                        acc = _fma(Ar[k, j, None], Yr[j], acc)
+                Hn[k] = torch.clamp_min(
+                    Y[k] - inv_L * (acc - b[k] + alpha), 0.0)
+            Hn[:, w:] = 0.0
+            conv = False
+            if use_stopping:
+                grams = []
+                for M in (Hn - H, H):
+                    G = torch.zeros((r, r))
+                    for c0 in range(0, ck.TN, gram_cols):
+                        for c in range(c0, c0 + gram_cols):
+                            G = _fma(M[:, c, None], M[None, :, c], G)
+                    grams.append(G)
+                conv = _wide_decision(*grams, vs, stop2, pi_iters)
+            H, Y = Hn, Hn + mom * (Hn - H)
+            if conv:
+                break
+        out[:, t0:t0 + w] = H[:, :w]
+    return out
+
+
+@pytest.mark.parametrize("mode,r", [("fixed", 129), ("fixed", 256),
+                                    ("stop", 101), ("stop", 129),
+                                    ("stop", 256), ("bf16", 129),
+                                    ("bf16", 256)])
+def test_wide_fista_emulation_matches_pallas(mode, r):
+    # two whole tiles and a ragged one; the same tiles, rule and momentum
+    # as the Pallas kernel at block_n = TN and the plain version, so the
+    # same iterations per tile and the iterates at the float32 tolerance
+    # (bf16: ten iterations at the Pallas bf16 tolerances, one at float32)
+    n = 2 * ck.TN + 37
+    A, B, H0, obj, _ = problem(d=300, r=r, n=n, seed=r + len(mode),
+                               dtype=np.float32)
+    stop = 0.01 if mode == "stop" else 0.0
+    kw = dict(sub_iter=20 if mode == "stop" else 10,
+              use_stopping=mode == "stop")
+    bf16 = mode == "bf16"
+    got = _emulate_fista_wide(_t(A), _t(B), _t(H0), 0.1, stop, bf16=bf16,
+                              **kw)
+    assert got.dtype == torch.float32
+    want = _pallas_fista(A, B, H0, 0.1, stop, bf16_matmul=bf16, **kw)
+    if bf16:
+        np.testing.assert_allclose(got.numpy(), want, **BF16_TOL)
+        assert abs(obj(got.numpy(), 0.1) - obj(want, 0.1)) \
+            <= 0.005 * abs(obj(want, 0.1)) + 1e-6
+        kw["sub_iter"] = 1
+        got = _emulate_fista_wide(_t(A), _t(B), _t(H0), 0.1, stop,
+                                  bf16=True, **kw)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    plain = ck.fista_sweeps_plain(_t(A), _t(B), _t(H0), 0.1, stop,
+                                  bf16_matmul=bf16, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("use_stopping", [False, True])
+def test_wide_fista_emulation_streamed_matches_plain(use_stopping):
+    # the streamed regime (Y in the workspace, four passes of 100 rows)
+    # past FW_RESIDENT_MAX_RANK, a ragged second tile
+    r, n = ck.FW_RESIDENT_MAX_RANK + 1, ck.TN + 21
+    assert ck.fista_wide_config(r, use_stopping)[:4] == (
+        "streamed", 416, 4, 100)
+    A, B, H0, _, _ = problem(d=500, r=r, n=n, seed=5, dtype=np.float32)
+    kw = dict(sub_iter=4, use_stopping=use_stopping)
+    got = _emulate_fista_wide(_t(A), _t(B), _t(H0), 0.1, 0.01, **kw)
+    plain = ck.fista_sweeps_plain(_t(A), _t(B), _t(H0), 0.1, 0.01, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+def test_fista_wide_config_by_rank_alone():
+    # the regimes and the shapes at the boundaries, and every wide rank
+    # fits a block of at most 512 threads and an SM's shared memory. With
+    # the stop: 4 x 4 Gram blocks while those take the threads at most two
+    # rounds, 8 x 8 past it; the Grams (rows to a multiple of the block),
+    # the six power vectors and the staged tile in shared memory up to
+    # r = 136, in the workspace past it
+    assert ck.fista_wide_config(101, True) == (
+        "resident", 416, 1, 104, 32, 4, 128, True,
+        4 * (608 + 2 * 104 * 104 + 128 * 108))
+    assert ck.fista_wide_config(129) == (
+        "resident", 288, 2, 68, 32, 4, 128, False,
+        4 * (129 * 128 + 2 * 32 * 68))
+    assert ck.fista_wide_config(132, True)[5:8] == (4, 128, True)
+    assert ck.fista_wide_config(133, True)[5:8] == (8, 128, True)
+    assert ck.fista_wide_config(136, True)[7] is True
+    assert ck.fista_wide_config(137, True)[7:] == (
+        False, 4 * (137 * 128 + 2 * 32 * 72))
+    assert ck.fista_wide_config(256)[:4] == ("resident", 512, 2, 128)
+    assert ck.fista_wide_config(384)[8] == 229376
+    assert ck.fista_wide_config(385)[:4] == ("streamed", 416, 4, 100)
+    assert ck.fista_wide_config(512, True)[5:] == (8, 64, False,
+                                                   4 * 64 * 516)
+    assert ck.fista_wide_config(1248, True)[1:7] == (512, 10, 128, 32, 8, 32)
+    for use_stopping, first in ((False, 129), (True, 101)):
+        for r in range(first, ck.MAX_RANK + 1):
+            regime, threads, passes, rows, chunk, side, cols, shared, \
+                smem = ck.fista_wide_config(r, use_stopping)
+            assert (regime == "resident") == (r <= ck.FW_RESIDENT_MAX_RANK)
+            assert threads % 32 == 0 and 64 <= threads <= 512
+            assert threads >= 4 * rows and rows % 4 == 0
+            assert passes * rows >= r > (passes - 1) * rows
+            assert chunk == 32 and cols & (cols - 1) == 0 and cols <= ck.TN
+            nb = -(-r // 4)
+            assert side == (8 if nb * (nb + 1) // 2 > 2 * threads else 4)
+            grams = -(-r // side) * side
+            stride = grams if (grams // 4) % 2 else grams + 4
+            assert smem <= 229376 and (
+                not use_stopping or 4 * cols * stride <= smem)
+            assert shared == (use_stopping and r <= 136)
+
+
 def test_fista_tile_config_by_rank_alone():
     # threads, row stride, Gram lanes and shared memory at the paths'
     # ranks; every rank of the shared routes fits a block and an SM
