@@ -19,11 +19,11 @@ of ten fixed bf16 FISTA iterations against the plain version, with the
 columns past ``chip_smoke.py``'s ``BF16_TOL`` counted and the worst one
 traced to the iteration and the rounding where it parted. ``ws`` times the
 coders past their shared-memory ranks at ``chip_smoke.py``'s
-``LARGE_RANK_SHAPES``: FISTA in each mode whose route there is the
-workspace (the wide kernel; a package from before it runs its one thread
-per column kernel), and the early stop's workspace kernel beside it as a
-control (the same kernel in both versions); a CUDA graph of 3 calls,
-replayed twice, the lesser mean kept. ``dp`` joins a
+``LARGE_RANK_SHAPES``: the early stop and the fixed sweeps where their
+route there is the workspace (the wide Gauss-Seidel kernel; a package from
+before it runs its one thread per column kernels), and FISTA in each mode
+whose route is the workspace (the wide FISTA kernel) beside them; a CUDA
+graph of 3 calls, replayed twice, the lesser mean kept. ``dp`` joins a
 one-rank NCCL group and prints host ms a step of ``dp_train_dict`` beside
 ``train_dict`` at the headline shape (50 steps, fixed sweeps and the stop,
 the least of 3 runs), and the Ising learner at ``chip_smoke.py``'s
@@ -82,6 +82,9 @@ def ws_times(ck, tag, dev, gen):
             line["coder_sweeps_earlystop_ms"] = graph_ms(
                 lambda: ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01),
                 reps=3, replays=2)
+        if ck.kernel_route("coder_sweeps", r) == "workspace":
+            line["coder_sweeps_ms"] = graph_ms(
+                lambda: ck.coder_sweeps(A, B, H0, 0.1), reps=3, replays=2)
         print(json.dumps(line), flush=True)
 
 

@@ -13,7 +13,7 @@ Phases, each printing its findings on a line of its own:
              FISTA over one iteration at that tolerance and over ten at
              atol 1.5e-3, each outside the f32 tolerance of the f32 plain
              version; the coders past their shared-memory ranks (the
-             workspace kernels, FISTA's wide kernel) at
+             wide Gauss-Seidel and FISTA kernels) at
              ``LARGE_RANK_SHAPES``: r in {128, 256} and 101 for the
              stopping modes at n = 131072 + 37, r = 512 at n = 16384, each
              with its kernel, bound and share. Then the dictionary kernel,
@@ -173,16 +173,17 @@ PATH_SHAPES = {
 }
 # The coders past their shared-memory ranks, d = 300: (r, n). r = 101 runs
 # the two stopping modes only (the others are on their shared kernels
-# there); r = 512 on one wave of 128 tiles, so that the workspace kernels
-# of before the wide FISTA kernel stay within the smoke's time.
+# there); r = 512 on one wave of 128 tiles, so that the plain versions
+# (r dependent row steps a sweep) and the one thread per column kernels of
+# a parent package timed by chip_compare.py stay within a call's time.
 LARGE_RANK_SHAPES = [(101, HEADLINE_N), (128, HEADLINE_N),
                      (256, HEADLINE_N), (512, 16384)]
 # The CUDA kernel of each coder's route (kernel_route)
 ROUTE_KERNELS = {
     ("coder_sweeps", "shared"): "coder_lanes_kernel",
-    ("coder_sweeps", "workspace"): "coder_sweeps_ws_kernel",
+    ("coder_sweeps", "workspace"): "coder_wide_kernel",
     ("coder_sweeps_earlystop", "shared"): "coder_es_lanes_kernel",
-    ("coder_sweeps_earlystop", "workspace"): "coder_es_ws_kernel",
+    ("coder_sweeps_earlystop", "workspace"): "coder_wide_kernel",
     ("fista_sweeps", "shared"): "fista_tiled_kernel",
     ("fista_sweeps", "workspace"): "fista_wide_kernel",
 }
@@ -621,6 +622,10 @@ def cuda_kernel(ck, name, r, kw):
     kernel = ROUTE_KERNELS[(name, route)]
     if kernel == "fista_wide_kernel":
         kernel += f" ({ck.fista_wide_config(r, stop)[0]})"
+    elif kernel == "coder_wide_kernel":
+        lanes, _, passes = ck.coder_wide_config(
+            r, name == "coder_sweeps_earlystop")[:3]
+        kernel += f" ({lanes} lanes, {passes} passes)"
     return kernel
 
 

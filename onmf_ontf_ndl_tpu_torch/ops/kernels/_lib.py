@@ -105,7 +105,7 @@ def build() -> dict:
         compiled = True
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.onmf_coder_sweeps.argtypes = [p, p, p, p, i, i, f, i, i, p]
+    lib.onmf_coder_sweeps.argtypes = [p, p, p, p, i, i, f, i, p, i, p]
     lib.onmf_coder_sweeps_earlystop.argtypes = [p, p, p, p, i, i, f, f, i,
                                                 i, p, i, p]
     lib.onmf_fista_sweeps.argtypes = [p, p, p, p, i, i, f, p, i, f, i, i, i,
@@ -122,8 +122,7 @@ def build() -> dict:
                lib.onmf_tile_columns):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
-    for fn, args in ((lib.onmf_earlystop_slice_floats, [i]),
-                     (lib.onmf_dict_smem_floats, [i, i]),
+    for fn, args in ((lib.onmf_dict_smem_floats, [i, i]),
                      (lib.onmf_coder_sweeps_smem, [i]),
                      (lib.onmf_fista_sweeps_smem, [i, i]),
                      (lib.onmf_fista_head_floats, [i]),
@@ -131,8 +130,9 @@ def build() -> dict:
                      (lib.onmf_checkerboard_smem, [i, i])):
         fn.argtypes = args
         fn.restype = ctypes.c_size_t
-    lib.onmf_fista_wide_config.argtypes = [i, i, ctypes.POINTER(i)]
-    lib.onmf_fista_wide_config.restype = None
+    for fn in (lib.onmf_fista_wide_config, lib.onmf_coder_wide_config):
+        fn.argtypes = [i, i, ctypes.POINTER(i)]
+        fn.restype = None
     lib.onmf_error_string.argtypes = [i]
     lib.onmf_error_string.restype = ctypes.c_char_p
     if lib.onmf_tile_columns() != TN:

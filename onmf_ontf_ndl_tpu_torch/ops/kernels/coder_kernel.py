@@ -108,22 +108,37 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
 **Ranks.** Each coder has two kernels, chosen by :func:`kernel_route`
 from r alone: ``"shared"`` keeps A, the tiles and the Grams in one block's
 shared memory and registers (the kernels above; the limits are
-:data:`SMEM_MAX_RANK`); ``"workspace"`` keeps the tiles, the Grams and the
-power vectors in a device workspace, one slice per resident block, the
-grid striding over the tiles. For ``coder_sweeps`` and the early stop it
-runs one thread per column and reads A from device memory (L2)
-(``coder_sweeps`` sweeps each column in place in its output); for FISTA
-it is the wide kernel above. Both
+:data:`SMEM_MAX_RANK`); ``"workspace"`` runs a wide kernel: one block of
+512 threads per tile and SM, the grid striding over the tiles, A's table
+at the head of a device workspace staged through shared memory by
+``cp.async`` in chunks, and what does not fit an SM (the tiles, the Grams,
+the power vectors) in the block's slice of the workspace, one slice per
+SM. For the two Gauss-Seidel coders it is ``coder_wide_kernel``
+(:func:`coder_wide_config`): the sweep in direct form, the plain
+version's own (``g = A[k, :] h - b_k + alpha``, then the step on row k):
+8 lanes share a column up to r = 256 (16 up to 512, 32 past it), each
+holding its float4 slots of the rows of two columns in registers and
+summing them against A's row into four accumulators; a butterfly of
+shuffles gives every lane the dot product and the row's owner takes the
+step. Each float4 of A's row, staged 16 rows at a time with the same rows
+of B's columns, feeds eight multiply-adds; the tile's 128 columns go in
+one pass up to r = 256 and in 2 or 4 passes past it, A streamed again for
+each. With the stop the Grams and the decision are the wide FISTA
+kernel's. The residual form of the shared kernels needs ``g`` formed anew
+every sweep past r = 32 (twice the multiply-adds), and its float32 rank-1
+updates put it 1.3e-5 (r = 256) to 3.9e-5 (r = 512) from the plain
+version after ten sweeps in a host emulation, where the direct form stays
+within 7e-7. For FISTA the workspace route is the wide kernel above. Both
 serve every r up to :data:`MAX_RANK` = 1248, the largest r whose Gram the
 JAX wrappers keep in their kernel (``round_up(r, 8)^2 * 4 B <= 6 MiB``,
 ``pallas/coder_kernel.py:147``). Past it the wrappers do what the JAX
 wrappers do: the same maths without a kernel (``ops.coder._code_impl``,
 whose early stop is the whole-batch rule, and ``_fista_impl``), on the
 tensor's device; ``"unfused"`` routes count no launch. What bounds the
-workspace form of the two Gauss-Seidel coders: each of the sweeps' and the
-Grams' loads goes to L1/L2 in place of shared memory (the Gram loop takes
-one pair per warp, the lanes along the tile's rows, so that its loads are
-contiguous).
+wide Gauss-Seidel kernel: the sweep's r^2 multiply-adds a column (and with
+the stop the Grams' as many again) on the CUDA cores, each A operand a
+shared-memory load shared by two columns, and within a column the chain of
+r coordinate steps.
 
 The TPU blocking (``block_rows``/``_block_corr``, the (8, 128) padding of
 ``_tile_plan``, SMEM staging) is not carried over.
@@ -147,7 +162,8 @@ __all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
            "coder_sweeps_earlystop_plain", "fista_sweeps_plain",
            "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
            "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route", "dict_route",
-           "coder_lanes_config", "fista_tile_config", "fista_wide_config",
+           "coder_lanes_config", "coder_wide_config", "fista_tile_config",
+           "fista_wide_config",
            "FW_RESIDENT_MAX_RANK"]
 
 # Largest rank each coder runs as a kernel: the JAX kernels' limit
@@ -160,10 +176,9 @@ SMEM_MAX_RANK = {
     "fista_sweeps": 128,            # 512 threads of 4 x 8 outputs
     "fista_sweeps_stop": 100,       # + both Grams, as the early stop
 }
-# Workspace of the workspace kernels: at most this many bytes of slices,
-# and at most this many resident blocks per SM (the wide FISTA kernel: one).
+# Workspace of the wide kernels: at most this many bytes of slices; one
+# block of 512 threads is resident per SM, so one slice per SM.
 _WS_BYTES = 1 << 30
-_WS_BLOCKS_PER_SM = 8
 # The wide FISTA kernel (csrc FW_*): threads, rows j of a staged chunk, the
 # largest rank whose tile of Y stays in shared memory, and the shared floats
 # a transposed Gram chunk may take (224 KB: r = 384's Y and chunks).
@@ -171,6 +186,13 @@ _FW_MAX_THREADS = 512
 _FW_CHUNK = 32
 FW_RESIDENT_MAX_RANK = 384
 _FW_SMEM_FLOATS = 57344
+# The wide Gauss-Seidel kernel (csrc CW_*, cw_regime): threads, rows of A
+# a staged chunk, and the regimes by rank: the largest r, lanes a column,
+# columns a thread and float4 slots a lane.
+_CW_THREADS = 512
+_CW_CHUNK = 16
+_CW_REGIMES = ((128, 8, 2, 4), (192, 8, 2, 6), (256, 8, 2, 8),
+               (512, 16, 2, 8), (1280, 32, 2, 10))
 
 
 def kernel_route(name: str, r: int) -> str:
@@ -220,6 +242,67 @@ def fista_tile_config(r: int, use_stopping: bool = False):
     return threads, stride, lanes, 4 * floats
 
 
+def _gram_shape(r: int, threads: int, use_stopping: bool):
+    """The wide kernels' Gram shape at rank r (csrc ``fw_config``,
+    ``cw_config``): the side of the Grams' register blocks (8 where 4 x 4
+    blocks would take the ``threads`` more than two rounds, else 4), a
+    Gram's rows (r to a multiple of the side), the staged tile's row stride
+    (at least that, with an odd quarter), the columns of a staged Gram
+    chunk (the largest power of two up to TN whose tile fits 224 KB), and
+    the floats of the power vectors and of both Grams and whether those
+    and a chunk fit 224 KB of shared memory."""
+    nb = -(-r // 4)
+    side = 8 if nb * (nb + 1) // 2 > 2 * threads else 4
+    rows = -(-r // side) * side
+    stride = rows if (rows // 4) % 2 else rows + 4
+    cols = TN
+    while cols > 1 and cols * stride > _FW_SMEM_FLOATS:
+        cols //= 2
+    vectors, grams = -(-6 * r // 4) * 4, 2 * rows * rows
+    shared = (use_stopping
+              and vectors + grams + cols * stride <= _FW_SMEM_FLOATS)
+    return side, rows, stride, cols, vectors, grams, shared
+
+
+def coder_wide_config(r: int, use_stopping: bool = True):
+    """``(lanes, slots, passes, chunk, gram_block, gram_cols, grams_shared,
+    smem_bytes, head_floats, slice_floats)`` of the wide Gauss-Seidel
+    kernel (``coder_wide_kernel``) at rank ``r``, from ``r`` and the mode
+    alone (csrc ``cw_config``): 8 lanes share a column up to r = 256, 16 up
+    to 512, 32 past it, each holding ``slots`` float4 slots of rows of its
+    two columns (4, 6 or 8 with 8 lanes, 8 with 16, 10 with 32; A's rows
+    are zero-padded to ``4 lanes slots``); the block's 512 threads sweep
+    1024 / lanes columns at a time, so the tile's 128 in ``passes`` passes;
+    rows of A (and of B's
+    columns) a staged chunk; with the stop, the Grams' block side and
+    chunk columns and whether the Grams and power vectors fit shared
+    memory (:func:`_gram_shape` at 512 threads); the block's shared
+    memory; the workspace's floats: A's table (rows padded to
+    ``4 lanes slots``) and, with the stop, one slice per block (the two
+    iterate tiles, and the Grams and vectors where they are not shared)."""
+    name = "coder_sweeps_earlystop" if use_stopping else "coder_sweeps"
+    if kernel_route(name, r) != "workspace":
+        raise ValueError(f"no wide {name} kernel at r={r}")
+    lanes, per_thread, slots = next(reg[1:] for reg in _CW_REGIMES
+                                    if r <= reg[0])
+    stride, cols_pass = 4 * lanes * slots, _CW_THREADS * per_thread // lanes
+    sweep = 2 * _CW_CHUNK * (stride + cols_pass) + -(-r // 4) * 4
+    side, _, gram_stride, cols, vectors, grams, shared = _gram_shape(
+        r, _CW_THREADS, use_stopping)
+    staged = cols * gram_stride
+    floats = sweep
+    if shared:
+        floats = vectors + max(sweep, grams + staged)
+    elif use_stopping:
+        floats = max(sweep, staged)
+    slice_floats = 0
+    if use_stopping:
+        slice_floats = 2 * r * TN + (0 if shared else grams + vectors)
+        slice_floats = -(-slice_floats // 32) * 32
+    return (lanes, slots, TN // cols_pass, _CW_CHUNK, side, cols, shared,
+            4 * floats, r * stride, slice_floats)
+
+
 def fista_wide_config(r: int, use_stopping: bool = False):
     """``(regime, threads, passes, rows, chunk, gram_block, gram_cols,
     grams_shared, smem_bytes)`` of the wide :func:`fista_sweeps` kernel at
@@ -244,15 +327,8 @@ def fista_wide_config(r: int, use_stopping: bool = False):
     resident = r <= FW_RESIDENT_MAX_RANK
     product = (2 * _FW_CHUNK * (4 * blocks + (0 if resident else TN))
                + (r * TN if resident else 0))
-    side = 8 if nb * (nb + 1) // 2 > 2 * threads else 4
-    rows = -(-r // side) * side            # a Gram's rows and row stride
-    stride = rows if (rows // 4) % 2 else rows + 4   # the staged tile's
-    cols = TN
-    while cols > 1 and cols * stride > _FW_SMEM_FLOATS:
-        cols //= 2
-    vectors, grams = -(-6 * r // 4) * 4, 2 * rows * rows
-    shared = (use_stopping
-              and vectors + grams + cols * stride <= _FW_SMEM_FLOATS)
+    side, _, stride, cols, vectors, grams, shared = _gram_shape(
+        r, threads, use_stopping)
     floats = product
     if shared:
         floats = vectors + max(product, grams + cols * stride)
@@ -309,16 +385,16 @@ def dict_route(d: int, r: int) -> tuple[str, int]:
     return ("shared" if c == 1 else "cluster"), c
 
 
-def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0,
-               per_sm: int = _WS_BLOCKS_PER_SM):
-    """The workspace of a workspace kernel and its block count: one slice
-    of ``slice_floats`` per block (after ``head_floats`` shared by all),
-    as many blocks as there are tiles, up to ``per_sm`` per SM and
+def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0):
+    """The workspace of a wide kernel and its block count: one slice of
+    ``slice_floats`` per block (after ``head_floats`` shared by all), as
+    many blocks as there are tiles, up to one per SM (the kernels' 512
+    threads and shared memory keep one block on an SM) and
     :data:`_WS_BYTES` of slices."""
     tiles = -(-B.shape[1] // TN)
     sms = torch.cuda.get_device_properties(B.device).multi_processor_count
-    blocks = max(1, min(tiles, per_sm * sms,
-                        _WS_BYTES // (4 * slice_floats)))
+    blocks = max(1, min(tiles, sms,
+                        _WS_BYTES // max(4 * slice_floats, 1)))
     ws = torch.empty(head_floats + blocks * slice_floats,
                      dtype=torch.float32, device=B.device)
     return ws, blocks
@@ -365,11 +441,14 @@ def coder_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
     if n == 0:
         return out
     lib = build()["lib"]
+    ws, blocks = None, 0
+    if route == "workspace":
+        ws, blocks = _workspace(B, 0, coder_wide_config(r, False)[8])
     with torch.cuda.device(B.device):
         err = lib.onmf_coder_sweeps(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,
-            float(alpha), int(sub_iter), int(route == "workspace"),
-            _stream(B))
+            float(alpha), int(sub_iter), None if ws is None else ws.data_ptr(),
+            blocks, _stream(B))
     _raise_on_error("coder_sweeps", err)
     LAUNCHES["coder_sweeps"] += 1
     return out
@@ -401,7 +480,8 @@ def coder_sweeps_earlystop(A: torch.Tensor, B: torch.Tensor,
     lib = build()["lib"]
     ws, blocks = None, 0
     if route == "workspace":
-        ws, blocks = _workspace(B, lib.onmf_earlystop_slice_floats(r))
+        cfg = coder_wide_config(r, True)
+        ws, blocks = _workspace(B, cfg[9], cfg[8])
     with torch.cuda.device(B.device):
         err = lib.onmf_coder_sweeps_earlystop(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,
@@ -449,7 +529,7 @@ def fista_sweeps(A: torch.Tensor, B: torch.Tensor, H0: torch.Tensor,
     if route == "workspace":
         ws, blocks = _workspace(
             B, lib.onmf_fista_slice_floats(r, int(use_stopping)),
-            lib.onmf_fista_head_floats(r), per_sm=1)
+            lib.onmf_fista_head_floats(r))
     with torch.cuda.device(B.device):
         err = lib.onmf_fista_sweeps(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,

@@ -16,13 +16,19 @@
 //     block's shared memory or registers, one block per tile of TN columns
 //     (the small ranks: they must fit 227 KB): coder_lanes_kernel,
 //     fista_tiled_kernel and, for the early stop, coder_es_lanes_kernel;
-//   workspace: A read from device memory (through L2: 6 MiB at the JAX
-//     kernels' largest rank), the tiles, the Grams and the power vectors in
-//     a device workspace, one slice per resident block, the grid striding
-//     over the tiles: coder_sweeps_ws_kernel (each column kept in the
-//     output itself), coder_es_ws_kernel, and for FISTA fista_wide_kernel
-//     (A^T staged through shared memory in chunks, the tile of Y in shared
-//     memory or, past FW_RESIDENT_MAX_RANK, in the workspace).
+//   workspace (the wide kernels): one block of 512 threads per tile and
+//     SM, the grid striding over the tiles, A's table at the head of a
+//     device workspace (6 MiB at the JAX kernels' largest rank) staged
+//     through shared memory by cp.async in chunks, and where they do not
+//     fit an SM the tiles, the Grams and the power vectors in the block's
+//     slice of the workspace (one slice per SM: it stays in L2).
+//     coder_wide_kernel runs the Gauss-Seidel sweeps in direct form, each
+//     column's rows in the registers of the 8 to 32 lanes that share it,
+//     with the early stop or without it; fista_wide_kernel runs FISTA as a
+//     register-tiled product
+//     (the tile of Y in shared memory or, past FW_RESIDENT_MAX_RANK, in the
+//     workspace). Both take their Grams and the stop decision from
+//     wide_tile_grams and ft_stop_decision.
 // The dictionary update runs dict_update_kernel on one CTA or a cluster,
 // or dict_update_single_kernel past the cluster's shared memory, chosen by
 // the wrapper from (d, r) alone.
@@ -60,238 +66,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// One Gauss-Seidel sweep of the nonnegative-LASSO rows over one column:
-//   h[k] <- max(0, h[k] - rs / (A_kk + 1) * (A[k, :] h - b[k] + alpha)).
-// h: the column, element k at h[k * stride] (shared memory or device
-// memory); A in shared or device memory (every thread reads the same
-// A[k, j]: a broadcast); b[k] at bcol[k * n] in device memory.
-template <typename Stride>
-__device__ __forceinline__ void sweep_column(const float* __restrict__ As,
-                                             const float* __restrict__ bcol,
-                                             float* h, Stride stride, int r,
-                                             int n, float alpha, float rs) {
-  for (int k = 0; k < r; ++k) {
-    const float* a = As + (size_t)k * r;
-    float g = 0.f;
-    for (int j = 0; j < r; ++j) g = fmaf(a[j], h[j * stride], g);
-    g = g - __ldg(bcol + (size_t)k * n) + alpha;
-    const float step = rs / (a[k] + 1.0f);
-    h[k * stride] = fmaxf(h[k * stride] - step * g, 0.f);
-  }
-}
-
-// The workspace form of coder_sweeps (r > CS_MAX_RANK): one thread per
-// column, A read from device memory and each column swept in place in the
-// output H (consecutive threads, consecutive columns: coalesced).
-__global__ void coder_sweeps_ws_kernel(const float* __restrict__ A,
-                                       const float* __restrict__ B,
-                                       const float* __restrict__ H0,
-                                       float* __restrict__ H, int r, int n,
-                                       float alpha, int sub_iter) {
-  const int c = blockIdx.x * TN + threadIdx.x;
-  if (c >= n) return;
-  float* h = H + c;
-  for (int k = 0; k < r; ++k) h[(size_t)k * n] = H0[(size_t)k * n + c];
-  for (int i = 0; i < sub_iter; ++i)
-    sweep_column(A, B + c, h, (size_t)n, r, n, alpha,
-                 1.0f / sqrtf((float)i + 10.0f));
-}
-
-// Warm power iteration on both Grams at once (one warp), `iters` steps from
-// the vectors in vd/vh (updated in place), then their Rayleigh quotients.
-// Mirrors _lambda_max_warm_pair of the TPU kernel.
-__device__ void warm_pair(const float* Gd, const float* Gh, float* vd,
-                          float* vh, float* wd, float* wh, int r, int iters,
-                          float* lam_d, float* lam_h) {
-  const int lane = threadIdx.x & 31;
-  for (int it = 0; it < iters; ++it) {
-    float sd = 0.f, sh = 0.f;
-    for (int k = lane; k < r; k += 32) {
-      float ad = 0.f, ah = 0.f;
-      for (int l = 0; l < r; ++l) {
-        ad = fmaf(Gd[k * r + l], vd[l], ad);
-        ah = fmaf(Gh[k * r + l], vh[l], ah);
-      }
-      wd[k] = ad;
-      wh[k] = ah;
-      sd += ad * ad;
-      sh += ah * ah;
-    }
-    sd = warp_sum(sd);
-    sh = warp_sum(sh);
-    const float nd = fmaxf(sqrtf(sd), 1e-30f);
-    const float nh = fmaxf(sqrtf(sh), 1e-30f);
-    __syncwarp();
-    for (int k = lane; k < r; k += 32) {
-      vd[k] = wd[k] / nd;
-      vh[k] = wh[k] / nh;
-    }
-    __syncwarp();
-  }
-  float qd = 0.f, pd = 0.f, qh = 0.f, ph = 0.f;
-  for (int k = lane; k < r; k += 32) {
-    float ad = 0.f, ah = 0.f;
-    for (int l = 0; l < r; ++l) {
-      ad = fmaf(Gd[k * r + l], vd[l], ad);
-      ah = fmaf(Gh[k * r + l], vh[l], ah);
-    }
-    qd += vd[k] * ad;
-    pd += vd[k] * vd[k];
-    qh += vh[k] * ah;
-    ph += vh[k] * vh[k];
-  }
-  *lam_d = warp_sum(qd) / fmaxf(warp_sum(pd), 1e-30f);
-  *lam_h = warp_sum(qh) / fmaxf(warp_sum(ph), 1e-30f);
-}
-
-// Certified upper bound on lambda_max of a PSD matrix: min(trace, max
-// absolute row sum). One warp.
-__device__ float psd_lambda_ub(const float* G, int r) {
-  const int lane = threadIdx.x & 31;
-  float tr = 0.f, rowmax = 0.f;
-  for (int k = lane; k < r; k += 32) {
-    tr += G[k * r + k];
-    float s = 0.f;
-    for (int l = 0; l < r; ++l) s += fabsf(G[k * r + l]);
-    rowmax = fmaxf(rowmax, s);
-  }
-  return fminf(warp_sum(tr), warp_max(rowmax));
-}
-
-// Grams over one tile's TN columns, upper triangle (k <= l) mirrored:
-// Gd = D D^T and Gh = O O^T, with D = P - O. Columns outside the batch hold
-// 0 in P and O. Workspace tiles, row stride TN: one pair per warp, the lanes
-// over the columns, so that each load is one contiguous row segment.
-__device__ void tile_grams(const float* P, const float* O, float* Gd,
-                           float* Gh, int r) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int k = 0; k < r; ++k)
-    for (int l = k + warp; l < r; l += nwarps) {
-      float gd = 0.f, gh = 0.f;
-      for (int cc = lane; cc < TN; cc += 32) {
-        const float ok = O[k * TN + cc], ol = O[l * TN + cc];
-        const float dk = P[k * TN + cc] - ok, dl = P[l * TN + cc] - ol;
-        gd = fmaf(dk, dl, gd);
-        gh = fmaf(ok, ol, gh);
-      }
-      gd = warp_sum(gd);
-      gh = warp_sum(gh);
-      if (lane == 0) {
-        Gd[k * r + l] = gd;
-        Gd[l * r + k] = gd;
-        Gh[k * r + l] = gh;
-        Gh[l * r + k] = gh;
-      }
-    }
-}
-
-// The per-tile stop (_stopping_update), decided by one warp:
-// sigma(delta)^2 <= stop^2 sigma(H_old)^2, certified bounds first. One warm
-// power step gives Rayleigh lower bounds, trace/Gershgorin give upper
-// bounds; only in the band between them do pi_iters more warm steps decide.
-// vd/vh carry the eigenvector estimates from sweep to sweep. Every lane
-// returns the same decision (1 = converged).
-__device__ int stop_decision(const float* Gd, const float* Gh, const float* v0,
-                             float* vd, float* vh, float* wd, float* wh,
-                             int r, float stop2, int pi_iters) {
-  for (int k = threadIdx.x & 31; k < r; k += 32) {
-    vd[k] += 0.05f * v0[k];
-    vh[k] += 0.05f * v0[k];
-  }
-  __syncwarp();
-  float lb_d, lb_h;
-  warm_pair(Gd, Gh, vd, vh, wd, wh, r, 1, &lb_d, &lb_h);
-  const float ub_d = psd_lambda_ub(Gd, r);
-  const float ub_h = psd_lambda_ub(Gh, r);
-  const bool conv_certain = ub_d <= stop2 * lb_h;
-  const bool notconv_certain = lb_d > stop2 * ub_h;
-  int cv = conv_certain;
-  if (!conv_certain && !notconv_certain) {
-    float num, den;
-    warm_pair(Gd, Gh, vd, vh, wd, wh, r, pi_iters, &num, &den);
-    cv = num <= stop2 * den;
-  }
-  return cv;
-}
-
-// Start vectors of the power steps: _fixed_start, an unstructured positive
-// vector, in v0, vd and vh.
-__device__ void init_power_vectors(float* v0, float* vd, float* vh, int r) {
-  for (int k = threadIdx.x; k < r; k += blockDim.x) {
-    v0[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
-    vd[k] = v0[k];
-    vh[k] = v0[k];
-  }
-}
-
-// Floats of one block's workspace slice in coder_es_ws_kernel:
-// the iterate and old-iterate tiles, both Grams and five r-vectors.
-__host__ __device__ size_t es_slice_floats(int r) {
-  return 2 * (size_t)r * TN + 2 * (size_t)r * r + 5 * (size_t)r;
-}
-
-// The workspace form of the early-stop coder (r > ES_MAX_RANK): one thread
-// per column, A read from device memory, the tiles, Grams and power vectors
-// in the block's workspace slice, the grid striding over the tiles.
-__global__ void coder_es_ws_kernel(const float* __restrict__ A,
-                                   const float* __restrict__ B,
-                                   const float* __restrict__ H0,
-                                   float* __restrict__ H, int r, int n,
-                                   float alpha, float stop, int sub_iter,
-                                   int pi_iters, float* __restrict__ ws) {
-  constexpr int S = TN;      // tile row stride
-  const float* As = A;
-  // (r, S) iterate, column t at Hs[k * S + t]
-  float* Hs = ws + (size_t)blockIdx.x * es_slice_floats(r);
-  float* Os = Hs + r * S;    // (r, S) iterate before the current sweep
-  float* Gd = Os + r * S;    // (r, r) delta Gram
-  float* Gh = Gd + r * r;    // (r, r) iterate Gram
-  float* v0 = Gh + r * r;    // (r) fixed start vector
-  float* vd = v0 + r;        // (r) carried eigenvector estimates
-  float* vh = vd + r;
-  float* wd = vh + r;        // (r) scratch
-  float* wh = wd + r;
-  __shared__ int conv;
-
-  const int t = threadIdx.x;
-  const float stop2 = stop * stop;
-  const int tiles = (n + TN - 1) / TN;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int c = tile * TN + t;
-    const bool active = c < n;
-    for (int k = 0; k < r; ++k) {
-      Hs[k * S + t] = active ? H0[(size_t)k * n + c] : 0.f;
-      Os[k * S + t] = Hs[k * S + t];
-    }
-    init_power_vectors(v0, vd, vh, r);
-    if (t == 0) conv = 0;
-    __syncthreads();
-
-    for (int i = 0; i < sub_iter; ++i) {
-      if (conv) break;  // read after a barrier: uniform over the block
-      if (active) {
-        float* h = Hs + t;
-        for (int k = 0; k < r; ++k) Os[k * S + t] = h[k * S];
-        sweep_column(As, B + c, h, S, r, n, alpha,
-                     1.0f / sqrtf((float)i + 10.0f));
-      }
-      __syncthreads();
-      tile_grams(Hs, Os, Gd, Gh, r);
-      __syncthreads();
-      if (t < 32) {
-        const int cv = stop_decision(Gd, Gh, v0, vd, vh, wd, wh, r, stop2,
-                                     pi_iters);
-        if (t == 0) conv = cv;
-      }
-      __syncthreads();
-    }
-    if (active)
-      for (int k = 0; k < r; ++k) H[(size_t)k * n + c] = Hs[k * S + t];
-    __syncthreads();  // conv and the tiles are reused by the next tile
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The shared-memory early-stop coder, r <= ES_MAX_RANK: coder_es_lanes_kernel.
 //
@@ -313,7 +87,7 @@ __global__ void coder_es_ws_kernel(const float* __restrict__ A,
 //     shuffle per column hands delta to the group's lanes, and each lane
 //     adds A[i, k] delta to its Q rows of each column: every A value read
 //     from shared memory feeds ES_COLS multiply-adds, and none of them is
-//     on the r-long dependent chain of sweep_column. A is kept transposed
+//     on an r-long dependent dot product. A is kept transposed
 //     (At[k][i] = A[i][k]) so that a lane's rows are consecutive (float4
 //     loads when Q is a multiple of 4). Past r = 32, g is formed anew from
 //     A h - b at the start of every sweep, so that float32 rounding does
@@ -332,7 +106,9 @@ __global__ void coder_es_ws_kernel(const float* __restrict__ A,
 //     power iterations are independent until the decision compares them),
 //     with no block barrier inside the power steps; each reads its
 //     symmetric Gram by columns, so that the lanes' loads are consecutive.
-//     The decision logic and its order are those of stop_decision.
+//     The decision is the reference's: v += 0.05 v0, one warm power step
+//     for Rayleigh lower bounds, min(trace, Gershgorin) upper bounds, and
+//     pi_iters more steps only in the band between them.
 // Shared memory: r RP + 2 Rg (TN + 1) + 2 r^2 + 3 r floats (RP = L Q, Rg =
 // r rounded up to 4): at r = 100 within the old kernel's 3 r^2 +
 // 2 r (TN + 1) + 5 r.
@@ -419,11 +195,11 @@ __device__ void es_tile_grams(const float* P, const float* O, float* Gd,
         }
   }
 }
-// One Gram's power steps (warm_pair for one matrix), by one warp: `iters`
-// normalised steps from v (updated in place), then the Rayleigh quotient.
-// G is symmetric: row k is read as column k, the lanes on consecutive
-// addresses. With ub, the first product also gives min(trace, max
-// absolute row sum) (psd_lambda_ub).
+// One Gram's warm power steps (the TPU kernel's _lambda_max_warm_pair for
+// one matrix), by one warp: `iters` normalised steps from v (updated in
+// place), then the Rayleigh quotient. G is symmetric: row k is read as
+// column k, the lanes on consecutive addresses. With ub, the first product
+// also gives the certified upper bound min(trace, max absolute row sum).
 __device__ float warp_power_steps(const float* G, float* v, float* w, int r,
                                   int iters, float* ub) {
   const int lane = threadIdx.x & 31;
@@ -465,8 +241,9 @@ __device__ float warp_power_steps(const float* G, float* v, float* w, int r,
   return warp_sum(q) / fmaxf(warp_sum(p), 1e-30f);
 }
 
-// stop_decision with one warp per Gram: warp 0 on Gd (vectors vd, wd),
-// warp 1 on Gh (vh, wh; wd and wh are scratch); the bounds meet in xch. Call after a barrier;
+// The per-tile stop (_stopping_update) with one warp per Gram: warp 0 on
+// Gd (vectors vd, wd), warp 1 on Gh (vh, wh; wd and wh are scratch); the
+// bounds meet in xch. Call after a barrier;
 // returns the same decision (1 = converged) in every thread, after at most
 // two block barriers.
 __device__ int es_stop_decision(const float* Gd, const float* Gh, float* vd,
@@ -1626,6 +1403,46 @@ __device__ void fw_gram_chunk(const float* Mt, float* G, int r, int RS,
   }
 }
 
+// Both Grams of a tile held row-major (r, TN) in device memory: Gd = D D^T
+// with D = X - O and Gh = O O^T (O the iterate before the step, X after
+// it), each staged transposed into Mt in column chunks of TC columns
+// (eight loads in flight a thread; rows r..RG-1 hold 0) and summed by
+// fw_gram_chunk in S x S blocks (S = gram_block). The wide kernels' Grams;
+// call from every thread, after a barrier.
+__device__ void wide_tile_grams(const float* O, const float* X, float* Mt,
+                                float* Gd, float* Gh, int r, int RG, int MS,
+                                int TC, int gram_block) {
+  const int tc_shift = __ffs(TC) - 1;
+  for (int gi = 0; gi < 2; ++gi) {
+    for (int c0 = 0; c0 < TN; c0 += TC) {
+      for (int x0 = threadIdx.x; x0 < RG * TC; x0 += 8 * blockDim.x) {
+        float v[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int x = x0 + q * blockDim.x;
+          const int k = x >> tc_shift, cc = x & (TC - 1);
+          v[q] = 0.f;
+          if (x < RG * TC && k < r) {
+            const float h = O[(size_t)k * TN + c0 + cc];
+            v[q] = gi ? h : X[(size_t)k * TN + c0 + cc] - h;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int x = x0 + q * blockDim.x;
+          if (x < RG * TC) Mt[(x & (TC - 1)) * MS + (x >> tc_shift)] = v[q];
+        }
+      }
+      __syncthreads();
+      if (gram_block == 8)
+        fw_gram_chunk<8>(Mt, gi ? Gh : Gd, r, MS, RG, TC, c0 > 0);
+      else
+        fw_gram_chunk<4>(Mt, gi ? Gh : Gd, r, MS, RG, TC, c0 > 0);
+      __syncthreads();
+    }
+  }
+}
+
 // kStop: with the stop (a kernel of its own, so that the fixed-iteration
 // kernels keep the Grams' registers out of the product's).
 template <bool kBf16, bool kRes, bool kStop>
@@ -1672,7 +1489,6 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
   const int t = threadIdx.x;
   const int rbl = t / FT_COL_GROUPS;  // this thread's row block in a pass
   const int cbase = 4 * (t % FT_COL_GROUPS);
-  const int tc_shift = __ffs(TC) - 1;
   const float stop2 = stop * stop;
   float inv_L = 0.f;
   const int tiles = (n + TN - 1) / TN;
@@ -1783,36 +1599,7 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
       __syncthreads();  // every new column is in; Y has been read
       int cv = 0;
       if constexpr (kStop) {
-        for (int gi = 0; gi < 2; ++gi) {
-          for (int c0 = 0; c0 < TN; c0 += TC) {
-            // transposed, eight loads in flight a thread
-            for (int x0 = t; x0 < RG * TC; x0 += 8 * blockDim.x) {
-              float v[8];
-#pragma unroll
-              for (int q = 0; q < 8; ++q) {
-                const int x = x0 + q * blockDim.x;
-                const int k = x >> tc_shift, cc = x & (TC - 1);
-                v[q] = 0.f;
-                if (x < RG * TC && k < r) {
-                  const float h = Hs[(size_t)k * TN + c0 + cc];
-                  v[q] = gi ? h : Xs[(size_t)k * TN + c0 + cc] - h;
-                }
-              }
-#pragma unroll
-              for (int q = 0; q < 8; ++q) {
-                const int x = x0 + q * blockDim.x;
-                if (x < RG * TC)
-                  Mt[(x & (TC - 1)) * MS + (x >> tc_shift)] = v[q];
-              }
-            }
-            __syncthreads();
-            if (cfg.gram_block == 8)
-              fw_gram_chunk<8>(Mt, gi ? Gh : Gd, r, MS, RG, TC, c0 > 0);
-            else
-              fw_gram_chunk<4>(Mt, gi ? Gh : Gd, r, MS, RG, TC, c0 > 0);
-            __syncthreads();
-          }
-        }
+        wide_tile_grams(Hs, Xs, Mt, Gd, Gh, r, RG, MS, TC, cfg.gram_block);
         cv = ft_stop_decision(Gd, Gh, vd, vh, wd, wh, ad, ah, xch, r, RG,
                               stop2, pi_iters);
       }
@@ -1858,6 +1645,427 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
       }
     }
     __syncthreads();  // the tiles are reused by the next tile
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide Gauss-Seidel coder, past the shared-memory kernels' ranks (r > 100
+// with the stop, r > 128 without) up to the JAX kernels' 1248:
+// coder_wide_kernel.
+//
+// Replaces coder_sweeps_earlystop (pallas/coder_kernel.py:455, its kernel
+// _coder_es_kernel :400) at those ranks with coder_es_lanes_kernel's
+// function: the tile of TN columns, the step 1 / sqrt(i + 10) / (A_kk + 1),
+// the certified bounds first and pi_iters warm power steps only in the band,
+// the vectors carried from sweep to sweep, a converged tile left as it is;
+// without the stop (kStop false), coder_sweeps (:192) past r = 128. What
+// bounds it: a sweep is r^2 multiply-adds a column and the two Grams as many
+// again, on the CUDA cores (r = 256, n = 131,109, ten sweeps: 5.1 ms at
+// 67e12/s, against 0.16 ms for its bytes); and within a column the r
+// coordinate steps of a sweep are a dependent chain. Neither A (256 KB at
+// r = 256) nor the tile (128 KB) fits an SM beside the other. What the
+// design does:
+//   * The sweep in direct form, the plain version's own: at coordinate k,
+//     g = A[k, :] h - b_k + alpha, then h_k = max(0, h_k - step_k g). L lanes
+//     share a column (8 up to r = 256, 16 up to 512, 32 past it), each
+//     holding C = 2 columns' rows 4 (ell + L m) + s (float4 slot m of
+//     lane ell) in registers; each lane sums its slots into four
+//     accumulators (one per float4 component), adds them as
+//     (a0 + a1) + (a2 + a3), and a butterfly of log2 L shuffles gives every
+//     lane the whole dot product; the lane that holds row k takes the step.
+//     Each float4 of A's row (the lanes of a group on consecutive float4s,
+//     every group of the warp on the same ones: no bank conflict) feeds
+//     eight multiply-adds. The residual form of coder_es_lanes_kernel (g
+//     carried in registers, one shuffle a step) needs g formed anew every
+//     sweep, 2 r^2 multiply-adds a column, and its float32 rank-1 updates
+//     put it 1.3e-5 (r = 256) and 3.9e-5 (r = 512) from the plain version
+//     after ten sweeps on the smoke's inputs in a host emulation, where the
+//     direct form stays within 7e-7 (the plain version is 7e-7 from float64
+//     itself).
+//   * A's rows are needed in step order: a table of A with rows zero-padded
+//     to 4 L slots columns (coder_wide_prep_kernel, at the head of the
+//     workspace) is staged by cp.async in chunks of CW_CHUNK rows into two
+//     buffers, with the same rows of B's columns beside them, so that the
+//     next chunk's copy overlaps this one's steps.
+//   * One block of CW_THREADS per tile and SM, the grid striding over the
+//     tiles, one workspace slice per block (stays in L2). 512 threads cover
+//     512 C / L columns: the tile's 128 up to r = 256, in 2 (r <= 512)
+//     or 4 passes past it, each pass sweeping its columns with A streamed
+//     again; the column's rows stay in registers through the sweep
+//     (2 x 4 x 8 floats a thread up to r = 512, 2 x 4 x 10 past it).
+//   * With the stop, each pass loads its columns from the slice and writes
+//     the swept ones to the slice's other tile; the Grams of the step delta
+//     and of the old iterate and the decision are fista_wide_kernel's
+//     (wide_tile_grams, ft_stop_decision), in shared memory up to r = 136
+//     (coder_wide_config's gram_smem) and in the slice past it. Without it
+//     each pass keeps its columns in registers from H0 to H over every
+//     sweep, and the kernel has no slice.
+constexpr int CW_THREADS = 512;
+constexpr int CW_CHUNK = 16;  // rows k of A and of B's columns a staged chunk
+// The regimes by rank: the largest r, lanes a column, columns a thread and
+// float4 slots a lane (a lane holds 4 slots rows of each of its columns;
+// A's table is zero-padded to 4 lanes slots columns, so that every step
+// runs the same unrolled loop: on an H100 a guard on each slot cost 15% of
+// the fixed sweeps' time at r = 256 and 512).
+struct CwRegime {
+  int max_rank, lanes, cols, slots;
+};
+constexpr int CW_NREGIMES = 5;
+
+__host__ __device__ constexpr CwRegime cw_regime(int i) {
+  return i == 0   ? CwRegime{128, 8, 2, 4}
+         : i == 1 ? CwRegime{192, 8, 2, 6}
+         : i == 2 ? CwRegime{256, 8, 2, 8}
+         : i == 3 ? CwRegime{512, 16, 2, 8}
+                  : CwRegime{1280, 32, 2, 10};
+}
+
+// The wide coder's shape at rank r, from r and the mode alone (twin:
+// coder_kernel.coder_wide_config): lanes per column, float4 slots per lane,
+// A's padded row stride (4 lanes slots), columns a pass and passes; with the
+// stop, the Grams' block side, rows and row stride, the columns of a staged
+// Gram chunk and its row stride, and whether the Grams and power vectors
+// fit shared memory (fw_config's rules at CW_THREADS threads); the sweep's
+// shared floats (two chunks of A and of B, the steps) and the block's.
+struct CwConfig {
+  int regime, lanes, cols, slots, row_stride, cols_pass, passes, gram_block,
+      gram_rows, gram_stride, gram_cols, gram_smem;
+  size_t sweep_floats, smem_floats;
+};
+
+__host__ __device__ inline CwConfig cw_config(int r, int use_stopping) {
+  CwConfig c;
+  c.regime = 0;
+  while (c.regime + 1 < CW_NREGIMES && r > cw_regime(c.regime).max_rank)
+    ++c.regime;
+  c.lanes = cw_regime(c.regime).lanes;
+  c.cols = cw_regime(c.regime).cols;
+  c.slots = cw_regime(c.regime).slots;
+  c.row_stride = 4 * c.lanes * c.slots;
+  c.cols_pass = CW_THREADS * c.cols / c.lanes;
+  c.passes = TN / c.cols_pass;
+  c.sweep_floats = 2 * (size_t)CW_CHUNK * (c.row_stride + c.cols_pass)
+                   + ((r + 3) & ~3);
+  const int nb = (r + 3) >> 2;
+  c.gram_block = nb * (nb + 1) / 2 > 2 * CW_THREADS ? 8 : 4;
+  c.gram_rows = (r + c.gram_block - 1) / c.gram_block * c.gram_block;
+  c.gram_stride = (c.gram_rows >> 2) & 1 ? c.gram_rows : c.gram_rows + 4;
+  c.gram_cols = TN;
+  while (c.gram_cols > 1
+         && (size_t)c.gram_cols * c.gram_stride > FW_SMEM_FLOATS)
+    c.gram_cols >>= 1;
+  const size_t staged = (size_t)c.gram_cols * c.gram_stride;
+  const size_t grams = 2 * (size_t)c.gram_rows * c.gram_rows;
+  c.gram_smem = use_stopping
+      && fw_vec_floats(r) + grams + staged <= FW_SMEM_FLOATS;
+  c.smem_floats = c.sweep_floats;
+  if (c.gram_smem) {
+    c.smem_floats = fw_vec_floats(r) + (c.sweep_floats > grams + staged
+                                            ? c.sweep_floats
+                                            : grams + staged);
+  } else if (use_stopping && staged > c.sweep_floats) {
+    c.smem_floats = staged;
+  }
+  return c;
+}
+
+// The wide coder's workspace: the (r, row_stride) table of A first, then
+// with the stop one slice per block: the iterate and the swept iterate as
+// (r, TN) tiles, and where they do not fit shared memory both Grams and six
+// r-vectors; a slice is a whole number of 128-byte lines.
+__host__ __device__ inline size_t cw_head_floats(int r) {
+  return (size_t)r * cw_config(r, 0).row_stride;
+}
+
+__host__ __device__ inline size_t cw_slice_floats(int r, int use_stopping) {
+  if (!use_stopping) return 0;
+  const CwConfig c = cw_config(r, 1);
+  size_t floats = 2 * (size_t)r * TN;
+  if (!c.gram_smem)
+    floats += 2 * (size_t)c.gram_rows * c.gram_rows + fw_vec_floats(r);
+  return (floats + 31) & ~(size_t)31;
+}
+
+__global__ void coder_wide_prep_kernel(const float* __restrict__ A, int r,
+                                       int RP, float* __restrict__ Ap) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < r * RP;
+       i += gridDim.x * blockDim.x) {
+    const int k = i / RP, j = i - k * RP;
+    Ap[i] = j < r ? A[(size_t)k * r + j] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool copy) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(copy ? 4 : 0)
+               : "memory");
+}
+
+// Stage chunk c: rows c CW_CHUNK.. of A's table (as (CW_CHUNK, RP)) and of
+// B's columns col0..col0 + PC - 1 (as (CW_CHUNK, PC); B's rows need not be
+// 16-byte aligned, so four bytes a copy), zeros past r and n: one commit
+// group.
+__device__ __forceinline__ void cw_stage(float* Ab, float* Bb,
+                                         const float* Ap, const float* B,
+                                         size_t col0, int r, int n, int RP,
+                                         int PC, int c) {
+  const int k0 = c * CW_CHUNK, q4 = RP >> 2;
+  for (int x = threadIdx.x; x < CW_CHUNK * q4; x += blockDim.x) {
+    const int kk = x / q4, j = x - kk * q4;
+    const bool ok = k0 + kk < r;
+    cp_async16(Ab + kk * RP + 4 * j,
+               ok ? Ap + (size_t)(k0 + kk) * RP + 4 * j : Ap, ok);
+  }
+  for (int x = threadIdx.x; x < CW_CHUNK * PC; x += blockDim.x) {
+    const int kk = x / PC, cc = x - kk * PC;
+    const bool ok = k0 + kk < r && col0 + cc < (size_t)n;
+    cp_async4(Bb + kk * PC + cc,
+              ok ? B + (size_t)(k0 + kk) * n + col0 + cc : B, ok);
+  }
+  cp_async_commit();
+}
+
+// A thread's rows 4 (ell + L m) + s of its columns cc[u] from src (row
+// stride ld; 0 past r and for an inactive column), or into dst (for the
+// columns that `store` marks).
+template <int L, int C, int QM>
+__device__ __forceinline__ void cw_load(float (&h)[C][QM][4],
+                                        const float* src, size_t ld,
+                                        const size_t (&cc)[C],
+                                        const bool (&active)[C],
+                                        int r) {
+  const int ell = threadIdx.x % L;
+#pragma unroll
+  for (int u = 0; u < C; ++u)
+#pragma unroll
+    for (int m = 0; m < QM; ++m)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ell + L * m) + s;
+        h[u][m][s] = k < r && active[u] ? src[(size_t)k * ld + cc[u]] : 0.f;
+      }
+}
+
+template <int L, int C, int QM>
+__device__ __forceinline__ void cw_store(const float (&h)[C][QM][4],
+                                         float* dst, size_t ld,
+                                         const size_t (&cc)[C],
+                                         const bool (&store)[C],
+                                         int r) {
+  const int ell = threadIdx.x % L;
+#pragma unroll
+  for (int u = 0; u < C; ++u)
+#pragma unroll
+    for (int m = 0; m < QM; ++m)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ell + L * m) + s;
+        if (k < r && store[u]) dst[(size_t)k * ld + cc[u]] = h[u][m][s];
+      }
+}
+
+// One Gauss-Seidel sweep of the pass's columns (col0.., this thread's at
+// pass offsets pc[u]) held in h, step rs / (A_kk + 1): the chunks of A and
+// B staged two ahead of use, the coordinates in order. Every thread calls
+// it; it starts and ends with a barrier's worth of ordering on the shared
+// buffers (the steps are written before the first chunk's barrier).
+template <int L, int C, int QM>
+__device__ __forceinline__ void cw_sweep(float (&h)[C][QM][4],
+                                         const bool (&active)[C],
+                                         const int (&pc)[C],
+                                         const float* Ap, const float* B,
+                                         size_t col0, int r, int n,
+                                         float alpha, float rs, float* Abuf,
+                                         float* Bbuf, float* stp) {
+  constexpr int RP = 4 * L * QM, PC = CW_THREADS * C / L;
+  const int ell = threadIdx.x % L;
+  const int nch = (r + CW_CHUNK - 1) / CW_CHUNK;
+  for (int k = threadIdx.x; k < r; k += blockDim.x)
+    stp[k] = rs / (Ap[(size_t)k * RP + k] + 1.0f);
+  cw_stage(Abuf, Bbuf, Ap, B, col0, r, n, RP, PC, 0);
+  int c = 0;
+#pragma unroll
+  for (int m = 0; m < QM; ++m) {
+    // chunks c = m L / 4 .. hold the row groups e + L m, e < L: the rows
+    // of slot m
+    for (int ec = 0; ec < L / 4 && c < nch; ++ec, ++c) {
+      if (c + 1 < nch) {
+        cw_stage(Abuf + ((c + 1) & 1) * CW_CHUNK * RP,
+                 Bbuf + ((c + 1) & 1) * CW_CHUNK * PC, Ap, B, col0, r, n, RP,
+                 PC, c + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // the chunk (and the steps) are in
+      const float* Ac = Abuf + (c & 1) * CW_CHUNK * RP + 4 * ell;
+      const float* Bc = Bbuf + (c & 1) * CW_CHUNK * PC;
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * ec + e4;  // the row group's lane
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int kk = 4 * e4 + s, k = c * CW_CHUNK + kk;
+          if (k >= r) break;
+          const float* a = Ac + kk * RP;
+          float acc[C][4] = {};
+#pragma unroll
+          for (int mm = 0; mm < QM; ++mm) {
+            const float4 av = ld4(a + 4 * L * mm);
+#pragma unroll
+            for (int u = 0; u < C; ++u) {
+              acc[u][0] = fmaf(av.x, h[u][mm][0], acc[u][0]);
+              acc[u][1] = fmaf(av.y, h[u][mm][1], acc[u][1]);
+              acc[u][2] = fmaf(av.z, h[u][mm][2], acc[u][2]);
+              acc[u][3] = fmaf(av.w, h[u][mm][3], acc[u][3]);
+            }
+          }
+          const float st = stp[k];
+#pragma unroll
+          for (int u = 0; u < C; ++u) {
+            float x = (acc[u][0] + acc[u][1]) + (acc[u][2] + acc[u][3]);
+#pragma unroll
+            for (int o = L / 2; o > 0; o >>= 1)
+              x += __shfl_xor_sync(0xffffffffu, x, o);
+            const float g = (x - Bc[kk * PC + pc[u]]) + alpha;
+            const float hn = fmaxf(h[u][m][s] - st * g, 0.f);
+            if (ell == e && active[u]) h[u][m][s] = hn;
+          }
+        }
+      }
+      __syncthreads();  // the buffer is refilled two chunks on
+    }
+  }
+}
+
+template <int L, int C, int QM, bool kStop>
+__global__ void __launch_bounds__(CW_THREADS, 1)
+    coder_wide_kernel(const float* __restrict__ B,
+                      const float* __restrict__ H0, float* __restrict__ H,
+                      int r, int n, float alpha, float stop, int sub_iter,
+                      int pi_iters, float* __restrict__ ws) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int G = CW_THREADS / L;  // column groups: a pass's columns / C
+  constexpr int RP = 4 * L * QM, PC = G * C;  // cfg.row_stride, cols_pass
+  const CwConfig cfg = cw_config(r, kStop);
+  const int RG = cfg.gram_rows, MS = cfg.gram_stride, TC = cfg.gram_cols;
+  const float* Ap = ws;  // (r, RP): A's rows, zero past r
+  float* slice = ws + (size_t)r * RP
+                 + (size_t)blockIdx.x * cw_slice_floats(r, kStop);
+  // shared: with the Grams in shared memory, the six power vectors first;
+  // then two chunks of A, two of B and the steps, and with the stop (after
+  // a sweep) over them the Grams where they fit and the staged Gram chunk
+  float* sm = smem + (cfg.gram_smem ? fw_vec_floats(r) : 0);
+  float* Abuf = sm;
+  float* Bbuf = Abuf + 2 * CW_CHUNK * RP;
+  float* stp = Bbuf + 2 * CW_CHUNK * PC;
+  float* Gd = cfg.gram_smem ? sm : slice + 2 * (size_t)r * TN;
+  float* Gh = Gd + (size_t)RG * RG;  // (RG, RG) Grams, row stride RG
+  float* vd = cfg.gram_smem ? smem : Gh + (size_t)RG * RG;
+  float* vh = vd + r;  // carried eigenvector estimates,
+  float* wd = vh + r;  // the power steps' products
+  float* wh = wd + r;
+  float* ad = wh + r;  // and absolute row sums
+  float* ah = ad + r;
+  float* Mt = cfg.gram_smem ? sm + 2 * (size_t)RG * RG : sm;
+  __shared__ float xch[4];
+
+  const int t = threadIdx.x, grp = t / L;
+  int pc[C];  // this thread's columns within a pass
+#pragma unroll
+  for (int u = 0; u < C; ++u) pc[u] = grp + u * G;
+  const float stop2 = stop * stop;
+  const int tiles = (n + TN - 1) / TN;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const size_t tile0 = (size_t)tile * TN;
+    if constexpr (!kStop) {
+      // each pass's columns in registers from H0 to H over every sweep
+      for (int p = 0; p < cfg.passes; ++p) {
+        const size_t col0 = tile0 + (size_t)p * PC;
+        size_t cc[C];
+        bool active[C];
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          cc[u] = col0 + pc[u];
+          active[u] = cc[u] < (size_t)n;
+        }
+        float h[C][QM][4];
+        cw_load<L, C, QM>(h, H0, n, cc, active, r);
+        for (int i = 0; i < sub_iter; ++i)
+          cw_sweep<L, C, QM>(h, active, pc, Ap, B, col0, r, n, alpha,
+                             1.0f / sqrtf((float)i + 10.0f), Abuf, Bbuf,
+                             stp);
+        cw_store<L, C, QM>(h, H, n, cc, active, r);
+      }
+    } else {
+      float* Ht[2] = {slice, slice + (size_t)r * TN};  // (r, TN) tiles
+      // the tile of H0, eight loads in flight a thread
+      for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
+        float v[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int x = x0 + q * blockDim.x, c = x % TN;
+          v[q] = x < r * TN && tile0 + c < (size_t)n
+              ? H0[(size_t)(x / TN) * n + tile0 + c] : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int x = x0 + q * blockDim.x;
+          if (x < r * TN) Ht[0][x] = v[q];
+        }
+      }
+      for (int k = t; k < r; k += blockDim.x)
+        vd[k] = vh[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
+      __syncthreads();
+      int cur = 0;
+      for (int i = 0; i < sub_iter; ++i) {
+        for (int p = 0; p < cfg.passes; ++p) {
+          const size_t col0 = tile0 + (size_t)p * PC;
+          size_t cc[C];
+          bool active[C];
+#pragma unroll
+          for (int u = 0; u < C; ++u) {
+            cc[u] = (size_t)p * PC + pc[u];
+            active[u] = col0 + pc[u] < (size_t)n;
+          }
+          float h[C][QM][4];
+          cw_load<L, C, QM>(h, Ht[cur], TN, cc, active, r);
+          cw_sweep<L, C, QM>(h, active, pc, Ap, B, col0, r, n, alpha,
+                             1.0f / sqrtf((float)i + 10.0f), Abuf, Bbuf,
+                             stp);
+          // every column, the batch's padding as its zeros: the Grams
+          // read them
+          bool all[C];
+#pragma unroll
+          for (int u = 0; u < C; ++u) all[u] = true;
+          cw_store<L, C, QM>(h, Ht[cur ^ 1], TN, cc, all, r);
+        }
+        __syncthreads();  // every swept column is in the slice
+        wide_tile_grams(Ht[cur], Ht[cur ^ 1], Mt, Gd, Gh, r, RG, MS, TC,
+                        cfg.gram_block);
+        const int cv = ft_stop_decision(Gd, Gh, vd, vh, wd, wh, ad, ah, xch,
+                                        r, RG, stop2, pi_iters);
+        cur ^= 1;  // the swept iterate, in the sweep that converges too
+        if (cv) break;  // the same in every thread
+      }
+      for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
+        float v[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int x = x0 + q * blockDim.x;
+          v[q] = x < r * TN ? Ht[cur][x] : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int x = x0 + q * blockDim.x, c = x % TN;
+          if (x < r * TN && tile0 + c < (size_t)n)
+            H[(size_t)(x / TN) * n + tile0 + c] = v[q];
+        }
+      }
+      __syncthreads();  // the slice is reused by the next tile
+    }
   }
 }
 
@@ -2174,6 +2382,38 @@ int launch_coder_lanes(const float* A, const float* B, const float* H0,
   return (int)cudaGetLastError();
 }
 
+// A's padded table into the head of ws, then coder_wide_kernel in the
+// regime of r.
+template <bool kStop>
+int launch_coder_wide(const float* A, const float* B, const float* H0,
+                      float* H, int r, int n, float alpha, float stop,
+                      int sub_iter, int pi_iters, float* ws, int blocks,
+                      cudaStream_t stream) {
+  if (r > cw_regime(CW_NREGIMES - 1).max_rank)
+    return (int)cudaErrorInvalidValue;
+  const CwConfig c = cw_config(r, kStop);
+  const int cells = r * c.row_stride;
+  coder_wide_prep_kernel<<<(cells + 255) / 256, 256, 0, stream>>>(
+      A, r, c.row_stride, ws);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+#define CW_KERNEL(i)                                                    \
+  coder_wide_kernel<cw_regime(i).lanes, cw_regime(i).cols, cw_regime(i).slots, \
+                    kStop>
+  auto kernel = c.regime == 0   ? CW_KERNEL(0)
+                : c.regime == 1 ? CW_KERNEL(1)
+                : c.regime == 2 ? CW_KERNEL(2)
+                : c.regime == 3 ? CW_KERNEL(3)
+                                : CW_KERNEL(4);
+#undef CW_KERNEL
+  const size_t smem = sizeof(float) * c.smem_floats;
+  e = launch_smem((const void*)kernel, smem);
+  if (e) return e;
+  kernel<<<blocks, CW_THREADS, smem, stream>>>(B, H0, H, r, n, alpha, stop,
+                                                sub_iter, pi_iters, ws);
+  return (int)cudaGetLastError();
+}
+
 template <int L, int Q>
 int launch_es_lanes(const float* A, const float* B, const float* H0, float* H,
                     int r, int n, float alpha, float stop, int sub_iter,
@@ -2209,10 +2449,8 @@ size_t onmf_fista_sweeps_smem(int r, int use_stopping) {
   return sizeof(float) * ft_smem_floats(r, use_stopping);
 }
 
-// Workspace floats of the workspace kernels: one slice per block (and for
-// FISTA the A^T table before the slices).
-size_t onmf_earlystop_slice_floats(int r) { return es_slice_floats(r); }
-
+// Workspace floats of the wide FISTA kernel: the A^T table, then one slice
+// per block.
 size_t onmf_fista_head_floats(int r) { return fista_head_floats(r); }
 
 size_t onmf_fista_slice_floats(int r, int use_stopping) {
@@ -2231,24 +2469,39 @@ void onmf_fista_wide_config(int r, int use_stopping, int* out) {
   for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
+// coder_wide_kernel's shape at rank r (cw_config) into out[0..9]: lanes per
+// column, float4 slots per lane, passes, rows k a chunk, the side of a Gram
+// block, columns a Gram chunk, the Grams in shared memory (1) or the
+// workspace (0), shared bytes, and the workspace's floats: A's table, and
+// one slice per block.
+void onmf_coder_wide_config(int r, int use_stopping, int* out) {
+  const CwConfig c = cw_config(r, use_stopping);
+  const int v[10] = {c.lanes, c.slots, c.passes, CW_CHUNK, c.gram_block,
+                     c.gram_cols, c.gram_smem,
+                     (int)(sizeof(float) * c.smem_floats),
+                     (int)cw_head_floats(r),
+                     (int)cw_slice_floats(r, use_stopping)};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+}
+
 int onmf_tile_columns(void) { return TN; }
 
 const char* onmf_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// use_global != 0: the workspace kernel (A from device memory, columns
-// swept in place in H); otherwise coder_lanes_kernel, r <= CS_MAX_RANK.
+// ws == NULL: coder_lanes_kernel, one block per tile; otherwise (past
+// CS_MAX_RANK) the wide kernel without the stop on `blocks` blocks, ws
+// holding A's table (onmf_coder_wide_config).
 int onmf_coder_sweeps(const float* A, const float* B, const float* H0,
                       float* H, int r, int n, float alpha, int sub_iter,
-                      int use_global, void* stream) {
+                      float* ws, int blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (use_global) {
-    coder_sweeps_ws_kernel<<<(n + TN - 1) / TN, TN, 0, st>>>(
-        A, B, H0, H, r, n, alpha, sub_iter);
-    return (int)cudaGetLastError();
-  }
-  if (r > CS_MAX_RANK) return (int)cudaErrorInvalidValue;
+  if (ws ? r <= CS_MAX_RANK : r > CS_MAX_RANK)
+    return (int)cudaErrorInvalidValue;
+  if (ws)
+    return launch_coder_wide<false>(A, B, H0, H, r, n, alpha, 0.f, sub_iter,
+                                    0, ws, blocks, st);
   if (r <= 16)
     return launch_coder_lanes<2, 8>(A, B, H0, H, r, n, alpha, sub_iter, st);
   if (r <= 32)
@@ -2260,20 +2513,20 @@ int onmf_coder_sweeps(const float* A, const float* B, const float* H0,
   return launch_coder_lanes<4, 32>(A, B, H0, H, r, n, alpha, sub_iter, st);
 }
 
-// ws == NULL: the shared-memory kernel, one block per tile; otherwise the
-// workspace kernel on `blocks` blocks, each with its slice of ws
-// (onmf_earlystop_slice_floats floats).
+// ws == NULL: the shared-memory kernel, one block per tile; otherwise
+// (past ES_MAX_RANK) the wide kernel on `blocks` blocks, ws holding A's
+// table and one slice per block (onmf_coder_wide_config).
 int onmf_coder_sweeps_earlystop(const float* A, const float* B,
                                 const float* H0, float* H, int r, int n,
                                 float alpha, float stop, int sub_iter,
                                 int pi_iters, float* ws, int blocks,
                                 void* stream) {
-  if (ws) {
-    coder_es_ws_kernel<<<blocks, TN, 0, (cudaStream_t)stream>>>(
-        A, B, H0, H, r, n, alpha, stop, sub_iter, pi_iters, ws);
-    return (int)cudaGetLastError();
-  }
-  if (r > ES_MAX_RANK) return (int)cudaErrorInvalidValue;
+  if (ws ? r <= ES_MAX_RANK : r > ES_MAX_RANK)
+    return (int)cudaErrorInvalidValue;
+  if (ws)
+    return launch_coder_wide<true>(A, B, H0, H, r, n, alpha, stop, sub_iter,
+                                   pi_iters, ws, blocks,
+                                   (cudaStream_t)stream);
   if (r <= 16)
     return launch_es_lanes<2, 8>(A, B, H0, H, r, n, alpha, stop, sub_iter,
                                  pi_iters, (cudaStream_t)stream);

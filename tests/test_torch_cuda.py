@@ -48,6 +48,27 @@ def _t(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def asymmetric_inputs(r, device):
+    """(A, B, H0) with an A that is not symmetric: a near-identity Gram
+    plus a shear, 500 columns. Past r = 256 the dictionary has 2 r rows, B
+    is scaled by 1 / sqrt(d) and the shear by sqrt(256 / r), which keep
+    |H| ~ 10 (see test_cuda_fista_takes_an_asymmetric_A)."""
+    wide = r > 256
+    d = 2 * r if wide else 300
+    rng = np.random.default_rng(r)
+    W = rng.standard_normal((d, r)).astype(np.float32)
+    W /= np.linalg.norm(W, axis=0)
+    B = np.abs(W).T @ rng.random((d, 500)).astype(np.float32)
+    if wide:
+        B /= np.float32(np.sqrt(d))
+    H0 = rng.random((r, 500)).astype(np.float32)
+    shear = 0.1 * float(np.sqrt(256 / r)) if wide else 0.1
+    A = W.T @ W + np.triu(
+        shear * rng.standard_normal((r, r)).astype(np.float32), 1)
+    assert not np.array_equal(A, A.T)
+    return _t(A, device), _t(B, device), _t(H0, device)
+
+
 def assert_bf16_close(kernel, plain, A, iters, tol):
     """``kernel(k)`` against ``plain(k)`` (the (r, n) results of k fixed bf16
     FISTA iterations) at k = ``iters``, column by column. Both round the
@@ -141,19 +162,55 @@ def test_cuda_dict_kernel_matches_plain(cuda, d, r):
 
 
 @pytest.mark.cuda
-def test_cuda_earlystop_multi_tile_converged(cuda):
+@pytest.mark.parametrize("r", [25, 256])
+def test_cuda_earlystop_multi_tile_converged(cuda, r):
     # many tiles, each freezing on its own relative-change test: every
     # tile's iterate must meet the global rule's guarantee (slack over
     # stop = 0.05 as in the Pallas kernel's test: the probe sweep takes the
-    # larger i = 0 step)
+    # larger i = 0 step); the shared kernel (r = 25) and the wide one
     from onmf_ontf_ndl_tpu_torch.ops.coder import _spectral_norm, _sweep
 
-    A, B, H0 = make(300, 25, 16 * ck.TN + 37, seed=11)
+    A, B, H0 = make(300, r, 16 * ck.TN + 37, seed=11)
     A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
+    ck.reset_launches()
     H = ck.coder_sweeps_earlystop(A, B, H0, 0.0, 0.05, sub_iter=50)
+    assert ck.LAUNCHES["coder_sweeps_earlystop"] == 1
     probe = _sweep(H.clone(), A, B, 0.0, 1.0 / np.sqrt(10.0))
     assert bool((H >= 0).all())
     assert float(_spectral_norm(probe - H) / _spectral_norm(H)) <= 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "earlystop"])
+@pytest.mark.parametrize("r", [25, 100, 101, 128, 129, 256, 257, 512, 1248])
+def test_cuda_coder_takes_an_asymmetric_A(cuda, r, mode):
+    # the plain version reads row k of A (A[k, :] @ H), and so does every
+    # kernel: an A that is not symmetric must agree too (the shared kernels
+    # up to r = 100 and 128, the wide kernel's regimes, the JAX limit)
+    A, B, H0 = asymmetric_inputs(r, cuda)
+    name = "coder_sweeps" if mode == "fixed" else "coder_sweeps_earlystop"
+    args = (A, B, H0, 0.1) if mode == "fixed" else (A, B, H0, 0.1, 0.01)
+    ck.reset_launches()
+    got = getattr(ck, name)(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[name] == 1
+    torch.testing.assert_close(got, getattr(ck, name + "_plain")(*args),
+                               **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_coder_wide_config_matches_the_library(cuda):
+    # the Python twin, which sizes the workspace, against the kernel
+    # library's own shape at every rank of the wide kernel, both modes
+    import ctypes
+
+    lib = ck.build()["lib"]
+    out = (ctypes.c_int * 10)()
+    for use_stopping, first in ((True, 101), (False, 129)):
+        for r in range(first, ck.MAX_RANK + 1):
+            lib.onmf_coder_wide_config(r, int(use_stopping), out)
+            assert tuple(out) == tuple(
+                int(v) for v in ck.coder_wide_config(r, use_stopping)), r
 
 
 @pytest.mark.cuda
@@ -179,7 +236,12 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     (mode, r, n) for mode in ("fista_fixed", "fista_stop", "fista_bf16")
     for r, n in [(r, n) for r in (ck.FW_RESIDENT_MAX_RANK,
                                   ck.FW_RESIDENT_MAX_RANK + 1, 512)
-                 for n in (ck.TN, 131072 + 37)] + [(ck.MAX_RANK, 300)]])
+                 for n in (ck.TN, 131072 + 37)] + [(ck.MAX_RANK, 300)]] + [
+    # the wide Gauss-Seidel kernel on both sides of each boundary of
+    # coder_wide_config (slots, the Grams in shared memory, Gram blocks,
+    # lanes) and at the JAX kernels' limit, three tiles with a ragged one
+    (mode, r, 2 * ck.TN + 37) for mode in ("fixed", "earlystop")
+    for r in (136, 137, 176, 177, 192, 193, 257, 512, 513, ck.MAX_RANK)])
 def test_cuda_coder_kernels_take_large_ranks(cuda, mode, r, n):
     # every case above a kernel's shared-memory limit raised ValueError
     # before the workspace kernels; now each launches a kernel and agrees
@@ -491,20 +553,7 @@ def test_cuda_fista_takes_an_asymmetric_A(cuda, r, use_stopping):
     # dictionary has 2 r rows, the shear is scaled by sqrt(256 / r) and B
     # by 1 / sqrt(d), which keeps |H| ~ 10 (plain float32 within 6e-6 of
     # float64 at r = 384 to 1248)
-    wide = r > 256
-    d = 2 * r if wide else 300
-    rng = np.random.default_rng(r)
-    W = rng.standard_normal((d, r)).astype(np.float32)
-    W /= np.linalg.norm(W, axis=0)
-    B = np.abs(W).T @ rng.random((d, 500)).astype(np.float32)
-    if wide:
-        B /= np.float32(np.sqrt(d))
-    H0 = rng.random((r, 500)).astype(np.float32)
-    shear = 0.1 * float(np.sqrt(256 / r)) if wide else 0.1
-    A = W.T @ W + np.triu(
-        shear * rng.standard_normal((r, r)).astype(np.float32), 1)
-    A, B, H0 = _t(A, cuda), _t(B, cuda), _t(H0, cuda)
-    assert not torch.equal(A, A.T)
+    A, B, H0 = asymmetric_inputs(r, cuda)
     kw = dict(sub_iter=10, use_stopping=use_stopping)
     ck.reset_launches()
     got = ck.fista_sweeps(A, B, H0, 0.1, 0.01, **kw)
