@@ -27,7 +27,16 @@ graph of 3 calls, replayed twice, the lesser mean kept. ``dp`` joins a
 one-rank NCCL group and prints host ms a step of ``dp_train_dict`` beside
 ``train_dict`` at the headline shape (50 steps, fixed sweeps and the stop,
 the least of 3 runs), and the Ising learner at ``chip_smoke.py``'s
-``ISING_RUN`` with the group and without (the least of 3).
+``ISING_RUN`` with the group and without (the least of 3). ``step`` is
+host ms a training step (``chip_smoke.py``'s ``step_ms``: 50 synchronised
+steps, the least of 3 runs after a first one, which captures; that one's
+ms too) on the headline data
+(``headline_data``) for the three coders at batch 16384 and 128, on each
+route the package has: eager, and captured where ``_train_loop`` takes
+``capture=``. ``cpu`` needs no card: host ms a step of ``train_dict`` on
+the CPU (the eager route that CPU and gloo runs take), d = 300, r = 25 on
+a pool of 16,384 columns, the three coders at batch 128 and 1024, 20
+steps, the least of 3 runs after a first one; it runs alone.
 The shapes, the modes, the inputs and the timer are ``chip_smoke.py``'s
 (``PATH_SHAPES``, ``FISTA_MODES``, ``gram_inputs``, ``graph_ms``): each
 kernel is timed as a CUDA graph of 20 calls (5 of the sampler's longer
@@ -38,6 +47,7 @@ same work. To compare versions, run them in turns in one call
 
 import json
 import math
+import time
 import sys
 from pathlib import Path
 
@@ -259,10 +269,54 @@ def dp_times(tag, dev):
         multihost.shutdown()
 
 
+def step_times(tag, dev):
+    """Host ms a training step on every route of the package (see the
+    module docstring)."""
+    import inspect
+
+    from chip_smoke import CODERS, headline_data, step_ms
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    X = headline_data(dev)
+    routes = {"eager": {}}
+    if "capture" in inspect.signature(onmf._train_loop).parameters:
+        routes = {"eager": dict(capture=False),
+                  "captured": dict(capture=True)}
+    for batch in (16384, 128):
+        for coder, stop in CODERS:
+            for route, kw in routes.items():
+                print(json.dumps({
+                    "version": tag, "table": "step", "route": route,
+                    "coder": coder, "stopping_diff": stop, "batch": batch,
+                    "steps": 50, **step_ms(X, batch, 50, coder, stop,
+                                           **kw)}), flush=True)
+
+
+def cpu_step_times(tag):
+    """Host ms a training step on the CPU (see the module docstring)."""
+    import onmf_ontf_ndl_tpu_torch as lib
+    from chip_smoke import CODERS, headline_data
+
+    torch.manual_seed(0)
+    X = headline_data("cpu", n=16384)
+    steps = 20
+    for batch in (128, 1024):
+        for coder, stop in CODERS:
+            runs = []
+            for _ in range(4):
+                st = lib.init_state(3, 300, 25, device="cpu")
+                t0 = time.perf_counter()
+                lib.train_dict(st, X, iterations=steps + 1, batch_size=batch,
+                               stopping_diff=stop, coder=coder)
+                runs.append(1e3 * (time.perf_counter() - t0))
+            print(json.dumps({
+                "version": tag, "table": "cpu_step", "coder": coder,
+                "stopping_diff": stop, "batch": batch, "steps": steps,
+                "threads": torch.get_num_threads(),
+                "step_ms": min(runs[1:]) / steps}), flush=True)
+
+
 def main():
-    if not torch.cuda.is_available():
-        print("chip_compare: no CUDA device", file=sys.stderr)
-        sys.exit(1)
     root = Path(sys.argv[1] if len(sys.argv) > 1 else ".").resolve()
     tag = sys.argv[2] if len(sys.argv) > 2 else root.name
     only = sys.argv[3:] or ["dict", "coder", "fista", "checker"]
@@ -271,6 +325,12 @@ def main():
 
     if not Path(ck.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {ck.__file__}, not from {root}")
+    if only == ["cpu"]:
+        cpu_step_times(tag)
+        return
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device", file=sys.stderr)
+        sys.exit(1)
     ck.build()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -320,6 +380,8 @@ def main():
         ws_times(ck, tag, dev, gen)
     if "dp" in only:
         dp_times(tag, dev)
+    if "step" in only:
+        step_times(tag, dev)
 
 
 if __name__ == "__main__":

@@ -28,9 +28,14 @@ Phases, each printing its findings on a line of its own:
 3. main    - ``OnlineNMF(...).train_dict()`` on synthetic sparse-dictionary
              data (trained W within 10% of the ground-truth W's score),
              then ``init_state`` + ``train_dict`` at d = 300, r = 25,
-             batch 16384 (patches/s: fixed sweeps, early stop, FISTA).
-             Then a short run against the same run on the CPU in float64
-             with the same draws.
+             batch 16384 (patches/s: fixed sweeps, early stop, FISTA),
+             each step a replay of the captured step. At batch 16384 and
+             128 for each coder: the captured route against the eager one
+             from the same state and generator state (W, A and B equal bit
+             for bit, the code within float32 rounding, the generator's
+             next draw equal, one launch a step of each kernel) and the
+             host ms a step of both routes. Then a short run against the
+             same run on the CPU in float64 with the same draws.
 4. image   - ``ImageReconstructor`` on a 1024x1024x3 synthetic image, colour
              reconstruction, and a checkpoint written and resumed.
 5. tensor  - ``ImageReconstructorTensor`` (r = 100, patch 20, joint mode 2,
@@ -63,7 +68,9 @@ Phases, each printing its findings on a line of its own:
              final state of every phase from 3 to 8.
 10. parallel - one rank in an NCCL group (``parallel/multihost.py``):
              ``dp_train_dict`` at the headline shape, fixed sweeps and early
-             stop, equal to ``train_dict`` bit for bit; ``dp_ising_learning``
+             stop, its step captured with the all-reduce, equal to
+             ``train_dict`` bit for bit (host ms a step of both, the least
+             of three runs after one that captures); ``dp_ising_learning``
              equal to phase 6's learner; the sharded sampler through the
              group; then the banded sampler in one process (n = 1024 in 4
              bands, n = 200 in 2, 100 sweeps) against the whole-lattice
@@ -71,7 +78,12 @@ Phases, each printing its findings on a line of its own:
 
 Phases 3 and 5 to 10 each drive one path of the port (6: two, the Ising
 path and the stacked run) with the launch counts set to 0 before it, and
-fail unless every kernel of that path launched.
+fail unless every kernel of that path launched. Every training run of
+phases 3 to 10 replays a captured step (``models/onmf.py::_train_loop``);
+a replay counts the launches its capture recorded, and the four kernels of
+the step also count their own runs on the card (``_lib.device_runs``),
+which each path's check holds the wrappers' counts to. Phase 3 reads its
+path's counts after its captured runs, before its eager comparisons.
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -325,9 +337,19 @@ def compare(name, got, want, tol=TOL):
 
 def check_launches(ck, path):
     """The launch counts of the path just driven; fail unless each of its
-    kernels launched."""
+    kernels launched, and unless the wrappers' counts of the kernels that
+    count their own runs on the card (``_lib.device_runs``: every replay
+    of a captured step) equal those runs."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
+
     launches = dict(ck.LAUNCHES)
-    emit(path, launches=launches)
+    runs = device_runs()
+    emit(path, launches=launches, device_runs=runs)
+    differ = {k: (launches[k], runs[k]) for k in runs
+              if launches[k] != runs[k]}
+    if differ:
+        raise AssertionError(f"{path}: wrapper counts and the kernels' own "
+                             f"runs differ: {differ}")
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"{path}: kernels never launched: {missing}")
@@ -780,6 +802,84 @@ def headline_data(dev, d=300, r=25, n=131072):
     return Wt @ codes + .01 * torch.rand((d, n), generator=gen, device=dev)
 
 
+# the main path's three coders: fixed sweeps, the early stop, FISTA
+CODERS = (("bcd", None), ("bcd", 0.01), ("fista", None))
+
+
+def train_loop(st, X, batch, steps, coder, stop, **route):
+    """``steps`` steps of ``train_dict``'s defaults (code tracked), through
+    the training loop; ``route``: ``capture=`` where the package has it
+    (``chip_compare.py`` also times a package from before it)."""
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    code = torch.zeros((st.r, X.shape[1]), device=X.device)
+    return onmf._train_loop(st, X, code, 0.0, 1.0, stop, steps + 1, batch,
+                            True, 10, True, "stale", backend="cuda",
+                            coder=coder, **route)
+
+
+def step_ms(X, batch, steps, coder, stop, **route):
+    """Host ms of synchronised runs of ``steps``: the first run's (which
+    captures on the captured route) and the least of three more, a
+    step."""
+    import onmf_ontf_ndl_tpu_torch as lib
+
+    st = lib.init_state(3, X.shape[0], 25, device=X.device)
+    runs = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_loop(st, X, batch, steps, coder, stop, **route)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return {"first_run_ms": runs[0], "step_ms": min(runs[1:]) / steps}
+
+
+def captured_vs_eager(ck, X, batch, coder, stop, steps=20):
+    """The captured route against the eager one from the same state and
+    generator state: W, A and B equal bit for bit (the same kernels on the
+    same inputs in the same order); the code within the stated bound; the
+    generator's next draw equal; the captured run's kernel runs a step, as
+    the kernels count them on the card."""
+    import dataclasses
+
+    import onmf_ontf_ndl_tpu_torch as lib
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
+
+    st = lib.init_state(4, X.shape[0], 25, device=X.device)
+    runs = {}
+    for capture in (False, True):
+        gen = torch.Generator(device=X.device)
+        gen.set_state(st.gen.get_state())
+        before = device_runs()
+        runs[capture] = train_loop(dataclasses.replace(st, gen=gen), X,
+                                   batch, steps, coder, stop,
+                                   capture=capture)
+        after = device_runs()
+        per_step = {k: (after[k] - before[k]) / steps
+                    for k in after if after[k] > before[k]}
+    (eager, e_code, _), (capt, c_code, _) = runs[False], runs[True]
+    equal = {f: bool(torch.equal(getattr(eager, f), getattr(capt, f)))
+             for f in "WAB"}
+    # index_add_ adds a step's duplicate columns in a nondeterministic
+    # order: each step may round each code entry once more, by at most one
+    # float32 ulp of the largest entry
+    code_bound = steps * 2.0 ** -23 * float(e_code.abs().max())
+    code_err = float((e_code - c_code).abs().max())
+    gen_equal = bool(torch.equal(
+        torch.rand(8, generator=eager.gen, device=X.device),
+        torch.rand(8, generator=capt.gen, device=X.device)))
+    emit("main", check="captured_vs_eager", coder=coder, stopping_diff=stop,
+         batch=batch, steps=steps, bitwise_equal=equal,
+         code_max_abs_err=code_err, code_bound=code_bound,
+         generator_equal=gen_equal, launches_per_step=per_step)
+    if not (all(equal.values()) and code_err <= code_bound and gen_equal
+            and set(per_step.values()) == {1.0}):
+        raise AssertionError(f"captured run differs from eager: {equal}, "
+                             f"code {code_err} > {code_bound}, generator "
+                             f"{gen_equal}, launches {per_step}")
+
+
 def phase_main(ck, dev):
     import onmf_ontf_ndl_tpu_torch as lib
     from onmf_ontf_ndl_tpu_torch.utils.profiling import Throughput
@@ -820,9 +920,10 @@ def phase_main(ck, dev):
     d, r, batch, steps = 300, 25, 16384, 50
     X = headline_data(dev)
     tp = Throughput()
-    for coder, stop in (("bcd", None), ("bcd", 0.01), ("fista", None)):
+    for coder, stop in CODERS:
         st = lib.init_state(2, d, r, device=dev)
-        st, _ = lib.train_dict(st, X, iterations=3, batch_size=batch,
+        # a run of the timed run's length first: it captures the step
+        st, _ = lib.train_dict(st, X, iterations=steps + 1, batch_size=batch,
                                stopping_diff=stop, coder=coder)
         torch.cuda.synchronize()
         # the phase's timer and the port's Throughput around the same run
@@ -837,20 +938,33 @@ def phase_main(ck, dev):
                 and (st.W >= 0).all()):
             raise AssertionError("non-finite or negative training state")
         emit("main", check="throughput", coder=coder, stopping_diff=stop,
-             d=d, r=r, batch=batch, steps=steps, step_ms=1e3 * dt / steps,
+             d=d, r=r, batch=batch, steps=steps, route="captured",
+             step_ms=1e3 * dt / steps,
              patches_per_s=steps * batch / dt,
              throughput_patches_per_s=tp.items_per_sec)
     FINAL_STATES["main"] = st
+    # the main path's launches: the captured runs above only; the eager
+    # comparisons and timings below do not count
+    launches = check_launches(ck, "main")
     # eager per-step overhead: a batch so small that the card is idle
     st = lib.init_state(3, d, r, device=dev)
-    lib.train_dict(st, X, iterations=3, batch_size=128, stopping_diff=None)
+    train_loop(st, X, 128, 2, "bcd", None, capture=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lib.train_dict(st, X, iterations=101, batch_size=128, stopping_diff=None)
+    train_loop(st, X, 128, 100, "bcd", None, capture=False)
     torch.cuda.synchronize()
-    emit("main", check="eager_step_overhead", batch=128,
+    emit("main", check="eager_step_overhead", batch=128, route="eager",
          step_ms=1e3 * (time.perf_counter() - t0) / 100)
-    launches = check_launches(ck, "main")
+    for b in (batch, 128):
+        for coder, stop in CODERS:
+            captured_vs_eager(ck, X, b, coder, stop)
+            fields = {}
+            for route in ("eager", "captured"):
+                ms = step_ms(X, b, steps, coder, stop,
+                             capture=route == "captured")
+                fields.update({f"{route}_{k}": v for k, v in ms.items()})
+            emit("main", check="step_ms", coder=coder, stopping_diff=stop,
+                 batch=b, steps=steps, **fields)
 
     # the same short run on the card (kernels, float32) and on the CPU
     # (plain, float64) from the same draws; fixed sweeps, so both run the
@@ -1286,7 +1400,7 @@ def phase_network(ck, dev):
     REFERENCE["network_a_accuracy_initial_w"] = acc0
 
     ck.reset_launches()
-    runs, peak = {}, {}
+    runs, peak, held = {}, {}, {}
     for tag, (_, _, conf, recon) in NETWORK_RUNS.items():
         rec = NetworkReconstructor(source=graphs[tag], device=dev, **conf)
         torch.cuda.synchronize()
@@ -1295,6 +1409,7 @@ def phase_network(ck, dev):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
+        held[tag] = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         out = rec.reconstruct_network(**recon)
         torch.cuda.synchronize()
@@ -1331,7 +1446,8 @@ def phase_network(ck, dev):
             ok = ok and tuple(out.shape) == (n, n) and acc > acc0
         else:
             fields.update(recon_edges=len(out), limit=0.90,
-                          recon_peak_bytes=peak[tag])
+                          recon_peak_bytes=peak[tag],
+                          held_bytes_before_recon=held[tag])
             ok = ok and out.shape[1] == 2 and acc >= 0.90
         emit("network", **fields)
         if not ok:
@@ -1342,6 +1458,7 @@ def phase_network(ck, dev):
     rec = runs["b"][0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    chunked_held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     out = rec.reconstruct_network(chunks=4, **NETWORK_RUNS["b"][3])
     torch.cuda.synchronize()
@@ -1350,7 +1467,8 @@ def phase_network(ck, dev):
     emit("network", config="b", check="chunked_reconstruction", chunks=4,
          recon_seconds=chunked_s, accuracy=acc, limit=0.90,
          recon_edges=len(out), recon_peak_bytes=torch.cuda.
-         max_memory_allocated(), unchunked_recon_seconds=runs["b"][4],
+         max_memory_allocated(), held_bytes_before_recon=chunked_held,
+         unchunked_recon_seconds=runs["b"][4],
          unchunked_recon_peak_bytes=peak["b"])
     if not (out.shape[1] == 2 and acc >= 0.90):
         raise AssertionError(f"chunked reconstruction: accuracy {acc}")
@@ -1514,6 +1632,7 @@ def phase_parallel(ck, dev, gen):
 
     import onmf_ontf_ndl_tpu_torch as lib
     from onmf_ontf_ndl_tpu_torch.apps.ising import IsingReconstructor
+    from onmf_ontf_ndl_tpu_torch.models import onmf
     from onmf_ontf_ndl_tpu_torch.models.state import make_generator
     from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel as ik
     from onmf_ontf_ndl_tpu_torch.parallel import dp, multihost
@@ -1545,23 +1664,30 @@ def phase_parallel(ck, dev, gen):
                 "one": lambda: lib.train_dict(
                     lib.init_state(2, 300, 25, device=dev), X,
                     batch_size=16384, track_code=False, **kw)[0]}
-            step_ms = {}
+            per_step = {}
             for name, fn in runs.items():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                runs[name] = fn()
-                torch.cuda.synchronize()
-                step_ms[name] = 1e3 * (time.perf_counter() - t0) / steps
+                fn()                    # captures this run's step
+                best = math.inf
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[name] = fn()
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                per_step[name] = 1e3 * best / steps
             got, want = runs["dp"], runs["one"]
             equal = got.t == want.t and all(
                 torch.equal(getattr(got, f), getattr(want, f)) for f in "WAB")
+            # the group's step is captured, its all-reduce in the graph
+            captured = any(key[-1].group is not None for key in onmf._GRAPHS)
             emit("parallel", check="dp_train_dict_vs_train_dict",
                  stopping_diff=stop, d=300, r=25, batch=16384, steps=steps,
-                 bitwise_equal=equal, dp_step_ms=step_ms["dp"],
-                 train_dict_step_ms=step_ms["one"])
-            if not equal:
+                 bitwise_equal=equal, dp_captured=captured,
+                 dp_step_ms=per_step["dp"],
+                 train_dict_step_ms=per_step["one"])
+            if not (equal and captured):
                 raise AssertionError(f"dp_train_dict (stop {stop}) differs "
-                                     "from train_dict")
+                                     "from train_dict or was not captured")
         # dp_ising_learning from phase 6's construction: phase 6's learner
         rec = IsingReconstructor(**ISING_RUN, device=dev)
         t0 = time.perf_counter()

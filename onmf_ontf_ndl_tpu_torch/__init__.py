@@ -6,8 +6,9 @@ Same layout and names as the JAX package, which stays the reference:
                  BCD dictionary update, patch ops, tensor unfolding, and
                  ``ops/kernels`` (hand-written CUDA kernels for sm_90a in
                  place of the JAX package's ``ops/pallas``);
-- ``models``   : ``OnmfState``, ``onmf_step`` / ``train_dict`` (a Python
-                 loop in place of ``lax.scan``), ``OnlineNMF``, ``OnlineNTF``;
+- ``models``   : ``OnmfState``, ``onmf_step`` / ``train_dict`` (one step
+                 captured as a CUDA graph and replayed, in place of
+                 ``lax.scan``), ``OnlineNMF``, ``OnlineNTF``;
 - ``samplers`` : the Ising Metropolis chain and checkerboard sweeps, the
                  motif-homomorphism chains of network dictionary learning;
 - ``data``     : images, video frames, graphs (dense, CSR, bitset) and the native loader;

@@ -5,7 +5,8 @@ Counterpart of ``onmf_ontf_ndl_tpu/apps/ising.py`` (the reference's
 the lattice, then per trajectory step a lattice update and another round,
 with the full ``C = agg X X^T`` statistic so that the surrogate error
 ``tr(W A W^T) - 2 tr(W B) + tr(C)`` is tracked after every round. The JAX
-``lax.scan`` becomes a Python loop.
+``lax.scan`` over rounds becomes a Python loop; each round's inner steps
+replay a captured step on the card (``models/onmf.py::_train_loop``).
 
 Semantics kept from the JAX module: patches come from the raw +-1 lattice;
 ``errors`` and ``dict_stack`` have ``ising_iterations + 1`` entries;

@@ -4,9 +4,10 @@ Counterpart of ``onmf_ontf_ndl_tpu/apps/video.py``. Frames arrive as a
 stream; each frame gives ``num_patches`` random patches and one
 warm-started round of the online-NMF loop (the Markovian-data setting),
 the state threading from frame to frame. The JAX package's ``lax.scan``
-over frames is a Python loop here; on a CUDA tensor every step runs the
-coder kernel (the early stop, or fixed sweeps with ``use_stopping=False``)
-and the dictionary kernel. ``ImageReconstructor(is_stack=True)`` trains
+over frames is a Python loop here around the inner loop, whose step is
+captured as a CUDA graph on the card (``models/onmf.py::_train_loop``);
+every step runs the coder kernel (the early stop, or fixed sweeps with
+``use_stopping=False``) and the dictionary kernel. ``ImageReconstructor(is_stack=True)`` trains
 through :func:`train_video_dict` too.
 """
 

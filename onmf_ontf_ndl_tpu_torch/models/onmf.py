@@ -1,11 +1,15 @@
 """Online nonnegative matrix factorization (ONMF) in PyTorch.
 
 Counterpart of ``onmf_ontf_ndl_tpu/models/onmf.py``: the same step, the
-same training schedule, the same 5-tuple contract. The JAX ``lax.scan``
-becomes a Python loop; on a CUDA tensor each step runs the hand-written
-kernels of ``ops/kernels`` for the coder and the dictionary update, and
-``torch.matmul`` for the dense products ``W^T W``, ``W^T X``, ``H H^T`` and
-``H X^T`` (the JAX package leaves those to XLA).
+same training schedule, the same 5-tuple contract. Each step runs the
+hand-written kernels of ``ops/kernels`` on a CUDA tensor for the coder and
+the dictionary update, and ``torch.matmul`` for the dense products
+``W^T W``, ``W^T X``, ``H H^T`` and ``H X^T`` (the JAX package leaves those
+to XLA). The JAX ``jit`` of ``lax.scan`` becomes one step function on
+static buffers (``_loop_step``): on a CUDA tensor it is captured once as a
+CUDA graph and replayed for every step, its draws from a generator
+registered with the graph; on the CPU, and under ``debug_nans``, it runs in
+a Python loop (``_train_route``).
 
 Semantics kept from the JAX module:
 
@@ -34,7 +38,9 @@ ranks draw their batches and ``H0`` from a rank generator
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 
 import torch
 
@@ -43,6 +49,7 @@ from onmf_ontf_ndl_tpu_torch.models.state import (
 from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
 from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
+from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import MAX_RANK
 
 __all__ = ["OnlineNMF", "onmf_step", "train_dict", "rank_generator"]
 
@@ -154,75 +161,420 @@ def onmf_step(
                        coder=coder)
 
 
-def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
-                stopping_diff, dict_from: str, backend: str = "torch",
-                coder: str = "bcd", group=None):
-    """One step: code, aggregates, dictionary update.
-
-    backend="cuda" runs the coder kernel of ``coder`` (fixed iterations, or
-    the per-tile stop when ``stopping_diff`` is set) and the BCD dictionary
-    kernel; the result agrees with the torch path to float32 accumulation
-    order (the stopping kernels also up to the stopping tolerance on
-    batches wider than one tile, PARITY.md #8).
-
-    ``group``: a process group over which ``Xb`` is column-sharded; the
-    statistics are summed over it, so the step equals the one-process step
-    on the concatenated batch (with the stop, the stop is shard-local).
-    """
-    W, A, B, C = st.W, st.A, st.B, st.C
+def _code(gram, proj, H0, alpha, sub_iter: int, stopping_diff, backend: str,
+          coder: str):
+    """The batch's code from Gram form: the kernel of ``coder`` on
+    backend="cuda" (fixed iterations, or the per-tile stop when
+    ``stopping_diff`` is set), else the plain maths."""
     use_stopping = stopping_diff is not None
-    use_cuda = backend == "cuda"
-    gram = W.T @ W
-    proj = W.T @ Xb
-    H0 = H0.contiguous()
     fista = coder in ("fista", "fista_bf16")
-    if fista and use_cuda:
+    if fista and backend == "cuda":
         from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
             fista_sweeps)
 
-        H = fista_sweeps(gram, proj, H0, alpha,
-                         stopping_diff if use_stopping else 0.0,
-                         sub_iter=int(sub_iter), use_stopping=use_stopping,
-                         bf16_matmul=coder == "fista_bf16")
-    elif fista:
-        H = _fista_impl(gram, proj, H0, alpha, stopping_diff, int(sub_iter),
-                        use_stopping, bf16_matmul=coder == "fista_bf16")
-    elif use_cuda:
+        return fista_sweeps(gram, proj, H0, alpha,
+                            stopping_diff if use_stopping else 0.0,
+                            sub_iter=sub_iter, use_stopping=use_stopping,
+                            bf16_matmul=coder == "fista_bf16")
+    if fista:
+        return _fista_impl(gram, proj, H0, alpha, stopping_diff, sub_iter,
+                           use_stopping, bf16_matmul=coder == "fista_bf16")
+    if backend == "cuda":
         from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
             coder_sweeps, coder_sweeps_earlystop)
 
         if use_stopping:
-            H = coder_sweeps_earlystop(gram, proj, H0, alpha, stopping_diff,
-                                       sub_iter=int(sub_iter))
-        else:
-            H = coder_sweeps(gram, proj, H0, alpha, sub_iter=int(sub_iter))
-    else:
-        H = _code_impl(gram, proj, H0, alpha, stopping_diff, None,
-                       int(sub_iter), use_stopping, False)
-    w_t = t ** (-float(beta))
+            return coder_sweeps_earlystop(gram, proj, H0, alpha,
+                                          stopping_diff, sub_iter=sub_iter)
+        return coder_sweeps(gram, proj, H0, alpha, sub_iter=sub_iter)
+    return _code_impl(gram, proj, H0, alpha, stopping_diff, None, sub_iter,
+                      use_stopping, False)
+
+
+def _step_math(W, A, B, C, Xb, H0, w, omw, alpha, sub_iter: int,
+               stopping_diff, dict_from: str, backend: str, coder: str,
+               group):
+    """One step's maths, on W, A, B and C in place: code ``Xb`` from
+    ``H0``, blend the statistics into the aggregates,
+    ``M <- omw * M + w * stat``, with the weights ``w`` = t^-beta and
+    ``omw`` = 1 - w (Python floats, or (1,) tensors of the state's dtype
+    that hold them rounded as such a float is where it multiplies a tensor
+    of that dtype), then one BCD pass on W from the pre-step aggregates
+    ("stale") or the new ones ("fresh"). Returns the batch's code H.
+
+    backend="cuda" runs the coder kernel of ``coder`` and the BCD dictionary
+    kernel; the result agrees with the torch path to float32 accumulation
+    order (the stopping kernels also up to the stopping tolerance on
+    batches wider than one tile, PARITY.md #8). ``group``: a process group
+    over which ``Xb`` is column-sharded; the statistics are summed over it,
+    so the step equals the one-process step on the concatenated batch
+    (with the stop, the stop is shard-local).
+    """
+    gram = W.T @ W
+    proj = W.T @ Xb
+    H = _code(gram, proj, H0.contiguous(), alpha, int(sub_iter),
+              stopping_diff, backend, coder)
     hht = H @ H.T
     hxt = H @ Xb.T
-    xxt = Xb @ Xb.T if st.tracks_xxt else None
+    xxt = Xb @ Xb.T if C.numel() else None
     if group is not None:
         if xxt is None:
             hht, hxt = _all_reduce([hht, hxt], group)
         else:
             hht, hxt, xxt = _all_reduce([hht, hxt, xxt], group)
-    A1 = (1.0 - w_t) * A + w_t * hht
-    B1 = (1.0 - w_t) * B + w_t * hxt
-    C1 = (1.0 - w_t) * C + w_t * xxt if st.tracks_xxt else C
-    A_u, B_u = (A, B) if dict_from == "stale" else (A1, B1)
-    if use_cuda:
-        from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
-            dict_update_sweep)
 
-        W1 = dict_update_sweep(W, A_u.contiguous(), B_u.contiguous())
-    else:
-        W1 = dict_update_bcd(W, A_u, B_u)
-    st = dataclasses.replace(st, W=W1, A=A1, B=B1, C=C1, t=t)
+    def blend(M, stat):
+        torch.mul(M, omw, out=M).add_(stat.mul_(w))
+
+    def update(A_u, B_u):
+        if backend == "cuda":
+            from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
+                dict_update_sweep)
+
+            return dict_update_sweep(W, A_u.contiguous(), B_u.contiguous())
+        return dict_update_bcd(W, A_u, B_u)
+
+    if dict_from == "stale":
+        W1 = update(A, B)        # before the aggregates change
+    blend(A, hht)
+    blend(B, hxt)
+    if xxt is not None:
+        blend(C, xxt)
+    if dict_from == "fresh":
+        W1 = update(A, B)
+    W.copy_(W1)
+    return H
+
+
+def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
+                stopping_diff, dict_from: str, backend: str = "torch",
+                coder: str = "bcd", group=None):
+    """One step at counter ``t`` (:func:`_step_math` on copies of the
+    state): ``(new_state, H)``."""
+    w_t = t ** (-float(beta))
+    W, A, B, C = (v.clone() for v in (st.W, st.A, st.B, st.C))
+    H = _step_math(W, A, B, C, Xb, H0, w_t, 1.0 - w_t, alpha, sub_iter,
+                   stopping_diff, dict_from, backend, coder, group)
+    st = dataclasses.replace(st, W=W, A=A, B=B, C=C, t=t)
     if _DEBUG_NANS:
         _check_finite(st, H, t)
     return st, H
+
+
+# ------------------------------------------------------------ the training
+# loop: one step function on static buffers, called in a Python loop
+# (eager) or captured once as a CUDA graph and replayed (captured), the
+# counterpart of the JAX package's jitted lax.scan.
+
+# Graphs kept at once, the least recently used dropped first: each holds
+# its static buffers and a memory pool of its step's intermediates, so an
+# app's outer loop replays one graph call after call.
+_GRAPH_CACHE_SIZE = 4
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# Data of up to this many bytes is copied into the graph's own buffer on
+# every call (an app's patches, new at every outer iteration); a larger X
+# (the headline pool, 157 MB) is read in place, so that no second copy of
+# it is kept. The graph then keeps X's address, not the tensor, so the
+# caller's X is freed when the caller drops it: an X at the same address
+# and strides replays the graph, another one is captured anew.
+_OWN_X_BYTES = 1 << 26
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepSpec:
+    """What a training step does, apart from its data: with the data's
+    device, dtype and shape and the state's rank (:func:`_graph_key`), all
+    that a captured step bakes in. ``draws``: None (drawn from the
+    generator), "idx" (given indices and H0) or "full" (given H0, the whole
+    X). ``steps``: the rows of the per-step tables. ``beta`` and the counter
+    ``t`` are not baked: they enter through the weight table."""
+
+    batch: int
+    steps: int
+    alpha: float
+    sub_iter: int
+    stopping_diff: float | None
+    dict_from: str
+    backend: str
+    coder: str
+    draws: str | None
+    subsample: bool
+    sampling: str
+    track_code: bool
+    track_metrics: bool
+    group: object = None
+
+
+def _graph_key(X, state, spec: _StepSpec) -> tuple:
+    """The cache key of the graph that runs ``spec`` on data like ``X``
+    (its device, dtype and shape, not its values) from a state like
+    ``state`` (rank, dtype, whether it tracks X Xᵀ)."""
+    return (X.device, X.dtype, tuple(X.shape), state.W.dtype, state.r,
+            state.tracks_xxt, spec)
+
+
+def _train_route(device_type: str, backend: str, group_backend, r: int,
+                 debug_nans: bool, capture: bool = True) -> str:
+    """How ``_train_loop`` runs its steps: ``"captured"`` (one step
+    captured as a CUDA graph, replayed) or ``"eager"`` (the step function
+    in a Python loop). Captured takes a CUDA tensor on the kernels'
+    backend at a rank the coder kernels take: on the plain maths, which
+    the coder wrappers also run past ``MAX_RANK`` (``kernel_route``'s
+    "unfused"), the early stop reads its test on the host, which a capture
+    cannot. It also takes no group or an NCCL one (a gloo collective is
+    not captured), and no ``debug_nans`` (its check syncs every step).
+    ``capture=False`` asks for eager."""
+    if (capture and device_type == "cuda" and backend == "cuda"
+            and r <= MAX_RANK and group_backend in (None, "nccl")
+            and not debug_nans):
+        return "captured"
+    return "eager"
+
+
+def _step_weights(t0: float, steps: int, beta: float, dtype):
+    """``(w, 1 - w)`` with ``w = t^-beta`` at t = t0 + 1, ..., t0 + steps:
+    each computed on the host in float64 as :func:`_step_inner` computes
+    its Python floats, then rounded once to ``dtype``, as such a float is
+    where it multiplies a tensor of that dtype."""
+    w = [(t0 + i) ** (-float(beta)) for i in range(1, steps + 1)]
+    return (torch.tensor(w, dtype=torch.float64).to(dtype),
+            torch.tensor([1.0 - v for v in w], dtype=torch.float64).to(dtype))
+
+
+def _stack_draws(draws, steps: int, X):
+    """Given per-step ``(idx, H0)`` draws as tables that the step counter
+    indexes: ``(mode, idx (steps, batch) or None, H0 (steps, r, batch))``,
+    mode "idx", or "full" where every ``idx`` is None (the whole X)."""
+    draws = list(draws)[:steps]
+    if len(draws) < steps:
+        raise ValueError(f"draws: {len(draws)} given for {steps} steps")
+    H0 = torch.stack([torch.as_tensor(h, dtype=X.dtype, device=X.device)
+                      for _, h in draws])
+    given = [idx is not None for idx, _ in draws]
+    if not any(given):
+        return "full", None, H0
+    if not all(given):
+        raise ValueError("draws: give every step's indices or none")
+    idx = torch.stack([torch.as_tensor(idx, device=X.device).long()
+                       for idx, _ in draws])
+    return "idx", idx, H0
+
+
+@dataclasses.dataclass
+class _Loop:
+    """The buffers a training step reads and writes in place: the state,
+    the code, the data, the tables of every step (the captured route's
+    weights, given draws, block sampling's pool permutation) and the step
+    counter that indexes them. ``X`` is None once a graph that reads the
+    caller's X in place is captured."""
+
+    X: torch.Tensor | None
+    W: torch.Tensor
+    A: torch.Tensor
+    B: torch.Tensor
+    C: torch.Tensor
+    code: torch.Tensor | None
+    step: torch.Tensor
+    w: torch.Tensor | None
+    omw: torch.Tensor | None
+    perm: torch.Tensor | None
+    offsets: torch.Tensor | None
+    idx: torch.Tensor | None
+    H0: torch.Tensor | None
+    metrics: torch.Tensor | None
+    owns_x: bool
+
+
+def _new_loop(state, X, code, spec: _StepSpec, tables: dict,
+              owns_x: bool) -> _Loop:
+    """Buffers for a run like this call's, filled from it; ``X`` itself,
+    or with ``owns_x`` a buffer of its shape. ``tables`` holds ``perm``,
+    ``idx`` and ``H0``, and on the captured route ``w`` and ``omw``; each
+    may be None."""
+    dev = X.device
+
+    def like(t):        # the weight table comes from the host
+        return None if t is None else torch.empty(t.shape, dtype=t.dtype,
+                                                  device=dev)
+
+    lp = _Loop(
+        X=like(X) if owns_x else X, W=like(state.W), A=like(state.A),
+        B=like(state.B), C=like(state.C),
+        code=like(code) if spec.track_code else None,
+        step=torch.zeros(1, dtype=torch.long, device=dev),
+        w=like(tables.get("w")), omw=like(tables.get("omw")),
+        perm=like(tables["perm"]),
+        offsets=None if tables["perm"] is None
+        else torch.arange(spec.batch, device=dev),
+        idx=like(tables["idx"]), H0=like(tables["H0"]),
+        metrics=torch.zeros(spec.steps, dtype=X.dtype, device=dev)
+        if spec.track_metrics else None,
+        owns_x=owns_x)
+    _refill(lp, state, X, code, tables)
+    return lp
+
+
+def _refill(lp: _Loop, state, X, code, tables: dict) -> None:
+    """Copy a call's state, code, data and tables into the buffers, and
+    set the step counter to 0."""
+    pairs = [(lp.W, state.W), (lp.A, state.A), (lp.B, state.B),
+             (lp.C, state.C), (lp.code, code), (lp.w, tables.get("w")),
+             (lp.omw, tables.get("omw")), (lp.perm, tables["perm"]),
+             (lp.idx, tables["idx"]), (lp.H0, tables["H0"])]
+    if lp.owns_x:
+        pairs.append((lp.X, X))
+    for dst, src in pairs:
+        if dst is not None:
+            dst.copy_(src)
+    lp.step.zero_()
+
+
+def _loop_step(lp: _Loop, spec: _StepSpec, gen, weights=None
+               ) -> torch.Tensor:
+    """One training step on the buffers ``lp``, its draws from ``gen``
+    (or the given tables) at the step counter, which it advances, its
+    weights ``(w, 1 - w)`` given as Python floats (the eager route) or,
+    when None, from the weight table at the counter (the captured route,
+    whose graph cannot take a new float a step). Returns the batch's
+    code."""
+    X, k = lp.X, lp.step
+    n = X.shape[1]
+    idx = None
+    if spec.draws is not None:
+        H0 = lp.H0.index_select(0, k)[0]
+        if lp.idx is not None:
+            idx = lp.idx.index_select(0, k)[0]
+    elif spec.subsample and spec.sampling == "block":
+        # a contiguous wrap-around block of the once-permuted pool at a
+        # random offset (PARITY.md #12); on the card a column gather is
+        # cheap, so the block is gathered rather than sliced from a tiled
+        # copy
+        off = torch.randint(0, n, (1,), generator=gen, device=X.device)
+        idx = lp.perm.index_select(0, (off + lp.offsets) % n)
+    elif spec.subsample:
+        idx = torch.randint(0, n, (spec.batch,), generator=gen,
+                            device=X.device)
+    Xb = X if idx is None else X.index_select(1, idx)
+    if spec.draws is None:
+        H0 = torch.rand((lp.W.shape[1], Xb.shape[1]), generator=gen,
+                        dtype=X.dtype, device=X.device)
+    if weights is None:
+        weights = lp.w.index_select(0, k), lp.omw.index_select(0, k)
+    H = _step_math(
+        lp.W, lp.A, lp.B, lp.C, Xb, H0, *weights, spec.alpha, spec.sub_iter,
+        spec.stopping_diff, spec.dict_from, spec.backend, spec.coder,
+        spec.group)
+    if spec.track_code:
+        if idx is None:
+            lp.code += H
+        else:
+            lp.code.index_add_(1, idx, H)
+    if spec.track_metrics:
+        # the batch objective 0.5|Xb - W H|^2 + alpha|H|_1, post-update W
+        lp.metrics.index_copy_(0, k, (
+            0.5 * torch.sum((Xb - lp.W @ H) ** 2)
+            + spec.alpha * torch.sum(H)).reshape(1))
+    k += 1
+    return H
+
+
+@dataclasses.dataclass
+class _Captured:
+    """A captured step: its graph, its buffers, the generator registered
+    with it, the kernel launches of one replay, and where the graph reads
+    the caller's X in place, X's address (:func:`_address`)."""
+
+    graph: object
+    loop: _Loop
+    gen: torch.Generator
+    launches: dict
+    x_at: tuple | None
+
+
+def _address(X) -> tuple:
+    """Where a graph that reads ``X`` in place reads it (with the shape
+    and dtype of the graph's key)."""
+    return X.data_ptr(), X.stride()
+
+
+@functools.cache
+def _side_stream(device: torch.device):
+    """The stream that captures run their first step and capture on, one
+    per device: cuBLAS and the allocator set up once for it."""
+    return torch.cuda.Stream(device)
+
+
+def _capture(lp: _Loop, spec: _StepSpec, gen) -> _Captured:
+    """Run the first step from ``gen`` on a side stream (which also sets up
+    cuBLAS and the kernels on the stream the capture uses), then capture
+    the next step there, drawing from a generator of the graph's own. A
+    graph that reads the caller's X keeps its address, not the tensor."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
+        captured_launches, launch_counts)
+
+    own = torch.Generator(device=lp.X.device)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(own)
+    side = _side_stream(lp.X.device)
+    side.wait_stream(torch.cuda.current_stream())
+    # capture_begin itself, not torch.cuda.graph, whose entry empties the
+    # allocator's cache at every capture
+    with torch.cuda.stream(side):
+        _loop_step(lp, spec, gen)
+        before = launch_counts()
+        graph.capture_begin()
+        try:
+            _loop_step(lp, spec, own)
+        finally:
+            graph.capture_end()
+    launches = captured_launches(before)
+    torch.cuda.current_stream().wait_stream(side)
+    x_at = None
+    if not lp.owns_x:
+        x_at, lp.X = _address(lp.X), None
+    return _Captured(graph, lp, own, launches, x_at)
+
+
+def _run_captured(state, X, code, spec: _StepSpec, tables: dict, gen,
+                  steps: int):
+    """The captured route: the graph of this key (captured on a miss, with
+    its first step run as it is captured), replayed for the remaining
+    steps. The graph's generator takes ``gen``'s state before the replays
+    and gives it back after, so the replays draw what the eager loop
+    draws and leave ``gen`` where it leaves it. Returns the buffers, which
+    the next call of this key overwrites."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import add_launches
+
+    key = _graph_key(X, state, spec)
+    entry = _GRAPHS.pop(key, None)
+    if entry is not None and entry.x_at not in (None, _address(X)):
+        entry = None           # another large X: capture anew
+    done = 0
+    if entry is None:
+        while len(_GRAPHS) >= _GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)
+        owns_x = X.numel() * X.element_size() <= _OWN_X_BYTES
+        entry = _capture(_new_loop(state, X, code, spec, tables, owns_x),
+                         spec, gen)
+        done = 1
+    else:
+        _refill(entry.loop, state, X, code, tables)
+    _GRAPHS[key] = entry
+    entry.gen.set_state(gen.get_state())
+    for _ in range(steps - done):
+        entry.graph.replay()
+    add_launches(entry.launches, steps - done)
+    gen.set_state(entry.gen.get_state())
+    return entry.loop
+
+
+def _clear_graphs() -> None:
+    """Drop every captured step, with its buffers and memory pool: before
+    the process group goes (a graph holds its all-reduce's communicator),
+    and where ``debug_nans`` turns training to the eager route."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()        # no replay in flight
+    _GRAPHS.clear()
 
 
 def _train_loop(
@@ -244,63 +596,77 @@ def _train_loop(
     draws=None,
     coder: str = "bcd",
     group=None,
+    *,
+    capture: bool = True,
 ):
     """``iterations - 1`` steps (the JAX ``_train_scan``); every training
-    path funnels through here. ``code`` is updated in place. With a
-    ``group``, ``X`` is this rank's shard: the pool permutation of block
-    sampling is drawn alike on every rank (as the JAX scan draws it from
-    the replicated key), the batches and ``H0`` from the rank generator."""
+    path funnels through here. Returns ``(state, code, metrics)``, new
+    tensors; ``code`` is not written. With a ``group``, ``X`` is this
+    rank's shard: the pool permutation of block sampling is drawn alike on
+    every rank (as the JAX scan draws it from the replicated key), the
+    batches and ``H0`` from the rank generator.
+
+    :func:`_train_route` picks the route: on a CUDA tensor one step is
+    captured as a CUDA graph (once per :func:`_graph_key`) and replayed for
+    every step; on the CPU, under ``debug_nans``, with a gloo group or with
+    ``capture=False`` (tests and the card's comparisons) the same step
+    function runs in a Python loop. A capture or replay that fails raises;
+    no step falls back to the eager loop."""
     if sampling not in ("iid", "block"):
         raise ValueError(f"sampling must be 'iid' or 'block', got {sampling!r}")
     n = X.shape[1]
     t0 = state.t
     gen = state.gen
+    perm = None
     if subsample and sampling == "block" and draws is None:
-        # a contiguous wrap-around block of a once-permuted pool at a random
-        # offset per step (PARITY.md #12); on the card a column gather is
-        # cheap, so the block is gathered rather than sliced from a tiled copy
         perm = torch.randperm(n, generator=gen, device=X.device)
-        offsets = torch.arange(batch_size, device=X.device)
     if draws is None:
         gen = rank_generator(gen, group)
-    metrics = []
-    st = state
-    for step, i in enumerate(range(1, max(iterations, 1))):
-        if draws is not None:
-            idx, H0 = draws[step]
-            Xb = X if idx is None else X[:, idx]
-        else:
-            if subsample and sampling == "block":
-                off = torch.randint(0, n, (1,), generator=gen,
-                                    device=X.device)
-                idx = perm[(off + offsets) % n]
-                Xb = X.index_select(1, idx)
-            elif subsample:
-                idx = torch.randint(0, n, (batch_size,), generator=gen,
-                                    device=X.device)
-                Xb = X.index_select(1, idx)
-            else:
-                idx, Xb = None, X
-            H0 = torch.rand((st.r, Xb.shape[1]), generator=gen,
-                            dtype=X.dtype, device=X.device)
-        st, H = _step_inner(st, Xb, t0 + i, H0, alpha, beta, sub_iter,
-                            stopping_diff, dict_from, backend, coder=coder,
-                            group=group)
-        if track_code:
-            if idx is None:
-                code += H
-            else:
-                code.index_add_(1, torch.as_tensor(idx, device=X.device), H)
-        if track_metrics:
-            # per-step batch objective 0.5|Xb - W H|^2 + alpha|H|_1 with
-            # the post-update W
-            metrics.append(0.5 * torch.sum((Xb - st.W @ H) ** 2)
-                           + alpha * torch.sum(H))
-    if iterations > 1:
-        st = dataclasses.replace(st, t=t0 + float(iterations))
-    metrics = torch.stack(metrics) if metrics \
+    steps = max(iterations, 1) - 1
+    if steps == 0:
+        return state, code, torch.zeros((0,), dtype=X.dtype,
+                                        device=X.device)
+    mode, idx, H0 = (None, None, None) if draws is None \
+        else _stack_draws(draws, steps, X)
+    if mode is not None:
+        batch = n if idx is None else idx.shape[1]
+    else:
+        batch = batch_size if subsample else n
+    spec = _StepSpec(
+        batch=batch, steps=steps, alpha=float(alpha), sub_iter=int(sub_iter),
+        stopping_diff=stopping_diff, dict_from=dict_from, backend=backend,
+        coder=coder, draws=mode, subsample=bool(subsample),
+        sampling=sampling, track_code=bool(track_code),
+        track_metrics=bool(track_metrics), group=group)
+    tables = dict(perm=perm, idx=idx, H0=H0)
+    group_backend = None
+    if group is not None:
+        import torch.distributed as dist
+
+        group_backend = str(dist.get_backend(group))
+    route = _train_route(X.device.type, backend, group_backend, state.r,
+                         _DEBUG_NANS, capture)
+    if route == "captured":
+        tables["w"], tables["omw"] = _step_weights(t0, steps, beta, X.dtype)
+        with torch.cuda.device(X.device):
+            lp = _run_captured(state, X, code, spec, tables, gen, steps)
+    else:
+        lp = _new_loop(state, X, code, spec, tables, owns_x=False)
+        for i in range(1, steps + 1):
+            w_t = (t0 + i) ** (-float(beta))     # as _step_inner has it
+            H = _loop_step(lp, spec, gen, (w_t, 1.0 - w_t))
+            if _DEBUG_NANS:
+                _check_finite(lp, H, t0 + i)
+
+    def take(t):            # a graph's buffers outlive the call
+        return t.clone() if route == "captured" else t
+
+    st = dataclasses.replace(state, W=take(lp.W), A=take(lp.A),
+                             B=take(lp.B), C=take(lp.C),
+                             t=t0 + float(iterations))
+    metrics = take(lp.metrics[:steps]) if track_metrics \
         else torch.zeros((0,), dtype=X.dtype, device=X.device)
-    return st, code, metrics
+    return st, take(lp.code) if track_code else code, metrics
 
 
 def train_dict(
@@ -344,7 +710,7 @@ def train_dict(
                                             device=X.device)
         return state, code
     state, code, metrics = _train_loop(
-        state, X, code.clone(), alpha, beta, stopping_diff, int(iterations),
+        state, X, code, alpha, beta, stopping_diff, int(iterations),
         int(batch_size), bool(subsample), int(sub_iter), bool(track_code),
         dict_from, backend=resolve_backend(backend, X),
         track_metrics=bool(return_metrics), sampling=sampling, draws=draws,

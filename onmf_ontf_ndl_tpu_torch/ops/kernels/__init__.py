@@ -11,11 +11,12 @@ from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
     coder_sweeps,
     coder_sweeps_earlystop,
     dict_update_sweep,
+    fista_sweeps,
 )
 
 __all__ = [
     "coder_sweeps", "coder_sweeps_earlystop", "dict_update_sweep",
-    "resolve_backend",
+    "fista_sweeps", "resolve_backend",
 ]
 
 

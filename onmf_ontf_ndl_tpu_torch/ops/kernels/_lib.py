@@ -20,7 +20,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "LAUNCHES", "reset_launches", "TN"]
+__all__ = ["build", "LAUNCHES", "reset_launches", "TN", "launch_counts",
+           "captured_launches", "add_launches", "RUN_KERNELS", "device_runs"]
 
 TN = 128                  # early-stop tile: columns per thread block
 
@@ -36,9 +37,53 @@ LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
             "checkerboard_sweeps": 0, "checkerboard_sweeps_band": 0}
 
 
+# The kernels whose main CUDA kernel also counts its own runs on the device
+# (``onmf_read_runs``), in the library's order: a check of the counts
+# above, replayed graphs included.
+RUN_KERNELS = ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
+               "dict_update_sweep")
+
+
 def reset_launches() -> None:
+    """Zero the counts, and the device's (:func:`device_runs`) where the
+    library is loaded on a CUDA device."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    if build.cache_info().currsize and torch.cuda.is_initialized():
+        _raise_on_error("onmf_reset_runs", build()["lib"].onmf_reset_runs())
+
+
+def device_runs() -> dict:
+    """Runs of each kernel of :data:`RUN_KERNELS` on the current CUDA device
+    since the last :func:`reset_launches`, as the kernels count them
+    themselves: a run replayed from a CUDA graph counts too. Synchronises
+    the device."""
+    out = (ctypes.c_ulonglong * len(RUN_KERNELS))()
+    _raise_on_error("onmf_read_runs", build()["lib"].onmf_read_runs(out))
+    return dict(zip(RUN_KERNELS, map(int, out)))
+
+
+# A CUDA graph's capture calls the wrappers, which count, but launches
+# nothing; each replay launches without calling them. So a capture takes
+# back what it counted, and each replay adds it again.
+def launch_counts() -> dict:
+    """A copy of the counts, taken before a capture."""
+    return dict(LAUNCHES)
+
+
+def captured_launches(before: dict) -> dict:
+    """The launches counted since ``before`` (a :func:`launch_counts`
+    taken just before a capture), which are what one replay of the graph
+    launches. The counts go back to ``before``."""
+    added = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+    LAUNCHES.update(before)
+    return added
+
+
+def add_launches(counts: dict, replays: int) -> None:
+    """Count ``replays`` replays of a graph that launches ``counts``."""
+    for name, count in counts.items():
+        LAUNCHES[name] += count * replays
 
 
 # ------------------------------------------------------------------ build
@@ -116,10 +161,13 @@ def build() -> dict:
     u = ctypes.c_uint
     lib.onmf_checkerboard_band_half.argtypes = [p, p, p, i, i, i, u, u, u, p,
                                                 p]
+    lib.onmf_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.onmf_reset_runs.argtypes = []
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
                lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
                lib.onmf_checkerboard_sweeps, lib.onmf_checkerboard_band_half,
-               lib.onmf_tile_columns):
+               lib.onmf_tile_columns, lib.onmf_read_runs,
+               lib.onmf_reset_runs):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
     for fn, args in ((lib.onmf_dict_smem_floats, [i, i]),

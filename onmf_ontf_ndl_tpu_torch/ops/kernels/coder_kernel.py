@@ -150,6 +150,7 @@ and counts the launch in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -385,6 +386,12 @@ def dict_route(d: int, r: int) -> tuple[str, int]:
     return ("shared" if c == 1 else "cluster"), c
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    """The SMs of ``device``, queried once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0):
     """The workspace of a wide kernel and its block count: one slice of
     ``slice_floats`` per block (after ``head_floats`` shared by all), as
@@ -392,8 +399,7 @@ def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0):
     threads and shared memory keep one block on an SM) and
     :data:`_WS_BYTES` of slices."""
     tiles = -(-B.shape[1] // TN)
-    sms = torch.cuda.get_device_properties(B.device).multi_processor_count
-    blocks = max(1, min(tiles, sms,
+    blocks = max(1, min(tiles, _sm_count(B.device),
                         _WS_BYTES // max(4 * slice_floats, 1)))
     ws = torch.empty(head_floats + blocks * slice_floats,
                      dtype=torch.float32, device=B.device)

@@ -32,6 +32,10 @@
 // The dictionary update runs dict_update_kernel on one CTA or a cluster,
 // or dict_update_single_kernel past the cluster's shared memory, chosen by
 // the wrapper from (d, r) alone.
+//
+// Each entry point's main kernel counts its own runs on the device
+// (count_run), so that a run replayed from a CUDA graph counts too:
+// onmf_read_runs and onmf_reset_runs read and zero the counts.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -54,6 +58,19 @@ constexpr int HS = TN + 1;
 // Largest rank of the shared-memory FISTA kernel with fixed iterations: one
 // thread per 4 x 8 outputs of a tile is 512 threads at r = 128.
 constexpr int FISTA_MAX_RANK = 128;
+
+// Runs of each entry point's main kernel since onmf_reset_runs, in the
+// order of the entry points: coder_sweeps, coder_sweeps_earlystop,
+// fista_sweeps, dict_update_sweep.
+enum { RUN_CODER, RUN_CODER_ES, RUN_FISTA, RUN_DICT, RUN_KINDS };
+__device__ unsigned long long g_runs[RUN_KINDS];
+
+// One thread of the grid's first block adds one run of `kind`.
+__device__ __forceinline__ void count_run(int kind) {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+       threadIdx.z) == 0)
+    atomicAdd(&g_runs[kind], 1ull);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
@@ -305,6 +322,7 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
                           const float* __restrict__ H0,
                           float* __restrict__ H, int r, int n, float alpha,
                           float stop, int sub_iter, int pi_iters) {
+  count_run(RUN_CODER_ES);
   extern __shared__ float smem[];
   constexpr int C = ES_COLS, RP = L * Q;
   constexpr bool kReform = L * Q > 32;  // g formed anew every sweep
@@ -495,6 +513,7 @@ __global__ void __launch_bounds__(TN / CS_COLS * L, L == 2 ? 4 : 1)
                        const float* __restrict__ B,
                        const float* __restrict__ H0, float* __restrict__ H,
                        int r, int n, float alpha, int sub_iter) {
+  count_run(RUN_CODER);
   extern __shared__ float smem[];
   constexpr int C = CS_COLS, RP = L * Q;
   constexpr int kReform = RP > 32 ? 1 : CS_REFORM;  // sweeps per fresh g
@@ -985,6 +1004,7 @@ __global__ void __launch_bounds__(512)
                        int r, int n, float alpha, const float* inv_L_ptr,
                        float stop, int sub_iter, int use_stopping,
                        int pi_iters) {
+  count_run(RUN_FISTA);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int R4 = (r + 3) & ~3, RS = ft_row_stride(r), nb = R4 >> 2;
@@ -1452,6 +1472,7 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
                       int r, int n, float alpha, const float* inv_L_ptr,
                       float stop, int sub_iter, int pi_iters,
                       float* __restrict__ ws) {
+  count_run(RUN_FISTA);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int use_stopping = kStop;
@@ -1945,6 +1966,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
                       const float* __restrict__ H0, float* __restrict__ H,
                       int r, int n, float alpha, float stop, int sub_iter,
                       int pi_iters, float* __restrict__ ws) {
+  count_run(kStop ? RUN_CODER_ES : RUN_CODER);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int G = CW_THREADS / L;  // column groups: a pass's columns / C
@@ -2079,6 +2101,7 @@ __global__ void dict_update_single_kernel(const float* __restrict__ W_in,
                                           const float* __restrict__ B,
                                           float* __restrict__ W, int d,
                                           int r) {
+  count_run(RUN_DICT);
   __shared__ float red[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = (blockDim.x + 31) >> 5;
@@ -2244,6 +2267,7 @@ __global__ void __launch_bounds__(DICT_MAX_THREADS)
                        const float* __restrict__ A,
                        const float* __restrict__ B, float* __restrict__ W,
                        int d, int r, int rows) {
+  count_run(RUN_DICT);
   extern __shared__ float smem[];
   const int L = dict_lanes(rows, r), GS = dict_row_stride(r, L);
   float* red = smem;                   // 2 x (DICT_MAX_CLUSTER * 32), 16 B
@@ -2485,6 +2509,21 @@ void onmf_coder_wide_config(int r, int use_stopping, int* out) {
 }
 
 int onmf_tile_columns(void) { return TN; }
+
+// The main kernels' runs (g_runs) into out[0..3], after every launch before
+// it on any stream has finished; onmf_reset_runs zeroes them.
+int onmf_read_runs(unsigned long long* out) {
+  int e = (int)cudaDeviceSynchronize();
+  if (e) return e;
+  return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
+}
+
+int onmf_reset_runs(void) {
+  int e = (int)cudaDeviceSynchronize();
+  if (e) return e;
+  const unsigned long long zero[RUN_KINDS] = {};
+  return (int)cudaMemcpyToSymbol(g_runs, zero, sizeof(g_runs));
+}
 
 const char* onmf_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -78,8 +78,12 @@ def initialize(coordinator_address: str | None = None,
 
 
 def shutdown() -> None:
-    """Leave the process group (for clean teardown)."""
+    """Leave the process group (for clean teardown), after dropping the
+    captured training steps, whose graphs may hold its collectives."""
     if is_initialized():
+        from onmf_ontf_ndl_tpu_torch.models.onmf import _clear_graphs
+
+        _clear_graphs()
         dist.destroy_process_group()
 
 

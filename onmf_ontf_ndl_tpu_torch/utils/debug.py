@@ -68,9 +68,13 @@ def check_state(state, *, name: str = "state") -> None:
 def debug_nans(enable: bool = True):
     """Check every training step's new state and code for non-finite
     values in the enclosed block; the step raises ``FloatingPointError``
-    naming its step counter ``t`` and the fields at fault."""
+    naming its step counter ``t`` and the fields at fault. Training runs
+    its eager route inside (``models/onmf.py::_train_route``), so entering
+    drops the captured steps and their memory."""
     from onmf_ontf_ndl_tpu_torch.models import onmf
 
+    if enable:
+        onmf._clear_graphs()
     prev = onmf._DEBUG_NANS
     onmf._DEBUG_NANS = bool(enable)
     try:

@@ -702,3 +702,174 @@ def test_cuda_multihost_takes_nccl(cuda, tmp_path):
     finally:
         multihost.shutdown()
     assert not multihost.is_initialized()
+
+
+# ------------------------------------------- the captured training loop
+# Captured against eager (``_train_loop(capture=False)``) from one state and
+# one generator state: the same kernels on the same inputs in the same
+# order, so W, A, B and C are equal bit for bit; the code is summed by
+# index_add_, whose atomics add in another order from run to run (float32
+# rounding: rtol 1e-5 / atol 1e-6); the objectives are reductions of equal
+# inputs.
+CAPTURE_CASES = {
+    "iid_stop": dict(coder="bcd", stop=0.01),
+    "iid_fixed_metrics": dict(coder="bcd", stop=None, metrics=True),
+    "iid_fista": dict(coder="fista", stop=None),
+    "iid_fista_stop_xxt": dict(coder="fista", stop=0.01, xxt=True),
+    "iid_fista_bf16": dict(coder="fista_bf16", stop=None),
+    "block_stop": dict(coder="bcd", stop=0.01, sampling="block"),
+    "block_fixed_fresh": dict(coder="bcd", stop=None, sampling="block",
+                              dict_from="fresh"),
+    "block_fista": dict(coder="fista", stop=None, sampling="block"),
+    "full_batch_xxt": dict(coder="bcd", stop=0.01, subsample=False,
+                           xxt=True),
+    "no_code": dict(coder="bcd", stop=0.01, track_code=False),
+    "draws": dict(coder="bcd", stop=0.01, draws=True, metrics=True),
+    "draws_full_batch": dict(coder="fista", stop=None, draws=True,
+                             subsample=False),
+}
+
+
+def _train(dev, X, capture, seed=3, steps=6, batch=512, coder="bcd",
+           stop=None, sampling="iid", dict_from="stale", xxt=False,
+           subsample=True, track_code=True, metrics=False, draws=False):
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+
+    d, n = X.shape
+    r = 12
+    st = init_state(seed, d, r, device=dev, track_xxt=xxt)
+    given = None
+    if draws:
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        width = batch if subsample else n
+        given = [(torch.randint(0, n, (batch,), generator=g, device=dev)
+                  if subsample else None,
+                  torch.rand((r, width), generator=g, device=dev))
+                 for _ in range(steps)]
+    code = torch.rand((r, n), generator=torch.Generator(
+        device=dev).manual_seed(seed + 2), device=dev)
+    out = onmf._train_loop(st, X, code, 0.1, 0.9, stop, steps + 1, batch,
+                           subsample, 10, track_code, dict_from,
+                           backend="cuda", track_metrics=metrics,
+                           sampling=sampling, draws=given, coder=coder,
+                           capture=capture)
+    torch.cuda.synchronize()
+    return out
+
+
+def _assert_runs_equal(got, want):
+    for f in "WABC":
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert got[0].t == want[0].t
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    assert torch.equal(torch.rand(8, generator=got[0].gen,
+                                  device=got[0].W.device),
+                       torch.rand(8, generator=want[0].gen,
+                                  device=want[0].W.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_cuda_captured_training_equals_eager(cuda, case):
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    X = torch.rand((60, 3000), generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    onmf._GRAPHS.clear()
+    kw = CAPTURE_CASES[case]
+    _assert_runs_equal(_train(cuda, X, True, **kw),
+                       _train(cuda, X, False, **kw))
+    assert len(onmf._GRAPHS) == 1
+    # a second call replays the graph it captured
+    entry = next(iter(onmf._GRAPHS.values()))
+    _assert_runs_equal(_train(cuda, X, True, seed=5, **kw),
+                       _train(cuda, X, False, seed=5, **kw))
+    assert next(iter(onmf._GRAPHS.values())) is entry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own", [True, False])
+def test_cuda_captured_graph_takes_new_data(cuda, own, monkeypatch):
+    """New data of the same shape replays the graph (an owned buffer takes
+    a copy) or, for data read in place, captures anew; the graph keeps the
+    address of data it reads in place, not the tensor. Each replay counts
+    one launch a step of each kernel on the path, and the kernels' own
+    count of their runs on the card agrees."""
+    import gc
+    import weakref
+
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
+    from onmf_ontf_ndl_tpu_torch.utils.profiling import Throughput
+
+    if not own:
+        monkeypatch.setattr(onmf, "_OWN_X_BYTES", 0)
+    onmf._GRAPHS.clear()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    X1, X2 = (torch.rand((60, 3000), generator=gen, device=cuda)
+              for _ in range(2))
+    _train(cuda, X1, True, stop=0.01)
+    entry = next(iter(onmf._GRAPHS.values()))
+    assert entry.loop.owns_x is own
+    assert (entry.loop.X is None) is not own
+    assert entry.x_at == (None if own else (X1.data_ptr(), X1.stride()))
+    x1 = weakref.ref(X1)
+    del X1
+    gc.collect()
+    assert x1() is None             # the cache does not keep the data
+    ck.reset_launches()
+    got = _train(cuda, X2, True, stop=0.01, steps=6)
+    Throughput.fence(got)
+    assert torch.cuda.current_stream().query()
+    assert (next(iter(onmf._GRAPHS.values())) is entry) is own
+    assert ck.LAUNCHES["coder_sweeps_earlystop"] == 6
+    assert ck.LAUNCHES["dict_update_sweep"] == 6
+    assert ck.LAUNCHES["coder_sweeps"] == ck.LAUNCHES["fista_sweeps"] == 0
+    assert device_runs() == {k: ck.LAUNCHES[k] for k in device_runs()}
+    _assert_runs_equal(got, _train(cuda, X2, False, stop=0.01, steps=6))
+    ck.reset_launches()
+    _train(cuda, X2, True, stop=0.01, steps=6)       # a hit either way
+    assert ck.LAUNCHES["dict_update_sweep"] == 6
+    assert device_runs()["dict_update_sweep"] == 6
+    entry = next(iter(onmf._GRAPHS.values()))
+    # another step count is another graph (the tables hold each step)
+    ck.reset_launches()
+    _assert_runs_equal(_train(cuda, X2, True, stop=0.01, steps=5),
+                       _train(cuda, X2, False, stop=0.01, steps=5))
+    assert next(reversed(onmf._GRAPHS.values())) is not entry
+    assert len(onmf._GRAPHS) == 2
+    assert ck.LAUNCHES["dict_update_sweep"] == 2 * 5
+    assert device_runs()["dict_update_sweep"] == 2 * 5
+
+
+@pytest.mark.cuda
+def test_cuda_graph_cache_stays_small(cuda):
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    onmf._GRAPHS.clear()
+    X = torch.rand((60, 3000), device=cuda)
+    for batch in (128, 256, 384, 512, 640, 768):
+        _train(cuda, X, True, batch=batch, steps=2)
+    assert len(onmf._GRAPHS) == onmf._GRAPH_CACHE_SIZE
+
+
+@pytest.mark.cuda
+def test_cuda_debug_nans_takes_the_eager_route(cuda):
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+    from onmf_ontf_ndl_tpu_torch.utils.debug import debug_nans
+
+    onmf._GRAPHS.clear()
+    X = torch.rand((60, 3000), device=cuda)
+    _train(cuda, X, True, stop=0.01)
+    assert onmf._GRAPHS
+    with debug_nans():
+        assert not onmf._GRAPHS         # entering drops the captured steps
+        got = _train(cuda, X, True, stop=0.01)
+    assert not onmf._GRAPHS
+    _assert_runs_equal(got, _train(cuda, X, False, stop=0.01))
+    X[0, :] = float("nan")
+    with debug_nans(), pytest.raises(FloatingPointError, match="t=1"):
+        _train(cuda, X, True, subsample=False)
+    assert not onmf._GRAPHS

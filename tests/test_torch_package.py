@@ -1,7 +1,10 @@
 """Package-level properties of the PyTorch port."""
 
+import ast
+import importlib
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -310,3 +313,59 @@ def test_smoke_bound_takes_the_peak_of_the_operand_type(mode):
     assert by == "operations"
     assert ms == pytest.approx(1e3 * want, rel=1e-12)
     assert cs.bound(3.35e12, 0) == (1e3, "bytes")
+
+
+# ----------------------------------------------- __all__ against the JAX one
+_ROOT = Path(__file__).resolve().parent.parent
+_JAX = _ROOT / "onmf_ontf_ndl_tpu"
+# the port's deliberate differences: names it adds to a package, and the
+# JAX name each port name stands for
+_PACKAGE_EXTRAS = {"": {"state_to_numpy", "state_from_numpy"}}
+_RENAMED = {"checkerboard_sweeps_pallas": "checkerboard_sweeps"}
+
+
+def _jax_all(path: Path):
+    """The literal ``__all__`` of a JAX package file, read without
+    importing it (None where it has none)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return None
+
+
+def _port_module(rel: Path) -> str:
+    """The port's module of a JAX file, ``ops/pallas`` as ``ops/kernels``."""
+    parts = [p for p in rel.with_suffix("").parts if p != "__init__"]
+    dotted = ".".join(parts).replace("ops.pallas", "ops.kernels")
+    return "onmf_ontf_ndl_tpu_torch" + (f".{dotted}" if dotted else "")
+
+
+_JAX_FILES = sorted(p.relative_to(_JAX) for p in _JAX.rglob("*.py"))
+
+
+@pytest.mark.parametrize(
+    "rel", [r for r in _JAX_FILES if r.name == "__init__.py"], ids=str)
+def test_package_all_pins_the_jax_package(rel):
+    """Each port package lists what its JAX package lists, plus the named
+    extras, and has each name: a missing re-export fails here."""
+    want = _jax_all(_JAX / rel)
+    mod = importlib.import_module(_port_module(rel))
+    if want is None:
+        assert not hasattr(mod, "__all__")
+        return
+    extras = _PACKAGE_EXTRAS.get(str(rel.parent).strip("."), set())
+    assert set(mod.__all__) == {_RENAMED.get(n, n) for n in want} | extras
+    for name in mod.__all__:
+        assert hasattr(mod, name), name
+
+
+@pytest.mark.parametrize(
+    "rel", [r for r in _JAX_FILES if r.name != "__init__.py"
+            and _jax_all(_JAX / r) is not None], ids=str)
+def test_module_all_holds_every_jax_name(rel):
+    mod = importlib.import_module(_port_module(rel))
+    names = {_RENAMED.get(n, n) for n in _jax_all(_JAX / rel)}
+    assert names <= set(mod.__all__), names - set(mod.__all__)
+    for name in mod.__all__:
+        assert hasattr(mod, name), name

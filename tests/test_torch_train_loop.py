@@ -1,0 +1,289 @@
+"""The training loop's step function on static buffers (run eagerly on the
+CPU in float64) against the JAX ``_train_scan`` through ``draws=``, for
+every case that a captured graph's key tells apart; block and iid
+sampling from the generator against the one-step loop of ``_step_inner``
+on the same stream; and the pure functions of the captured route: the
+route, the graph cache key, the step weight table and the launch
+bookkeeping. Tolerance against JAX: rtol 1e-8 (float64, the same
+operations up to BLAS sums); FISTA rtol 1e-6 / atol 1e-7, as
+tests/test_torch_fista.py holds it (its step 1 / L comes from float32
+power steps, which the frameworks sum in another order: one float32 ulp).
+The generator runs are compared exactly."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from onmf_ontf_ndl_tpu.models import onmf as jonmf
+from onmf_ontf_ndl_tpu_torch.models import onmf as tonmf
+from onmf_ontf_ndl_tpu_torch.models.state import init_state
+from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+from test_torch_onmf import assert_state_close, make_states, replay_draws
+
+torch.set_num_threads(1)
+
+RNG = np.random.default_rng(41)
+F64 = torch.float64
+
+# one case per value of each argument the key bakes in, from a base of
+# iid minibatches, the early stop, bcd, stale, code and metrics tracked
+BASE = dict(subsample=True, n=40, batch=12, stop=0.01, coder="bcd",
+            dict_from="stale", track_xxt=False, track_code=True,
+            metrics=True, alpha=0.3, sub_iter=10)
+CASES = {
+    "iid_stop": {},
+    "full_batch": dict(subsample=False, n=30, batch=0),
+    "fixed": dict(stop=None),
+    "fista_fixed": dict(coder="fista", stop=None),
+    "fista_stop": dict(coder="fista"),
+    "fresh": dict(dict_from="fresh"),
+    "tracks_xxt": dict(track_xxt=True),
+    "no_code": dict(track_code=False),
+    "no_metrics": dict(metrics=False),
+    "duplicate_indices": dict(n=10, batch=25, stop=None),
+    "alpha_zero_sub_iter_5": dict(alpha=0.0, sub_iter=5),
+    "full_batch_fixed_xxt_fresh": dict(subsample=False, n=30, batch=0,
+                                       stop=None, track_xxt=True,
+                                       dict_from="fresh"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_step_function_matches_jax_train_scan(case):
+    c = {**BASE, **CASES[case]}
+    d, r, iterations = 30, 6, 6
+    warm = dict(C=RNG.random((d, d))) if c["track_xxt"] else {}
+    js, ts = make_states(d=d, r=r, seed=11, track_xxt=c["track_xxt"], **warm)
+    X = RNG.random((d, c["n"]))
+    draws = replay_draws(js.key, c["n"], r, iterations, c["batch"],
+                         c["subsample"])
+    kw = dict(iterations=iterations, batch_size=c["batch"],
+              subsample=c["subsample"], alpha=c["alpha"], beta=0.8,
+              sub_iter=c["sub_iter"], stopping_diff=c["stop"],
+              dict_from=c["dict_from"], coder=c["coder"],
+              track_code=c["track_code"], return_metrics=c["metrics"])
+    jout = jonmf.train_dict(js, jnp.asarray(X), **kw)
+    code0 = torch.zeros((r, c["n"]), dtype=F64)
+    before = [getattr(ts, f).clone() for f in "WABC"]
+    ts1, tcode, tmet = tonmf._train_loop(
+        ts, torch.from_numpy(X), code0, c["alpha"], 0.8, c["stop"],
+        iterations, c["batch"], c["subsample"], c["sub_iter"],
+        c["track_code"], c["dict_from"], backend="torch",
+        track_metrics=c["metrics"], draws=draws, coder=c["coder"])
+    tol = dict(rtol=1e-6, atol=1e-7) if c["coder"] == "fista" \
+        else dict(rtol=1e-8, atol=1e-12)
+    assert_state_close(ts1, jout[0], **tol)
+    np.testing.assert_allclose(tcode.numpy(), np.asarray(jout[1]), **tol)
+    if c["metrics"]:
+        np.testing.assert_allclose(tmet.numpy(), np.asarray(jout[2]),
+                                   rtol=tol["rtol"])
+    else:
+        assert tmet.shape == (0,)
+    # the caller's code and state are not written
+    assert (code0 == 0).all()
+    assert all(torch.equal(getattr(ts, f), v) for f, v in zip("WABC", before))
+
+
+def one_step_loop(state, X, iterations, batch, sampling, stop, coder):
+    """Training as a loop of ``_step_inner`` single steps, drawing from
+    ``state.gen`` in the training loop's order: the pool permutation once
+    (block), then per step the batch (randint) and H0 (rand)."""
+    gen, n = state.gen, X.shape[1]
+    code = torch.zeros((state.r, n), dtype=X.dtype)
+    if sampling == "block":
+        perm = torch.randperm(n, generator=gen)
+    st, t0 = state, state.t
+    for i in range(1, iterations):
+        if sampling == "block":
+            off = torch.randint(0, n, (1,), generator=gen)
+            idx = perm[(off + torch.arange(batch)) % n]
+        else:
+            idx = torch.randint(0, n, (batch,), generator=gen)
+        Xb = X.index_select(1, idx)
+        H0 = torch.rand((st.r, batch), generator=gen, dtype=X.dtype)
+        st, H = tonmf._step_inner(st, Xb, t0 + i, H0, 0.2, 0.9, 10, stop,
+                                  "stale", "torch", coder=coder)
+        code.index_add_(1, idx, H)
+    return dataclasses.replace(st, t=t0 + float(iterations)), code
+
+
+@pytest.mark.parametrize("sampling", ["iid", "block"])
+@pytest.mark.parametrize("coder,stop", [("bcd", None), ("bcd", 0.01),
+                                        ("fista", None)])
+def test_drawn_steps_match_the_one_step_loop(sampling, coder, stop):
+    d, r, n, batch, iterations = 20, 5, 37, 16, 6
+    X = torch.from_numpy(RNG.random((d, n)))
+    W = RNG.random((d, r))
+    want = one_step_loop(init_state(4, d, r, device="cpu", dtype=F64, W=W,
+                                    t=2.0), X, iterations, batch, sampling,
+                         stop, coder)
+    st = init_state(4, d, r, device="cpu", dtype=F64, W=W, t=2.0)
+    got = tonmf._train_loop(st, X, torch.zeros((r, n), dtype=F64), 0.2, 0.9,
+                            stop, iterations, batch, True, 10, True, "stale",
+                            backend="torch", sampling=sampling, coder=coder)
+    for f in ("W", "A", "B", "C"):
+        torch.testing.assert_close(getattr(got[0], f), getattr(want[0], f),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    assert got[0].t == want[0].t == 8.0
+    # the generator stands where the one-step loop leaves it
+    torch.testing.assert_close(torch.rand(4, generator=got[0].gen),
+                               torch.rand(4, generator=want[0].gen),
+                               rtol=0, atol=0)
+
+
+def test_draws_must_stack():
+    _, ts = make_states(d=12, r=3)
+    X = torch.from_numpy(RNG.random((12, 9)))
+    H0 = torch.from_numpy(RNG.random((3, 4)))
+    run = dict(alpha=0.0, beta=1.0, stopping_diff=None, iterations=3,
+               batch_size=4, subsample=True, sub_iter=5, track_code=False,
+               dict_from="stale")
+    with pytest.raises(ValueError, match="every step's indices"):
+        tonmf._train_loop(ts, X, None, *run.values(), draws=[
+            (torch.arange(4), H0), (None, H0)])
+    with pytest.raises(ValueError, match="1 given for 2 steps"):
+        tonmf._train_loop(ts, X, None, *run.values(),
+                          draws=[(torch.arange(4), H0)])
+
+
+@pytest.mark.parametrize("args,route", [
+    (("cuda", "cuda", None, 25, False), "captured"),
+    (("cuda", "cuda", "nccl", 25, False), "captured"),
+    (("cuda", "cuda", None, 1248, False), "captured"),
+    (("cpu", "torch", None, 25, False), "eager"),
+    (("cpu", "torch", "gloo", 25, False), "eager"),
+    (("cuda", "cuda", "gloo", 25, False), "eager"),
+    (("cuda", "cuda", None, 25, True), "eager"),     # debug_nans
+    (("cuda", "torch", None, 25, False), "eager"),   # plain maths on card
+    (("cuda", "cuda", None, 1249, False), "eager"),  # past MAX_RANK
+])
+def test_train_route(args, route):
+    assert tonmf._train_route(*args) == route
+    assert tonmf._train_route(*args, capture=False) == "eager"
+    # past MAX_RANK the coder wrappers run the plain maths, whose early
+    # stop reads its test on the host: no capture can hold that
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import coder_kernel as ck
+
+    assert ck.kernel_route("coder_sweeps_earlystop", args[3]) == (
+        "unfused" if args[3] > ck.MAX_RANK else
+        "shared" if args[3] <= ck.SMEM_MAX_RANK["coder_sweeps_earlystop"]
+        else "workspace")
+
+
+SPEC = tonmf._StepSpec(batch=16, steps=8, alpha=0.1, sub_iter=10,
+                       stopping_diff=0.01, dict_from="stale", backend="cuda",
+                       coder="bcd", draws=None, subsample=True,
+                       sampling="iid", track_code=True, track_metrics=False)
+# another value for each field of the spec
+BAKED = dict(batch=17, steps=9, alpha=0.2, sub_iter=11,
+             stopping_diff=None,
+             dict_from="fresh", backend="torch", coder="fista", draws="idx",
+             subsample=False, sampling="block", track_code=False,
+             track_metrics=True, group=object())
+
+
+def test_graph_key_changes_with_each_baked_argument_only():
+    X = torch.rand((30, 40), dtype=F64)
+    st = init_state(0, 30, 6, device="cpu", dtype=F64)
+    key = tonmf._graph_key(X, st, SPEC)
+    # new values of X and of the state, and another beta or t: same key
+    other = init_state(1, 30, 6, device="cpu", dtype=F64, t=7.0)
+    assert tonmf._graph_key(torch.rand((30, 40), dtype=F64), other,
+                            SPEC) == key
+    hash(key)
+    assert set(BAKED) == {f.name for f in dataclasses.fields(SPEC)}
+    keys = {key}
+    for name, value in BAKED.items():
+        keys.add(tonmf._graph_key(X, st, dataclasses.replace(
+            SPEC, **{name: value})))
+    for X2, st2 in (
+            (torch.rand((30, 40), dtype=torch.float32), st),      # dtype
+            (torch.rand((30, 41), dtype=F64), st),                # n
+            (torch.rand((30, 40), dtype=F64, device="meta"), st),  # device
+            (X, init_state(0, 30, 7, device="cpu", dtype=F64)),   # r
+            (X, init_state(0, 30, 6, device="cpu", dtype=F64,
+                           track_xxt=True)),
+            (X, init_state(0, 30, 6, device="cpu",
+                           dtype=torch.float32))):                # W dtype
+        keys.add(tonmf._graph_key(X2, st2, SPEC))
+    assert len(keys) == 1 + len(BAKED) + 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("t0,beta", [(0.0, 1.0), (3.0, 0.7), (1234.0, 0.5),
+                                     (7.5, 2.3)])
+def test_step_weights_match_the_python_scalar_arithmetic(dtype, t0, beta):
+    steps = 40
+    w, omw = tonmf._step_weights(t0, steps, beta, dtype)
+    assert w.dtype == omw.dtype == dtype and w.shape == (steps,)
+    M = torch.from_numpy(RNG.random((5, 7))).to(dtype)
+    S = torch.from_numpy(RNG.random((5, 7))).to(dtype)
+    for i in range(steps):
+        w_t = (t0 + i + 1) ** (-float(beta))        # as _step_inner has it
+        eager = (1.0 - w_t) * M + w_t * S
+        # the table's (1,) entries, and as 0-d tensors, give the products
+        # that the Python floats give
+        for wi, oi in ((w[i:i + 1], omw[i:i + 1]), (w[i], omw[i]),
+                       (w_t, 1.0 - w_t)):
+            assert torch.equal(oi * M + wi * S, eager)
+            blended = M.clone()          # as _step_math blends in place
+            torch.mul(blended, oi, out=blended).add_(S.clone().mul_(wi))
+            assert torch.equal(blended, eager)
+
+
+def test_launch_bookkeeping(monkeypatch):
+    monkeypatch.setattr(_lib, "LAUNCHES", {"a": 3, "b": 0, "c": 1})
+    before = _lib.launch_counts()
+    _lib.LAUNCHES["a"] += 2               # a capture's wrapper calls
+    _lib.LAUNCHES["b"] += 1
+    per_replay = _lib.captured_launches(before)
+    assert per_replay == {"a": 2, "b": 1, "c": 0}
+    assert _lib.LAUNCHES == {"a": 3, "b": 0, "c": 1}   # it launched none
+    _lib.add_launches(per_replay, 4)
+    assert _lib.LAUNCHES == {"a": 11, "b": 4, "c": 1}
+    _lib.add_launches(per_replay, 0)
+    assert _lib.LAUNCHES == {"a": 11, "b": 4, "c": 1}
+    before["a"] = 0
+    assert _lib.launch_counts()["a"] == 11      # a copy, not the counts
+
+
+def test_device_run_counts_follow_the_kernel_source():
+    """The kinds of the kernels' own run counts (``count_run``) are
+    ``_lib.RUN_KERNELS`` in order, each with a launch count; with no
+    library loaded, a reset touches no device."""
+    import re
+    from pathlib import Path
+
+    src = (Path(_lib.__file__).parent / "csrc" / "onmf_kernels.cu").read_text()
+    kinds = re.search(r"enum \{ (RUN_\w+(?:, RUN_\w+)*) \}", src)[1]
+    assert kinds.split(", ") == ["RUN_CODER", "RUN_CODER_ES", "RUN_FISTA",
+                                 "RUN_DICT", "RUN_KINDS"]
+    assert _lib.RUN_KERNELS == ("coder_sweeps", "coder_sweeps_earlystop",
+                                "fista_sweeps", "dict_update_sweep")
+    assert set(_lib.RUN_KERNELS) <= set(_lib.LAUNCHES)
+    # every main kernel counts one kind; no other kernel counts
+    counted = re.findall(r"count_run\(([^)]*)\);", src)
+    assert sorted(counted) == sorted([
+        "RUN_CODER_ES", "RUN_CODER", "RUN_FISTA", "RUN_FISTA",
+        "kStop ? RUN_CODER_ES : RUN_CODER", "RUN_DICT", "RUN_DICT"])
+    if not _lib.build.cache_info().currsize:
+        _lib.reset_launches()
+        assert not torch.cuda.is_initialized()
+
+
+def test_debug_nans_runs_eager_and_names_the_step():
+    from onmf_ontf_ndl_tpu_torch.utils.debug import debug_nans
+
+    st = init_state(0, 10, 3, device="cpu", dtype=F64)
+    X = torch.rand((10, 8), dtype=F64)
+    X[0, 0] = float("nan")
+    with debug_nans():
+        with pytest.raises(FloatingPointError, match="t=1"):
+            tonmf._train_loop(st, X, None, 0.0, 1.0, None, 4, 8, False, 5,
+                              False, "stale", backend="torch")
+    assert tonmf._train_route("cuda", "cuda", None, 3, tonmf._DEBUG_NANS) \
+        == "captured"
