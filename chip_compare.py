@@ -33,7 +33,12 @@ steps, the least of 3 runs after a first one, which captures; that one's
 ms too) on the headline data
 (``headline_data``) for the three coders at batch 16384 and 128, on each
 route the package has: eager, and captured where ``_train_loop`` takes
-``capture=``. ``cpu`` needs no card: host ms a step of ``train_dict`` on
+``capture=``. ``chain`` is chain steps per second (``chip_smoke.py``'s
+``chain_rate``, the most of 3 runs, each after one of the same length) at
+``NETWORK_RUNS``' chain shapes: each configuration's training round (its
+chains and moves a round) and its reconstruction (its chains and every
+move), eager and, where ``run_chains`` takes ``capture=``, captured.
+``cpu`` needs no card: host ms a step of ``train_dict`` on
 the CPU (the eager route that CPU and gloo runs take), d = 300, r = 25 on
 a pool of 16,384 columns, the three coders at batch 128 and 1024, 20
 steps, the least of 3 runs after a first one; it runs alone.
@@ -292,6 +297,42 @@ def step_times(tag, dev):
                                            **kw)}), flush=True)
 
 
+def chain_times(tag, dev):
+    """Chain steps per second at the network runs' chain shapes, on every
+    route of the package (see the module docstring)."""
+    import inspect
+
+    from chip_smoke import NETWORK_RUNS, chain_rate
+    from onmf_ontf_ndl_tpu_torch.data import graphs
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
+    routes = {"eager": {}}
+    if "capture" in inspect.signature(motif.run_chains).parameters:
+        routes = {"eager": dict(capture=False),
+                  "captured": dict(capture=True)}
+    build = {"dense": graphs.graph_from_edgelist,
+             "csr": graphs.csr_graph_from_edges}
+    for tag_run, (edges, kind, conf, recon) in NETWORK_RUNS.items():
+        g = build[kind](edges(), device=dev)
+        B = motif.path_adj(conf["k1"], conf["k2"])
+        parts = {"train": (conf["num_chains"], -(-conf["sample_size"]
+                                                 // conf["num_chains"]),
+                           conf.get("is_glauber_dict", True)),
+                 "recon": (recon["num_chains"], -(-recon["recons_iter"]
+                                                  // recon["num_chains"]),
+                           conf.get("is_glauber_recons", True))}
+        for part, (chains, steps, glauber) in parts.items():
+            for route, kw in routes.items():
+                rates = [chain_rate(g, B, chains, steps, glauber, dev, **kw)
+                         for _ in range(3)]
+                print(json.dumps({
+                    "version": tag, "table": "chain", "config": tag_run,
+                    "part": part, "route": route, "chains": chains,
+                    "steps": steps, "glauber": glauber,
+                    "steps_per_s": max(rates),
+                    "seconds": steps / max(rates)}), flush=True)
+
+
 def cpu_step_times(tag):
     """Host ms a training step on the CPU (see the module docstring)."""
     import onmf_ontf_ndl_tpu_torch as lib
@@ -382,6 +423,8 @@ def main():
         dp_times(tag, dev)
     if "step" in only:
         step_times(tag, dev)
+    if "chain" in only:
+        chain_times(tag, dev)
 
 
 if __name__ == "__main__":

@@ -55,10 +55,14 @@ Phases, each printing its findings on a line of its own:
              configurations (the reference main()'s 21-node motif on a
              seeded 4,039-node Barabasi-Albert graph, dense reconstruction;
              the 129,600-node torus on a CsrGraph, sparse reconstruction of
-             4.8M samples): train and reconstruction seconds, chain steps
-             per second and accuracy; the sparse reconstruction once more
-             in 4 chunks, with the peak device memory of both; a short
-             card/CPU run.
+             4.8M samples): train and reconstruction seconds and accuracy;
+             each chain move a replay of a captured CUDA graph, which must
+             equal the eager route bit for bit (trail, final embeddings,
+             the generator's next draw), chain steps per second on both
+             routes, graphs, host launches and device operations per move,
+             the (b) reconstruction's chain graph bytes; the sparse
+             reconstruction once more in 4 chunks, with the peak device
+             memory of both; a short card/CPU run.
 9. surfaces - the CLI in process (``cli.main``) on the card: ``ising`` at
              phase 6's configuration (its state equal to phase 6's),
              ``network`` at phase 8 (a)'s on an edge-list file of the same
@@ -1329,25 +1333,102 @@ def ba_edges(n, m, seed, chunk=4096):
     return np.concatenate(pieces)
 
 
-def chain_rate(g, B, chains, steps, use_glauber, dev):
-    """Sequential chain steps per second of ``chains`` chains (each step
-    moves every chain once), host clock around synchronised runs."""
-    from onmf_ontf_ndl_tpu_torch.samplers.motif import (run_chains,
-                                                        tree_parents,
+def chain_start(g, B, chains, seed, dev):
+    """A generator of ``seed`` and ``chains`` chains grown from uniform
+    pivots drawn from it, as ``_recon_sample_vals`` grows them."""
+    from onmf_ontf_ndl_tpu_torch.samplers.motif import (tree_parents,
                                                         tree_sample)
 
-    gen = torch.Generator(device=dev).manual_seed(11)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x0 = torch.randint(0, g.num_nodes, (chains,), generator=gen, device=dev)
-    emb0 = tree_sample(gen, tree_parents(B), g, x0)
-    run_chains(gen, g, emb0, B, 2, use_glauber=use_glauber)
+    return gen, tree_sample(gen, tree_parents(B), g, x0)
+
+
+def chain_rate(g, B, chains, steps, use_glauber, dev, **route):
+    """Sequential chain steps per second of ``chains`` chains (each step
+    moves every chain once), host clock around synchronised runs, after a
+    run of the same length (which captures on the captured route);
+    ``route``: ``capture=`` where the package has it (``chip_compare.py``
+    also times a package from before it)."""
+    from onmf_ontf_ndl_tpu_torch.samplers.motif import run_chains
+
+    gen, emb0 = chain_start(g, B, chains, 11, dev)
+    run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber, **route)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber)
+    run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber, **route)
     torch.cuda.synchronize()
     return steps / (time.perf_counter() - t0)
 
 
-# Phase 7's configurations: the graph (built in the script, as the
+def chain_captured_vs_eager(g, B, chains, steps, use_glauber, dev):
+    """``run_chains`` on its captured route against ``capture=False`` from
+    the same chains and generator state: the trail, the final embeddings
+    and the generator's next draw equal bit for bit (the same moves on the
+    same draws). Returns the three verdicts."""
+    from onmf_ontf_ndl_tpu_torch.samplers.motif import run_chains
+
+    out = {}
+    for capture in (False, True):
+        gen, emb0 = chain_start(g, B, chains, 12, dev)
+        trail = run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber,
+                           capture=capture)
+        out[capture] = (trail, torch.rand(8, generator=gen, device=dev))
+    (eager, e_next), (capt, c_next) = out[False], out[True]
+    return dict(trail=bool(torch.equal(eager, capt)),
+                final=bool(torch.equal(eager[:, -1], capt[:, -1])),
+                generator=bool(torch.equal(e_next, c_next)))
+
+
+def chain_trace(g, B, chains, use_glauber, dev, capture, moves=20):
+    """Per move of ``chains`` chains, under ``torch.profiler`` after a run
+    of the same length: the CUDA graphs launched, the kernels launched from
+    the host, and the device operations run (kernels, copies and fills,
+    those of replayed graphs included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from onmf_ontf_ndl_tpu_torch.samplers.motif import run_chains
+
+    gen, emb0 = chain_start(g, B, chains, 13, dev)
+    run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber,
+               capture=capture)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber,
+                   capture=capture)
+        torch.cuda.synchronize()
+    counts = {"graph": 0, "kernel": 0, "device": 0}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            counts["device"] += ev.count
+        elif ev.key == "cudaGraphLaunch":
+            counts["graph"] += ev.count
+        elif ev.key.startswith("cudaLaunchKernel"):
+            counts["kernel"] += ev.count
+    return {f"{name}_per_move": n / moves for name, n in counts.items()}
+
+
+def chain_graph_bytes(g, B, chains, use_glauber, dev):
+    """Device bytes that the cached graph of these chains holds: its
+    buffers (the embeddings and the step counter) and its memory pool (the
+    move's intermediates)."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
+    k = B.shape[0]
+    entry = motif._CHAIN_GRAPHS[motif._chain_key(
+        g, torch.empty((chains, k), dtype=torch.int64, device=dev), B,
+        use_glauber)]
+    pool = tuple(entry.graph.pool())
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) == pool)
+    return dict(chain_graph_buffer_bytes=sum(
+        t.numel() * t.element_size()
+        for t in (entry.chains.emb, entry.chains.step)),
+        chain_graph_pool_bytes=pool_bytes)
+
+
+# Phase 8's configurations: the graph (built in the script, as the
 # benchmarks build theirs), the NetworkReconstructor's arguments and the
 # reconstruction's.
 NETWORK_RUNS = {
@@ -1380,6 +1461,13 @@ def phase_network(ck, dev):
         samples over 16 chains and 29 optimizer steps, fixed sweeps; sparse
         reconstruction from 4.8M Glauber samples over 8192 chains; accuracy
         at least 0.90.
+    Each run's training and reconstruction chains must have been captured
+    in the run (a cached graph of each), and equal their eager route bit
+    for bit (``chain_captured_vs_eager``: trail, final embeddings, the
+    generator's next draw); their steps per second on both routes, and per
+    move the graphs launched, the kernels launched from the host and the
+    device operations run (``chain_trace``); for (b) the bytes that the
+    reconstruction's chain graph holds (buffers and memory pool).
     Then (c) a short training run on the card (float32) and on the CPU
     (float64) from the same patches and draws."""
     from onmf_ontf_ndl_tpu_torch.apps.network import (NetworkReconstructor,
@@ -1387,6 +1475,7 @@ def phase_network(ck, dev):
     from onmf_ontf_ndl_tpu_torch.data.graphs import (csr_graph_from_edges,
                                                      graph_from_edgelist)
     from onmf_ontf_ndl_tpu_torch.models.state import init_state
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
 
     build = {"dense": graph_from_edgelist, "csr": csr_graph_from_edges}
     graphs = {tag: build[kind](edges(), device=dev)
@@ -1400,6 +1489,9 @@ def phase_network(ck, dev):
     REFERENCE["network_a_accuracy_initial_w"] = acc0
 
     ck.reset_launches()
+    # every chain of the runs below is captured in them: the cache then
+    # holds a graph for each (the chains launch no counted kernel)
+    motif._CHAIN_GRAPHS.clear()
     runs, peak, held = {}, {}, {}
     for tag, (_, _, conf, recon) in NETWORK_RUNS.items():
         rec = NetworkReconstructor(source=graphs[tag], device=dev, **conf)
@@ -1426,18 +1518,40 @@ def phase_network(ck, dev):
               and rec.state.t == rec.MCMC_iterations * rec.sub_iterations)
         per = -(-rec.sample_size // rec.num_chains)
         recon_steps = -(-recon["recons_iter"] // recon["num_chains"])
-        train_rate = chain_rate(rec.G, rec.B, rec.num_chains, per,
-                                rec.is_glauber_dict, dev)
-        recon_rate = chain_rate(rec.G, rec.B, recon["num_chains"],
-                                min(recon_steps, 100), rec.is_glauber_recons,
-                                dev)
+        # the chains of training and of reconstruction: each was captured
+        # by the run above (its graph is cached), equals its eager route bit
+        # for bit, and is timed on both routes
+        chain_runs = {
+            "train": (rec.num_chains, per, rec.is_glauber_dict),
+            "recon": (recon["num_chains"], min(recon_steps, 100),
+                      rec.is_glauber_recons)}
+        chain_fields = {}
+        for part, (chains, steps, glauber) in chain_runs.items():
+            args = (rec.G, rec.B, chains)
+            captured_in_run = motif._chain_key(
+                rec.G, torch.empty((chains, k), dtype=torch.int64,
+                                   device=dev), rec.B,
+                glauber) in motif._CHAIN_GRAPHS
+            if tag == "b" and part == "recon":
+                chain_fields.update(chain_graph_bytes(*args, glauber, dev))
+            chain_fields[f"{part}_chain_captured_in_run"] = captured_in_run
+            chain_fields[f"{part}_chain_captured_vs_eager"] = \
+                chain_captured_vs_eager(*args, steps, glauber, dev)
+            for route, capture in (("", True), ("_eager", False)):
+                chain_fields[f"{part}_chain_steps_per_s{route}"] = \
+                    chain_rate(*args, steps, glauber, dev, capture=capture)
+                chain_fields[f"{part}_chain_trace{route}"] = chain_trace(
+                    *args, glauber, dev, capture)
         fields = dict(config=tag, nodes=n, edges=rec.G.num_edges,
                       max_deg=int(rec.G.deg.max()), k=k,
                       train_seconds=train_s, recon_seconds=recon_s,
                       train_chain_steps=rec.MCMC_iterations * per,
-                      recon_chain_steps=recon_steps,
-                      train_chain_steps_per_s=train_rate,
-                      recon_chain_steps_per_s=recon_rate, accuracy=acc)
+                      recon_chain_steps=recon_steps, **chain_fields,
+                      accuracy=acc)
+        ok = ok and all(chain_fields[f"{part}_chain_captured_in_run"]
+                        and all(chain_fields[
+                            f"{part}_chain_captured_vs_eager"].values())
+                        for part in chain_runs)
         FINAL_STATES[f"network_{tag}"] = rec.state
         if tag == "a":
             REFERENCE["network_a_accuracy"] = acc

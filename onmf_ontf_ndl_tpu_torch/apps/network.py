@@ -20,7 +20,9 @@ On a CUDA graph and state, the coder and dictionary kernels of
 ``ops/kernels`` run every coding step: the early stop in training by
 default, fixed sweeps with ``fast=True`` and in reconstruction, FISTA
 with ``coder="fista"``. The chains, the patches and the grouping are
-plain PyTorch on the same device.
+plain PyTorch on the same device; on the card each chain move is a replay
+of one captured CUDA graph (``samplers/motif.py::run_chains``), and each
+training round's steps replays of another (``_train_loop``).
 
 The grouping of the paints by pair is one int64 key sort (``i * n + j``:
 no wrap at any n) and a sorted segment sum, which adds each pair's paints
@@ -91,6 +93,7 @@ def ndl_train(
     coder: str = "bcd",
     draws=None,
     group=None,
+    capture: bool = True,
 ):
     """NDL training. Returns ``(state, code, emb)``; ``code`` is the
     (r, sample_size) sum of the codes of every iteration but the first
@@ -105,7 +108,10 @@ def ndl_train(
     sample_size) patch matrix in place of the chains' and the inner
     steps' ``(idx, H0)`` draws for ``_train_loop`` (None: drawn).
     ``group``: a process group; each rank runs its own chains, drawn from
-    its rank generator, and the statistics are summed over the group."""
+    its rank generator, and the statistics are summed over the group.
+    ``capture=False`` (tests and the card's comparisons) runs the chains
+    and the training steps in Python loops where on the card they would
+    replay captured graphs; both routes draw the same numbers."""
     _check_modes("stale", coder)
     backend = resolve_backend(backend, state.W)
     k = B.shape[0]
@@ -126,12 +132,12 @@ def ndl_train(
         else:
             X, chains = sample_patches_ensemble(
                 chain_gen, g, chains, B, per, use_glauber=use_glauber,
-                weighted=weighted)
+                weighted=weighted, capture=capture)
         state, code, _ = _train_loop(
             state, X.to(dtype), code, alpha, beta, stop, inner_iterations,
             batch_size, subsample, sub_iter,
             not (discard_first and i == 0), "stale", backend=backend,
-            draws=inner, coder=coder, group=group)
+            draws=inner, coder=coder, group=group, capture=capture)
     return state, code, chains.reshape(emb0.shape)
 
 

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import functools
 
 import torch
 
@@ -50,6 +49,7 @@ from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
 from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import MAX_RANK
+from onmf_ontf_ndl_tpu_torch.utils.capture import capture_step, replay
 
 __all__ = ["OnlineNMF", "onmf_step", "train_dict", "rank_generator"]
 
@@ -497,38 +497,12 @@ def _address(X) -> tuple:
     return X.data_ptr(), X.stride()
 
 
-@functools.cache
-def _side_stream(device: torch.device):
-    """The stream that captures run their first step and capture on, one
-    per device: cuBLAS and the allocator set up once for it."""
-    return torch.cuda.Stream(device)
-
-
 def _capture(lp: _Loop, spec: _StepSpec, gen) -> _Captured:
-    """Run the first step from ``gen`` on a side stream (which also sets up
-    cuBLAS and the kernels on the stream the capture uses), then capture
-    the next step there, drawing from a generator of the graph's own. A
-    graph that reads the caller's X keeps its address, not the tensor."""
-    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
-        captured_launches, launch_counts)
-
-    own = torch.Generator(device=lp.X.device)
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(own)
-    side = _side_stream(lp.X.device)
-    side.wait_stream(torch.cuda.current_stream())
-    # capture_begin itself, not torch.cuda.graph, whose entry empties the
-    # allocator's cache at every capture
-    with torch.cuda.stream(side):
-        _loop_step(lp, spec, gen)
-        before = launch_counts()
-        graph.capture_begin()
-        try:
-            _loop_step(lp, spec, own)
-        finally:
-            graph.capture_end()
-    launches = captured_launches(before)
-    torch.cuda.current_stream().wait_stream(side)
+    """Run the first step from ``gen``, then capture the next
+    (:func:`~onmf_ontf_ndl_tpu_torch.utils.capture.capture_step`). A graph
+    that reads the caller's X keeps its address, not the tensor."""
+    graph, own, launches = capture_step(
+        lambda g: _loop_step(lp, spec, g), gen, lp.X.device)
     x_at = None
     if not lp.owns_x:
         x_at, lp.X = _address(lp.X), None
@@ -543,8 +517,6 @@ def _run_captured(state, X, code, spec: _StepSpec, tables: dict, gen,
     and gives it back after, so the replays draw what the eager loop
     draws and leave ``gen`` where it leaves it. Returns the buffers, which
     the next call of this key overwrites."""
-    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import add_launches
-
     key = _graph_key(X, state, spec)
     entry = _GRAPHS.pop(key, None)
     if entry is not None and entry.x_at not in (None, _address(X)):
@@ -560,11 +532,7 @@ def _run_captured(state, X, code, spec: _StepSpec, tables: dict, gen,
     else:
         _refill(entry.loop, state, X, code, tables)
     _GRAPHS[key] = entry
-    entry.gen.set_state(gen.get_state())
-    for _ in range(steps - done):
-        entry.graph.replay()
-    add_launches(entry.launches, steps - done)
-    gen.set_state(entry.gen.get_state())
+    replay(entry.graph, entry.gen, gen, steps - done, entry.launches)
     return entry.loop
 
 

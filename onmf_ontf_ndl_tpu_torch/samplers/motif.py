@@ -26,6 +26,18 @@ What the moves mean, as in the JAX module:
   chain. Rows ascend in all three representations, so the same uniforms
   give the same draws.
 
+The chain (``run_chains``, under every caller: NDL training through
+``sample_patches_ensemble``, every reconstruction, the data-parallel
+forms) runs one move function on static buffers (``_chain_move``): on a
+CUDA tensor it is captured once as a CUDA graph per cache key
+(``_chain_key``; ``_CHAIN_GRAPHS`` holds eight) and replayed for every
+move, its draws from a generator registered with the graph, which hands
+the caller's generator state in and back (``utils/capture.py``); on the
+CPU, and with ``capture=False``, it runs in a Python loop. After each
+move the trail records the embeddings at a device step counter
+(``_record``), outside the graph, so that a graph holds no trail. Both
+routes draw the same numbers and give the same chains.
+
 Patches: ``pair_matrices_T`` returns a batch's k x k induced adjacency
 (or weight) patches as a (k*k, M) matrix with the sample axis minor. A
 binary graph is symmetric and has no self-loops, so only the k(k-1)/2
@@ -44,12 +56,15 @@ TPU, not its answer.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
 from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
+from onmf_ontf_ndl_tpu_torch.utils.capture import capture_step, replay
 
 __all__ = ["path_adj", "tree_parents", "tree_sample", "rw_update",
            "glauber_update", "pivot_update", "patch_from_embedding",
@@ -289,28 +304,170 @@ def patch_from_embedding(g, emb: torch.Tensor, *,
     return pair_matrices_T(g, emb[None], weighted=weighted).reshape(k, k)
 
 
-def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
-               use_glauber: bool = True) -> torch.Tensor:
-    """Advance (C, k) chains ``steps`` moves; returns every state after a
-    move, (C, steps, k)."""
-    parents = tree_parents(B)
+# ------------------------------------------------------------- the chain:
+# one move function on static buffers, called in a Python loop (eager) or
+# captured once as a CUDA graph and replayed (captured), the counterpart of
+# the JAX package's jitted lax.scan over the moves
+# (onmf_ontf_ndl_tpu/samplers/motif.py:652-700).
+
+# Chain graphs kept at once, the least recently used dropped first: each
+# holds its buffers, a memory pool of its move's intermediates and the
+# graph tensors its move reads. Eight hold the training and reconstruction
+# chains of four graphs.
+_CHAIN_CACHE_SIZE = 8
+_CHAIN_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+
+
+@dataclasses.dataclass
+class _Chains:
+    """The buffers a move reads and writes in place: the (C, k)
+    embeddings, and the step counter at which the trail records them."""
+
+    emb: torch.Tensor
+    step: torch.Tensor
+
+
+def _new_chains(emb0: torch.Tensor) -> _Chains:
+    """Buffers for the chains ``emb0``, filled from it."""
+    emb = torch.empty(emb0.shape, dtype=torch.int64, device=emb0.device)
+    emb.copy_(emb0)
+    return _Chains(emb=emb, step=torch.zeros(1, dtype=torch.int64,
+                                             device=emb0.device))
+
+
+def _chain_move(ch: _Chains, gen, B: np.ndarray, parents: tuple[int, ...],
+                g, use_glauber: bool) -> None:
+    """One Glauber or pivot move of every chain on the buffers ``ch``, its
+    draws from ``gen``: the new embeddings are written back into
+    ``ch.emb``. This is what a chain graph captures."""
     move = glauber_update if use_glauber else pivot_update
+    ch.emb.copy_(move(gen, B, parents, g, ch.emb))
+
+
+def _record(ch: _Chains, trail: torch.Tensor) -> None:
+    """Record the chains' embeddings in the (C, steps, k) ``trail`` at the
+    step counter, and advance it. Both routes run it after each move, the
+    captured one outside its graph: a graph keeps no trail of its own, and
+    a run of any length replays it."""
+    trail.index_copy_(1, ch.step, ch.emb[:, None])
+    ch.step += 1
+
+
+def _chain_route(device_type: str, capture: bool = True) -> str:
+    """How :func:`run_chains` runs its moves: ``"captured"`` (one move
+    captured as a CUDA graph, replayed) on a CUDA tensor, ``"eager"`` (the
+    move function in a Python loop) on the CPU or with ``capture=False``
+    (tests and the card's comparisons)."""
+    return "captured" if capture and device_type == "cuda" else "eager"
+
+
+def _graph_tensors(g) -> tuple:
+    """The tensors of ``g`` that a move of either kind reads."""
+    if isinstance(g, BitsetGraph):
+        return g.bits, g.nbr_flat, g.offsets, g.deg
+    if isinstance(g, CsrGraph):
+        return g.nbr_flat, g.offsets, g.deg
+    return g.adj, g.nbr, g.deg
+
+
+def _chain_key(g, emb0: torch.Tensor, B: np.ndarray,
+               use_glauber: bool) -> tuple:
+    """The cache key of the graph of a move like this call's: all that a
+    capture bakes in. The chain count and k, the device, the motif and its
+    tree, the kind of move, the graph's representation, node count and
+    maximum degree, and the address, shape, strides and dtype of each graph
+    tensor the move reads. Not the embeddings' values or dtype (they are
+    copied into an int64 buffer), the generator or the number of moves."""
+    B = np.asarray(B, np.int8)
+    return (tuple(emb0.shape), emb0.device, B.tobytes(), tree_parents(B),
+            bool(use_glauber), type(g), g.num_nodes,
+            getattr(g, "max_deg", None),
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for t in _graph_tensors(g)))
+
+
+@dataclasses.dataclass
+class _ChainGraph:
+    """A captured move: its graph, its buffers, the generator registered
+    with it, the kernel launches of one replay (none: the move is plain
+    PyTorch), and the tensors it reads that its caller owns (the graph's
+    and the motif's neighbour table), held so that no replay reads freed
+    memory."""
+
+    graph: object
+    chains: _Chains
+    gen: torch.Generator
+    launches: dict
+    reads: tuple
+
+
+def _run_captured_chains(gen, g, emb0: torch.Tensor, B: np.ndarray,
+                         trail: torch.Tensor, use_glauber: bool) -> None:
+    """The captured route: the graph of this key (captured on a miss, with
+    its first move run as it is captured), replayed for the remaining
+    moves, each followed by its record in ``trail``; the graph's generator
+    takes ``gen``'s state before the replays and gives it back after."""
+    key = _chain_key(g, emb0, B, use_glauber)
+    entry = _CHAIN_GRAPHS.pop(key, None)
+    done = 0
+    if entry is None:
+        while len(_CHAIN_GRAPHS) >= _CHAIN_CACHE_SIZE:
+            _CHAIN_GRAPHS.popitem(last=False)
+        parents = tree_parents(B)
+        ch = _new_chains(emb0)
+        reads = _graph_tensors(g)
+        if use_glauber and emb0.shape[1] > 1:
+            reads += (_neighbor_table_on(B, emb0.device),)
+        graph, own, launches = capture_step(
+            lambda gn: _chain_move(ch, gn, B, parents, g, use_glauber),
+            gen, emb0.device)
+        entry = _ChainGraph(graph, ch, own, launches, reads)
+        _record(ch, trail)
+        done = 1
+    else:
+        entry.chains.emb.copy_(emb0)
+        entry.chains.step.zero_()
+    _CHAIN_GRAPHS[key] = entry
+    replay(entry.graph, entry.gen, gen, trail.shape[1] - done,
+           entry.launches, each=lambda: _record(entry.chains, trail))
+
+
+def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
+               use_glauber: bool = True, capture: bool = True
+               ) -> torch.Tensor:
+    """Advance (C, k) chains ``steps`` moves; returns every state after a
+    move, (C, steps, k).
+
+    :func:`_chain_route` picks the route: on a CUDA tensor one move is
+    captured as a CUDA graph (once per :func:`_chain_key`) and replayed
+    for every move; on the CPU, or with ``capture=False``, the same move
+    function runs in a Python loop. On both, each move's state is then
+    recorded in the trail (:func:`_record`). Both draw the same numbers
+    from ``gen`` and leave it in the same state. A capture or replay that
+    fails raises; no move falls back to the eager loop."""
     trail = torch.empty((emb0.shape[0], steps, emb0.shape[1]),
                         dtype=torch.int64, device=emb0.device)
-    emb = emb0
-    for s in range(steps):
-        emb = move(gen, B, parents, g, emb)
-        trail[:, s] = emb
+    if steps and _chain_route(emb0.device.type, capture) == "captured":
+        with torch.cuda.device(emb0.device):
+            _run_captured_chains(gen, g, emb0, B, trail, use_glauber)
+        return trail
+    parents = tree_parents(B)
+    ch = _new_chains(emb0)
+    for _ in range(steps):
+        _chain_move(ch, gen, B, parents, g, use_glauber)
+        _record(ch, trail)
     return trail
 
 
 def sample_patches_ensemble(gen, g, emb0: torch.Tensor, B: np.ndarray,
                             num: int, *, use_glauber: bool = True,
-                            weighted: bool = False):
+                            weighted: bool = False, capture: bool = True):
     """C chains (``emb0`` is (C, k)) advanced ``num`` moves each, a patch
     per move. Returns ``(X, embs)``: X (k^2, C*num), column ``c*num + s``
-    the patch of chain c after move s; embs the final (C, k)."""
-    trail = run_chains(gen, g, emb0, B, num, use_glauber=use_glauber)
+    the patch of chain c after move s; embs the final (C, k).
+    ``capture``: as in :func:`run_chains`."""
+    trail = run_chains(gen, g, emb0, B, num, use_glauber=use_glauber,
+                       capture=capture)
     X = pair_matrices_T(g, trail.reshape(-1, emb0.shape[1]),
                         weighted=weighted)
     return X, trail[:, -1] if num else emb0

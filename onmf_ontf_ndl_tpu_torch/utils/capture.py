@@ -1,0 +1,79 @@
+"""CUDA graph capture and replay of a step function on static buffers.
+
+The port's counterpart of a jitted ``lax.scan``: a loop whose step reads
+and writes buffers in place is captured once as a CUDA graph and replayed
+for every step. The training step (``models/onmf.py::_train_loop``) and
+the motif chain's move (``samplers/motif.py::run_chains``) both run
+through here; each keeps its own cache of graphs and its own key.
+
+Draws: a capture records the Philox offsets of its random calls, so each
+graph draws from a generator of its own that is registered with it. That
+generator takes the caller's state before the replays and gives it back
+after, so the replays draw what the eager loop draws and leave the
+caller's generator where the eager loop leaves it.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+__all__ = ["side_stream", "capture_step", "replay"]
+
+
+@functools.cache
+def side_stream(device: torch.device):
+    """The stream that captures run their first step and capture on, one
+    per device: cuBLAS and the allocator set up once for it."""
+    return torch.cuda.Stream(device)
+
+
+def capture_step(step, gen: torch.Generator, device: torch.device):
+    """Run ``step(gen)`` once on the device's side stream (which also sets
+    up cuBLAS and the kernels on the stream the capture uses), then
+    capture ``step`` there, drawing from a generator of the graph's own.
+    The captured step does not run until the graph is replayed.
+
+    Returns ``(graph, generator, launches)``: ``launches`` are the kernel
+    launches one replay makes, as the wrappers of ``ops/kernels`` count
+    them (:func:`~onmf_ontf_ndl_tpu_torch.ops.kernels._lib.
+    captured_launches`). A capture that fails raises."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
+        captured_launches, launch_counts)
+
+    own = torch.Generator(device=device)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(own)
+    side = side_stream(device)
+    side.wait_stream(torch.cuda.current_stream())
+    # capture_begin itself, not torch.cuda.graph, whose entry empties the
+    # allocator's cache at every capture
+    with torch.cuda.stream(side):
+        step(gen)
+        before = launch_counts()
+        graph.capture_begin()
+        try:
+            step(own)
+        finally:
+            graph.capture_end()
+    launches = captured_launches(before)
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, own, launches
+
+
+def replay(graph, own: torch.Generator, gen: torch.Generator, times: int,
+           launches: dict, each=None) -> None:
+    """Replay ``graph`` ``times`` times on the current stream, each replay
+    followed by ``each()`` where given, its generator ``own`` taking
+    ``gen``'s state before and giving it back after; count each replay's
+    ``launches``."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import add_launches
+
+    own.set_state(gen.get_state())
+    for _ in range(times):
+        graph.replay()
+        if each is not None:
+            each()
+    add_launches(launches, times)
+    gen.set_state(own.get_state())

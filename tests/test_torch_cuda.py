@@ -873,3 +873,179 @@ def test_cuda_debug_nans_takes_the_eager_route(cuda):
     with debug_nans(), pytest.raises(FloatingPointError, match="t=1"):
         _train(cuda, X, True, subsample=False)
     assert not onmf._GRAPHS
+
+
+# --------------------------------------------------- the captured chain
+# Captured against eager (``run_chains(capture=False)``) from one set of
+# chains and one generator state: the same moves on the same draws, so the
+# trail, the final embeddings and the generator's next draw are equal bit
+# for bit.
+def _chain_graphs(device, m=12):
+    from onmf_ontf_ndl_tpu_torch.data import graphs as tg
+
+    edges = _torus_edges(m)
+    # a few chords, so that degrees differ and Glauber moves have more than
+    # one common neighbour to choose from
+    chords = np.stack([np.arange(0, m * m, 7), np.arange(3, m * m + 3, 7)
+                       % (m * m)], 1)
+    edges = np.concatenate([edges, chords])
+    return {"dense": tg.graph_from_edgelist(edges, device=device),
+            "csr": tg.csr_graph_from_edges(edges, device=device),
+            "bitset": tg.bitset_graph_from_edges(edges, device=device)}
+
+
+def _chains(g, B, C, seed, steps, capture, use_glauber):
+    """``steps`` moves of C chains from pivots of ``seed``: (trail, the
+    generator's next draw)."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    dev = g.deg.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.randint(0, g.num_nodes, (C,), generator=gen, device=dev)
+    emb0 = tm.tree_sample(gen, tm.tree_parents(B), g, x0)
+    trail = tm.run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber,
+                          capture=capture)
+    torch.cuda.synchronize()
+    return trail, torch.rand(8, generator=gen, device=dev)
+
+
+def _assert_chains_equal(got, want):
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[0][:, -1], want[0][:, -1])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 21])
+@pytest.mark.parametrize("rep", ["dense", "csr", "bitset"])
+@pytest.mark.parametrize("use_glauber", [True, False],
+                         ids=["glauber", "pivot"])
+def test_cuda_captured_chains_equal_eager(cuda, use_glauber, rep, k):
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = _chain_graphs(cuda)[rep]
+    B = tm.path_adj(0, k - 1)
+    tm._CHAIN_GRAPHS.clear()
+    kw = dict(C=32, steps=40, use_glauber=use_glauber)
+    _assert_chains_equal(_chains(g, B, seed=1, capture=True, **kw),
+                         _chains(g, B, seed=1, capture=False, **kw))
+    assert len(tm._CHAIN_GRAPHS) == 1
+    entry = next(iter(tm._CHAIN_GRAPHS.values()))
+    assert entry.launches == {n: 0 for n in entry.launches}
+    # a second call replays the graph it captured, from other chains and
+    # another generator; so do a shorter and a longer one (the number of
+    # moves is not in the key), and one of a single move
+    for seed, steps in ((2, 40), (3, 7), (4, 97), (5, 1)):
+        kw["steps"] = steps
+        _assert_chains_equal(_chains(g, B, seed=seed, capture=True, **kw),
+                             _chains(g, B, seed=seed, capture=False, **kw))
+        assert len(tm._CHAIN_GRAPHS) == 1
+        assert next(iter(tm._CHAIN_GRAPHS.values())) is entry
+
+
+@pytest.mark.cuda
+def test_cuda_ndl_train_captured_equals_eager(cuda):
+    """``ndl_train`` with its chains and steps replayed against
+    ``capture=False``: W, A and B equal bit for bit, the chains equal, the
+    state generator's next draw equal; through the ensemble (8 chains) and
+    one chain, the early stop and fixed sweeps."""
+    from onmf_ontf_ndl_tpu_torch.apps.network import ndl_train
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = _chain_graphs(cuda)["csr"]
+    B = tm.path_adj(0, 2)
+    for num_chains, stop in ((8, True), (1, False)):
+        out = {}
+        for capture in (True, False):
+            st = init_state(5, 9, 6, device=cuda)
+            emb0 = tm.tree_sample(torch.Generator(device=cuda).manual_seed(
+                6), tm.tree_parents(B), g,
+                torch.arange(num_chains, device=cuda))
+            st, code, emb = ndl_train(
+                st, g, emb0 if num_chains > 1 else emb0[0], B,
+                mcmc_iterations=4, sample_size=64, inner_iterations=6,
+                batch_size=16, alpha=0.1, num_chains=num_chains,
+                use_stopping=stop, capture=capture)
+            torch.cuda.synchronize()
+            out[capture] = (st, code, emb,
+                            torch.rand(8, generator=st.gen, device=cuda))
+        (st1, code1, emb1, r1), (st0, code0, emb0_, r0) = out[True], out[False]
+        for f in "WAB":
+            assert torch.equal(getattr(st1, f), getattr(st0, f)), f
+        assert st1.t == st0.t
+        torch.testing.assert_close(code1, code0, rtol=1e-5, atol=1e-6)
+        assert torch.equal(emb1, emb0_) and torch.equal(r1, r0)
+
+
+@pytest.mark.cuda
+def test_cuda_rebuilt_graph_is_captured_anew(cuda):
+    """A graph rebuilt from the same edges sits at new addresses: its
+    chains are captured anew, and the cache holds the first graph's
+    tensors while it keeps their entry."""
+    import gc
+    import weakref
+
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    B = tm.path_adj(0, 2)
+    tm._CHAIN_GRAPHS.clear()
+    g1 = _chain_graphs(cuda)["csr"]
+    kw = dict(C=16, steps=20, use_glauber=True)
+    want = _chains(g1, B, seed=1, capture=False, **kw)
+    _assert_chains_equal(_chains(g1, B, seed=1, capture=True, **kw), want)
+    entry = next(iter(tm._CHAIN_GRAPHS.values()))
+    held = weakref.ref(g1.nbr_flat)
+    del g1
+    gc.collect()
+    assert held() is not None          # the entry keeps what it reads
+    g2 = _chain_graphs(cuda)["csr"]
+    _assert_chains_equal(_chains(g2, B, seed=1, capture=True, **kw), want)
+    assert len(tm._CHAIN_GRAPHS) == 2
+    assert next(reversed(tm._CHAIN_GRAPHS.values())) is not entry
+    assert entry.reads[0] is held()
+
+
+@pytest.mark.cuda
+def test_cuda_chain_cache_stays_within_its_size(cuda):
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = _chain_graphs(cuda)["csr"]
+    B = tm.path_adj(0, 2)
+    tm._CHAIN_GRAPHS.clear()
+    for C in range(1, tm._CHAIN_CACHE_SIZE + 3):
+        _chains(g, B, C=C, seed=C, steps=3, capture=True, use_glauber=True)
+        assert len(tm._CHAIN_GRAPHS) == min(C, tm._CHAIN_CACHE_SIZE)
+    # the least recently used went first
+    assert [key[0][0] for key in tm._CHAIN_GRAPHS] == list(
+        range(3, tm._CHAIN_CACHE_SIZE + 3))
+
+
+@pytest.mark.cuda
+def test_cuda_failing_chain_capture_raises(cuda, monkeypatch):
+    """A move that fails while it is captured raises out of run_chains;
+    nothing is cached and no move falls back to the eager loop."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = _chain_graphs(cuda)["dense"]
+    B = tm.path_adj(0, 2)
+    tm._CHAIN_GRAPHS.clear()
+    move = tm._chain_move
+    calls = []
+
+    def failing(ch, gen, *args):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("refused while capturing")
+        move(ch, gen, *args)
+
+    monkeypatch.setattr(tm, "_chain_move", failing)
+    with pytest.raises(RuntimeError, match="refused while capturing"):
+        _chains(g, B, C=8, seed=1, steps=10, capture=True, use_glauber=True)
+    assert calls == [False, True]      # one eager move, then the capture
+    assert not tm._CHAIN_GRAPHS
+    monkeypatch.setattr(tm, "_chain_move", move)
+    _assert_chains_equal(
+        _chains(g, B, C=8, seed=1, steps=10, capture=True, use_glauber=True),
+        _chains(g, B, C=8, seed=1, steps=10, capture=False,
+                use_glauber=True))
