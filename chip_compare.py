@@ -37,7 +37,10 @@ route the package has: eager, and captured where ``_train_loop`` takes
 ``chain_rate``, the most of 3 runs, each after one of the same length) at
 ``NETWORK_RUNS``' chain shapes: each configuration's training round (its
 chains and moves a round) and its reconstruction (its chains and every
-move), eager and, where ``run_chains`` takes ``capture=``, captured.
+move), eager and, where ``run_chains`` takes ``capture=``, captured;
+where it takes ``backend=``, the moves are the chain kernel's on those two
+routes, and ``captured_plain`` is the plain moves captured
+(``backend="torch"``), the kernel's column beside them.
 ``cpu`` needs no card: host ms a step of ``train_dict`` on
 the CPU (the eager route that CPU and gloo runs take), d = 300, r = 25 on
 a pool of 16,384 columns, the three coders at batch 128 and 1024, 20
@@ -307,9 +310,12 @@ def chain_times(tag, dev):
     from onmf_ontf_ndl_tpu_torch.samplers import motif
 
     routes = {"eager": {}}
-    if "capture" in inspect.signature(motif.run_chains).parameters:
+    params = inspect.signature(motif.run_chains).parameters
+    if "capture" in params:
         routes = {"eager": dict(capture=False),
                   "captured": dict(capture=True)}
+    if "backend" in params:     # the kernel's routes, and the plain moves
+        routes["captured_plain"] = dict(backend="torch")
     build = {"dense": graphs.graph_from_edgelist,
              "csr": graphs.csr_graph_from_edges}
     for tag_run, (edges, kind, conf, recon) in NETWORK_RUNS.items():

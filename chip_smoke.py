@@ -60,9 +60,14 @@ Phases, each printing its findings on a line of its own:
              equal the eager route bit for bit (trail, final embeddings,
              the generator's next draw), chain steps per second on both
              routes, graphs, host launches and device operations per move,
-             the (b) reconstruction's chain graph bytes; the sparse
-             reconstruction once more in 4 chunks, with the peak device
-             memory of both; a short card/CPU run.
+             the (b) reconstruction's chain graph bytes; every move one
+             launch of the chain kernel (``csrc/motif_kernels.cu``), whose
+             chains must equal the plain moves' (``backend="torch"``) bit
+             for bit, also on a BitsetGraph, with one move's kernel and
+             plain ms, bound and share; the sparse reconstruction once
+             more in 4 chunks, with the peak device memory of both; both
+             runs again with every move on the plain version (the same W
+             and accuracy); a short card/CPU run.
 9. surfaces - the CLI in process (``cli.main``) on the card: ``ising`` at
              phase 6's configuration (its state equal to phase 6's),
              ``network`` at phase 8 (a)'s on an edge-list file of the same
@@ -93,6 +98,7 @@ Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
 """
 
+import contextlib
 import ctypes
 import json
 import math
@@ -117,16 +123,23 @@ PALLAS = "onmf_ontf_ndl_tpu/ops/pallas/"
 # kernel -> (source, the TPU kernel it replaces, the path whose run counts
 # its launches)
 KERNELS = {
-    "coder_sweeps": ("onmf_kernels.cu", "coder_kernel.py:192", "main"),
-    "coder_sweeps_earlystop": ("onmf_kernels.cu", "coder_kernel.py:455",
-                               "main"),
-    "fista_sweeps": ("onmf_kernels.cu", "coder_kernel.py:579", "tensor"),
-    "dict_update_sweep": ("onmf_kernels.cu", "coder_kernel.py:629", "main"),
-    "checkerboard_sweeps": ("ising_kernels.cu", "ising_kernel.py:64",
+    "coder_sweeps": ("onmf_kernels.cu", PALLAS + "coder_kernel.py:192",
+                     "main"),
+    "coder_sweeps_earlystop": ("onmf_kernels.cu",
+                               PALLAS + "coder_kernel.py:455", "main"),
+    "fista_sweeps": ("onmf_kernels.cu", PALLAS + "coder_kernel.py:579",
+                     "tensor"),
+    "dict_update_sweep": ("onmf_kernels.cu", PALLAS + "coder_kernel.py:629",
+                          "main"),
+    "checkerboard_sweeps": ("ising_kernels.cu", PALLAS + "ising_kernel.py:64",
                             "ising"),
     # the banded entry of the sampler (a route of checkerboard_sweeps)
-    "checkerboard_sweeps_band": ("ising_kernels.cu", "ising_kernel.py:64",
-                                 "parallel"),
+    "checkerboard_sweeps_band": ("ising_kernels.cu",
+                                 PALLAS + "ising_kernel.py:64", "parallel"),
+    # the chain's move: no Pallas kernel, the JAX package's jitted chain
+    # scan (a lax.scan over the moves, vmapped over the chains)
+    "chain_move": ("motif_kernels.cu",
+                   "onmf_ontf_ndl_tpu/samplers/motif.py:653", "network"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -139,9 +152,9 @@ PATH_KERNELS = {
               "coder_sweeps", "dict_update_sweep"),
     "video": ("coder_sweeps_earlystop", "coder_sweeps", "dict_update_sweep"),
     "network": ("coder_sweeps_earlystop", "coder_sweeps",
-                "dict_update_sweep"),
+                "dict_update_sweep", "chain_move"),
     "surfaces": ("checkerboard_sweeps", "coder_sweeps_earlystop",
-                 "coder_sweeps", "dict_update_sweep"),
+                 "coder_sweeps", "dict_update_sweep", "chain_move"),
     "parallel": ("coder_sweeps", "coder_sweeps_earlystop",
                  "dict_update_sweep", "checkerboard_sweeps",
                  "checkerboard_sweeps_band"),
@@ -1361,42 +1374,43 @@ def chain_rate(g, B, chains, steps, use_glauber, dev, **route):
     return steps / (time.perf_counter() - t0)
 
 
-def chain_captured_vs_eager(g, B, chains, steps, use_glauber, dev):
-    """``run_chains`` on its captured route against ``capture=False`` from
+def chains_equal(g, B, chains, steps, use_glauber, dev, route, other):
+    """``run_chains`` with the keywords ``route`` against ``other`` from
     the same chains and generator state: the trail, the final embeddings
     and the generator's next draw equal bit for bit (the same moves on the
-    same draws). Returns the three verdicts."""
+    same draws). Returns the three verdicts and the largest difference of
+    the trails."""
     from onmf_ontf_ndl_tpu_torch.samplers.motif import run_chains
 
-    out = {}
-    for capture in (False, True):
+    out = []
+    for kw in (route, other):
         gen, emb0 = chain_start(g, B, chains, 12, dev)
         trail = run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber,
-                           capture=capture)
-        out[capture] = (trail, torch.rand(8, generator=gen, device=dev))
-    (eager, e_next), (capt, c_next) = out[False], out[True]
-    return dict(trail=bool(torch.equal(eager, capt)),
-                final=bool(torch.equal(eager[:, -1], capt[:, -1])),
-                generator=bool(torch.equal(e_next, c_next)))
+                           **kw)
+        out.append((trail, torch.rand(8, generator=gen, device=dev)))
+    (a, a_next), (b, b_next) = out
+    return dict(trail=bool(torch.equal(a, b)),
+                final=bool(torch.equal(a[:, -1], b[:, -1])),
+                generator=bool(torch.equal(a_next, b_next))), \
+        float((a - b).abs().max())
 
 
-def chain_trace(g, B, chains, use_glauber, dev, capture, moves=20):
-    """Per move of ``chains`` chains, under ``torch.profiler`` after a run
-    of the same length: the CUDA graphs launched, the kernels launched from
-    the host, and the device operations run (kernels, copies and fills,
-    those of replayed graphs included)."""
+def chain_trace(g, B, chains, use_glauber, dev, moves=20, **route):
+    """Per move of ``chains`` chains on the route of the keywords
+    ``route``, under ``torch.profiler`` after a run of the same length: the
+    CUDA graphs launched, the kernels launched from the host, and the
+    device operations run (kernels, copies and fills, those of replayed
+    graphs included)."""
     from torch.profiler import ProfilerActivity, profile
 
     from onmf_ontf_ndl_tpu_torch.samplers.motif import run_chains
 
     gen, emb0 = chain_start(g, B, chains, 13, dev)
-    run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber,
-               capture=capture)
+    run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber, **route)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber,
-                   capture=capture)
+        run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber, **route)
         torch.cuda.synchronize()
     counts = {"graph": 0, "kernel": 0, "device": 0}
     for ev in prof.key_averages():
@@ -1407,6 +1421,136 @@ def chain_trace(g, B, chains, use_glauber, dev, capture, moves=20):
         elif ev.key.startswith("cudaLaunchKernel"):
             counts["kernel"] += ev.count
     return {f"{name}_per_move": n / moves for name, n in counts.items()}
+
+
+def chain_checks(g, B, chains, steps, use_glauber, dev):
+    """The checks and times of a chain: the kernel's captured route
+    against its eager route and against the plain captured route
+    (``backend="torch"``), all bit for bit (``chains_equal``); steps per
+    second on those three routes; per move on the kernel's and the plain
+    captured routes the graphs, host launches and device operations
+    (``chain_trace``); one move's kernel and plain ms, bound and share
+    (``chain_kernel_times``)."""
+    args = (g, B, chains)
+    eager, err_eager = chains_equal(*args, steps, use_glauber, dev, {},
+                                    dict(capture=False))
+    plain, err_plain = chains_equal(*args, steps, use_glauber, dev, {},
+                                    dict(backend="torch"))
+    fields = dict(chain_captured_vs_eager=eager, chain_kernel_vs_plain=plain,
+                  chains_equal=all(eager.values()) and all(plain.values()),
+                  chain_max_abs_err=max(err_eager, err_plain))
+    for name, route in (("", {}), ("_eager", dict(capture=False)),
+                        ("_plain", dict(backend="torch"))):
+        fields[f"chain_steps_per_s{name}"] = chain_rate(
+            *args, steps, use_glauber, dev, **route)
+        if name != "_eager":
+            fields[f"chain_trace{name}"] = chain_trace(*args, use_glauber,
+                                                       dev, **route)
+    fields["chain_move"] = chain_kernel_times(*args, use_glauber, dev)
+    return fields
+
+
+@contextlib.contextmanager
+def plain_chain_moves():
+    """Every chain move on the plain version, as ``backend="torch"``
+    gives it, also for the apps, which take no backend: the route function
+    that ``samplers/motif.py`` asks, swapped for the time of the block."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
+    route = motif.chain_move_route
+    motif.chain_move_route = (
+        lambda device_type, backend="auto": route(device_type, "torch"))
+    try:
+        yield
+    finally:
+        motif.chain_move_route = route
+
+
+def chain_move_inputs(g, B, chains, use_glauber, dev):
+    """A move's arguments for ``chains`` chains of ``chain_start``: (kind,
+    emb, draws, tbl, parents), the draws taken as ``_chain_move`` takes
+    them."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
+    gen, emb = chain_start(g, B, chains, 14, dev)
+    C, k = emb.shape
+    n, x, parents = g.num_nodes, emb[:, 0], motif.tree_parents(B)
+    if use_glauber and k > 1:
+        return ("glauber", emb, motif._glauber_draws(gen, C, k, n, dev),
+                motif._neighbor_table_on(B, dev), parents)
+    if use_glauber:
+        return "walk", emb, motif._walk_draws(gen, n, x), None, parents
+    return ("pivot", emb, motif._walk_draws(gen, n, x)
+            + motif._tree_draws(gen, parents, n, x), None, parents)
+
+
+def chain_move_bound(g, kind, emb, draws, tbl, parents):
+    """(ms, "bytes" or "operations"): the least time of one move of these
+    chains with these draws. Bytes, counted from this move's data: the
+    draws and the moving nodes' embeddings read; for a Glauber move the
+    motif table's row, the constraint images, the first image's degree
+    (and row offset) and candidate row, and per candidate and other valid
+    constraint one adjacency byte (dense), one word (bitset) or the
+    ceil(log2(deg + 1)) entries a binary search reads and the row's
+    degree and offset (CSR); for the walk the root's degree, offset and
+    picked neighbour and that one's degree; per regrown node its parent's
+    degree, offset and picked neighbour; the embeddings written. Integer
+    operations: two per byte read (a compare and an index), at
+    ``PEAK_INT_ALU``."""
+    from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
+
+    csr = isinstance(g, (CsrGraph, BitsetGraph))
+    off = 8 if csr else 0
+    C, k = emb.shape
+    deg = g.deg
+    nbytes = sum(t.numel() * t.element_size() for t in draws)
+    if kind == "glauber":
+        j = draws[0]
+        sel = tbl[j]                                        # (C, S)
+        valid = sel >= 0
+        imgs = emb.gather(1, sel.clamp_min(0))
+        first = valid.long().argmax(1)
+        u0 = imgs.gather(1, first[:, None])[:, 0]
+        d0 = torch.where(valid.any(1), deg[u0], 0)
+        others = valid & (torch.arange(sel.shape[1], device=emb.device)
+                          != first[:, None])
+        if isinstance(g, BitsetGraph):
+            per = torch.full_like(imgs, 4)
+        elif csr:
+            per = 8 * torch.ceil(torch.log2(deg[imgs].double() + 1)).long()
+        else:
+            per = torch.ones_like(imgs)
+        tests = (d0[:, None] * per * others).sum()
+        heads = (others.sum() * (8 + off)) if csr else 0
+        nbytes += int(8 * sel.numel() + 8 * valid.sum()
+                      + (8 + off) * valid.any(1).sum() + 8 * d0.sum()
+                      + tests + heads + 8 * C)
+    else:
+        walk = kind in ("walk", "pivot")
+        grown = 0 if kind == "walk" else sum(p >= 0 for p in parents)
+        written = {"walk": 1, "pivot": k, "tree": k - 1}[kind]
+        nbytes += C * (8 + 8 * written + (24 + off) * walk
+                       + (16 + off) * grown)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    t_ops = 1e3 * 2 * nbytes / PEAK_INT_ALU
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_kernel_times(g, B, chains, use_glauber, dev):
+    """One move of ``chains`` chains: the kernel's device ms (a CUDA graph
+    of 20 moves, replayed), its plain version's (CUDA events), both on the
+    same inputs; its bound and share."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import motif_kernel as mk
+
+    kind, emb, draws, tbl, parents = chain_move_inputs(g, B, chains,
+                                                       use_glauber, dev)
+    bound_ms, by = chain_move_bound(g, kind, emb, draws, tbl, parents)
+    ms = graph_ms(lambda: mk.chain_move(kind, emb, draws, g, tbl, parents),
+                  replays=3)
+    plain_ms = cuda_ms(lambda: mk.chain_move_plain(kind, emb, draws, g, tbl,
+                                                   parents), 20)
+    return dict(move_kind=kind, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
 
 
 def chain_graph_bytes(g, B, chains, use_glauber, dev):
@@ -1461,18 +1605,27 @@ def phase_network(ck, dev):
         samples over 16 chains and 29 optimizer steps, fixed sweeps; sparse
         reconstruction from 4.8M Glauber samples over 8192 chains; accuracy
         at least 0.90.
-    Each run's training and reconstruction chains must have been captured
-    in the run (a cached graph of each), and equal their eager route bit
-    for bit (``chain_captured_vs_eager``: trail, final embeddings, the
-    generator's next draw); their steps per second on both routes, and per
-    move the graphs launched, the kernels launched from the host and the
-    device operations run (``chain_trace``); for (b) the bytes that the
-    reconstruction's chain graph holds (buffers and memory pool).
-    Then (c) a short training run on the card (float32) and on the CPU
-    (float64) from the same patches and draws."""
+    Every chain move runs the chain kernel (``chain_move``, counted on
+    the path). Each run's training and reconstruction chains must have
+    been captured in the run (a cached graph of each), and equal their
+    eager route and their plain route (``backend="torch"``, captured) bit
+    for bit (``chains_equal``: trail, final embeddings, the generator's
+    next draw); their steps per second on the kernel's captured and eager
+    routes and the plain captured one, and per move the graphs launched,
+    the kernels launched from the host and the device operations run
+    (``chain_trace``); one move's kernel and plain ms, bound and share
+    (``chain_kernel_times``); for (b) the bytes that the reconstruction's
+    chain graph holds (buffers and memory pool). The same for (a)'s
+    training chain on a BitsetGraph of (a)'s edges. Then both runs again
+    with every move on the plain version: W and the accuracy equal the
+    kernel's runs', and their seconds. Then (c) a short training run on
+    the card (float32) and on the CPU (float64) from the same patches and
+    draws. Returns the path's launches and the kernel's summary (at the
+    (b) reconstruction's move)."""
     from onmf_ontf_ndl_tpu_torch.apps.network import (NetworkReconstructor,
                                                       ndl_train)
-    from onmf_ontf_ndl_tpu_torch.data.graphs import (csr_graph_from_edges,
+    from onmf_ontf_ndl_tpu_torch.data.graphs import (bitset_graph_from_edges,
+                                                     csr_graph_from_edges,
                                                      graph_from_edgelist)
     from onmf_ontf_ndl_tpu_torch.models.state import init_state
     from onmf_ontf_ndl_tpu_torch.samplers import motif
@@ -1490,7 +1643,7 @@ def phase_network(ck, dev):
 
     ck.reset_launches()
     # every chain of the runs below is captured in them: the cache then
-    # holds a graph for each (the chains launch no counted kernel)
+    # holds a graph for each
     motif._CHAIN_GRAPHS.clear()
     runs, peak, held = {}, {}, {}
     for tag, (_, _, conf, recon) in NETWORK_RUNS.items():
@@ -1509,9 +1662,10 @@ def phase_network(ck, dev):
         peak[tag] = torch.cuda.max_memory_allocated()
     launches = check_launches(ck, "network")
 
+    chain_err, chain_summary, accs = 0.0, None, {}
     for tag, (rec, W, out, train_s, recon_s) in runs.items():
         recon = NETWORK_RUNS[tag][3]
-        acc = rec.compute_recons_accuracy()
+        acc = accs[tag] = rec.compute_recons_accuracy()
         k, n = rec.k1 + rec.k2 + 1, rec.G.num_nodes
         ok = (tuple(W.shape) == (k * k, rec.n_components)
               and bool(torch.isfinite(W).all()) and bool((W >= 0).all())
@@ -1535,13 +1689,13 @@ def phase_network(ck, dev):
             if tag == "b" and part == "recon":
                 chain_fields.update(chain_graph_bytes(*args, glauber, dev))
             chain_fields[f"{part}_chain_captured_in_run"] = captured_in_run
-            chain_fields[f"{part}_chain_captured_vs_eager"] = \
-                chain_captured_vs_eager(*args, steps, glauber, dev)
-            for route, capture in (("", True), ("_eager", False)):
-                chain_fields[f"{part}_chain_steps_per_s{route}"] = \
-                    chain_rate(*args, steps, glauber, dev, capture=capture)
-                chain_fields[f"{part}_chain_trace{route}"] = chain_trace(
-                    *args, glauber, dev, capture)
+            fields = chain_checks(*args, steps, glauber, dev)
+            chain_fields.update({f"{part}_{key}": value
+                                 for key, value in fields.items()})
+            chain_err = max(chain_err, fields.pop("chain_max_abs_err"))
+            if tag == "b" and part == "recon":
+                chain_summary = dict(fields["chain_move"],
+                                     max_abs_err=chain_err)
         fields = dict(config=tag, nodes=n, edges=rec.G.num_edges,
                       max_deg=int(rec.G.deg.max()), k=k,
                       train_seconds=train_s, recon_seconds=recon_s,
@@ -1549,8 +1703,7 @@ def phase_network(ck, dev):
                       recon_chain_steps=recon_steps, **chain_fields,
                       accuracy=acc)
         ok = ok and all(chain_fields[f"{part}_chain_captured_in_run"]
-                        and all(chain_fields[
-                            f"{part}_chain_captured_vs_eager"].values())
+                        and chain_fields[f"{part}_chains_equal"]
                         for part in chain_runs)
         FINAL_STATES[f"network_{tag}"] = rec.state
         if tag == "a":
@@ -1587,6 +1740,42 @@ def phase_network(ck, dev):
     if not (out.shape[1] == 2 and acc >= 0.90):
         raise AssertionError(f"chunked reconstruction: accuracy {acc}")
 
+    # the bitset representation: (a)'s training chain on a BitsetGraph of
+    # (a)'s edges
+    edges_a, _, conf_a, _ = NETWORK_RUNS["a"]
+    fields = chain_checks(
+        bitset_graph_from_edges(edges_a(), device=dev), runs["a"][0].B,
+        conf_a["num_chains"], -(-conf_a["sample_size"] // conf_a["num_chains"]),
+        True, dev)
+    emit("network", config="a", check="bitset_chain", **fields)
+    if not fields["chains_equal"]:
+        raise AssertionError(f"bitset chain: {fields}")
+
+    # both runs again with every chain move on the plain version: the
+    # same chains, so the same W and accuracy
+    with plain_chain_moves():
+        for tag, (_, _, conf, recon) in NETWORK_RUNS.items():
+            rec = NetworkReconstructor(source=graphs[tag], device=dev, **conf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            W = rec.train_dict()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            rec.reconstruct_network(**recon)
+            torch.cuda.synchronize()
+            recon_s = time.perf_counter() - t0 - train_s
+            acc = rec.compute_recons_accuracy()
+            same = bool(torch.equal(W, runs[tag][1])) and acc == accs[tag]
+            emit("network", config=tag, check="plain_chain_moves",
+                 W_equal_bit_for_bit=bool(torch.equal(W, runs[tag][1])),
+                 accuracy=acc, kernel_accuracy=accs[tag],
+                 train_seconds=train_s, recon_seconds=recon_s,
+                 kernel_train_seconds=runs[tag][3],
+                 kernel_recon_seconds=runs[tag][4])
+            if not same:
+                raise AssertionError(f"network ({tag}): the plain moves' run "
+                                     "differs from the kernel's")
+
     # the same short training run on the card (float32) and on the CPU
     # (float64) from the same patches and draws, fixed sweeps, the 21-node
     # motif; limit 1e-3 relative
@@ -1613,7 +1802,7 @@ def phase_network(ck, dev):
     emit("network", check="cuda_f32_vs_cpu_f64", rel_err_W=rel, limit=1e-3)
     if not rel <= 1e-3:
         raise AssertionError(f"card run differs from the CPU run: {rel}")
-    return launches
+    return launches, chain_summary
 
 
 def cli_flags(conf: dict) -> list:
@@ -1896,16 +2085,17 @@ def main():
     launches["ising"] = phase_ising(ck, dev)
     launches["stack"] = phase_stack(ck, dev)
     launches["video"] = phase_video(ck, dev)
-    launches["network"] = phase_network(ck, dev)
+    launches["network"], summary["chain_move"] = phase_network(ck, dev)
     launches["surfaces"] = phase_surfaces(ck, dev)
     launches["parallel"], summary["checkerboard_sweeps_band"] = (
         phase_parallel(ck, dev, torch.Generator().manual_seed(15)))
     emit("done", seconds=time.perf_counter() - t0)
     # library_ms: no single PyTorch call computes any of these functions
     # (each is a loop: Gauss-Seidel sweeps, FISTA or column BCD with a
-    # per-tile stop, a Philox heat-bath sampler, whole or in bands)
+    # per-tile stop, a Philox heat-bath sampler, whole or in bands, a
+    # Glauber or pivot move of a chain)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src,
-                "replaces": PALLAS + replaces,
+                "replaces": replaces,
                 "launches": launches[path][name],
                 "max_abs_err": summary[name]["max_abs_err"],
                 "ms": summary[name]["ms"],

@@ -1,5 +1,6 @@
-"""The kernel library shared by ``coder_kernel.py`` and ``ising_kernel.py``:
-its build, its launch counts and the launch helpers of the wrappers.
+"""The kernel library shared by ``coder_kernel.py``, ``ising_kernel.py`` and
+``motif_kernel.py``: its build, its launch counts and the launch helpers of
+the wrappers.
 
 The sources are ``csrc/*.cu``. :func:`build` compiles each source with its
 own ``nvcc`` for ``sm_90a``, all at once, links them into one shared
@@ -34,14 +35,16 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # of the library. Only the wrappers' kernel branch adds to it.
 LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
             "fista_sweeps": 0, "dict_update_sweep": 0,
-            "checkerboard_sweeps": 0, "checkerboard_sweeps_band": 0}
+            "checkerboard_sweeps": 0, "checkerboard_sweeps_band": 0,
+            "chain_move": 0}
 
 
 # The kernels whose main CUDA kernel also counts its own runs on the device
-# (``onmf_read_runs``), in the library's order: a check of the counts
-# above, replayed graphs included.
+# (``onmf_read_runs`` for the first four, in the library's order;
+# ``onmf_chain_read_runs`` for the chain's move, whose source keeps its own
+# counter): a check of the counts above, replayed graphs included.
 RUN_KERNELS = ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
-               "dict_update_sweep")
+               "dict_update_sweep", "chain_move")
 
 
 def reset_launches() -> None:
@@ -50,7 +53,9 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     if build.cache_info().currsize and torch.cuda.is_initialized():
-        _raise_on_error("onmf_reset_runs", build()["lib"].onmf_reset_runs())
+        lib = build()["lib"]
+        _raise_on_error("onmf_reset_runs", lib.onmf_reset_runs())
+        _raise_on_error("onmf_chain_reset_runs", lib.onmf_chain_reset_runs())
 
 
 def device_runs() -> dict:
@@ -58,8 +63,13 @@ def device_runs() -> dict:
     since the last :func:`reset_launches`, as the kernels count them
     themselves: a run replayed from a CUDA graph counts too. Synchronises
     the device."""
+    lib = build()["lib"]
     out = (ctypes.c_ulonglong * len(RUN_KERNELS))()
-    _raise_on_error("onmf_read_runs", build()["lib"].onmf_read_runs(out))
+    _raise_on_error("onmf_read_runs", lib.onmf_read_runs(out))
+    chain = ctypes.c_ulonglong()
+    _raise_on_error("onmf_chain_read_runs",
+                    lib.onmf_chain_read_runs(ctypes.byref(chain)))
+    out[-1] = chain.value
     return dict(zip(RUN_KERNELS, map(int, out)))
 
 
@@ -161,13 +171,21 @@ def build() -> dict:
     u = ctypes.c_uint
     lib.onmf_checkerboard_band_half.argtypes = [p, p, p, i, i, i, u, u, u, p,
                                                 p]
+    ll = ctypes.c_longlong
+    graph = [i, ll, p, p, ll, p, p, p, p, ll, p]   # GraphView, the stream
+    lib.onmf_chain_glauber.argtypes = [p, i, i, p, p, p, p, i, *graph]
+    lib.onmf_chain_pivot.argtypes = [p, i, i, i, i, p, p, p, p, p, p, *graph]
     lib.onmf_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.onmf_chain_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_reset_runs.argtypes = []
+    lib.onmf_chain_reset_runs.argtypes = []
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
                lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
                lib.onmf_checkerboard_sweeps, lib.onmf_checkerboard_band_half,
+               lib.onmf_chain_glauber, lib.onmf_chain_pivot,
                lib.onmf_tile_columns, lib.onmf_read_runs,
-               lib.onmf_reset_runs):
+               lib.onmf_reset_runs, lib.onmf_chain_read_runs,
+               lib.onmf_chain_reset_runs):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
     for fn, args in ((lib.onmf_dict_smem_floats, [i, i]),

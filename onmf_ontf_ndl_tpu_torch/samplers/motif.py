@@ -38,6 +38,17 @@ move the trail records the embeddings at a device step counter
 (``_record``), outside the graph, so that a graph holds no trail. Both
 routes draw the same numbers and give the same chains.
 
+Each move is split into its draws (a fixed number of tensors of
+data-independent shape, drawn in torch from the generator: ``_walk_draws``,
+``_tree_draws``, ``_glauber_draws``) and their use (``_walk_apply``,
+``_tree_apply``, ``_glauber_apply``). On a CUDA tensor the use is one
+launch of the hand-written kernel of ``ops/kernels/motif_kernel.py``
+(``chain_move``; every move of ``run_chains`` on both routes, and
+``tree_sample``); the apply functions are its plain version, which runs on
+the CPU and, for comparisons, with ``run_chains(..., backend="torch")``.
+The kernel repeats the plain arithmetic, so both give the same chains bit
+for bit.
+
 Patches: ``pair_matrices_T`` returns a batch's k x k induced adjacency
 (or weight) patches as a (k*k, M) matrix with the sample axis minor. A
 binary graph is symmetric and has no self-loops, so only the k(k-1)/2
@@ -64,6 +75,8 @@ import numpy as np
 import torch
 
 from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
+from onmf_ontf_ndl_tpu_torch.ops.kernels.motif_kernel import (
+    _device_parents, chain_move, chain_move_plain, chain_move_route)
 from onmf_ontf_ndl_tpu_torch.utils.capture import capture_step, replay
 
 __all__ = ["path_adj", "tree_parents", "tree_sample", "rw_update",
@@ -129,9 +142,11 @@ def _randint(gen, high: int, shape, device) -> torch.Tensor:
 
 
 def _csr_at(g, pos: torch.Tensor) -> torch.Tensor:
-    """``nbr_flat[pos]`` with positions past the end clamped (they are
-    masked out by every caller)."""
-    return g.nbr_flat[pos.clamp(max=max(g.nbr_flat.shape[0] - 1, 0))]
+    """``nbr_flat[pos]`` with positions past the end clamped, and zeros for
+    an empty edge set (both are masked out by every caller)."""
+    if g.nbr_flat.shape[0] == 0:
+        return torch.zeros_like(pos)
+    return g.nbr_flat[pos.clamp(max=g.nbr_flat.shape[0] - 1)]
 
 
 def _row_slots(g, u: torch.Tensor):
@@ -180,12 +195,12 @@ def _has_edges(g, row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     return g.adj[row, col]
 
 
-def _uniform_neighbor(gen, g, x: torch.Tensor, u=None) -> torch.Tensor:
-    """A uniform neighbour of each node of ``x`` (from the uniforms ``u``,
-    drawn when None); ``x`` itself where it is isolated."""
+# ------------------------------------------------------------ the moves:
+# each its draws and their use, the apply half (see the module docstring)
+def _neighbor_at(g, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The neighbour of each node of ``x`` that the uniforms ``u`` pick (a
+    uniform one); ``x`` itself where it is isolated."""
     d = g.deg[x]
-    if u is None:
-        u = _uniform(gen, x.shape, x.device)
     d1 = d.clamp_min(1)
     idx = torch.minimum((u * d1).long(), d1 - 1)
     if isinstance(g, (CsrGraph, BitsetGraph)):
@@ -195,58 +210,65 @@ def _uniform_neighbor(gen, g, x: torch.Tensor, u=None) -> torch.Tensor:
     return torch.where(d > 0, y, x)
 
 
-def tree_sample(gen, parents: tuple[int, ...], g, x: torch.Tensor):
-    """Grow embeddings from pivots ``x`` (C,): each motif node in
-    depth-first order takes a uniform neighbour of its parent's image.
-    Returns (C, k)."""
-    k = len(parents) + 1
-    emb = torch.empty(x.shape + (k,), dtype=torch.int64, device=x.device)
-    emb[:, 0] = x
-    u = _uniform(gen, (k - 1,) + x.shape, x.device)   # one draw per tree
-    for i, p in enumerate(parents, start=1):
-        if p < 0:   # parentless motif node: uniform over all nodes
-            emb[:, i] = _randint(gen, g.num_nodes, x.shape, x.device)
-        else:
-            emb[:, i] = _uniform_neighbor(gen, g, emb[:, p], u[i - 1])
-    return emb
+def _walk_draws(gen, n: int, x: torch.Tensor) -> tuple:
+    """The draws of one walk step of the chains at ``x``: the neighbour's
+    uniform, the acceptance's uniform and the jump of an isolated node."""
+    return (_uniform(gen, x.shape, x.device), _uniform(gen, x.shape, x.device),
+            _randint(gen, n, x.shape, x.device))
 
 
-def rw_update(gen, g, x: torch.Tensor) -> torch.Tensor:
-    """One Metropolis-Hastings walk step per chain (uniform stationary
-    law): propose a uniform neighbour y, accept with probability
-    min(1, deg x / deg y); an isolated x jumps to a uniform node."""
-    y = _uniform_neighbor(gen, g, x)
+def _walk_apply(g, x: torch.Tensor, draws: tuple) -> torch.Tensor:
+    """The walk step of :func:`rw_update` from its draws."""
+    u_nb, u_acc, jump = draws
+    y = _neighbor_at(g, x, u_nb)
     dx = g.deg[x]
-    accept = (_uniform(gen, x.shape, x.device)
-              < dx.float() / g.deg[y].clamp_min(1).float())
+    accept = u_acc < dx.float() / g.deg[y].clamp_min(1).float()
     y = torch.where(accept, y, x)
-    jump = _randint(gen, g.num_nodes, x.shape, x.device)
     return torch.where(dx > 0, y, jump)
 
 
-def _rank_select(gen, cand: torch.Tensor, ok: torch.Tensor, n: int):
-    """Per row, a uniform pick among ``cand[ok]`` (rank-select from one
-    uniform); uniform over [0, n) where a row has none."""
-    c = ok.long().cumsum(1)
-    total = c[:, -1]
-    u = _uniform(gen, total.shape, cand.device)
-    target = torch.minimum((u * total).long() + 1, total.clamp_min(1))
-    idx = (c >= target[:, None]).long().argmax(1)
-    y = cand.gather(1, idx[:, None])[:, 0]
-    fallback = _randint(gen, n, total.shape, cand.device)
-    return torch.where(total > 0, y, fallback)
+def _tree_draws(gen, parents: tuple[int, ...], n: int,
+                x: torch.Tensor) -> tuple:
+    """The draws of a tree grown from pivots ``x``: one uniform per non-root
+    motif node, (k-1,) + x.shape, then a uniform node per parentless motif
+    node in node order, one randint call each, into the rows of one
+    (P,) + x.shape tensor."""
+    u = _uniform(gen, (len(parents),) + x.shape, x.device)
+    roots = torch.empty((sum(p < 0 for p in parents),) + x.shape,
+                        dtype=torch.int64, device=x.device)
+    for row in roots:
+        torch.randint(0, n, x.shape, generator=gen, out=row)
+    return u, roots
 
 
-def glauber_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
-                   emb: torch.Tensor) -> torch.Tensor:
-    """One Glauber move per chain on (C, k) embeddings; returns new ones."""
-    C, k = emb.shape
-    emb = emb.clone()
-    if k == 1:   # a single-node motif moves as the walk
-        emb[:, 0] = rw_update(gen, g, emb[:, 0])
-        return emb
-    tbl = _neighbor_table_on(B, emb.device)
-    j = _randint(gen, k, (C,), emb.device)
+def _tree_apply(g, emb: torch.Tensor, draws: tuple,
+                parents: tuple[int, ...]) -> None:
+    """Grow the trees of :func:`tree_sample` from the roots ``emb[:, 0]``
+    and their draws, in place: each motif node in depth-first order takes
+    the neighbour of its parent's image that its uniform picks."""
+    u, roots = draws
+    q = 0
+    for i, p in enumerate(parents, start=1):
+        if p < 0:   # parentless motif node: uniform over all nodes
+            emb[:, i] = roots[q]
+            q += 1
+        else:
+            emb[:, i] = _neighbor_at(g, emb[:, p], u[i - 1])
+
+
+def _glauber_draws(gen, C: int, k: int, n: int, device) -> tuple:
+    """The draws of one Glauber move of C chains, k > 1: the motif node j,
+    the rank-select's uniform and the uniform fallback node."""
+    return (_randint(gen, k, (C,), device), _uniform(gen, (C,), device),
+            _randint(gen, n, (C,), device))
+
+
+def _glauber_apply(g, emb: torch.Tensor, draws: tuple,
+                   tbl: torch.Tensor) -> None:
+    """The Glauber move of :func:`glauber_update` from its draws, in place
+    on ``emb`` (only ``emb[c, j[c]]`` changes, after every read)."""
+    j, u, fallback = draws
+    C = emb.shape[0]
     sel = tbl[j]                                      # (C, S)
     S = sel.shape[1]
     valid = sel >= 0
@@ -261,15 +283,67 @@ def glauber_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
     ok &= (member | ~active[:, :, None]).all(1)
     # no valid constraint (edgeless motif): the uniform fallback
     ok &= valid.any(1)[:, None]
-    emb[torch.arange(C, device=emb.device), j] = _rank_select(
-        gen, cand, ok, g.num_nodes)
-    return emb
+    # rank-select: the target-th valid candidate, target from one uniform
+    c = ok.long().cumsum(1)
+    total = c[:, -1]
+    target = torch.minimum((u * total).long() + 1, total.clamp_min(1))
+    idx = (c >= target[:, None]).long().argmax(1)
+    y = cand.gather(1, idx[:, None])[:, 0]
+    emb[torch.arange(C, device=emb.device), j] = torch.where(total > 0, y,
+                                                             fallback)
+
+
+def _move(kind: str, emb: torch.Tensor, draws: tuple, g, tbl=None,
+          parents: tuple = (), backend: str = "auto") -> torch.Tensor:
+    """Apply a move's draws in place on ``emb``: the kernel
+    (``chain_move``) or its plain version, as :func:`chain_move_route`
+    picks from the device and ``backend``."""
+    apply = (chain_move if chain_move_route(emb.device.type, backend)
+             == "kernel" else chain_move_plain)
+    return apply(kind, emb, draws, g, tbl, parents)
+
+
+def tree_sample(gen, parents: tuple[int, ...], g, x: torch.Tensor):
+    """Grow embeddings from pivots ``x`` (C,): each motif node in
+    depth-first order takes a uniform neighbour of its parent's image.
+    Returns (C, k)."""
+    k = len(parents) + 1
+    emb = torch.empty(x.shape + (k,), dtype=torch.int64, device=x.device)
+    emb[:, 0] = x
+    return _move("tree", emb, _tree_draws(gen, parents, g.num_nodes, x), g,
+                 parents=parents)
+
+
+def rw_update(gen, g, x: torch.Tensor) -> torch.Tensor:
+    """One Metropolis-Hastings walk step per chain (uniform stationary
+    law): propose a uniform neighbour y, accept with probability
+    min(1, deg x / deg y); an isolated x jumps to a uniform node."""
+    draws = _walk_draws(gen, g.num_nodes, x.reshape(-1))
+    emb = x.reshape(-1, 1).to(torch.int64, copy=True)
+    return _move("walk", emb, draws, g)[:, 0].reshape(x.shape)
+
+
+def glauber_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
+                   emb: torch.Tensor) -> torch.Tensor:
+    """One Glauber move per chain on (C, k) embeddings; returns new ones."""
+    C, k = emb.shape
+    emb = emb.clone()
+    if k == 1:   # a single-node motif moves as the walk
+        return _move("walk", emb, _walk_draws(gen, g.num_nodes, emb[:, 0]),
+                     g)
+    return _move("glauber", emb, _glauber_draws(gen, C, k, g.num_nodes,
+                                                emb.device), g,
+                 _neighbor_table_on(B, emb.device))
 
 
 def pivot_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
                  emb: torch.Tensor) -> torch.Tensor:
     """Pivot move per chain: walk the root, then regrow the whole tree."""
-    return tree_sample(gen, parents, g, rw_update(gen, g, emb[:, 0]))
+    x = emb[:, 0]
+    draws = (_walk_draws(gen, g.num_nodes, x)
+             + _tree_draws(gen, parents, g.num_nodes, x))
+    return _move("pivot", emb.to(torch.int64, copy=True), draws, g,
+                 parents=parents)
 
 
 def pair_matrices_T(g, embs: torch.Tensor, *,
@@ -336,12 +410,24 @@ def _new_chains(emb0: torch.Tensor) -> _Chains:
 
 
 def _chain_move(ch: _Chains, gen, B: np.ndarray, parents: tuple[int, ...],
-                g, use_glauber: bool) -> None:
-    """One Glauber or pivot move of every chain on the buffers ``ch``, its
-    draws from ``gen``: the new embeddings are written back into
+                g, use_glauber: bool, backend: str = "auto") -> None:
+    """One Glauber or pivot move of every chain on the buffers ``ch``: its
+    draws from ``gen``, then the kernel or its plain version (as
+    ``backend`` and the device pick, :func:`_move`) in place on
     ``ch.emb``. This is what a chain graph captures."""
-    move = glauber_update if use_glauber else pivot_update
-    ch.emb.copy_(move(gen, B, parents, g, ch.emb))
+    C, k = ch.emb.shape
+    dev, n = ch.emb.device, g.num_nodes
+    if use_glauber and k > 1:
+        _move("glauber", ch.emb, _glauber_draws(gen, C, k, n, dev), g,
+              _neighbor_table_on(B, dev), backend=backend)
+    elif use_glauber:   # a single-node motif moves as the walk
+        _move("walk", ch.emb, _walk_draws(gen, n, ch.emb[:, 0]), g,
+              backend=backend)
+    else:
+        x = ch.emb[:, 0]
+        _move("pivot", ch.emb, _walk_draws(gen, n, x)
+              + _tree_draws(gen, parents, n, x), g, parents=parents,
+              backend=backend)
 
 
 def _record(ch: _Chains, trail: torch.Tensor) -> None:
@@ -370,17 +456,20 @@ def _graph_tensors(g) -> tuple:
     return g.adj, g.nbr, g.deg
 
 
-def _chain_key(g, emb0: torch.Tensor, B: np.ndarray,
-               use_glauber: bool) -> tuple:
+def _chain_key(g, emb0: torch.Tensor, B: np.ndarray, use_glauber: bool,
+               backend: str = "auto") -> tuple:
     """The cache key of the graph of a move like this call's: all that a
     capture bakes in. The chain count and k, the device, the motif and its
-    tree, the kind of move, the graph's representation, node count and
-    maximum degree, and the address, shape, strides and dtype of each graph
-    tensor the move reads. Not the embeddings' values or dtype (they are
-    copied into an int64 buffer), the generator or the number of moves."""
+    tree, the kind of move, the route of its arithmetic (the kernel or the
+    plain version: :func:`chain_move_route` of the device and
+    ``backend``), the graph's representation, node count and maximum
+    degree, and the address, shape, strides and dtype of each graph tensor
+    the move reads. Not the embeddings' values or dtype (they are copied
+    into an int64 buffer), the generator or the number of moves."""
     B = np.asarray(B, np.int8)
     return (tuple(emb0.shape), emb0.device, B.tobytes(), tree_parents(B),
-            bool(use_glauber), type(g), g.num_nodes,
+            bool(use_glauber), chain_move_route(emb0.device.type, backend),
+            type(g), g.num_nodes,
             getattr(g, "max_deg", None),
             tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
                   for t in _graph_tensors(g)))
@@ -389,10 +478,10 @@ def _chain_key(g, emb0: torch.Tensor, B: np.ndarray,
 @dataclasses.dataclass
 class _ChainGraph:
     """A captured move: its graph, its buffers, the generator registered
-    with it, the kernel launches of one replay (none: the move is plain
-    PyTorch), and the tensors it reads that its caller owns (the graph's
-    and the motif's neighbour table), held so that no replay reads freed
-    memory."""
+    with it, the kernel launches of one replay (one ``chain_move`` on the
+    kernel's route, none on the plain one), and the tensors it reads that
+    its caller owns (the graph's, the motif's neighbour table and parent
+    list), held so that no replay reads freed memory."""
 
     graph: object
     chains: _Chains
@@ -402,12 +491,13 @@ class _ChainGraph:
 
 
 def _run_captured_chains(gen, g, emb0: torch.Tensor, B: np.ndarray,
-                         trail: torch.Tensor, use_glauber: bool) -> None:
+                         trail: torch.Tensor, use_glauber: bool,
+                         backend: str) -> None:
     """The captured route: the graph of this key (captured on a miss, with
     its first move run as it is captured), replayed for the remaining
     moves, each followed by its record in ``trail``; the graph's generator
     takes ``gen``'s state before the replays and gives it back after."""
-    key = _chain_key(g, emb0, B, use_glauber)
+    key = _chain_key(g, emb0, B, use_glauber, backend)
     entry = _CHAIN_GRAPHS.pop(key, None)
     done = 0
     if entry is None:
@@ -418,8 +508,11 @@ def _run_captured_chains(gen, g, emb0: torch.Tensor, B: np.ndarray,
         reads = _graph_tensors(g)
         if use_glauber and emb0.shape[1] > 1:
             reads += (_neighbor_table_on(B, emb0.device),)
+        elif not use_glauber:
+            reads += (_device_parents(parents, emb0.device),)
         graph, own, launches = capture_step(
-            lambda gn: _chain_move(ch, gn, B, parents, g, use_glauber),
+            lambda gn: _chain_move(ch, gn, B, parents, g, use_glauber,
+                                   backend),
             gen, emb0.device)
         entry = _ChainGraph(graph, ch, own, launches, reads)
         _record(ch, trail)
@@ -433,8 +526,8 @@ def _run_captured_chains(gen, g, emb0: torch.Tensor, B: np.ndarray,
 
 
 def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
-               use_glauber: bool = True, capture: bool = True
-               ) -> torch.Tensor:
+               use_glauber: bool = True, capture: bool = True,
+               backend: str = "auto") -> torch.Tensor:
     """Advance (C, k) chains ``steps`` moves; returns every state after a
     move, (C, steps, k).
 
@@ -442,19 +535,24 @@ def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
     captured as a CUDA graph (once per :func:`_chain_key`) and replayed
     for every move; on the CPU, or with ``capture=False``, the same move
     function runs in a Python loop. On both, each move's state is then
-    recorded in the trail (:func:`_record`). Both draw the same numbers
-    from ``gen`` and leave it in the same state. A capture or replay that
-    fails raises; no move falls back to the eager loop."""
+    recorded in the trail (:func:`_record`). A move's arithmetic runs the
+    kernel of ``ops/kernels/motif_kernel.py`` on a CUDA tensor, or its
+    plain version on the CPU and with ``backend="torch"`` (the
+    comparisons); it raises where the kernel fails to build or launch.
+    Every route draws the same numbers from ``gen``, leaves it in the same
+    state and gives the same chains. A capture or replay that fails
+    raises; no move falls back to the eager loop."""
     trail = torch.empty((emb0.shape[0], steps, emb0.shape[1]),
                         dtype=torch.int64, device=emb0.device)
     if steps and _chain_route(emb0.device.type, capture) == "captured":
         with torch.cuda.device(emb0.device):
-            _run_captured_chains(gen, g, emb0, B, trail, use_glauber)
+            _run_captured_chains(gen, g, emb0, B, trail, use_glauber,
+                                 backend)
         return trail
     parents = tree_parents(B)
     ch = _new_chains(emb0)
     for _ in range(steps):
-        _chain_move(ch, gen, B, parents, g, use_glauber)
+        _chain_move(ch, gen, B, parents, g, use_glauber, backend)
         _record(ch, trail)
     return trail
 

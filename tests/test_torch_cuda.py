@@ -24,6 +24,8 @@ must a tiny video run, and a reconstruction in 2 chunks must give the CPU's
 pairs and counts exactly and its means within rtol 1e-3 / atol 1e-4.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -931,7 +933,9 @@ def test_cuda_captured_chains_equal_eager(cuda, use_glauber, rep, k):
                          _chains(g, B, seed=1, capture=False, **kw))
     assert len(tm._CHAIN_GRAPHS) == 1
     entry = next(iter(tm._CHAIN_GRAPHS.values()))
-    assert entry.launches == {n: 0 for n in entry.launches}
+    # one launch of the chain kernel a replay, nothing else
+    assert entry.launches == {n: int(n == "chain_move")
+                              for n in entry.launches}
     # a second call replays the graph it captured, from other chains and
     # another generator; so do a shorter and a longer one (the number of
     # moves is not in the key), and one of a single move
@@ -1049,3 +1053,140 @@ def test_cuda_failing_chain_capture_raises(cuda, monkeypatch):
         _chains(g, B, C=8, seed=1, steps=10, capture=True, use_glauber=True),
         _chains(g, B, C=8, seed=1, steps=10, capture=False,
                 use_glauber=True))
+
+
+# ----------------------------------------------------- the chain kernel
+# csrc/motif_kernels.cu against its plain version (chain_move_plain, the
+# apply half of samplers/motif.py's moves) from the same draws, and the
+# kernel's chains against the plain route's and the moves' before the
+# split: equal bit for bit. The smoke's Barabasi-Albert graph has hubs of
+# up to 797 neighbours (a Glauber candidate row of 25 chunks of a warp);
+# a 30 x 30 torus has none.
+@functools.cache
+def _kernel_graphs(device):
+    from chip_smoke import ba_edges, torus_edges
+    from onmf_ontf_ndl_tpu_torch.data import graphs as tg
+
+    out = {}
+    for name, edges in (("ba", ba_edges(4039, 22, 0)),
+                        ("torus", torus_edges(30))):
+        out[name] = {
+            "dense": tg.graph_from_edgelist(edges, device=device),
+            "csr": tg.csr_graph_from_edges(edges, device=device),
+            "bitset": tg.bitset_graph_from_edges(edges, device=device)}
+    return out
+
+
+def _draws(kind, gen, g, B, emb):
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    C, k = emb.shape
+    n, x, parents = g.num_nodes, emb[:, 0], tm.tree_parents(B)
+    if kind == "glauber":
+        return tm._glauber_draws(gen, C, k, n, emb.device)
+    if kind == "walk":
+        return tm._walk_draws(gen, n, x)
+    if kind == "pivot":
+        return tm._walk_draws(gen, n, x) + tm._tree_draws(gen, parents, n, x)
+    return tm._tree_draws(gen, parents, n, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 21])
+@pytest.mark.parametrize("rep", ["dense", "csr", "bitset"])
+@pytest.mark.parametrize("graph", ["ba", "torus"])
+def test_cuda_chain_kernel_equals_plain(cuda, graph, rep, k):
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import motif_kernel as mk
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = _kernel_graphs(cuda)[graph][rep]
+    B = tm.path_adj(0, k - 1)
+    parents = tm.tree_parents(B)
+    tbl = tm._neighbor_table_on(B, cuda) if k > 1 else None
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    emb = tm.tree_sample(gen, parents, g, torch.randint(
+        0, g.num_nodes, (1024,), generator=gen, device=cuda))
+    emb[:4, 0] = torch.topk(g.deg, 4).indices      # the hubs
+    ck.reset_launches()
+    launched = 0
+    for kind in ("glauber" if k > 1 else "walk", "pivot", "tree"):
+        for _ in range(4):
+            draws = _draws(kind, gen, g, B, emb)
+            want = mk.chain_move_plain(kind, emb.clone(), draws, g, tbl,
+                                       parents)
+            got = mk.chain_move(kind, emb.clone(), draws, g, tbl, parents)
+            launched += 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, (got != want).sum())
+            emb = got
+    assert ck.LAUNCHES["chain_move"] == launched
+    assert device_runs()["chain_move"] == launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 21])
+@pytest.mark.parametrize("rep", ["dense", "csr", "bitset"])
+@pytest.mark.parametrize("use_glauber", [True, False],
+                         ids=["glauber", "pivot"])
+def test_cuda_kernel_chains_equal_the_plain_moves(cuda, use_glauber, rep, k):
+    """run_chains on the kernel (captured and eager) against
+    ``backend="torch"`` (captured) and the moves before the split, from
+    one generator state: trail, final embeddings, next draw."""
+    from test_torch_chain_kernel import FROZEN, frozen_tree_sample
+
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = _kernel_graphs(cuda)["ba"][rep]
+    B = tm.path_adj(0, k - 1)
+    parents = tm.tree_parents(B)
+    tm._CHAIN_GRAPHS.clear()
+    x0 = torch.randint(0, g.num_nodes, (256,), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(2))
+    runs = {}
+    for route, kw in (("kernel", {}), ("eager", dict(capture=False)),
+                      ("torch", dict(backend="torch"))):
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        emb0 = tm.tree_sample(gen, parents, g, x0)
+        trail = tm.run_chains(gen, g, emb0, B, 30, use_glauber=use_glauber,
+                              **kw)
+        torch.cuda.synchronize()
+        runs[route] = (trail, torch.rand(8, generator=gen, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    emb, trail = frozen_tree_sample(gen, parents, g, x0), []
+    for _ in range(30):
+        emb = FROZEN[use_glauber](gen, B, parents, g, emb)
+        trail.append(emb)
+    runs["frozen"] = (torch.stack(trail, 1),
+                      torch.rand(8, generator=gen, device=cuda))
+    for route in ("eager", "torch", "frozen"):
+        _assert_chains_equal(runs["kernel"], runs[route])
+    assert len(tm._CHAIN_GRAPHS) == 2       # the kernel's and the plain's
+
+
+@pytest.mark.cuda
+def test_cuda_chains_run_no_plain_arithmetic(cuda, monkeypatch):
+    """On a CUDA tensor every move of run_chains (both routes) and
+    tree_sample runs the kernel: the plain version is never called, and
+    the kernel's own run count equals the wrapper's launches."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import motif_kernel as mk
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain move ran on the card")
+
+    monkeypatch.setattr(tm, "chain_move_plain", refuse)
+    monkeypatch.setattr(mk, "chain_move_plain", refuse)
+    g = _chain_graphs(cuda)["csr"]
+    tm._CHAIN_GRAPHS.clear()
+    ck.reset_launches()
+    for use_glauber, k in ((True, 3), (False, 21), (True, 1)):
+        _chains(g, tm.path_adj(0, k - 1), C=64, seed=k, steps=25,
+                capture=True, use_glauber=use_glauber)
+        _chains(g, tm.path_adj(0, k - 1), C=64, seed=k, steps=5,
+                capture=False, use_glauber=use_glauber)
+    # per case: one tree_sample, 25 captured moves (one eager while
+    # capturing, 24 replays), 5 eager moves
+    assert ck.LAUNCHES["chain_move"] == 3 * (1 + 25 + 1 + 5)
+    assert device_runs()["chain_move"] == ck.LAUNCHES["chain_move"]

@@ -263,13 +263,19 @@ def test_device_run_counts_follow_the_kernel_source():
     assert kinds.split(", ") == ["RUN_CODER", "RUN_CODER_ES", "RUN_FISTA",
                                  "RUN_DICT", "RUN_KINDS"]
     assert _lib.RUN_KERNELS == ("coder_sweeps", "coder_sweeps_earlystop",
-                                "fista_sweeps", "dict_update_sweep")
+                                "fista_sweeps", "dict_update_sweep",
+                                "chain_move")
     assert set(_lib.RUN_KERNELS) <= set(_lib.LAUNCHES)
     # every main kernel counts one kind; no other kernel counts
     counted = re.findall(r"count_run\(([^)]*)\);", src)
     assert sorted(counted) == sorted([
         "RUN_CODER_ES", "RUN_CODER", "RUN_FISTA", "RUN_FISTA",
         "kStop ? RUN_CODER_ES : RUN_CODER", "RUN_DICT", "RUN_DICT"])
+    # the chain's move: its source's own counter, in both of its kernels
+    chain = (Path(_lib.__file__).parent / "csrc" /
+             "motif_kernels.cu").read_text()
+    assert "count_run(" not in chain
+    assert chain.count("count_chain_run();") == 2
     if not _lib.build.cache_info().currsize:
         _lib.reset_launches()
         assert not torch.cuda.is_initialized()
