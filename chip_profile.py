@@ -6,8 +6,9 @@ Runs each driver at the configuration of its ``chip_smoke.py`` phase
 (tensor, ising, stack, video, network (a) and (b), training and
 reconstruction) and the headline training step (``step``: 50 steps of each
 coder at batch 16384 and 128 on ``headline_data``), once to build, warm up
-and capture, once timed on the host clock (synchronised), and once under
-``torch.profiler``. ROOT (a directory; default: this checkout) holds the
+and capture, three times timed on the host clock (synchronised; the least
+is ``wall_s``, all three ``walls_s``), and once under ``torch.profiler``.
+ROOT (a directory; default: this checkout) holds the
 ``onmf_ontf_ndl_tpu_torch`` package to profile, e.g. another commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists,
 as for ``chip_compare.py``; its name tags the lines. RUN names
@@ -29,16 +30,19 @@ import torch
 
 
 def profiled(fn):
-    """(wall seconds, wall seconds under the profiler, {kernel: (calls,
-    device ms)}) of ``fn``, after one warm-up call."""
+    """(wall seconds of each of three timed calls, wall seconds under the
+    profiler, {kernel: (calls, device ms)}) of ``fn``, after one warm-up
+    call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -51,17 +55,18 @@ def profiled(fn):
                      getattr(ev, "self_cuda_time_total", 0)) / 1e3
         if ms > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.key] = (ev.count, ms)
-    return wall, wall_prof, kernels
+    return walls, wall_prof, kernels
 
 
 VERSION = {"tag": "."}
 
 
-def report(run, wall, wall_prof, kernels):
+def report(run, walls, wall_prof, kernels):
     busy = sum(ms for _, ms in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
     print(json.dumps({
-        "version": VERSION["tag"], "run": run, "wall_s": wall, "profiled_wall_s": wall_prof,
+        "version": VERSION["tag"], "run": run, "wall_s": min(walls),
+        "walls_s": walls, "profiled_wall_s": wall_prof,
         "device_kernel_s": busy, "busy_share": busy / wall_prof,
         "launches": sum(c for c, _ in kernels.values()),
         "top": [{"kernel": k[:80], "calls": c, "ms": ms}

@@ -56,18 +56,22 @@ Phases, each printing its findings on a line of its own:
              seeded 4,039-node Barabasi-Albert graph, dense reconstruction;
              the 129,600-node torus on a CsrGraph, sparse reconstruction of
              4.8M samples): train and reconstruction seconds and accuracy;
-             each chain move a replay of a captured CUDA graph, which must
-             equal the eager route bit for bit (trail, final embeddings,
-             the generator's next draw), chain steps per second on both
-             routes, graphs, host launches and device operations per move,
-             the (b) reconstruction's chain graph bytes; every move one
-             launch of the chain kernel (``csrc/motif_kernels.cu``), whose
-             chains must equal the plain moves' (``backend="torch"``) bit
-             for bit, also on a BitsetGraph, with one move's kernel and
-             plain ms, bound and share; the sparse reconstruction once
-             more in 4 chunks, with the peak device memory of both; both
-             runs again with every move on the plain version (the same W
-             and accuracy); a short card/CPU run.
+             the chains run in blocks of moves (M from the shapes, a
+             last block of the rest), each block a replay of a captured
+             CUDA graph of its draws and one launch of the block kernel
+             (``csrc/motif_kernels.cu``), which writes the block's trail;
+             each chain at its run's own moves must equal its eager route
+             and its plain moves (``backend="torch"``) bit for bit (trail,
+             final embeddings, the generator's next draw), also on a
+             BitsetGraph, and its kernel must run once a block; chain
+             steps per second on three routes, graphs, host launches and
+             copies and device operations per move over a whole run, the
+             block kernel's and plain block's ms a move, bound and share,
+             the (b) reconstruction's chain graph bytes (draws, trail,
+             pool); the sparse reconstruction once more in 4 chunks, with
+             the peak device memory of both; both runs again with every
+             move on the plain version (the same W and accuracy); a short
+             card/CPU run.
 9. surfaces - the CLI in process (``cli.main``) on the card: ``ising`` at
              phase 6's configuration (its state equal to phase 6's),
              ``network`` at phase 8 (a)'s on an edge-list file of the same
@@ -98,6 +102,7 @@ Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
 """
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -1395,24 +1400,53 @@ def chains_equal(g, B, chains, steps, use_glauber, dev, route, other):
         float((a - b).abs().max())
 
 
-def chain_trace(g, B, chains, use_glauber, dev, moves=20, **route):
-    """Per move of ``chains`` chains on the route of the keywords
-    ``route``, under ``torch.profiler`` after a run of the same length: the
-    CUDA graphs launched, the kernels launched from the host, and the
-    device operations run (kernels, copies and fills, those of replayed
-    graphs included)."""
+def chain_blocks(g, B, chains, steps, use_glauber):
+    """(kind, M, the run's blocks as (moves, times)) of a run of ``steps``
+    moves of these chains: ``_chain_block_moves`` and ``_chain_blocks``."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
+    k = B.shape[0]
+    kind = motif._chain_kind(use_glauber, k)
+    roots = sum(p < 0 for p in motif.tree_parents(B))
+    M = motif._chain_block_moves(chains, k, kind, steps, roots)
+    return kind, M, motif._chain_blocks(steps, M)
+
+
+def chain_keys(g, B, chains, steps, use_glauber, dev, backend="auto"):
+    """The cache keys of a run's block graphs: the blocks of M, and the
+    rest's where there is a rest."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
+    emb = torch.empty((chains, B.shape[0]), dtype=torch.int64, device=dev)
+    return [motif._chain_key(g, emb, B, use_glauber, moves, backend)
+            for moves, _ in chain_blocks(g, B, chains, steps,
+                                         use_glauber)[2]]
+
+
+def chain_trace(g, B, chains, steps, use_glauber, dev, **route):
+    """Per move of one whole run of ``steps`` moves of ``chains`` chains on
+    the route of the keywords ``route``, under ``torch.profiler`` after a
+    run of the same length: the CUDA graphs launched, the kernels launched
+    from the host, the copies started from the host and the device
+    operations run (kernels, copies and fills, those of replayed graphs
+    included); and the run's blocks beside the chain kernel's own runs in
+    it (``device_runs``; none on the plain moves)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (device_runs,
+                                                          reset_launches)
     from onmf_ontf_ndl_tpu_torch.samplers.motif import run_chains
 
     gen, emb0 = chain_start(g, B, chains, 13, dev)
-    run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber, **route)
+    run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber, **route)
     torch.cuda.synchronize()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_chains(gen, g, emb0, B, moves, use_glauber=use_glauber, **route)
+        run_chains(gen, g, emb0, B, steps, use_glauber=use_glauber, **route)
         torch.cuda.synchronize()
-    counts = {"graph": 0, "kernel": 0, "device": 0}
+    runs = device_runs()["chain_move"]
+    counts = {"graph": 0, "kernel": 0, "copy": 0, "device": 0}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             counts["device"] += ev.count
@@ -1420,16 +1454,24 @@ def chain_trace(g, B, chains, use_glauber, dev, moves=20, **route):
             counts["graph"] += ev.count
         elif ev.key.startswith("cudaLaunchKernel"):
             counts["kernel"] += ev.count
-    return {f"{name}_per_move": n / moves for name, n in counts.items()}
+        elif ev.key.startswith("cudaMemcpy"):
+            counts["copy"] += ev.count
+    _, M, blocks = chain_blocks(g, B, chains, steps, use_glauber)
+    return dict({f"{name}_per_move": n / steps for name, n in counts.items()},
+                moves=steps, block_moves=M,
+                blocks=sum(times for _, times in blocks), kernel_runs=runs)
 
 
 def chain_checks(g, B, chains, steps, use_glauber, dev):
-    """The checks and times of a chain: the kernel's captured route
-    against its eager route and against the plain captured route
-    (``backend="torch"``), all bit for bit (``chains_equal``); steps per
-    second on those three routes; per move on the kernel's and the plain
-    captured routes the graphs, host launches and device operations
-    (``chain_trace``); one move's kernel and plain ms, bound and share
+    """The checks and times of a chain of ``steps`` moves (its run's own):
+    the kernel's captured route against its eager route and against the
+    plain captured route (``backend="torch"``), all bit for bit
+    (``chains_equal``); steps per second on those three routes; per move
+    over one whole run on the kernel's and the plain captured routes the
+    graphs, host launches, host copies and device operations, and the
+    kernel's runs beside the run's blocks (``chain_trace``, which must
+    agree: one launch a block); the block kernel's and the plain block's ms
+    a move at the route's M, the bound and share
     (``chain_kernel_times``)."""
     args = (g, B, chains)
     eager, err_eager = chains_equal(*args, steps, use_glauber, dev, {},
@@ -1444,9 +1486,12 @@ def chain_checks(g, B, chains, steps, use_glauber, dev):
         fields[f"chain_steps_per_s{name}"] = chain_rate(
             *args, steps, use_glauber, dev, **route)
         if name != "_eager":
-            fields[f"chain_trace{name}"] = chain_trace(*args, use_glauber,
-                                                       dev, **route)
-    fields["chain_move"] = chain_kernel_times(*args, use_glauber, dev)
+            fields[f"chain_trace{name}"] = chain_trace(
+                *args, steps, use_glauber, dev, **route)
+    trace = fields["chain_trace"]
+    fields["chain_one_launch_per_block"] = (trace["kernel_runs"]
+                                            == trace["blocks"])
+    fields["chain_move"] = chain_kernel_times(*args, steps, use_glauber, dev)
     return fields
 
 
@@ -1466,110 +1511,218 @@ def plain_chain_moves():
         motif.chain_move_route = route
 
 
-def chain_move_inputs(g, B, chains, use_glauber, dev):
-    """A move's arguments for ``chains`` chains of ``chain_start``: (kind,
-    emb, draws, tbl, parents), the draws taken as ``_chain_move`` takes
-    them."""
+def chain_block_inputs(g, B, chains, steps, use_glauber, dev):
+    """A block's arguments for ``chains`` chains of ``chain_start`` in a
+    run of ``steps`` moves: (kind, emb, draws, tbl, parents), M moves'
+    draws at the route's M, taken as ``_chain_block`` takes them."""
     from onmf_ontf_ndl_tpu_torch.samplers import motif
 
     gen, emb = chain_start(g, B, chains, 14, dev)
-    C, k = emb.shape
-    n, x, parents = g.num_nodes, emb[:, 0], motif.tree_parents(B)
-    if use_glauber and k > 1:
-        return ("glauber", emb, motif._glauber_draws(gen, C, k, n, dev),
-                motif._neighbor_table_on(B, dev), parents)
-    if use_glauber:
-        return "walk", emb, motif._walk_draws(gen, n, x), None, parents
-    return ("pivot", emb, motif._walk_draws(gen, n, x)
-            + motif._tree_draws(gen, parents, n, x), None, parents)
+    parents = motif.tree_parents(B)
+    kind, M, _ = chain_blocks(g, B, chains, steps, use_glauber)
+    ch = motif._new_chains(emb, kind, M, sum(p < 0 for p in parents))
+    motif._block_draws(ch, gen, parents, g.num_nodes, kind)
+    tbl = motif._neighbor_table_on(B, dev) if kind == "glauber" else None
+    return kind, ch.emb, ch.draws, tbl, parents
 
 
-def chain_move_bound(g, kind, emb, draws, tbl, parents):
-    """(ms, "bytes" or "operations"): the least time of one move of these
-    chains with these draws. Bytes, counted from this move's data: the
-    draws and the moving nodes' embeddings read; for a Glauber move the
-    motif table's row, the constraint images, the first image's degree
-    (and row offset) and candidate row, and per candidate and other valid
-    constraint one adjacency byte (dense), one word (bitset) or the
-    ceil(log2(deg + 1)) entries a binary search reads and the row's
-    degree and offset (CSR); for the walk the root's degree, offset and
-    picked neighbour and that one's degree; per regrown node its parent's
-    degree, offset and picked neighbour; the embeddings written. Integer
-    operations: two per byte read (a compare and an index), at
-    ``PEAK_INT_ALU``."""
+def _row_entries(g, x, idx):
+    """("nbr_flat" or "nbr", the flat indices) of entry ``idx`` of the
+    neighbour rows of the nodes ``x``."""
     from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
 
+    if isinstance(g, (CsrGraph, BitsetGraph)):
+        return "nbr_flat", g.offsets[x] + idx
+    return "nbr", x * g.nbr.shape[1] + idx
+
+
+def _search_reads(g, r, v):
+    """The nbr_flat indices that the kernel's lower-bound binary search of
+    each v in r's CSR row reads (``has_edge``): every probe, then the
+    entry it ends on where that is in the row."""
+    base, lo, hi = g.offsets[r], torch.zeros_like(r), g.deg[r].clone()
+    out = []
+    while bool((lo < hi).any()):
+        on = lo < hi
+        mid = (lo + hi) >> 1
+        out.append((base + mid)[on])
+        less = g.nbr_flat[(base + mid).clamp(max=g.nbr_flat.shape[0] - 1)] < v
+        lo = torch.where(on & less, mid + 1, lo)
+        hi = torch.where(on & ~less, mid, hi)
+    out.append((base + lo)[lo < g.deg[r]])
+    return torch.cat(out) if out else r[:0]
+
+
+def chain_move_reads(g, kind, before, after, draws, tbl, parents):
+    """The graph elements that one move of these chains must read, as
+    (array name, flat indices) pairs; ``before`` and ``after`` the chains
+    around the move, ``draws`` the move's (without the M axis). A Glauber
+    move: the first valid constraint image's degree (and row start) and
+    candidate row, then per candidate each other valid constraint's test
+    in slot order until one fails (as the kernel's ``candidate_ok`` stops):
+    one adjacency byte (dense), one word (bitset), or the row's degree and
+    start and the entries a binary search probes (CSR). The walk: the
+    root's degree (and row start), the entry it proposes and that node's
+    degree. A regrown node: its parent's degree (and row start) and the
+    entry it picks."""
+    from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
     csr = isinstance(g, (CsrGraph, BitsetGraph))
-    off = 8 if csr else 0
-    C, k = emb.shape
-    deg = g.deg
-    nbytes = sum(t.numel() * t.element_size() for t in draws)
+    reads = []
+
+    def node_rows(x, u):        # the degree, row start and picked entry
+        d = g.deg[x]
+        reads.append(("deg", x))
+        if csr:
+            reads.append(("offsets", x[d > 0]))
+        on = d > 0
+        idx = torch.minimum((u * d.clamp_min(1)).long(), d.clamp_min(1) - 1)
+        name, at = _row_entries(g, x[on], idx[on])
+        reads.append((name, at))
+        return on, (g.nbr_flat if csr else g.nbr.reshape(-1))[at]
+
     if kind == "glauber":
-        j = draws[0]
-        sel = tbl[j]                                        # (C, S)
+        sel = tbl[draws[0]]                                 # (C, S)
         valid = sel >= 0
-        imgs = emb.gather(1, sel.clamp_min(0))
+        has = valid.any(1)
+        imgs = before.gather(1, sel.clamp_min(0))
         first = valid.long().argmax(1)
-        u0 = imgs.gather(1, first[:, None])[:, 0]
-        d0 = torch.where(valid.any(1), deg[u0], 0)
-        others = valid & (torch.arange(sel.shape[1], device=emb.device)
-                          != first[:, None])
-        if isinstance(g, BitsetGraph):
-            per = torch.full_like(imgs, 4)
-        elif csr:
-            per = 8 * torch.ceil(torch.log2(deg[imgs].double() + 1)).long()
-        else:
-            per = torch.ones_like(imgs)
-        tests = (d0[:, None] * per * others).sum()
-        heads = (others.sum() * (8 + off)) if csr else 0
-        nbytes += int(8 * sel.numel() + 8 * valid.sum()
-                      + (8 + off) * valid.any(1).sum() + 8 * d0.sum()
-                      + tests + heads + 8 * C)
-    else:
-        walk = kind in ("walk", "pivot")
-        grown = 0 if kind == "walk" else sum(p >= 0 for p in parents)
-        written = {"walk": 1, "pivot": k, "tree": k - 1}[kind]
-        nbytes += C * (8 + 8 * written + (24 + off) * walk
-                       + (16 + off) * grown)
-    t_bytes = 1e3 * nbytes / PEAK_BYTES
-    t_ops = 1e3 * 2 * nbytes / PEAK_INT_ALU
+        u0 = imgs.gather(1, first[:, None])[:, 0][has]
+        reads.append(("deg", u0))
+        if csr:
+            reads.append(("offsets", u0))
+        d0 = g.deg[u0]
+        chain = torch.repeat_interleave(torch.arange(len(u0), device=u0.device),
+                                        d0)
+        idx = torch.arange(len(chain), device=u0.device) - \
+            torch.repeat_interleave(torch.cumsum(d0, 0) - d0, d0)
+        name, at = _row_entries(g, u0[chain], idx)
+        reads.append((name, at))
+        v = (g.nbr_flat if csr else g.nbr.reshape(-1))[at]
+        alive = torch.ones_like(v, dtype=torch.bool)
+        imgs, valid, first = imgs[has][chain], valid[has][chain], \
+            first[has][chain]
+        for slot in range(sel.shape[1]):
+            test = alive & valid[:, slot] & (first != slot)
+            r, w = imgs[test, slot], v[test]
+            if isinstance(g, BitsetGraph):
+                reads.append(("bits", r * g.bits.shape[1] + (w >> 5)))
+            elif csr:
+                reads += [("deg", r), ("offsets", r),
+                          ("nbr_flat", _search_reads(g, r, w))]
+            else:
+                reads.append(("adj", r * g.num_nodes + w))
+            alive[test] = motif._has_edges(g, r, w)
+        return reads
+    if kind in ("walk", "pivot"):
+        x = before[:, 0]
+        on, y = node_rows(x, draws[0])
+        reads.append(("deg", y))
+    if kind != "walk":
+        tree = draws[-2]
+        for i, p in enumerate(parents, start=1):
+            if p >= 0:
+                node_rows(after[:, p], tree[i - 1])
+    return reads
+
+
+def chain_block_bound(g, kind, emb, draws, tbl, parents):
+    """(ms, "bytes" or "operations"): the least time of a block of M moves
+    of these chains with these (M, ...) draws. Bytes, counted from this
+    block's data: the embeddings read and written once, every draw, the
+    motif's table and parent list read once, the trail's M rows written,
+    and each graph element that the block's moves read
+    (``chain_move_reads``, on the chains as each move finds them: the plain
+    moves advance a copy) read once, however many moves read it. Integer
+    operations: two per byte read (a compare and an index), at
+    ``PEAK_INT_ALU``."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import motif_kernel as mk
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    C, k = emb.shape
+    M = draws[0].shape[0]
+    nbytes_ = (16 * C * k + 8 * C * k * M + nbytes(*draws)
+               + 8 * len(parents) + (0 if tbl is None else nbytes(tbl)))
+    reads = collections.defaultdict(list)
+    e = emb.clone()
+    for s in range(M):
+        before = e.clone()
+        mk.chain_moves_plain(kind, e, tuple(d[s:s + 1] for d in draws), g,
+                             tbl, parents)
+        for name, at in chain_move_reads(g, kind, before, e,
+                                         tuple(d[s] for d in draws), tbl,
+                                         parents):
+            reads[name].append(at)
+    for name, ats in reads.items():
+        size = getattr(g, name).element_size()
+        nbytes_ += size * int(torch.unique(torch.cat(ats)).numel())
+    t_bytes = 1e3 * nbytes_ / PEAK_BYTES
+    t_ops = 1e3 * 2 * nbytes_ / PEAK_INT_ALU
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def chain_kernel_times(g, B, chains, use_glauber, dev):
-    """One move of ``chains`` chains: the kernel's device ms (a CUDA graph
-    of 20 moves, replayed), its plain version's (CUDA events), both on the
-    same inputs; its bound and share."""
+def chain_kernel_times(g, B, chains, steps, use_glauber, dev):
+    """One block of ``chains`` chains at the route's M for a run of
+    ``steps`` moves, with its trail: the block kernel's device ms (a CUDA
+    graph of 5 blocks, replayed) and its plain version's (CUDA events), on
+    the same inputs, each a move (over M); the block's bound a move and the
+    share."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels import motif_kernel as mk
 
-    kind, emb, draws, tbl, parents = chain_move_inputs(g, B, chains,
-                                                       use_glauber, dev)
-    bound_ms, by = chain_move_bound(g, kind, emb, draws, tbl, parents)
-    ms = graph_ms(lambda: mk.chain_move(kind, emb, draws, g, tbl, parents),
-                  replays=3)
-    plain_ms = cuda_ms(lambda: mk.chain_move_plain(kind, emb, draws, g, tbl,
-                                                   parents), 20)
-    return dict(move_kind=kind, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, share=bound_ms / ms)
+    kind, emb, draws, tbl, parents = chain_block_inputs(
+        g, B, chains, steps, use_glauber, dev)
+    C, k = emb.shape
+    M = draws[0].shape[0]
+    trail = torch.empty((C, M, k), dtype=torch.int64, device=dev)
+    bound_ms, by = chain_block_bound(g, kind, emb, draws, tbl, parents)
+    ms = graph_ms(lambda: mk.chain_moves(kind, emb, draws, g, tbl, parents,
+                                         trail), reps=5, replays=3) / M
+    plain_ms = cuda_ms(lambda: mk.chain_moves_plain(
+        kind, emb, draws, g, tbl, parents, trail), 2) / M
+    return dict(move_kind=kind, block_moves=M, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms / M, bound_by=by, share=bound_ms / M / ms)
 
 
-def chain_graph_bytes(g, B, chains, use_glauber, dev):
-    """Device bytes that the cached graph of these chains holds: its
-    buffers (the embeddings and the step counter) and its memory pool (the
-    move's intermediates)."""
+def chain_graph_bytes(g, B, chains, steps, use_glauber, dev):
+    """Device bytes that the cached graphs of a run of these chains hold
+    (its blocks of M and of the rest): their buffers (the embeddings, the
+    block's draws and its trail) and their memory pools (the block's
+    intermediates)."""
     from onmf_ontf_ndl_tpu_torch.samplers import motif
 
-    k = B.shape[0]
-    entry = motif._CHAIN_GRAPHS[motif._chain_key(
-        g, torch.empty((chains, k), dtype=torch.int64, device=dev), B,
-        use_glauber)]
-    pool = tuple(entry.graph.pool())
-    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                     if tuple(seg.get("segment_pool_id", ())) == pool)
-    return dict(chain_graph_buffer_bytes=sum(
-        t.numel() * t.element_size()
-        for t in (entry.chains.emb, entry.chains.step)),
-        chain_graph_pool_bytes=pool_bytes)
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    out = dict(chain_graph_emb_bytes=0, chain_graph_draw_bytes=0,
+               chain_graph_trail_bytes=0, chain_graph_pool_bytes=0)
+    segments = torch.cuda.memory_snapshot()
+    for key in chain_keys(g, B, chains, steps, use_glauber, dev):
+        entry = motif._CHAIN_GRAPHS[key]
+        pool = tuple(entry.graph.pool())
+        out["chain_graph_emb_bytes"] += nbytes(entry.chains.emb)
+        out["chain_graph_draw_bytes"] += nbytes(*entry.chains.draws)
+        out["chain_graph_trail_bytes"] += nbytes(entry.chains.trail)
+        out["chain_graph_pool_bytes"] += sum(
+            seg["total_size"] for seg in segments
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+    return out
+
+
+def chain_cache_bytes():
+    """The chain graphs cached at the end of phase 8 (at most
+    ``_CHAIN_CACHE_SIZE``), and the device bytes their buffers hold."""
+    from onmf_ontf_ndl_tpu_torch.samplers import motif
+
+    held = sum(t.numel() * t.element_size()
+               for entry in motif._CHAIN_GRAPHS.values()
+               for t in (entry.chains.emb, entry.chains.trail,
+                         *entry.chains.draws))
+    return dict(chain_graphs=len(motif._CHAIN_GRAPHS),
+                chain_cache_size=motif._CHAIN_CACHE_SIZE,
+                chain_graph_buffer_bytes=held)
 
 
 # Phase 8's configurations: the graph (built in the script, as the
@@ -1605,23 +1758,28 @@ def phase_network(ck, dev):
         samples over 16 chains and 29 optimizer steps, fixed sweeps; sparse
         reconstruction from 4.8M Glauber samples over 8192 chains; accuracy
         at least 0.90.
-    Every chain move runs the chain kernel (``chain_move``, counted on
+    Every chain block runs the chain kernel (``chain_move``, counted on
     the path). Each run's training and reconstruction chains must have
-    been captured in the run (a cached graph of each), and equal their
-    eager route and their plain route (``backend="torch"``, captured) bit
-    for bit (``chains_equal``: trail, final embeddings, the generator's
-    next draw); their steps per second on the kernel's captured and eager
-    routes and the plain captured one, and per move the graphs launched,
-    the kernels launched from the host and the device operations run
-    (``chain_trace``); one move's kernel and plain ms, bound and share
-    (``chain_kernel_times``); for (b) the bytes that the reconstruction's
-    chain graph holds (buffers and memory pool). The same for (a)'s
-    training chain on a BitsetGraph of (a)'s edges. Then both runs again
-    with every move on the plain version: W and the accuracy equal the
-    kernel's runs', and their seconds. Then (c) a short training run on
-    the card (float32) and on the CPU (float64) from the same patches and
-    draws. Returns the path's launches and the kernel's summary (at the
-    (b) reconstruction's move)."""
+    been captured in the run (a cached graph of each of its blocks: M
+    moves, and the rest). The sparse reconstruction runs once more in 4
+    chunks, with the peak device memory of both. Then each chain, at its
+    run's own number of moves, must equal its eager route and its plain
+    route (``backend="torch"``, captured) bit for bit (``chains_equal``:
+    trail, final embeddings, the generator's next draw), and its kernel
+    must have run once a block; its steps per second on the kernel's
+    captured and eager routes and the plain captured one, and per move
+    over one whole run the graphs launched, the kernels launched and
+    copies started from the host and the device operations run
+    (``chain_trace``); the block kernel's and the plain block's ms a move,
+    bound and share (``chain_kernel_times``); for (b) the bytes that the
+    reconstruction's chain graphs hold (embeddings, draws, trail and
+    memory pool). The same for (a)'s training chain on a BitsetGraph of
+    (a)'s edges. Then both runs again with every move on the plain
+    version: W and the accuracy equal the kernel's runs', and their
+    seconds; the chain graphs then cached and their buffers' bytes. Then (c) a short training run on the card (float32) and on
+    the CPU (float64) from the same patches and draws. Returns the path's
+    launches and the kernel's summary (at the (b) reconstruction's
+    block)."""
     from onmf_ontf_ndl_tpu_torch.apps.network import (NetworkReconstructor,
                                                       ndl_train)
     from onmf_ontf_ndl_tpu_torch.data.graphs import (bitset_graph_from_edges,
@@ -1662,63 +1820,25 @@ def phase_network(ck, dev):
         peak[tag] = torch.cuda.max_memory_allocated()
     launches = check_launches(ck, "network")
 
-    chain_err, chain_summary, accs = 0.0, None, {}
-    for tag, (rec, W, out, train_s, recon_s) in runs.items():
+    # each run's accuracy; the chains of training and of reconstruction of
+    # each run, at the run's own moves: each block graph was captured by
+    # the run above (cached), checked before any other chain is captured
+    chain_runs, captured_in_run, accs = {}, {}, {}
+    for tag, (rec, _, _, _, _) in runs.items():
+        accs[tag] = rec.compute_recons_accuracy()
         recon = NETWORK_RUNS[tag][3]
-        acc = accs[tag] = rec.compute_recons_accuracy()
-        k, n = rec.k1 + rec.k2 + 1, rec.G.num_nodes
-        ok = (tuple(W.shape) == (k * k, rec.n_components)
-              and bool(torch.isfinite(W).all()) and bool((W >= 0).all())
-              and rec.state.t == rec.MCMC_iterations * rec.sub_iterations)
-        per = -(-rec.sample_size // rec.num_chains)
-        recon_steps = -(-recon["recons_iter"] // recon["num_chains"])
-        # the chains of training and of reconstruction: each was captured
-        # by the run above (its graph is cached), equals its eager route bit
-        # for bit, and is timed on both routes
-        chain_runs = {
-            "train": (rec.num_chains, per, rec.is_glauber_dict),
-            "recon": (recon["num_chains"], min(recon_steps, 100),
+        chain_runs[tag] = {
+            "train": (rec.num_chains, -(-rec.sample_size // rec.num_chains),
+                      rec.is_glauber_dict),
+            "recon": (recon["num_chains"],
+                      -(-recon["recons_iter"] // recon["num_chains"]),
                       rec.is_glauber_recons)}
-        chain_fields = {}
-        for part, (chains, steps, glauber) in chain_runs.items():
-            args = (rec.G, rec.B, chains)
-            captured_in_run = motif._chain_key(
-                rec.G, torch.empty((chains, k), dtype=torch.int64,
-                                   device=dev), rec.B,
-                glauber) in motif._CHAIN_GRAPHS
-            if tag == "b" and part == "recon":
-                chain_fields.update(chain_graph_bytes(*args, glauber, dev))
-            chain_fields[f"{part}_chain_captured_in_run"] = captured_in_run
-            fields = chain_checks(*args, steps, glauber, dev)
-            chain_fields.update({f"{part}_{key}": value
-                                 for key, value in fields.items()})
-            chain_err = max(chain_err, fields.pop("chain_max_abs_err"))
-            if tag == "b" and part == "recon":
-                chain_summary = dict(fields["chain_move"],
-                                     max_abs_err=chain_err)
-        fields = dict(config=tag, nodes=n, edges=rec.G.num_edges,
-                      max_deg=int(rec.G.deg.max()), k=k,
-                      train_seconds=train_s, recon_seconds=recon_s,
-                      train_chain_steps=rec.MCMC_iterations * per,
-                      recon_chain_steps=recon_steps, **chain_fields,
-                      accuracy=acc)
-        ok = ok and all(chain_fields[f"{part}_chain_captured_in_run"]
-                        and chain_fields[f"{part}_chains_equal"]
-                        for part in chain_runs)
-        FINAL_STATES[f"network_{tag}"] = rec.state
-        if tag == "a":
-            REFERENCE["network_a_accuracy"] = acc
-            fields.update(accuracy_initial_w=acc0,
-                          recon_edges=int(out.sum()) // 2)
-            ok = ok and tuple(out.shape) == (n, n) and acc > acc0
-        else:
-            fields.update(recon_edges=len(out), limit=0.90,
-                          recon_peak_bytes=peak[tag],
-                          held_bytes_before_recon=held[tag])
-            ok = ok and out.shape[1] == 2 and acc >= 0.90
-        emit("network", **fields)
-        if not ok:
-            raise AssertionError(f"network ({tag}): bad result {fields}")
+        for part, (chains, steps, glauber) in chain_runs[tag].items():
+            captured_in_run[tag, part] = all(
+                key in motif._CHAIN_GRAPHS for key in chain_keys(
+                    rec.G, rec.B, chains, steps, glauber, dev))
+    graph_bytes = chain_graph_bytes(runs["b"][0].G, runs["b"][0].B,
+                                    *chain_runs["b"]["recon"], dev)
 
     # (b) once more in 4 chunks of 1.2M samples: fresh chains per chunk, the
     # per-pair (sum, count) merged; the same accuracy limit
@@ -1740,6 +1860,53 @@ def phase_network(ck, dev):
     if not (out.shape[1] == 2 and acc >= 0.90):
         raise AssertionError(f"chunked reconstruction: accuracy {acc}")
 
+    chain_err, chain_summary = 0.0, None
+    for tag, (rec, W, out, train_s, recon_s) in runs.items():
+        acc = accs[tag]
+        k, n = rec.k1 + rec.k2 + 1, rec.G.num_nodes
+        ok = (tuple(W.shape) == (k * k, rec.n_components)
+              and bool(torch.isfinite(W).all()) and bool((W >= 0).all())
+              and rec.state.t == rec.MCMC_iterations * rec.sub_iterations)
+        chain_fields = {}
+        for part, (chains, steps, glauber) in chain_runs[tag].items():
+            args = (rec.G, rec.B, chains)
+            if tag == "b" and part == "recon":
+                chain_fields.update(graph_bytes)
+            chain_fields[f"{part}_chain_captured_in_run"] = \
+                captured_in_run[tag, part]
+            fields = chain_checks(*args, steps, glauber, dev)
+            chain_fields.update({f"{part}_{key}": value
+                                 for key, value in fields.items()})
+            chain_err = max(chain_err, fields.pop("chain_max_abs_err"))
+            if tag == "b" and part == "recon":
+                chain_summary = dict(fields["chain_move"],
+                                     max_abs_err=chain_err)
+        fields = dict(config=tag, nodes=n, edges=rec.G.num_edges,
+                      max_deg=int(rec.G.deg.max()), k=k,
+                      train_seconds=train_s, recon_seconds=recon_s,
+                      train_chain_steps=rec.MCMC_iterations
+                      * chain_runs[tag]["train"][1],
+                      recon_chain_steps=chain_runs[tag]["recon"][1],
+                      **chain_fields, accuracy=acc)
+        ok = ok and all(chain_fields[f"{part}_chain_captured_in_run"]
+                        and chain_fields[f"{part}_chains_equal"]
+                        and chain_fields[f"{part}_chain_one_launch_per_block"]
+                        for part in chain_runs[tag])
+        FINAL_STATES[f"network_{tag}"] = rec.state
+        if tag == "a":
+            REFERENCE["network_a_accuracy"] = acc
+            fields.update(accuracy_initial_w=acc0,
+                          recon_edges=int(out.sum()) // 2)
+            ok = ok and tuple(out.shape) == (n, n) and acc > acc0
+        else:
+            fields.update(recon_edges=len(out), limit=0.90,
+                          recon_peak_bytes=peak[tag],
+                          held_bytes_before_recon=held[tag])
+            ok = ok and out.shape[1] == 2 and acc >= 0.90
+        emit("network", **fields)
+        if not ok:
+            raise AssertionError(f"network ({tag}): bad result {fields}")
+
     # the bitset representation: (a)'s training chain on a BitsetGraph of
     # (a)'s edges
     edges_a, _, conf_a, _ = NETWORK_RUNS["a"]
@@ -1748,7 +1915,7 @@ def phase_network(ck, dev):
         conf_a["num_chains"], -(-conf_a["sample_size"] // conf_a["num_chains"]),
         True, dev)
     emit("network", config="a", check="bitset_chain", **fields)
-    if not fields["chains_equal"]:
+    if not (fields["chains_equal"] and fields["chain_one_launch_per_block"]):
         raise AssertionError(f"bitset chain: {fields}")
 
     # both runs again with every chain move on the plain version: the
@@ -1775,6 +1942,7 @@ def phase_network(ck, dev):
             if not same:
                 raise AssertionError(f"network ({tag}): the plain moves' run "
                                      "differs from the kernel's")
+    emit("network", check="chain_graph_cache", **chain_cache_bytes())
 
     # the same short training run on the card (float32) and on the CPU
     # (float64) from the same patches and draws, fixed sweeps, the 21-node

@@ -20,9 +20,10 @@ On a CUDA graph and state, the coder and dictionary kernels of
 ``ops/kernels`` run every coding step: the early stop in training by
 default, fixed sweeps with ``fast=True`` and in reconstruction, FISTA
 with ``coder="fista"``. The chains, the patches and the grouping are
-plain PyTorch on the same device; on the card each chain move is a replay
-of one captured CUDA graph (``samplers/motif.py::run_chains``), and each
-training round's steps replays of another (``_train_loop``).
+plain PyTorch on the same device, apart from the chains' moves: on the
+card each block of chain moves is a replay of one captured CUDA graph that
+launches the chain kernel once (``samplers/motif.py::run_chains``), and
+each training round's steps replays of another (``_train_loop``).
 
 The grouping of the paints by pair is one int64 key sort (``i * n + j``:
 no wrap at any n) and a sorted segment sum, which adds each pair's paints

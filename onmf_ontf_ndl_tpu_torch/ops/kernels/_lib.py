@@ -173,8 +173,10 @@ def build() -> dict:
                                                 p]
     ll = ctypes.c_longlong
     graph = [i, ll, p, p, ll, p, p, p, p, ll, p]   # GraphView, the stream
-    lib.onmf_chain_glauber.argtypes = [p, i, i, p, p, p, p, i, *graph]
-    lib.onmf_chain_pivot.argtypes = [p, i, i, i, i, p, p, p, p, p, p, *graph]
+    lib.onmf_chain_glauber.argtypes = [p, i, i, i, p, p, p, p, i, p, i, i,
+                                       *graph]
+    lib.onmf_chain_pivot.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p, p,
+                                     p, p, i, *graph]
     lib.onmf_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_chain_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_reset_runs.argtypes = []
@@ -231,3 +233,9 @@ def _raise_on_error(name: str, err: int) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    """The SMs of ``device``, queried once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

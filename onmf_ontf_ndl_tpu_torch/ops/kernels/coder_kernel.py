@@ -150,13 +150,13 @@ and counts the launch in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
-    LAUNCHES, TN, _on_cpu, _raise_on_error, _stream, build, reset_launches)
+    LAUNCHES, TN, _on_cpu, _raise_on_error, _sm_count, _stream, build,
+    reset_launches)
 
 __all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
            "dict_update_sweep", "coder_sweeps_plain",
@@ -384,12 +384,6 @@ def dict_route(d: int, r: int) -> tuple[str, int]:
     c = next((c for c in fits if -(-d // c) * r <= _DICT_CTA_CELLS),
              fits[-1])
     return ("shared" if c == 1 else "cluster"), c
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    """The SMs of ``device``, queried once."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _workspace(B: torch.Tensor, slice_floats: int, head_floats: int = 0):

@@ -28,26 +28,30 @@ What the moves mean, as in the JAX module:
 
 The chain (``run_chains``, under every caller: NDL training through
 ``sample_patches_ensemble``, every reconstruction, the data-parallel
-forms) runs one move function on static buffers (``_chain_move``): on a
-CUDA tensor it is captured once as a CUDA graph per cache key
-(``_chain_key``; ``_CHAIN_GRAPHS`` holds eight) and replayed for every
-move, its draws from a generator registered with the graph, which hands
-the caller's generator state in and back (``utils/capture.py``); on the
-CPU, and with ``capture=False``, it runs in a Python loop. After each
-move the trail records the embeddings at a device step counter
-(``_record``), outside the graph, so that a graph holds no trail. Both
-routes draw the same numbers and give the same chains.
+forms) runs in blocks of M moves (``_chain_block_moves``: M from the
+shapes alone, the run's moves where a block's draws and trail fit 16 MiB;
+a last block of the rest), one block function on static buffers
+(``_chain_block``): the M moves' draws into (M, ...) buffers, then one
+call that runs the M moves and writes the block's trail. On a CUDA tensor
+it is captured once as a CUDA graph per cache key (``_chain_key``, which
+holds M; ``_CHAIN_GRAPHS`` holds eight) and replayed for every block, its
+draws from a generator registered with the graph, which hands the
+caller's generator state in and back (``utils/capture.py``); on the CPU,
+and with ``capture=False``, it runs in a Python loop. After each block
+its trail is copied into the run's. All routes draw the same numbers and
+give the same chains as moves run one at a time.
 
 Each move is split into its draws (a fixed number of tensors of
 data-independent shape, drawn in torch from the generator: ``_walk_draws``,
 ``_tree_draws``, ``_glauber_draws``) and their use (``_walk_apply``,
-``_tree_apply``, ``_glauber_apply``). On a CUDA tensor the use is one
-launch of the hand-written kernel of ``ops/kernels/motif_kernel.py``
-(``chain_move``; every move of ``run_chains`` on both routes, and
-``tree_sample``); the apply functions are its plain version, which runs on
-the CPU and, for comparisons, with ``run_chains(..., backend="torch")``.
-The kernel repeats the plain arithmetic, so both give the same chains bit
-for bit.
+``_tree_apply``, ``_glauber_apply``). On a CUDA tensor the use of a block
+is one launch of the hand-written kernel of ``ops/kernels/motif_kernel.py``
+(``chain_moves``; every block of ``run_chains`` on both routes, and the
+single moves: ``tree_sample`` and the three updates, blocks of one); the
+apply functions, one move after another (``chain_moves_plain``), are its
+plain version, which runs on the CPU and, for comparisons, with
+``run_chains(..., backend="torch")``. The kernel repeats the plain
+arithmetic, so both give the same chains bit for bit.
 
 Patches: ``pair_matrices_T`` returns a batch's k x k induced adjacency
 (or weight) patches as a (k*k, M) matrix with the sample axis minor. A
@@ -76,7 +80,7 @@ import torch
 
 from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
 from onmf_ontf_ndl_tpu_torch.ops.kernels.motif_kernel import (
-    _device_parents, chain_move, chain_move_plain, chain_move_route)
+    _device_parents, chain_move_route, chain_moves, chain_moves_plain)
 from onmf_ontf_ndl_tpu_torch.utils.capture import capture_step, replay
 
 __all__ = ["path_adj", "tree_parents", "tree_sample", "rw_update",
@@ -98,10 +102,18 @@ def path_adj(k1: int, k2: int) -> np.ndarray:
 def tree_parents(B: np.ndarray) -> tuple[int, ...]:
     """Parent of each non-root motif node: its smallest in-neighbour, or
     -1 (embed as a uniform node) when it has none."""
-    B = np.asarray(B)
+    B = np.asarray(B) == 1
+    return _tree_parents(B.tobytes(), B.shape[0])
+
+
+@functools.lru_cache(maxsize=64)
+def _tree_parents(edges: bytes, k: int) -> tuple[int, ...]:
+    """:func:`tree_parents` of the motif whose (k, k) edge indicators are
+    ``edges``, once per motif (every chain run asks)."""
+    B = np.frombuffer(edges, bool).reshape(k, k)
     parents = []
-    for i in range(1, B.shape[0]):
-        js = np.flatnonzero(B[:, i] == 1)
+    for i in range(1, k):
+        js = np.flatnonzero(B[:, i])
         parents.append(int(js.min()) if len(js) else -1)
     return tuple(parents)
 
@@ -131,14 +143,6 @@ def _neighbor_table_on(B: np.ndarray, device) -> torch.Tensor:
     B = np.asarray(B, np.int8)
     return _device_neighbor_table(B.tobytes(), B.shape[0],
                                   torch.device(device))
-
-
-def _uniform(gen, shape, device) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=device)
-
-
-def _randint(gen, high: int, shape, device) -> torch.Tensor:
-    return torch.randint(0, high, shape, generator=gen, device=device)
 
 
 def _csr_at(g, pos: torch.Tensor) -> torch.Tensor:
@@ -210,11 +214,18 @@ def _neighbor_at(g, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.where(d > 0, y, x)
 
 
-def _walk_draws(gen, n: int, x: torch.Tensor) -> tuple:
+def _walk_draws(gen, n: int, x: torch.Tensor, out=None) -> tuple:
     """The draws of one walk step of the chains at ``x``: the neighbour's
-    uniform, the acceptance's uniform and the jump of an isolated node."""
-    return (_uniform(gen, x.shape, x.device), _uniform(gen, x.shape, x.device),
-            _randint(gen, n, x.shape, x.device))
+    uniform, the acceptance's uniform and the jump of an isolated node;
+    into the three tensors ``out`` (of x's shape) where given."""
+    u_nb, u_acc, jump = out if out is not None else (
+        torch.empty(x.shape, device=x.device),
+        torch.empty(x.shape, device=x.device),
+        torch.empty(x.shape, dtype=torch.int64, device=x.device))
+    torch.rand(x.shape, generator=gen, out=u_nb)
+    torch.rand(x.shape, generator=gen, out=u_acc)
+    torch.randint(0, n, x.shape, generator=gen, out=jump)
+    return u_nb, u_acc, jump
 
 
 def _walk_apply(g, x: torch.Tensor, draws: tuple) -> torch.Tensor:
@@ -227,15 +238,17 @@ def _walk_apply(g, x: torch.Tensor, draws: tuple) -> torch.Tensor:
     return torch.where(dx > 0, y, jump)
 
 
-def _tree_draws(gen, parents: tuple[int, ...], n: int,
-                x: torch.Tensor) -> tuple:
+def _tree_draws(gen, parents: tuple[int, ...], n: int, x: torch.Tensor,
+                out=None) -> tuple:
     """The draws of a tree grown from pivots ``x``: one uniform per non-root
     motif node, (k-1,) + x.shape, then a uniform node per parentless motif
     node in node order, one randint call each, into the rows of one
-    (P,) + x.shape tensor."""
-    u = _uniform(gen, (len(parents),) + x.shape, x.device)
-    roots = torch.empty((sum(p < 0 for p in parents),) + x.shape,
-                        dtype=torch.int64, device=x.device)
+    (P,) + x.shape tensor; into the two tensors ``out`` where given."""
+    u, roots = out if out is not None else (
+        torch.empty((len(parents),) + x.shape, device=x.device),
+        torch.empty((sum(p < 0 for p in parents),) + x.shape,
+                    dtype=torch.int64, device=x.device))
+    torch.rand(u.shape, generator=gen, out=u)
     for row in roots:
         torch.randint(0, n, x.shape, generator=gen, out=row)
     return u, roots
@@ -256,11 +269,18 @@ def _tree_apply(g, emb: torch.Tensor, draws: tuple,
             emb[:, i] = _neighbor_at(g, emb[:, p], u[i - 1])
 
 
-def _glauber_draws(gen, C: int, k: int, n: int, device) -> tuple:
+def _glauber_draws(gen, C: int, k: int, n: int, device, out=None) -> tuple:
     """The draws of one Glauber move of C chains, k > 1: the motif node j,
-    the rank-select's uniform and the uniform fallback node."""
-    return (_randint(gen, k, (C,), device), _uniform(gen, (C,), device),
-            _randint(gen, n, (C,), device))
+    the rank-select's uniform and the uniform fallback node; into the
+    three (C,) tensors ``out`` where given."""
+    j, u, fallback = out if out is not None else (
+        torch.empty(C, dtype=torch.int64, device=device),
+        torch.empty(C, device=device),
+        torch.empty(C, dtype=torch.int64, device=device))
+    torch.randint(0, k, (C,), generator=gen, out=j)
+    torch.rand((C,), generator=gen, out=u)
+    torch.randint(0, n, (C,), generator=gen, out=fallback)
+    return j, u, fallback
 
 
 def _glauber_apply(g, emb: torch.Tensor, draws: tuple,
@@ -293,14 +313,21 @@ def _glauber_apply(g, emb: torch.Tensor, draws: tuple,
                                                              fallback)
 
 
-def _move(kind: str, emb: torch.Tensor, draws: tuple, g, tbl=None,
-          parents: tuple = (), backend: str = "auto") -> torch.Tensor:
-    """Apply a move's draws in place on ``emb``: the kernel
-    (``chain_move``) or its plain version, as :func:`chain_move_route`
-    picks from the device and ``backend``."""
-    apply = (chain_move if chain_move_route(emb.device.type, backend)
-             == "kernel" else chain_move_plain)
-    return apply(kind, emb, draws, g, tbl, parents)
+def _moves(kind: str, emb: torch.Tensor, draws: tuple, g, tbl=None,
+           parents: tuple = (), trail=None,
+           backend: str = "auto") -> torch.Tensor:
+    """Apply a block of moves' (M, ...) draws in place on ``emb``, each
+    move's state into ``trail`` where given: the kernel (``chain_moves``)
+    or its plain version, as :func:`chain_move_route` picks from the
+    device and ``backend``."""
+    apply = (chain_moves if chain_move_route(emb.device.type, backend)
+             == "kernel" else chain_moves_plain)
+    return apply(kind, emb, draws, g, tbl, parents, trail)
+
+
+def _one(draws: tuple) -> tuple:
+    """One move's draws as a block of M = 1."""
+    return tuple(d[None] for d in draws)
 
 
 def tree_sample(gen, parents: tuple[int, ...], g, x: torch.Tensor):
@@ -310,8 +337,8 @@ def tree_sample(gen, parents: tuple[int, ...], g, x: torch.Tensor):
     k = len(parents) + 1
     emb = torch.empty(x.shape + (k,), dtype=torch.int64, device=x.device)
     emb[:, 0] = x
-    return _move("tree", emb, _tree_draws(gen, parents, g.num_nodes, x), g,
-                 parents=parents)
+    return _moves("tree", emb, _one(_tree_draws(gen, parents, g.num_nodes,
+                                                x)), g, parents=parents)
 
 
 def rw_update(gen, g, x: torch.Tensor) -> torch.Tensor:
@@ -320,7 +347,7 @@ def rw_update(gen, g, x: torch.Tensor) -> torch.Tensor:
     min(1, deg x / deg y); an isolated x jumps to a uniform node."""
     draws = _walk_draws(gen, g.num_nodes, x.reshape(-1))
     emb = x.reshape(-1, 1).to(torch.int64, copy=True)
-    return _move("walk", emb, draws, g)[:, 0].reshape(x.shape)
+    return _moves("walk", emb, _one(draws), g)[:, 0].reshape(x.shape)
 
 
 def glauber_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
@@ -329,11 +356,11 @@ def glauber_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
     C, k = emb.shape
     emb = emb.clone()
     if k == 1:   # a single-node motif moves as the walk
-        return _move("walk", emb, _walk_draws(gen, g.num_nodes, emb[:, 0]),
-                     g)
-    return _move("glauber", emb, _glauber_draws(gen, C, k, g.num_nodes,
-                                                emb.device), g,
-                 _neighbor_table_on(B, emb.device))
+        return _moves("walk", emb, _one(_walk_draws(gen, g.num_nodes,
+                                                    emb[:, 0])), g)
+    return _moves("glauber", emb, _one(_glauber_draws(
+        gen, C, k, g.num_nodes, emb.device)), g,
+        _neighbor_table_on(B, emb.device))
 
 
 def pivot_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
@@ -342,8 +369,8 @@ def pivot_update(gen, B: np.ndarray, parents: tuple[int, ...], g,
     x = emb[:, 0]
     draws = (_walk_draws(gen, g.num_nodes, x)
              + _tree_draws(gen, parents, g.num_nodes, x))
-    return _move("pivot", emb.to(torch.int64, copy=True), draws, g,
-                 parents=parents)
+    return _moves("pivot", emb.to(torch.int64, copy=True), _one(draws), g,
+                  parents=parents)
 
 
 def pair_matrices_T(g, embs: torch.Tensor, *,
@@ -379,70 +406,116 @@ def patch_from_embedding(g, emb: torch.Tensor, *,
 
 
 # ------------------------------------------------------------- the chain:
-# one move function on static buffers, called in a Python loop (eager) or
+# one block of moves on static buffers, called in a Python loop (eager) or
 # captured once as a CUDA graph and replayed (captured), the counterpart of
 # the JAX package's jitted lax.scan over the moves
 # (onmf_ontf_ndl_tpu/samplers/motif.py:652-700).
 
 # Chain graphs kept at once, the least recently used dropped first: each
-# holds its buffers, a memory pool of its move's intermediates and the
-# graph tensors its move reads. Eight hold the training and reconstruction
-# chains of four graphs.
-_CHAIN_CACHE_SIZE = 8
+# holds its buffers (the embeddings, a block's draws and trail: at most
+# _BLOCK_BYTES), a memory pool of its block's intermediates (none on the
+# kernel's route) and the graph tensors its block reads. A network app
+# makes up to six (a block and its rest for training, for reconstruction
+# and for a chunked reconstruction's chunks, which share theirs), so
+# sixteen hold the chains of two apps without capturing any again.
+_CHAIN_CACHE_SIZE = 16
 _CHAIN_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# The bytes of a block's draws and trail at most: they set its moves.
+_BLOCK_BYTES = 16 << 20
+
+
+def _chain_kind(use_glauber: bool, k: int) -> str:
+    """The move of a chain: ``"glauber"``, ``"walk"`` (a one-node motif's
+    Glauber move) or ``"pivot"``."""
+    if use_glauber:
+        return "glauber" if k > 1 else "walk"
+    return "pivot"
+
+
+def _chain_block_moves(C: int, k: int, kind: str, steps: int,
+                       roots: int = 0) -> int:
+    """The moves M of a block of a run of ``steps`` moves of C chains of k
+    nodes (``roots``: the motif's parentless nodes): ``steps`` where the
+    block's draws and its (C, M, k) trail fit :data:`_BLOCK_BYTES`, else
+    the most that fit (at least 1). Shapes alone."""
+    draw = {"glauber": 8 + 4 + 8, "walk": 4 + 4 + 8,
+            "pivot": 4 + 4 + 8 + 4 * (k - 1) + 8 * roots}[kind]
+    return max(1, min(steps, _BLOCK_BYTES // (max(C, 1) * (draw + 8 * k))))
+
+
+def _chain_blocks(steps: int, moves: int) -> list:
+    """A run's blocks as ``(moves, times)``: ``steps // moves`` blocks of
+    ``moves``, then one of the rest where there is a rest."""
+    blocks = [(moves, steps // moves)]
+    if steps % moves:
+        blocks.append((steps % moves, 1))
+    return blocks
 
 
 @dataclasses.dataclass
 class _Chains:
-    """The buffers a move reads and writes in place: the (C, k)
-    embeddings, and the step counter at which the trail records them."""
+    """The buffers a block of M moves reads and writes in place: the
+    (C, k) embeddings, the block's (M, ...) draws (those of
+    :func:`_glauber_draws`, or of :func:`_walk_draws` and, for the pivot,
+    :func:`_tree_draws`) and its (C, M, k) trail."""
 
     emb: torch.Tensor
-    step: torch.Tensor
+    draws: tuple
+    trail: torch.Tensor
 
 
-def _new_chains(emb0: torch.Tensor) -> _Chains:
-    """Buffers for the chains ``emb0``, filled from it."""
-    emb = torch.empty(emb0.shape, dtype=torch.int64, device=emb0.device)
+def _new_chains(emb0: torch.Tensor, kind: str, moves: int,
+                roots: int = 0) -> _Chains:
+    """Buffers for a block of ``moves`` moves of kind ``kind`` of the
+    chains ``emb0``, the embeddings filled from it."""
+    C, k = emb0.shape
+    dev = emb0.device
+    emb = torch.empty((C, k), dtype=torch.int64, device=dev)
     emb.copy_(emb0)
-    return _Chains(emb=emb, step=torch.zeros(1, dtype=torch.int64,
-                                             device=emb0.device))
-
-
-def _chain_move(ch: _Chains, gen, B: np.ndarray, parents: tuple[int, ...],
-                g, use_glauber: bool, backend: str = "auto") -> None:
-    """One Glauber or pivot move of every chain on the buffers ``ch``: its
-    draws from ``gen``, then the kernel or its plain version (as
-    ``backend`` and the device pick, :func:`_move`) in place on
-    ``ch.emb``. This is what a chain graph captures."""
-    C, k = ch.emb.shape
-    dev, n = ch.emb.device, g.num_nodes
-    if use_glauber and k > 1:
-        _move("glauber", ch.emb, _glauber_draws(gen, C, k, n, dev), g,
-              _neighbor_table_on(B, dev), backend=backend)
-    elif use_glauber:   # a single-node motif moves as the walk
-        _move("walk", ch.emb, _walk_draws(gen, n, ch.emb[:, 0]), g,
-              backend=backend)
+    ints = functools.partial(torch.empty, dtype=torch.int64, device=dev)
+    floats = functools.partial(torch.empty, device=dev)
+    if kind == "glauber":
+        draws = (ints(moves, C), floats(moves, C), ints(moves, C))
     else:
-        x = ch.emb[:, 0]
-        _move("pivot", ch.emb, _walk_draws(gen, n, x)
-              + _tree_draws(gen, parents, n, x), g, parents=parents,
-              backend=backend)
+        draws = (floats(moves, C), floats(moves, C), ints(moves, C))
+        if kind == "pivot":
+            draws += (floats(moves, k - 1, C), ints(moves, roots, C))
+    return _Chains(emb=emb, draws=draws, trail=ints(C, moves, k))
 
 
-def _record(ch: _Chains, trail: torch.Tensor) -> None:
-    """Record the chains' embeddings in the (C, steps, k) ``trail`` at the
-    step counter, and advance it. Both routes run it after each move, the
-    captured one outside its graph: a graph keeps no trail of its own, and
-    a run of any length replays it."""
-    trail.index_copy_(1, ch.step, ch.emb[:, None])
-    ch.step += 1
+def _block_draws(ch: _Chains, gen, parents: tuple[int, ...], n: int,
+                 kind: str) -> None:
+    """The block's draws from ``gen``: each move's in the plain move's
+    order into row s of ``ch.draws``."""
+    C, k = ch.emb.shape
+    x = ch.emb[:, 0]          # its shape only
+    for s in range(ch.trail.shape[1]):
+        row = tuple(d[s] for d in ch.draws)
+        if kind == "glauber":
+            _glauber_draws(gen, C, k, n, x.device, out=row)
+        else:
+            _walk_draws(gen, n, x, out=row[:3])
+            if kind == "pivot":
+                _tree_draws(gen, parents, n, x, out=row[3:])
+
+
+def _chain_block(ch: _Chains, gen, B: np.ndarray, parents: tuple[int, ...],
+                 g, use_glauber: bool, backend: str = "auto") -> None:
+    """A block of Glauber or pivot moves of every chain on the buffers
+    ``ch``: the M moves' draws (:func:`_block_draws`), then one call of the
+    kernel or its plain version (as ``backend`` and the device pick,
+    :func:`_moves`) that runs the M moves in place on ``ch.emb`` and
+    writes ``ch.trail``. This is what a chain graph captures."""
+    kind = _chain_kind(use_glauber, ch.emb.shape[1])
+    _block_draws(ch, gen, parents, g.num_nodes, kind)
+    tbl = _neighbor_table_on(B, ch.emb.device) if kind == "glauber" else None
+    _moves(kind, ch.emb, ch.draws, g, tbl, parents, ch.trail, backend)
 
 
 def _chain_route(device_type: str, capture: bool = True) -> str:
-    """How :func:`run_chains` runs its moves: ``"captured"`` (one move
+    """How :func:`run_chains` runs its blocks: ``"captured"`` (a block
     captured as a CUDA graph, replayed) on a CUDA tensor, ``"eager"`` (the
-    move function in a Python loop) on the CPU or with ``capture=False``
+    block function in a Python loop) on the CPU or with ``capture=False``
     (tests and the card's comparisons)."""
     return "captured" if capture and device_type == "cuda" else "eager"
 
@@ -457,18 +530,20 @@ def _graph_tensors(g) -> tuple:
 
 
 def _chain_key(g, emb0: torch.Tensor, B: np.ndarray, use_glauber: bool,
-               backend: str = "auto") -> tuple:
-    """The cache key of the graph of a move like this call's: all that a
-    capture bakes in. The chain count and k, the device, the motif and its
-    tree, the kind of move, the route of its arithmetic (the kernel or the
-    plain version: :func:`chain_move_route` of the device and
-    ``backend``), the graph's representation, node count and maximum
-    degree, and the address, shape, strides and dtype of each graph tensor
-    the move reads. Not the embeddings' values or dtype (they are copied
-    into an int64 buffer), the generator or the number of moves."""
+               moves: int, backend: str = "auto") -> tuple:
+    """The cache key of the graph of a block like this call's: all that a
+    capture bakes in. The chain count and k, the device, the motif (which
+    sets its tree), the kind of move, the block's moves, the route of its
+    arithmetic (the kernel or the plain version: :func:`chain_move_route`
+    of the device and ``backend``), the graph's representation, node count
+    and maximum degree, and the address, shape, strides and dtype of each
+    graph tensor the block reads. Not the embeddings' values or dtype
+    (they are copied into an int64 buffer), the generator or the run's
+    number of moves (only through ``moves``)."""
     B = np.asarray(B, np.int8)
-    return (tuple(emb0.shape), emb0.device, B.tobytes(), tree_parents(B),
-            bool(use_glauber), chain_move_route(emb0.device.type, backend),
+    return (tuple(emb0.shape), emb0.device, B.tobytes(), B.shape,
+            bool(use_glauber), int(moves),
+            chain_move_route(emb0.device.type, backend),
             type(g), g.num_nodes,
             getattr(g, "max_deg", None),
             tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
@@ -477,7 +552,7 @@ def _chain_key(g, emb0: torch.Tensor, B: np.ndarray, use_glauber: bool,
 
 @dataclasses.dataclass
 class _ChainGraph:
-    """A captured move: its graph, its buffers, the generator registered
+    """A captured block: its graph, its buffers, the generator registered
     with it, the kernel launches of one replay (one ``chain_move`` on the
     kernel's route, none on the plain one), and the tensors it reads that
     its caller owns (the graph's, the motif's neighbour table and parent
@@ -490,39 +565,49 @@ class _ChainGraph:
     reads: tuple
 
 
-def _run_captured_chains(gen, g, emb0: torch.Tensor, B: np.ndarray,
-                         trail: torch.Tensor, use_glauber: bool,
-                         backend: str) -> None:
-    """The captured route: the graph of this key (captured on a miss, with
-    its first move run as it is captured), replayed for the remaining
-    moves, each followed by its record in ``trail``; the graph's generator
-    takes ``gen``'s state before the replays and gives it back after."""
-    key = _chain_key(g, emb0, B, use_glauber, backend)
+def _run_captured_block(gen, g, emb: torch.Tensor, B: np.ndarray,
+                        trail: torch.Tensor, done: int, moves: int,
+                        times: int, use_glauber: bool,
+                        backend: str) -> _Chains:
+    """``times`` blocks of ``moves`` moves of the chains ``emb`` on the
+    captured route: the graph of this key (captured on a miss, with its
+    first block run as it is captured) replayed, each block's trail then
+    copied into ``trail`` from move ``done`` on; the graph's generator
+    takes ``gen``'s state before the replays and gives it back after.
+    Returns the graph's buffers (the chains after the last block)."""
+    key = _chain_key(g, emb, B, use_glauber, moves, backend)
     entry = _CHAIN_GRAPHS.pop(key, None)
-    done = 0
+    first = 0
     if entry is None:
         while len(_CHAIN_GRAPHS) >= _CHAIN_CACHE_SIZE:
             _CHAIN_GRAPHS.popitem(last=False)
         parents = tree_parents(B)
-        ch = _new_chains(emb0)
+        kind = _chain_kind(use_glauber, emb.shape[1])
+        ch = _new_chains(emb, kind, moves, sum(p < 0 for p in parents))
         reads = _graph_tensors(g)
-        if use_glauber and emb0.shape[1] > 1:
-            reads += (_neighbor_table_on(B, emb0.device),)
-        elif not use_glauber:
-            reads += (_device_parents(parents, emb0.device),)
+        if kind == "glauber":
+            reads += (_neighbor_table_on(B, emb.device),)
+        elif kind == "pivot":
+            reads += (_device_parents(parents, emb.device),)
         graph, own, launches = capture_step(
-            lambda gn: _chain_move(ch, gn, B, parents, g, use_glauber,
-                                   backend),
-            gen, emb0.device)
+            lambda gn: _chain_block(ch, gn, B, parents, g, use_glauber,
+                                    backend),
+            gen, emb.device)
         entry = _ChainGraph(graph, ch, own, launches, reads)
-        _record(ch, trail)
-        done = 1
+        trail[:, done:done + moves] = ch.trail
+        first = 1
     else:
-        entry.chains.emb.copy_(emb0)
-        entry.chains.step.zero_()
+        entry.chains.emb.copy_(emb)
     _CHAIN_GRAPHS[key] = entry
-    replay(entry.graph, entry.gen, gen, trail.shape[1] - done,
-           entry.launches, each=lambda: _record(entry.chains, trail))
+    block = entry.chains.trail
+
+    def record(i: int) -> None:
+        at = done + (first + i) * moves
+        trail[:, at:at + moves] = block
+
+    replay(entry.graph, entry.gen, gen, times - first, entry.launches,
+           each=record)
+    return entry.chains
 
 
 def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
@@ -531,29 +616,39 @@ def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
     """Advance (C, k) chains ``steps`` moves; returns every state after a
     move, (C, steps, k).
 
-    :func:`_chain_route` picks the route: on a CUDA tensor one move is
-    captured as a CUDA graph (once per :func:`_chain_key`) and replayed
-    for every move; on the CPU, or with ``capture=False``, the same move
-    function runs in a Python loop. On both, each move's state is then
-    recorded in the trail (:func:`_record`). A move's arithmetic runs the
-    kernel of ``ops/kernels/motif_kernel.py`` on a CUDA tensor, or its
-    plain version on the CPU and with ``backend="torch"`` (the
-    comparisons); it raises where the kernel fails to build or launch.
+    The moves run in blocks of M (:func:`_chain_block_moves`, from the
+    shapes alone; a last block of the rest), each its M moves' draws and
+    one call of the kernel of ``ops/kernels/motif_kernel.py`` (or, on the
+    CPU and with ``backend="torch"``, its plain version), which writes the
+    block's trail; the block's trail is then copied into the run's.
+    :func:`_chain_route` picks the route: on a CUDA tensor a block is
+    captured as a CUDA graph (once per :func:`_chain_key`) and replayed;
+    on the CPU, or with ``capture=False``, the same block function runs in
+    a Python loop. It raises where the kernel fails to build or launch.
     Every route draws the same numbers from ``gen``, leaves it in the same
-    state and gives the same chains. A capture or replay that fails
-    raises; no move falls back to the eager loop."""
-    trail = torch.empty((emb0.shape[0], steps, emb0.shape[1]),
-                        dtype=torch.int64, device=emb0.device)
-    if steps and _chain_route(emb0.device.type, capture) == "captured":
-        with torch.cuda.device(emb0.device):
-            _run_captured_chains(gen, g, emb0, B, trail, use_glauber,
-                                 backend)
+    state and gives the same chains as moves run one at a time. A capture
+    or replay that fails raises; no block falls back to the eager loop."""
+    C, k = emb0.shape
+    trail = torch.empty((C, steps, k), dtype=torch.int64, device=emb0.device)
+    if not steps:
         return trail
     parents = tree_parents(B)
-    ch = _new_chains(emb0)
-    for _ in range(steps):
-        _chain_move(ch, gen, B, parents, g, use_glauber, backend)
-        _record(ch, trail)
+    kind = _chain_kind(use_glauber, k)
+    roots = sum(p < 0 for p in parents)
+    captured = _chain_route(emb0.device.type, capture) == "captured"
+    emb, done = emb0, 0
+    for moves, times in _chain_blocks(
+            steps, _chain_block_moves(C, k, kind, steps, roots)):
+        if captured:
+            with torch.cuda.device(emb0.device):
+                ch = _run_captured_block(gen, g, emb, B, trail, done, moves,
+                                         times, use_glauber, backend)
+        else:
+            ch = _new_chains(emb, kind, moves, roots)
+            for i in range(times):
+                _chain_block(ch, gen, B, parents, g, use_glauber, backend)
+                trail[:, done + i * moves:done + (i + 1) * moves] = ch.trail
+        emb, done = ch.emb, done + moves * times
     return trail
 
 

@@ -3,8 +3,9 @@
 The port's counterpart of a jitted ``lax.scan``: a loop whose step reads
 and writes buffers in place is captured once as a CUDA graph and replayed
 for every step. The training step (``models/onmf.py::_train_loop``) and
-the motif chain's move (``samplers/motif.py::run_chains``) both run
-through here; each keeps its own cache of graphs and its own key.
+a block of the motif chain's moves (``samplers/motif.py::run_chains``)
+both run through here; each keeps its own cache of graphs and its own
+key.
 
 Draws: a capture records the Philox offsets of its random calls, so each
 graph draws from a generator of its own that is registered with it. That
@@ -64,16 +65,16 @@ def capture_step(step, gen: torch.Generator, device: torch.device):
 
 def replay(graph, own: torch.Generator, gen: torch.Generator, times: int,
            launches: dict, each=None) -> None:
-    """Replay ``graph`` ``times`` times on the current stream, each replay
-    followed by ``each()`` where given, its generator ``own`` taking
+    """Replay ``graph`` ``times`` times on the current stream, replay i
+    followed by ``each(i)`` where given, its generator ``own`` taking
     ``gen``'s state before and giving it back after; count each replay's
     ``launches``."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import add_launches
 
     own.set_state(gen.get_state())
-    for _ in range(times):
+    for i in range(times):
         graph.replay()
         if each is not None:
-            each()
+            each(i)
     add_launches(launches, times)
     gen.set_state(own.get_state())

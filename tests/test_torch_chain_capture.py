@@ -76,20 +76,16 @@ def test_move_function_equals_the_loop_of_moves(use_glauber, rep, k):
                            torch.rand(8, generator=gen(0).set_state(
                                want_gen.get_state())))
     assert torch.equal(emb0, before)      # the caller's chains are not moved
-    # the move function on its buffers, the embeddings kept in place; the
-    # trail written at the step counter
-    ch = tm._new_chains(emb0)
+    # the block function on its buffers, the embeddings kept in place; each
+    # block's trail written by its block
+    ch = tm._new_chains(emb0, tm._chain_kind(use_glauber, k), 3)
     emb_buf = ch.emb
-    trail = torch.full((16, 5, k), -1, dtype=torch.int64)
     mg = gen(7)
-    for _ in range(3):
-        tm._chain_move(ch, mg, B, tm.tree_parents(B), g, use_glauber)
-        tm._record(ch, trail)
+    for b in range(2):
+        tm._chain_block(ch, mg, B, tm.tree_parents(B), g, use_glauber)
+        assert torch.equal(ch.trail, want[:, 3 * b:3 * b + 3])
     assert ch.emb is emb_buf
-    assert int(ch.step) == 3
-    assert torch.equal(trail[:, :3], want[:, :3])
-    assert bool((trail[:, 3:] == -1).all())
-    assert torch.equal(ch.emb, want[:, 2])
+    assert torch.equal(ch.emb, want[:, 5])
     assert not tm._CHAIN_GRAPHS           # nothing captured on the CPU
 
 
@@ -132,20 +128,20 @@ def _with_tensor(g, field):
 def test_chain_key_changes_with_each_baked_argument_only():
     g, B = GRAPHS["csr"], MOTIFS[3]
     emb0 = torch.randint(0, g.num_nodes, (16, 3), generator=gen(1))
-    key = tm._chain_key(g, emb0, B, True)
+    key = tm._chain_key(g, emb0, B, True, 5)
     hash(key)
     # new chain values (of any integer dtype), another generator, the
     # same graph object rebuilt around the same tensors, a motif of
     # another dtype with the same entries: the same key
     assert tm._chain_key(g, torch.randint(0, 9, (16, 3), generator=gen(2)),
-                         B, True) == key
-    assert tm._chain_key(g, emb0.int(), B, True) == key
-    assert tm._chain_key(dataclasses.replace(g), emb0, B, True) == key
-    assert tm._chain_key(g, emb0, B.astype(np.int64), True) == key
+                         B, True, 5) == key
+    assert tm._chain_key(g, emb0.int(), B, True, 5) == key
+    assert tm._chain_key(dataclasses.replace(g), emb0, B, True, 5) == key
+    assert tm._chain_key(g, emb0, B.astype(np.int64), True, 5) == key
     # a view of the same address, shape and strides is the same tensor to
     # the graph
     assert tm._chain_key(dataclasses.replace(g, deg=g.deg[:]), emb0, B,
-                         True) == key
+                         True, 5) == key
     variants = [
         (g, emb0[:15], B, True),                                 # C
         (g, torch.zeros((16, 4), dtype=torch.int64),
@@ -158,6 +154,7 @@ def test_chain_key_changes_with_each_baked_argument_only():
             [EDGES, [[39, 40]]]), device="cpu"), emb0, B, True),  # nodes
         (dataclasses.replace(g, max_deg=g.max_deg + 1), emb0, B, True),
         (g, emb0.to("meta"), B, True),                           # device
+        (g, emb0, B, True, 6),                          # the block's moves
     ]
     # each tensor a move reads, in each representation, at a new address
     for rep, fields in (("csr", ("nbr_flat", "offsets", "deg")),
@@ -170,5 +167,6 @@ def test_chain_key_changes_with_each_baked_argument_only():
     # the same memory seen with other strides
     variants.append((dataclasses.replace(g, deg=g.deg.as_strided(
         (g.num_nodes // 2,), (2,))), emb0, B, True))
-    keys = {key} | {tm._chain_key(*v) for v in variants}
+    keys = {key} | {tm._chain_key(*v, 5) if len(v) == 4 else tm._chain_key(*v)
+                   for v in variants}
     assert len(keys) == 1 + len(variants)

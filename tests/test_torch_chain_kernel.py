@@ -234,7 +234,8 @@ def test_glauber_meets_an_empty_common_neighbourhood():
             ALL_MOTIFS["path3"], "cpu")
         j = torch.ones(6, dtype=torch.int64)
         draws = (j, torch.rand(6, generator=gen(1)), torch.arange(6) + 10)
-        out = mk.chain_move_plain("glauber", emb.clone(), draws, g, tbl)
+        out = mk.chain_moves_plain("glauber", emb.clone(), tm._one(draws), g,
+                                   tbl)
         assert out[:, 1].tolist() == list(range(10, 16))
         assert torch.equal(out[:, [0, 2]], emb[:, [0, 2]])
         got = frozen_glauber_update(gen(2), B, tm.tree_parents(B), g, emb)
@@ -313,25 +314,25 @@ def test_unknown_backend_and_kind_raise():
         tm.run_chains(gen(0), g, torch.zeros((2, 3), dtype=torch.int64),
                       MOTIFS[3], 2, backend="triton")
     with pytest.raises(ValueError, match="unknown move"):
-        mk.chain_move("swap", torch.zeros((2, 3), dtype=torch.int64), (), g)
+        mk.chain_moves("swap", torch.zeros((2, 3), dtype=torch.int64), (), g)
 
 
 def test_chain_key_takes_the_route_of_the_backend(monkeypatch):
     g, B = GRAPHS["csr"], MOTIFS[3]
     emb0 = torch.zeros((16, 3), dtype=torch.int64)
-    key = tm._chain_key(g, emb0, B, True)
-    assert tm._chain_key(g, emb0, B, True, "auto") == key
+    key = tm._chain_key(g, emb0, B, True, 5)
+    assert tm._chain_key(g, emb0, B, True, 5, "auto") == key
     # on the CPU both backends run the plain version: the same graph
-    assert tm._chain_key(g, emb0, B, True, "torch") == key
+    assert tm._chain_key(g, emb0, B, True, 5, "torch") == key
     assert "plain" in key and "kernel" not in key
     # where the route differs, so does the key (on a card: "auto" is the
     # kernel, "torch" the plain version)
     monkeypatch.setattr(tm, "chain_move_route",
                         lambda device_type, backend="auto":
                         "kernel" if backend == "auto" else "plain")
-    assert tm._chain_key(g, emb0, B, True, "auto") != \
-        tm._chain_key(g, emb0, B, True, "torch")
-    assert "kernel" in tm._chain_key(g, emb0, B, True)
+    assert tm._chain_key(g, emb0, B, True, 5, "auto") != \
+        tm._chain_key(g, emb0, B, True, 5, "torch")
+    assert "kernel" in tm._chain_key(g, emb0, B, True, 5)
 
 
 # ------------------------------------------- the kernel's arithmetic
@@ -378,17 +379,17 @@ def test_chain_move_on_a_cpu_tensor_runs_the_plain_version():
     parents = tm.tree_parents(B)
     emb0 = start(g, B, C=8)
     x = emb0[:, 0]
-    draws = (tm._walk_draws(gen(1), g.num_nodes, x)
-             + tm._tree_draws(gen(2), parents, g.num_nodes, x))
+    draws = tm._one(tm._walk_draws(gen(1), g.num_nodes, x)
+                    + tm._tree_draws(gen(2), parents, g.num_nodes, x))
     _lib.reset_launches()
-    a = mk.chain_move("pivot", emb0.clone(), draws, g, parents=parents)
-    b = mk.chain_move_plain("pivot", emb0.clone(), draws, g,
-                            parents=parents)
+    a = mk.chain_moves("pivot", emb0.clone(), draws, g, parents=parents)
+    b = mk.chain_moves_plain("pivot", emb0.clone(), draws, g,
+                             parents=parents)
     assert torch.equal(a, b) and not torch.equal(a, emb0)
     assert _lib.LAUNCHES["chain_move"] == 0        # no kernel ran
     # in place: the buffer it was given
     buf = emb0.clone()
-    assert mk.chain_move("pivot", buf, draws, g, parents=parents) is buf
+    assert mk.chain_moves("pivot", buf, draws, g, parents=parents) is buf
 
 
 @pytest.mark.parametrize("rep", sorted(GRAPHS))

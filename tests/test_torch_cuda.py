@@ -931,20 +931,76 @@ def test_cuda_captured_chains_equal_eager(cuda, use_glauber, rep, k):
     kw = dict(C=32, steps=40, use_glauber=use_glauber)
     _assert_chains_equal(_chains(g, B, seed=1, capture=True, **kw),
                          _chains(g, B, seed=1, capture=False, **kw))
-    assert len(tm._CHAIN_GRAPHS) == 1
+    assert len(tm._CHAIN_GRAPHS) == 1       # one block of the run's moves
     entry = next(iter(tm._CHAIN_GRAPHS.values()))
+    assert entry.chains.trail.shape == (32, 40, k)
     # one launch of the chain kernel a replay, nothing else
     assert entry.launches == {n: int(n == "chain_move")
                               for n in entry.launches}
     # a second call replays the graph it captured, from other chains and
-    # another generator; so do a shorter and a longer one (the number of
-    # moves is not in the key), and one of a single move
-    for seed, steps in ((2, 40), (3, 7), (4, 97), (5, 1)):
+    # another generator; a shorter and a longer run and one of a single
+    # move have blocks of their own moves, so graphs of their own
+    _assert_chains_equal(_chains(g, B, seed=2, capture=True, **kw),
+                         _chains(g, B, seed=2, capture=False, **kw))
+    assert len(tm._CHAIN_GRAPHS) == 1
+    assert next(iter(tm._CHAIN_GRAPHS.values())) is entry
+    for seed, steps in ((3, 7), (4, 97), (5, 1)):
         kw["steps"] = steps
         _assert_chains_equal(_chains(g, B, seed=seed, capture=True, **kw),
                              _chains(g, B, seed=seed, capture=False, **kw))
-        assert len(tm._CHAIN_GRAPHS) == 1
-        assert next(iter(tm._CHAIN_GRAPHS.values())) is entry
+    assert len(tm._CHAIN_GRAPHS) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_glauber", [True, False],
+                         ids=["glauber", "pivot"])
+def test_cuda_captured_blocks_with_a_remainder(cuda, use_glauber,
+                                               monkeypatch):
+    """A run longer than its block: blocks of M replayed, then a graph of
+    the rest; equal to the eager route and to the moves run one at a time
+    (the frozen moves of before the blocks); the kernel's own runs are the
+    replays, one a block."""
+    from test_torch_chain_kernel import FROZEN, frozen_tree_sample
+
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = _kernel_graphs(cuda)["ba"]["csr"]
+    B = tm.path_adj(0, 20)
+    parents = tm.tree_parents(B)
+    C, steps = 64, 61
+    kind = tm._chain_kind(use_glauber, 21)
+    # a move's draws and trail row: 20 or 16 + 4 * 20 bytes, and 8 * 21
+    per_move = C * ({"glauber": 20, "pivot": 96}[kind] + 8 * 21)
+    # blocks of 9 moves: 6 of them, then one of 7
+    monkeypatch.setattr(tm, "_BLOCK_BYTES", 9 * per_move)
+    assert tm._chain_block_moves(C, 21, kind, steps) == 9
+    assert tm._chain_blocks(steps, 9) == [(9, 6), (7, 1)]
+    tm._CHAIN_GRAPHS.clear()
+    x0 = torch.randint(0, g.num_nodes, (C,), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(4))
+    runs = {}
+    for route, kw in (("captured", {}), ("captured again", {}),
+                      ("eager", dict(capture=False))):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        emb0 = tm.tree_sample(gen, parents, g, x0)
+        ck.reset_launches()
+        trail = tm.run_chains(gen, g, emb0, B, steps,
+                              use_glauber=use_glauber, **kw)
+        runs[route] = (trail, torch.rand(8, generator=gen, device=cuda))
+        # one kernel run a block, the replayed ones included
+        assert device_runs()["chain_move"] == 7
+        assert ck.LAUNCHES["chain_move"] == 7
+    assert len(tm._CHAIN_GRAPHS) == 2        # the block's and the rest's
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    emb, trail = frozen_tree_sample(gen, parents, g, x0), []
+    for _ in range(steps):
+        emb = FROZEN[use_glauber](gen, B, parents, g, emb)
+        trail.append(emb)
+    runs["frozen"] = (torch.stack(trail, 1),
+                      torch.rand(8, generator=gen, device=cuda))
+    for route in ("captured again", "eager", "frozen"):
+        _assert_chains_equal(runs["captured"], runs[route])
 
 
 @pytest.mark.cuda
@@ -1027,14 +1083,14 @@ def test_cuda_chain_cache_stays_within_its_size(cuda):
 
 @pytest.mark.cuda
 def test_cuda_failing_chain_capture_raises(cuda, monkeypatch):
-    """A move that fails while it is captured raises out of run_chains;
-    nothing is cached and no move falls back to the eager loop."""
+    """A block that fails while it is captured raises out of run_chains;
+    nothing is cached and no block falls back to the eager loop."""
     from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
 
     g = _chain_graphs(cuda)["dense"]
     B = tm.path_adj(0, 2)
     tm._CHAIN_GRAPHS.clear()
-    move = tm._chain_move
+    move = tm._chain_block
     calls = []
 
     def failing(ch, gen, *args):
@@ -1043,12 +1099,12 @@ def test_cuda_failing_chain_capture_raises(cuda, monkeypatch):
             raise RuntimeError("refused while capturing")
         move(ch, gen, *args)
 
-    monkeypatch.setattr(tm, "_chain_move", failing)
+    monkeypatch.setattr(tm, "_chain_block", failing)
     with pytest.raises(RuntimeError, match="refused while capturing"):
         _chains(g, B, C=8, seed=1, steps=10, capture=True, use_glauber=True)
-    assert calls == [False, True]      # one eager move, then the capture
+    assert calls == [False, True]      # one eager block, then the capture
     assert not tm._CHAIN_GRAPHS
-    monkeypatch.setattr(tm, "_chain_move", move)
+    monkeypatch.setattr(tm, "_chain_block", move)
     _assert_chains_equal(
         _chains(g, B, C=8, seed=1, steps=10, capture=True, use_glauber=True),
         _chains(g, B, C=8, seed=1, steps=10, capture=False,
@@ -1056,7 +1112,7 @@ def test_cuda_failing_chain_capture_raises(cuda, monkeypatch):
 
 
 # ----------------------------------------------------- the chain kernel
-# csrc/motif_kernels.cu against its plain version (chain_move_plain, the
+# csrc/motif_kernels.cu against its plain version (chain_moves_plain, the
 # apply half of samplers/motif.py's moves) from the same draws, and the
 # kernel's chains against the plain route's and the moves' before the
 # split: equal bit for bit. The smoke's Barabasi-Albert graph has hubs of
@@ -1091,11 +1147,24 @@ def _draws(kind, gen, g, B, emb):
     return tm._tree_draws(gen, parents, n, x)
 
 
+def _block_draws(kind, gen, g, B, emb, moves):
+    """``moves`` moves' draws stacked into (M, ...) tensors, in the plain
+    moves' order (their shapes do not depend on the chains)."""
+    return tuple(torch.stack(d) for d in zip(
+        *[_draws(kind, gen, g, B, emb) for _ in range(moves)]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 3, 21])
 @pytest.mark.parametrize("rep", ["dense", "csr", "bitset"])
 @pytest.mark.parametrize("graph", ["ba", "torus"])
 def test_cuda_chain_kernel_equals_plain(cuda, graph, rep, k):
+    """Blocks of moves: the kernel against chain_moves_plain on the same
+    chains and draws, the block's (C, M, k) trail written in full; 8
+    chains (a team of warps a Glauber chain where the graph has hubs) and
+    1,024 (a warp a chain); M at the route's value for a run of 50 moves
+    (all 50) and a remainder of 7; the tree (tree_sample) at M = 1 without
+    a trail and at 7 with one."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels import motif_kernel as mk
     from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
     from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
@@ -1104,22 +1173,44 @@ def test_cuda_chain_kernel_equals_plain(cuda, graph, rep, k):
     B = tm.path_adj(0, k - 1)
     parents = tm.tree_parents(B)
     tbl = tm._neighbor_table_on(B, cuda) if k > 1 else None
-    gen = torch.Generator(device=cuda).manual_seed(k)
-    emb = tm.tree_sample(gen, parents, g, torch.randint(
-        0, g.num_nodes, (1024,), generator=gen, device=cuda))
-    emb[:4, 0] = torch.topk(g.deg, 4).indices      # the hubs
     ck.reset_launches()
     launched = 0
-    for kind in ("glauber" if k > 1 else "walk", "pivot", "tree"):
-        for _ in range(4):
-            draws = _draws(kind, gen, g, B, emb)
-            want = mk.chain_move_plain(kind, emb.clone(), draws, g, tbl,
-                                       parents)
-            got = mk.chain_move(kind, emb.clone(), draws, g, tbl, parents)
-            launched += 1
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (kind, (got != want).sum())
-            emb = got
+    for C in (8, 1024):
+        gen = torch.Generator(device=cuda).manual_seed(k + C)
+        emb = tm.tree_sample(gen, parents, g, torch.randint(
+            0, g.num_nodes, (C,), generator=gen, device=cuda))
+        launched += 1                                   # tree_sample's
+        emb[:4, 0] = torch.topk(g.deg, 4).indices      # the hubs
+        for kind in ("glauber" if k > 1 else "walk", "pivot", "tree"):
+            M = tm._chain_block_moves(C, k, "walk" if kind == "tree"
+                                      else kind, 50)
+            assert M == 50
+            for moves, with_trail in (((M, True), (7, True)) if kind != "tree"
+                                      else ((1, False), (7, True))):
+                draws = _block_draws(kind, gen, g, B, emb, moves)
+                trail = None
+                if with_trail:
+                    trail = torch.full((C, moves, k), -1, dtype=torch.int64,
+                                       device=cuda)
+                out = {}
+                for name, fn in (("plain", mk.chain_moves_plain),
+                                 ("kernel", mk.chain_moves)):
+                    t = None if trail is None else trail.clone()
+                    out[name] = (fn(kind, emb.clone(), draws, g, tbl,
+                                    parents, t), t)
+                launched += 1
+                torch.cuda.synchronize()
+                (got, got_t), (want, want_t) = out["kernel"], out["plain"]
+                assert torch.equal(got, want), (kind, C, moves,
+                                                (got != want).sum())
+                if with_trail:
+                    assert torch.equal(got_t, want_t), (kind, C, moves)
+                    assert torch.equal(got_t[:, -1], got)
+                    assert bool((got_t >= 0).all())
+                emb = got
+    with pytest.raises(TypeError, match="trail"):     # not the block's
+        mk.chain_moves("tree", emb, draws, g, tbl, parents, torch.empty(
+            (C, draws[0].shape[0] + 1, k), dtype=torch.int64, device=cuda))
     assert ck.LAUNCHES["chain_move"] == launched
     assert device_runs()["chain_move"] == launched
 
@@ -1166,7 +1257,7 @@ def test_cuda_kernel_chains_equal_the_plain_moves(cuda, use_glauber, rep, k):
 
 @pytest.mark.cuda
 def test_cuda_chains_run_no_plain_arithmetic(cuda, monkeypatch):
-    """On a CUDA tensor every move of run_chains (both routes) and
+    """On a CUDA tensor every block of run_chains (both routes) and
     tree_sample runs the kernel: the plain version is never called, and
     the kernel's own run count equals the wrapper's launches."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels import motif_kernel as mk
@@ -1176,8 +1267,8 @@ def test_cuda_chains_run_no_plain_arithmetic(cuda, monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("the plain move ran on the card")
 
-    monkeypatch.setattr(tm, "chain_move_plain", refuse)
-    monkeypatch.setattr(mk, "chain_move_plain", refuse)
+    monkeypatch.setattr(tm, "chain_moves_plain", refuse)
+    monkeypatch.setattr(mk, "chain_moves_plain", refuse)
     g = _chain_graphs(cuda)["csr"]
     tm._CHAIN_GRAPHS.clear()
     ck.reset_launches()
@@ -1186,7 +1277,12 @@ def test_cuda_chains_run_no_plain_arithmetic(cuda, monkeypatch):
                 capture=True, use_glauber=use_glauber)
         _chains(g, tm.path_adj(0, k - 1), C=64, seed=k, steps=5,
                 capture=False, use_glauber=use_glauber)
-    # per case: one tree_sample, 25 captured moves (one eager while
-    # capturing, 24 replays), 5 eager moves
-    assert ck.LAUNCHES["chain_move"] == 3 * (1 + 25 + 1 + 5)
+    # per case: a tree_sample and one block of 25 captured moves (run
+    # eagerly while captured, so no replay), a tree_sample and one block of
+    # 5 eager moves; then the same 25 again: one replay
+    assert ck.LAUNCHES["chain_move"] == 3 * (1 + 1 + 1 + 1)
+    for use_glauber, k in ((True, 3), (False, 21), (True, 1)):
+        _chains(g, tm.path_adj(0, k - 1), C=64, seed=k, steps=25,
+                capture=True, use_glauber=use_glauber)
+    assert ck.LAUNCHES["chain_move"] == 3 * (1 + 1 + 1 + 1) + 3 * (1 + 1)
     assert device_runs()["chain_move"] == ck.LAUNCHES["chain_move"]

@@ -124,12 +124,12 @@ def test_cpu_wrappers_take_the_plain_path_without_launching():
     lat = torch.ones((4, 4), dtype=torch.int8)
     ising_kernel.checkerboard_band_half(0, lat[:2], lat[3], lat[2], 0, 0, 0)
     from onmf_ontf_ndl_tpu_torch.data.graphs import csr_graph_from_edges
-    from onmf_ontf_ndl_tpu_torch.ops.kernels.motif_kernel import chain_move
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.motif_kernel import chain_moves
 
     g = csr_graph_from_edges([[0, 1], [1, 2]], device="cpu")
-    chain_move("walk", torch.zeros((2, 1), dtype=torch.int64),
-               (torch.rand(2), torch.rand(2), torch.zeros(2, dtype=torch.int64)),
-               g)
+    chain_moves("walk", torch.zeros((2, 1), dtype=torch.int64),
+                (torch.rand(1, 2), torch.rand(1, 2),
+                 torch.zeros((1, 2), dtype=torch.int64)), g)
     assert ck.LAUNCHES == {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
                            "fista_sweeps": 0, "dict_update_sweep": 0,
                            "checkerboard_sweeps": 0,
