@@ -13,15 +13,21 @@ ROOT (a directory; default: this checkout) holds the
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists,
 as for ``chip_compare.py``; its name tags the lines. RUN names
 (``tensor``, ``ising``, ``stack``, ``video``, ``network``, ``step``) keep
-the run to those. Prints one JSON
+the run to those; ``capture`` (never run unnamed) measures what a round
+graph costs against the inner steps it holds (``capture_runs``). Prints one JSON
 line per run: wall seconds, device kernel seconds, the busy share (device
 kernel time over the profiled wall time), the device kernels launched
 (those of replayed CUDA graphs included) and the kernels with the most
 device time (name, calls, milliseconds), and the card's name and power
-limit. Needs one CUDA device.
+limit. Each line also counts the host's launches: the CUDA graphs
+(``host_graph_launches``: one a round where an app's rounds replay a
+round graph, one a step or chain block on the per-round route) and the
+kernels launched one at a time (``host_kernel_launches``). Needs one CUDA
+device.
 """
 
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -31,8 +37,9 @@ import torch
 
 def profiled(fn):
     """(wall seconds of each of three timed calls, wall seconds under the
-    profiler, {kernel: (calls, device ms)}) of ``fn``, after one warm-up
-    call."""
+    profiler, {kernel: (calls, device ms)}, {"graph": CUDA graphs launched,
+    "kernel": kernels launched from the host}) of ``fn``, after one
+    warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -49,19 +56,23 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    kernels = {}
+    kernels, host = {}, {"graph": 0, "kernel": 0}
     for ev in prof.key_averages():
         ms = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0)) / 1e3
         if ms > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.key] = (ev.count, ms)
-    return walls, wall_prof, kernels
+        elif ev.key == "cudaGraphLaunch":
+            host["graph"] += ev.count
+        elif ev.key.startswith("cudaLaunchKernel"):
+            host["kernel"] += ev.count
+    return walls, wall_prof, kernels, host
 
 
 VERSION = {"tag": "."}
 
 
-def report(run, walls, wall_prof, kernels):
+def report(run, walls, wall_prof, kernels, host):
     busy = sum(ms for _, ms in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
     print(json.dumps({
@@ -69,6 +80,8 @@ def report(run, walls, wall_prof, kernels):
         "walls_s": walls, "profiled_wall_s": wall_prof,
         "device_kernel_s": busy, "busy_share": busy / wall_prof,
         "launches": sum(c for c, _ in kernels.values()),
+        "host_graph_launches": host["graph"],
+        "host_kernel_launches": host["kernel"],
         "top": [{"kernel": k[:80], "calls": c, "ms": ms}
                 for k, (c, ms) in top]}), flush=True)
 
@@ -168,8 +181,117 @@ def step_runs(dev):
                                                 stop)))
 
 
+# The inner iterations of capture_runs' rounds: the smoke's network (b)
+# (30), NetworkReconstructor's default (100) and past it.
+CAPTURE_ITERATIONS = (30, 100, 200, 400, 800, 1600)
+
+
+def capture_runs(dev):
+    """What a round graph costs against the steps it holds:
+    ``NetworkReconstructor`` at its defaults (n_components 100, 1000
+    samples of one chain, batch 10), 8 rounds on NETWORK_RUNS (a)'s graph,
+    at each of ``CAPTURE_ITERATIONS`` inner iterations, with the bound on a
+    round's steps lifted. One line each: the steps and chain blocks a round
+    holds; in the run that captures, ``capture_step`` (its eager first
+    round, the recording and the instantiation) and the instantiation
+    alone (``capture_end``) on the host clock, the device memory reserved
+    and the host memory resident that the run added; the wall of a run
+    that replays and of one on the per-round route (its steps a step graph
+    replayed; least of three each, after one that captures); the device
+    operations of a replay under ``torch.profiler``."""
+    from chip_smoke import NETWORK_RUNS
+    from onmf_ontf_ndl_tpu_torch.apps.network import NetworkReconstructor
+    from onmf_ontf_ndl_tpu_torch.data.graphs import graph_from_edgelist
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+    from torch.profiler import ProfilerActivity, profile
+
+    g = graph_from_edgelist(NETWORK_RUNS["a"][0](), device=dev)
+    rounds, timed = 8, {"capture_s": 0.0, "instantiate_s": 0.0}
+
+    def train(sub):
+        NetworkReconstructor(source=g, device=dev, MCMC_iterations=rounds,
+                             sub_iterations=sub).train_dict()
+        torch.cuda.synchronize()
+
+    def least(fn):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        return min(walls)
+
+    class Graph(torch.cuda.CUDAGraph):      # times its instantiation
+        def capture_end(self):
+            t0 = time.perf_counter()
+            super().capture_end()
+            timed["instantiate_s"] += time.perf_counter() - t0
+
+    def capture_step(*args):
+        t0 = time.perf_counter()
+        out = capture(*args)
+        torch.cuda.synchronize()
+        timed["capture_s"] += time.perf_counter() - t0
+        return out
+
+    def resident():
+        return int(Path("/proc/self/statm").read_text().split()[1]) \
+            * os.sysconf("SC_PAGE_SIZE")
+
+    capture, route, bound = onmf.capture_step, onmf._round_route, \
+        onmf._MAX_ROUND_STEPS
+    graph_class, steps = torch.cuda.CUDAGraph, []
+    onmf._MAX_ROUND_STEPS = 1 << 30
+
+    def spy(*args, **kw):
+        steps.append(args[6])
+        return route(*args, **kw)
+
+    onmf._round_route, onmf.capture_step = spy, capture_step
+    torch.cuda.CUDAGraph = Graph
+    try:
+        for sub in CAPTURE_ITERATIONS:
+            onmf._clear_graphs()
+            torch.cuda.empty_cache()
+            timed.update(capture_s=0.0, instantiate_s=0.0)
+            steps.clear()
+            reserved, rss = torch.cuda.memory_reserved(dev), resident()
+            t0 = time.perf_counter()
+            train(sub)
+            first = time.perf_counter() - t0
+            out = dict(timed, round_steps_and_blocks=steps[0],
+                       first_run_s=first,
+                       reserved_bytes=torch.cuda.memory_reserved(dev)
+                       - reserved, resident_bytes=resident() - rss)
+            out["captured_route"] = len(onmf._ROUND_GRAPHS) == 1
+            out["replay_run_s"] = least(lambda: train(sub))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                train(sub)
+            out["device_operations_per_round"] = sum(
+                ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA) / rounds
+            onmf._round_route = lambda *a, **k: "per_round"
+            try:
+                train(sub)
+                out["per_round_run_s"] = least(lambda: train(sub))
+            finally:
+                onmf._round_route = spy
+            print(json.dumps({"version": VERSION["tag"],
+                              "run": f"network round graph at "
+                              f"sub_iterations={sub}, {rounds} rounds",
+                              **out}), flush=True)
+    finally:
+        onmf._round_route, onmf.capture_step = route, capture
+        onmf._MAX_ROUND_STEPS = bound
+        torch.cuda.CUDAGraph = graph_class
+        onmf._clear_graphs()
+
+
 RUNS = {"tensor": tensor_runs, "ising": ising_runs, "stack": stack_runs,
-        "video": video_runs, "network": network_runs, "step": step_runs}
+        "video": video_runs, "network": network_runs, "step": step_runs,
+        "capture": capture_runs}
+# the runs made without RUN names
+DEFAULT_RUNS = ("tensor", "ising", "stack", "video", "network", "step")
 
 
 def main():
@@ -195,7 +317,7 @@ def main():
                 ).is_relative_to(root):
             raise RuntimeError(f"imported {onmf_ontf_ndl_tpu_torch.__file__}"
                                f", not from {root}")
-    for name in args or RUNS:
+    for name in args or DEFAULT_RUNS:
         RUNS[name](dev)
 
 

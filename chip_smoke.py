@@ -20,7 +20,9 @@ Phases, each printing its findings on a line of its own:
              the three coders and the checkerboard sampler at the paths'
              shapes (``PATH_SHAPES``), each with its route, device time,
              bound and share of the bound; the sampler equal to its plain
-             version site for site on every route and vector width, and two
+             version site for site on every route and vector width (at the
+             paths' shapes from a host seed and from a device seed, the
+             entry the Ising round graphs launch), and two
              physics checks at n = 4096. Kernel times are device times: a
              CUDA graph of 20 calls (5 of the larger ones), replayed; the
              plain versions (host loops that synchronise) are timed by CUDA
@@ -97,6 +99,17 @@ a replay counts the launches its capture recorded, and the four kernels of
 the step also count their own runs on the card (``_lib.device_runs``),
 which each path's check holds the wrappers' counts to. Phase 3 reads its
 path's counts after its captured runs, before its eager comparisons.
+Every app's training (phases 4 to 10: image, tensor, Ising, stack,
+video, both network runs, the CLI's three, ``dp_ising_learning``) runs
+its rounds on the captured route (``models/onmf.py::_run_rounds``): one
+round graph per key, replayed once a round, the Ising sampler's seed drawn
+and read on the device (``rounds_taken``, which fails a run that replayed
+no round graph); phases 4 to 8 then run each app's training again on the
+captured route and on the eager rounds (``eager_rounds``: the apps'
+entry points with ``capture=False``), equal bit for
+bit (W, A, B, C, the dictionary stack, errors, lattice, chains and the
+generators' next draws), with the walls and the graphs, kernels and copies
+launched from the host per round of both (``round_checks``).
 The last two lines are the kernels' JSON summary and the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -105,6 +118,7 @@ phase fails.
 import collections
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import subprocess
@@ -381,6 +395,129 @@ def check_launches(ck, path):
 def rel_err(a, b):
     return float((a.double().cpu() - b.double().cpu()).norm()
                  / b.double().cpu().norm())
+
+
+# ------------------------------------------------------- the apps' rounds
+# models/onmf.py::_run_rounds: on the card each app's training round (its
+# sampler, its patches, its inner steps) is captured once as a CUDA graph
+# per key and replayed a round at a time.
+
+@contextlib.contextmanager
+def eager_rounds():
+    """Every app's rounds in a Python loop, their steps eager: the apps'
+    round entry points, which the apps' classes and the CLI call (and
+    which take no such argument), given ``capture=False`` for the time of
+    the block."""
+    from onmf_ontf_ndl_tpu_torch.apps import (image, image_tensor, ising,
+                                              network, video)
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (image, "train_image_dict"), (image_tensor, "_train_tensor"),
+        (video, "train_video_dict"), (ising, "ising_trajectory_learning"),
+        (network, "ndl_train"))]
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, functools.partial(fn, capture=False))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def rounds_taken(run, app, rounds):
+    """``(run(), key)``: ``key`` is the cache key of the round graph of
+    ``app`` that the run replayed once a round (once a round after the
+    first where the run captured it), or None where no graph was: the run
+    did not take the captured route."""
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    before = {key: e.replays for key, e in onmf._ROUND_GRAPHS.items()}
+    out = run()
+    torch.cuda.synchronize()
+    took = [key for key, e in onmf._ROUND_GRAPHS.items()
+            if key[0][0] == app and e.replays - before.get(key, -1) == rounds]
+    return out, (took[0] if len(took) == 1 else None)
+
+
+def host_calls(fn):
+    """Per call of ``fn()`` under ``torch.profiler`` (after one call that
+    captures what it captures): the CUDA graphs launched, the kernels
+    launched and the copies started from the host, and the device
+    operations run (kernels, copies and fills, replayed graphs' included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"graph": 0, "kernel": 0, "copy": 0, "device": 0}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            counts["device"] += ev.count
+        elif ev.key == "cudaGraphLaunch":
+            counts["graph"] += ev.count
+        elif ev.key.startswith("cudaLaunchKernel"):
+            counts["kernel"] += ev.count
+        elif ev.key.startswith("cudaMemcpy"):
+            counts["copy"] += ev.count
+    return counts
+
+
+def outputs_equal(got, want):
+    """Whether two runs' outputs (tensors; states: W, A, B, C and t) are
+    equal bit for bit."""
+    def flat(out):
+        for x in out:
+            if hasattr(x, "W"):
+                yield from (x.W, x.A, x.B, x.C, torch.tensor(x.t))
+            else:
+                yield x
+    return all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(flat(got), flat(want), strict=True))
+
+
+def round_checks(phase, key, rounds, run, **fields):
+    """The rounds of a phase's counted run (``key``: the round graph it
+    took, ``rounds_taken``): ``run()`` (a fresh instance trained as the
+    counted run was; returns its outputs, the generators' next draws
+    included) once more on the captured route (replays only) and on the
+    eager rounds (``eager_rounds``), the outputs equal bit for bit; the
+    walls of both, and per round on both the graphs and kernels launched
+    and copies started from the host and the device operations
+    (``host_calls``). Emits a line; fails unless the counted run took the
+    captured route and both routes agree."""
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    timed = {}
+    for route in ("captured", "eager"):
+        with eager_rounds() if route == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            timed[route] = (out, time.perf_counter() - t0, host_calls(run))
+    equal = outputs_equal(timed["captured"][0], timed["eager"][0])
+    out = dict(check="rounds", **fields, rounds=rounds,
+               captured_route=key is not None,
+               round_graphs=len(onmf._ROUND_GRAPHS),
+               round_graph_replays=None if key is None
+               else onmf._ROUND_GRAPHS[key].replays,
+               captured_equal_eager_bit_for_bit=equal)
+    for route, (_, seconds, calls) in timed.items():
+        out[f"{route}_train_seconds"] = seconds
+        if "counted_train_seconds" in fields and route == "captured":
+            # the counted run ran its first round eagerly and captured
+            out["first_round_and_capture_seconds"] = (
+                fields["counted_train_seconds"] - seconds * (rounds - 1)
+                / rounds)
+        out.update({f"{route}_{name}_per_round": n / rounds
+                    for name, n in calls.items()})
+    emit(phase, **out)
+    if not (key is not None and equal):
+        raise AssertionError(f"{phase}: rounds not captured ({key is None}) "
+                             f"or captured != eager: {out}")
+    return out
 
 
 def phase_build(ck):
@@ -756,6 +893,17 @@ def checkerboard_kernels(dev, gen):
                                  f"on route {route}")
         want, plain_ms = timed_once(
             lambda: ik.checkerboard_sweeps_plain(n, lat, sweeps, **kw))
+        # the device-seed entry, which the Ising round graphs launch
+        before = ik.LAUNCHES["checkerboard_sweeps"]
+        at = ik.checkerboard_sweeps(
+            torch.tensor([n], dtype=torch.int64, device=dev), lat, sweeps,
+            **kw)
+        at_launched = ik.LAUNCHES["checkerboard_sweeps"] - before
+        at_mismatched = int((at != want).sum())
+        if at_launched != launched or at_mismatched:
+            raise AssertionError(
+                f"checkerboard n={n}, device seed: {at_launched} launches, "
+                f"{at_mismatched} sites differ from the plain version")
         mismatched = int((got != want).sum())
         err = float((got.float() - want.float()).abs().max())
         ms = graph_ms(lambda: ik.checkerboard_sweeps(n, lat, sweeps, **kw),
@@ -764,6 +912,7 @@ def checkerboard_kernels(dev, gen):
         emit("kernels", kernel="checkerboard_sweeps", n=n, sweeps=sweeps,
              route=list(route), launches=launched,
              mismatched_sites=mismatched,
+             device_seed_mismatched_sites=at_mismatched,
              changed_sites=int((want != lat).sum()), max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
              share=bound_ms / ms)
@@ -1041,8 +1190,7 @@ def phase_image(dev, img):
     rec = ImageReconstructor(iterations=5, **kw)
     W0 = rec.state.W.clone()
     t0 = time.perf_counter()
-    rec.train_dict()
-    torch.cuda.synchronize()
+    _, key = rounds_taken(rec.train_dict, "image", 5)
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out = rec.reconstruct_image_color(data=img, recons_resolution=2)
@@ -1059,6 +1207,14 @@ def phase_image(dev, img):
     if not masked_err(out, img) < masked_err(out0, img):
         raise AssertionError("training did not lower the recon error")
     FINAL_STATES["image"] = rec.state
+
+    def run():
+        again = ImageReconstructor(iterations=5, **kw)
+        again.train_dict()
+        return again.state, torch.rand(8, generator=again.state.gen,
+                                       device=dev)
+
+    round_checks("image", key, 5, run, counted_train_seconds=train_s)
 
     with tempfile.TemporaryDirectory(
             dir=Path(__file__).resolve().parent) as tmp:
@@ -1092,8 +1248,8 @@ def phase_tensor(ck, dev, img):
     rec = ImageReconstructorTensor(**kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    W = rec.train_dict(mode=2, learn_joint_dict=True)
-    torch.cuda.synchronize()
+    W, key = rounds_taken(lambda: rec.train_dict(
+        mode=2, learn_joint_dict=True), "tensor", 20)
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out = rec.reconstruct_image_color(data=img, recons_resolution=2)
@@ -1101,6 +1257,14 @@ def phase_tensor(ck, dev, img):
     recon_s = time.perf_counter() - t0
     launches = check_launches(ck, "tensor")
     FINAL_STATES["tensor"] = rec.state
+
+    def run():
+        again = ImageReconstructorTensor(**kw)
+        again.train_dict(mode=2, learn_joint_dict=True)
+        return again.state, torch.rand(8, generator=again.state.gen,
+                                       device=dev)
+
+    round_checks("tensor", key, 20, run, counted_train_seconds=train_s)
     W0 = init_state(3, 1200, 100, device=dev).W
     out0 = reconstruct(img, W0 / W0.norm(dim=0).clamp_min(1.0),
                        make_generator(29, dev), patch_size=20, stride=2,
@@ -1167,8 +1331,8 @@ def phase_ising(ck, dev):
     lat0 = rec.lattice.clone()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, dict_stack, errors = rec.ising_mcmc_learning()
-    torch.cuda.synchronize()
+    (_, dict_stack, errors), key = rounds_taken(
+        rec.ising_mcmc_learning, "ising", ISING_RUN["ising_iterations"])
     learn_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out = rec.reconstruct_config(rec.lattice)
@@ -1176,6 +1340,16 @@ def phase_ising(ck, dev):
     recon_s = time.perf_counter() - t0
     launches = check_launches(ck, "ising")
     FINAL_STATES["ising"] = rec.state
+
+    def run():
+        again = IsingReconstructor(**ISING_RUN, device=dev)
+        _, stack, errs = again.ising_mcmc_learning()
+        return (again.state, stack, errs, again.lattice,
+                torch.rand(8, generator=again.gen, device=dev),
+                torch.rand(8, generator=again.state.gen, device=dev))
+
+    round_checks("ising", key, ISING_RUN["ising_iterations"], run,
+                 counted_train_seconds=learn_s)
     REFERENCE["ising"] = (rec.state, dict_stack, errors, rec.lattice)
     REFERENCE["ising_learn_seconds"] = learn_s
     emit("ising", learn_seconds=learn_s, recon_seconds=recon_s,
@@ -1237,19 +1411,26 @@ def phase_stack(ck, dev):
         lat = checkerboard_sweeps(100 + i, lat, 16, T=2.5)
         lats.append(lat)
     stack = (torch.stack(lats).float() + 1.0) / 2.0
-    rec = ImageReconstructor(data=stack, is_stack=True, n_components=25,
-                             iterations=16, sub_iterations=10,
-                             num_patches=1000, patch_size=10,
-                             downscale_factor=1, device=dev, seed=2)
+    kw = dict(data=stack, is_stack=True, n_components=25, iterations=16,
+              sub_iterations=10, num_patches=1000, patch_size=10,
+              downscale_factor=1, device=dev, seed=2)
+    rec = ImageReconstructor(**kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    W = rec.train_dict()
-    torch.cuda.synchronize()
+    W, key = rounds_taken(rec.train_dict, "video", 16)
     train_s = time.perf_counter() - t0
     out = rec.reconstruct_image(data=stack[0])
     torch.cuda.synchronize()
     launches = check_launches(ck, "stack")
     FINAL_STATES["stack"] = rec.state
+
+    def run():
+        again = ImageReconstructor(**kw)
+        again.train_dict()
+        return again.state, torch.rand(8, generator=again.state.gen,
+                                       device=dev)
+
+    round_checks("stack", key, 16, run, counted_train_seconds=train_s)
     err = float(torch.linalg.norm(out - stack[0])
                 / torch.linalg.norm(stack[0]))
     emit("stack", stack=list(stack.shape),
@@ -1293,8 +1474,7 @@ def phase_video(ck, dev):
     W0 = rec.W.clone()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    W = rec.train_dict(epochs=1)
-    torch.cuda.synchronize()
+    W, key = rounds_taken(lambda: rec.train_dict(epochs=1), "video", 16)
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out = rec.reconstruct_frame(8)
@@ -1302,6 +1482,14 @@ def phase_video(ck, dev):
     recon_s = time.perf_counter() - t0
     launches = check_launches(ck, "video")
     FINAL_STATES["video"] = rec.state
+
+    def run():
+        again = VideoDictionaryLearner(frames=frames, device=dev, seed=8)
+        again.train_dict(epochs=1)
+        return again.state, torch.rand(8, generator=again.state.gen,
+                                       device=dev)
+
+    round_checks("video", key, 16, run, counted_train_seconds=train_s)
     out0 = reconstruct(frames[8], W0 / W0.norm(dim=0).clamp_min(1.0),
                        make_generator(31, dev), patch_size=7)
     e, e0 = masked_err(out, frames[8]), masked_err(out0, frames[8])
@@ -1776,7 +1964,10 @@ def phase_network(ck, dev):
     memory pool). The same for (a)'s training chain on a BitsetGraph of
     (a)'s edges. Then both runs again with every move on the plain
     version: W and the accuracy equal the kernel's runs', and their
-    seconds; the chain graphs then cached and their buffers' bytes. Then (c) a short training run on the card (float32) and on
+    seconds; the chain graphs then cached and their buffers' bytes.
+    ``NetworkReconstructor`` at its own defaults (3 rounds on (a)'s graph)
+    must take the captured round route and equal its eager rounds. Then
+    (c) a short training run on the card (float32) and on
     the CPU (float64) from the same patches and draws. Returns the path's
     launches and the kernel's summary (at the (b) reconstruction's
     block)."""
@@ -1803,13 +1994,13 @@ def phase_network(ck, dev):
     # every chain of the runs below is captured in them: the cache then
     # holds a graph for each
     motif._CHAIN_GRAPHS.clear()
-    runs, peak, held = {}, {}, {}
+    runs, peak, held, round_keys = {}, {}, {}, {}
     for tag, (_, _, conf, recon) in NETWORK_RUNS.items():
         rec = NetworkReconstructor(source=graphs[tag], device=dev, **conf)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        W = rec.train_dict()
-        torch.cuda.synchronize()
+        W, round_keys[tag] = rounds_taken(rec.train_dict, "network",
+                                          conf["MCMC_iterations"])
         train_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         held[tag] = torch.cuda.memory_allocated()
@@ -1821,8 +2012,10 @@ def phase_network(ck, dev):
     launches = check_launches(ck, "network")
 
     # each run's accuracy; the chains of training and of reconstruction of
-    # each run, at the run's own moves: each block graph was captured by
-    # the run above (cached), checked before any other chain is captured
+    # each run, at the run's own moves: the training's blocks ran inside
+    # the round graph its run captured, and each block graph of the
+    # reconstruction was captured by the run above (cached), checked
+    # before any other chain is captured
     chain_runs, captured_in_run, accs = {}, {}, {}
     for tag, (rec, _, _, _, _) in runs.items():
         accs[tag] = rec.compute_recons_accuracy()
@@ -1833,10 +2026,11 @@ def phase_network(ck, dev):
             "recon": (recon["num_chains"],
                       -(-recon["recons_iter"] // recon["num_chains"]),
                       rec.is_glauber_recons)}
-        for part, (chains, steps, glauber) in chain_runs[tag].items():
-            captured_in_run[tag, part] = all(
-                key in motif._CHAIN_GRAPHS for key in chain_keys(
-                    rec.G, rec.B, chains, steps, glauber, dev))
+        captured_in_run[tag, "train"] = round_keys[tag] is not None
+        chains, steps, glauber = chain_runs[tag]["recon"]
+        captured_in_run[tag, "recon"] = all(
+            key in motif._CHAIN_GRAPHS for key in chain_keys(
+                rec.G, rec.B, chains, steps, glauber, dev))
     graph_bytes = chain_graph_bytes(runs["b"][0].G, runs["b"][0].B,
                                     *chain_runs["b"]["recon"], dev)
 
@@ -1906,6 +2100,35 @@ def phase_network(ck, dev):
         emit("network", **fields)
         if not ok:
             raise AssertionError(f"network ({tag}): bad result {fields}")
+
+    # each run's training rounds once more on the captured route and on
+    # the eager rounds: the same W, A, B, C, chains and next draws
+    for tag, (_, _, conf, _) in NETWORK_RUNS.items():
+        def run(tag=tag, conf=conf):
+            again = NetworkReconstructor(source=graphs[tag], device=dev,
+                                         **conf)
+            again.train_dict()
+            return again.state, again.emb, torch.rand(
+                8, generator=again.state.gen, device=dev)
+
+        round_checks("network", round_keys[tag], conf["MCMC_iterations"],
+                     run, config=tag, counted_train_seconds=runs[tag][3])
+
+    # NetworkReconstructor at its own defaults (r = 100, 1000 samples of
+    # one chain, 100 inner iterations: 99 steps and a chain block a
+    # round), 3 rounds on (a)'s graph: captured too, equal to its eager
+    # rounds
+    def run_defaults():
+        again = NetworkReconstructor(source=graphs["a"], device=dev,
+                                     MCMC_iterations=3)
+        again.train_dict()
+        return again.state, again.emb, torch.rand(
+            8, generator=again.state.gen, device=dev)
+
+    t0 = time.perf_counter()
+    _, key = rounds_taken(run_defaults, "network", 3)
+    round_checks("network", key, 3, run_defaults, config="defaults",
+                  counted_train_seconds=time.perf_counter() - t0)
 
     # the bitset representation: (a)'s training chain on a BitsetGraph of
     # (a)'s edges
@@ -2008,7 +2231,10 @@ def phase_surfaces(ck, dev):
                 artifacts=sorted(p.name for p in out.iterdir()))
 
         # ising at phase 6's configuration: the state equals phase 6's
-        out, meta, info = run("ising", cli_flags(ISING_RUN))
+        (out, meta, info), key = rounds_taken(
+            lambda: run("ising", cli_flags(ISING_RUN)), "ising",
+            ISING_RUN["ising_iterations"])
+        info["captured_rounds"] = key is not None
         saved = np.load(out / "state.npz")
         ref, _, errors, _ = REFERENCE["ising"]
         ref_arrays = {f: getattr(ref, f).cpu().numpy() for f in "WABC"}
@@ -2020,24 +2246,29 @@ def phase_surfaces(ck, dev):
              max_abs_diff=diff, history=float(saved["t"]),
              final_surrogate_error=meta["final_surrogate_error"],
              phase_ising_final_error=float(errors[-1]))
-        if not (bitwise or diff <= 2e-5) or float(saved["t"]) != ref.t:
-            raise AssertionError(f"cli ising differs from phase 6: {diff}")
+        if not (bitwise or diff <= 2e-5) or float(saved["t"]) != ref.t \
+                or key is None:
+            raise AssertionError(f"cli ising differs from phase 6 ({diff}) "
+                                 "or did not replay its rounds")
 
         # network at phase 8 (a)'s configuration, on an edge-list file of
         # the same graph (its nodes in the file's order)
         edges_fn, _, conf, recon = NETWORK_RUNS["a"]
         np.savetxt(tmp / "ba.txt", edges_fn(), fmt="%d", delimiter=",")
-        _, meta, info = run("network", [
+        (_, meta, info), key = rounds_taken(lambda: run("network", [
             "--source", str(tmp / "ba.txt"), *cli_flags(conf),
             "--recons-iter", str(recon["recons_iter"]),
-            "--recons-chains", str(recon["num_chains"])])
+            "--recons-chains", str(recon["num_chains"])]), "network",
+            conf["MCMC_iterations"])
+        info["captured_rounds"] = key is not None
         acc, acc0 = (meta["recons_accuracy"],
                      REFERENCE["network_a_accuracy_initial_w"])
         emit("surfaces", cmd="network", **info, accuracy=acc,
              phase_network_a_accuracy=REFERENCE["network_a_accuracy"],
              accuracy_initial_w=acc0)
-        if not acc > acc0:
-            raise AssertionError(f"cli network accuracy {acc} <= {acc0}")
+        if not (acc > acc0 and key is not None):
+            raise AssertionError(f"cli network accuracy {acc} <= {acc0} "
+                                 "or its rounds not replayed")
 
         # image at the headline width: a PNG of phase 4's image where
         # Pillow is there, else a lattice saved as .npy (grey, d = 100)
@@ -2061,12 +2292,16 @@ def phase_surfaces(ck, dev):
             flags += ["--path", str(tmp / "lattice.npy"), "--is-matrix",
                       "true", "--is-color", "false"]
             source, d = "npy lattice (Pillow missing)", 100
-        out, meta, info = run("image", flags)
+        (out, meta, info), key = rounds_taken(lambda: run("image", flags),
+                                              "image", 5)
+        info["captured_rounds"] = key is not None
         saved, rec = np.load(out / "state.npz"), np.load(out / "recons.npy")
         emit("surfaces", cmd="image", **info, input=source, d=d,
              W_shape=list(saved["W"].shape), recons_shape=list(rec.shape))
-        if saved["W"].shape != (d, 25) or not np.isfinite(rec).all():
-            raise AssertionError("cli image: bad dictionary or recons")
+        if saved["W"].shape != (d, 25) or not np.isfinite(rec).all() \
+                or key is None:
+            raise AssertionError("cli image: bad dictionary or recons, or "
+                                 "its rounds not replayed")
     launches = check_launches(ck, "surfaces")
     for name, st in FINAL_STATES.items():
         check_state(st, name=name)
@@ -2162,14 +2397,16 @@ def phase_parallel(ck, dev, gen):
         # dp_ising_learning from phase 6's construction: phase 6's learner
         rec = IsingReconstructor(**ISING_RUN, device=dev)
         t0 = time.perf_counter()
-        st, stack, errors, lat = dp.dp_ising_learning(
-            rec.state, rec.lattice[None], rec.gen,
-            ising_iterations=rec.ising_iterations,
-            nsteps=rec.ising_subsampling_steps,
-            num_patches_per_device=rec.num_patches,
-            inner_iterations=rec.sub_iterations, batch_size=rec.batch_size,
-            patch_size=rec.patch_size, T=rec.temperature, beta=rec.beta)
-        torch.cuda.synchronize()
+        (st, stack, errors, lat), key = rounds_taken(
+            lambda: dp.dp_ising_learning(
+                rec.state, rec.lattice[None], rec.gen,
+                ising_iterations=rec.ising_iterations,
+                nsteps=rec.ising_subsampling_steps,
+                num_patches_per_device=rec.num_patches,
+                inner_iterations=rec.sub_iterations,
+                batch_size=rec.batch_size, patch_size=rec.patch_size,
+                T=rec.temperature, beta=rec.beta),
+            "ising", rec.ising_iterations)
         learn_s = time.perf_counter() - t0
         ref, ref_stack, ref_errors, ref_lat = REFERENCE["ising"]
         pairs = [(getattr(st, f), getattr(ref, f)) for f in "WABC"] + [
@@ -2181,9 +2418,12 @@ def phase_parallel(ck, dev, gen):
              learn_seconds=learn_s,
              phase_ising_learn_seconds=REFERENCE["ising_learn_seconds"],
              equal="bitwise" if bitwise else "atol 2e-5", max_abs_diff=diff,
-             lattice_equal=bool(torch.equal(lat, ref_lat)))
-        if not (bitwise or (diff <= 2e-5 and torch.equal(lat, ref_lat))):
-            raise AssertionError(f"dp_ising_learning differs: {diff}")
+             lattice_equal=bool(torch.equal(lat, ref_lat)),
+             captured_rounds=key is not None)
+        if not (bitwise or (diff <= 2e-5 and torch.equal(lat, ref_lat))) \
+                or key is None:
+            raise AssertionError(f"dp_ising_learning differs ({diff}) or "
+                                 "did not replay its rounds")
         # the sharded sampler over the group: one band, the whole lattice
         lat0 = init_lattice(make_generator(13, dev), 200)
         band = sharded_checkerboard_sweeps(21, lat0, 100, T=2.5)

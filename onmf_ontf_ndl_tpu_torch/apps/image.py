@@ -2,9 +2,11 @@
 pipeline), in PyTorch.
 
 Counterpart of ``onmf_ontf_ndl_tpu/apps/image.py``. Training is a loop of
-random-patch draws around the inner online-NMF loop (the JAX package's
-outer ``lax.scan``); reconstruction codes every grid patch in one batched
-coder call and paints with an overlap average.
+rounds, each random-patch draws and the inner online-NMF steps (the JAX
+package's outer ``lax.scan``; on the card one round is captured as a CUDA
+graph and replayed, ``models/onmf.py::_run_rounds``); reconstruction codes
+every grid patch in one batched coder call and paints with an overlap
+average.
 
 Parity notes (as in the JAX module): training patches come from the
 full-resolution image; colour reconstruction codes with ``alpha=1`` and
@@ -19,8 +21,8 @@ import torch
 
 from onmf_ontf_ndl_tpu_torch.data.images import (downscale_local_mean,
                                                  load_image)
-from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _train_loop,
-                                                 rank_generator)
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _round_spec,
+                                                 _run_rounds, rank_generator)
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import nonneg_code
@@ -54,36 +56,43 @@ def train_image_dict(
     coder: str = "bcd",
     draws=None,
     group=None,
+    capture: bool = True,
 ) -> OnmfState:
     """Streaming trainer: each outer iteration samples ``num_patches``
     random patches and runs ``inner_iterations`` online-NMF steps on them
     (the reference's two-level loop).
 
-    ``draws`` (tests): per outer iteration a pair ``(corners, inner)``,
-    ``corners = (a, b)`` and ``inner`` the inner loop's ``(idx, H0)``
-    draws, replacing the generator. ``group``: a process group; each rank
-    draws its own patches (from its rank generator) and the inner steps
-    sum their statistics over the group.
+    One outer iteration is a round of ``models/onmf.py::_run_rounds``: on
+    the card it is captured once as a CUDA graph and replayed a round at a
+    time. ``draws`` (tests): per outer iteration a pair ``(corners,
+    inner)``, ``corners = (a, b)`` and ``inner`` the inner loop's ``(idx,
+    H0)`` draws, replacing the generator. ``group``: a process group; each
+    rank draws its own patches (from its rank generator) and the inner
+    steps sum their statistics over the group. ``capture=False`` (tests and
+    the card's comparisons) runs the rounds in a Python loop.
     """
     _check_modes(dict_from, coder)
     backend = resolve_backend(backend, img)
     k = patch_size
-    gen = rank_generator(state.gen, group) if draws is None else None
-    for o in range(outer_iterations):
-        if draws is not None:
-            corners, inner = draws[o]
+    gen = rank_generator(state.gen, group) if draws is None else state.gen
+
+    def round_fn(rb, gen, ctx):
+        if ctx.draw is not None:
             corners = tuple(torch.as_tensor(c, device=img.device)
-                            for c in corners)
+                            for c in ctx.draw[0])
         else:
             corners = random_patch_corners(gen, img.shape[:2], k,
                                            num_patches, device=img.device)
-            inner = None
-        X = extract_patches(img, corners, k)
-        state, _, _ = _train_loop(
-            state, X, None, alpha, beta,
-            stopping_diff if use_stopping else None, inner_iterations,
-            batch_size, subsample, sub_iter, False, dict_from,
-            backend=backend, draws=inner, coder=coder, group=group)
+        ctx.steps(extract_patches(img, corners, k))
+
+    spec = _round_spec(num_patches, inner_iterations, batch_size, subsample,
+                       alpha, sub_iter, stopping_diff if use_stopping
+                       else None, False, dict_from, backend, coder, group)
+    state, _, _, _ = _run_rounds(
+        state, None, spec, rounds=outer_iterations,
+        iterations=inner_iterations, beta=beta, round_fn=round_fn, gen=gen,
+        app=("image", k, num_patches), reads=(img,),
+        host_read=draws is not None, draws=draws, capture=capture)
     return state
 
 

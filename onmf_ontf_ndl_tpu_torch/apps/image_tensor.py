@@ -23,7 +23,8 @@ import torch
 
 from onmf_ontf_ndl_tpu_torch.data.images import (downscale_local_mean,
                                                  load_image)
-from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _round_spec,
+                                                 _run_rounds)
 from onmf_ontf_ndl_tpu_torch.models.ontf import resolve_tensor_coder
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
@@ -70,40 +71,50 @@ def _train_tensor(
     subsample: bool = True,
     coder: str = "bcd",
     draws=None,
+    capture: bool = True,
 ) -> OnmfState:
     """Streaming tensor trainer: each outer iteration samples
     ``num_patches`` random patches, unfolds their tensor along ``mode``
-    (transposed when ``joint``) and runs ``inner_iterations`` online steps.
+    (transposed when ``joint``) and runs ``inner_iterations`` online steps;
+    one outer iteration is a round of ``models/onmf.py::_run_rounds``,
+    captured once as a CUDA graph on the card and replayed.
 
     ``draws`` (tests): per outer iteration a pair ``(corners, inner)``,
     ``corners = (a, b)`` and ``inner`` the inner loop's ``(idx, H0)``
-    draws, replacing the generator.
+    draws, replacing the generator. ``capture=False``: the rounds in a
+    Python loop, as on the CPU.
     """
     _check_modes("stale", coder)
     backend = resolve_backend(backend, img)
     k = patch_size
-    for o in range(outer_iterations):
-        if draws is not None:
-            corners, inner = draws[o]
+
+    def round_fn(rb, gen, ctx):
+        if ctx.draw is not None:
             corners = tuple(torch.as_tensor(c, device=img.device)
-                            for c in corners)
+                            for c in ctx.draw[0])
         else:
-            corners = random_patch_corners(state.gen, img.shape[:2], k,
+            corners = random_patch_corners(gen, img.shape[:2], k,
                                            num_patches, device=img.device)
-            inner = None
         X = extract_patches(img, corners, k)
         if img.dim() == 3:                                  # (k^2, 3, n)
             T = torch.movedim(X.T.reshape(num_patches, k * k, 3), 0, 2)
         else:                                               # (k^2, n, 1)
             T = X[:, :, None]
         Xu = unfold(T, mode)
-        if joint:
-            Xu = Xu.T
-        state, _, _ = _train_loop(
-            state, Xu, None, alpha, beta,
-            stopping_diff if use_stopping else None, inner_iterations,
-            batch_size, subsample, sub_iter, False, "stale",
-            backend=backend, draws=inner, coder=coder)
+        ctx.steps(Xu.T if joint else Xu)
+
+    channels = 3 if img.dim() == 3 else 1
+    width = k * k * channels * num_patches // unfolded_dim(
+        k, num_patches, mode, joint, channels)     # the columns of ctx.steps
+    spec = _round_spec(width, inner_iterations, batch_size, subsample,
+                       alpha, sub_iter, stopping_diff if use_stopping
+                       else None, False, "stale", backend, coder)
+    state, _, _, _ = _run_rounds(
+        state, None, spec, rounds=outer_iterations,
+        iterations=inner_iterations, beta=beta, round_fn=round_fn,
+        gen=state.gen, app=("tensor", k, num_patches, mode, joint),
+        reads=(img,), host_read=draws is not None, draws=draws,
+        capture=capture)
     return state
 
 

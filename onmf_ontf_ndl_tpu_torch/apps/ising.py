@@ -5,8 +5,12 @@ Counterpart of ``onmf_ontf_ndl_tpu/apps/ising.py`` (the reference's
 the lattice, then per trajectory step a lattice update and another round,
 with the full ``C = agg X X^T`` statistic so that the surrogate error
 ``tr(W A W^T) - 2 tr(W B) + tr(C)`` is tracked after every round. The JAX
-``lax.scan`` over rounds becomes a Python loop; each round's inner steps
-replay a captured step on the card (``models/onmf.py::_train_loop``).
+``lax.scan`` over rounds becomes one round function (the lattice update,
+the corners, the patches, the inner steps, the snapshot of W and the
+error, written at the round counter), captured once as a CUDA graph on the
+card and replayed a round at a time (``models/onmf.py::_run_rounds``);
+the checkerboard kernel reads the round's seed on the device. The initial
+round runs before them, as the JAX learner runs it outside its scan.
 
 Semantics kept from the JAX module: patches come from the raw +-1 lattice;
 ``errors`` and ``dict_stack`` have ``ising_iterations + 1`` entries;
@@ -15,7 +19,9 @@ in-loop lattice update commented out). Samplers: ``"exact"`` runs the
 sequential Metropolis chain; ``"checkerboard"`` runs red/black sweeps
 covering at least as many single-site updates, through the CUDA kernel on a
 CUDA lattice; ``"checkerboard_pallas"`` is an alias of ``"checkerboard"``.
-The sweeps' seed is drawn per round from the driver's generator.
+The sweeps' seed is drawn per round from the learner's generator
+``gen``, into a device tensor; the exact chain, a host loop, keeps the rounds on the
+per-round route.
 
 With a process group (``parallel/dp.py::dp_ising_learning``) each rank
 advances its own lattice from its own rank generator and the statistics of
@@ -25,10 +31,12 @@ every inner step are summed over the group, as the JAX learner's
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _train_loop,
-                                                 rank_generator)
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _round_spec,
+                                                 _run_rounds, rank_generator)
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
@@ -72,6 +80,7 @@ def ising_trajectory_learning(
     coder: str = "bcd",
     draws=None,
     group=None,
+    capture: bool = True,
 ):
     """Trajectory learner. Returns ``(state, dict_stack, errors, lattice,
     trajectory)``: ``dict_stack`` (ising_iterations+1, d, r), ``errors``
@@ -84,7 +93,8 @@ def ising_trajectory_learning(
     ``(corners, inner)`` as in ``apps.image.train_image_dict``.
     ``group``: a process group; ``gen`` becomes this rank's generator
     (:func:`~onmf_ontf_ndl_tpu_torch.models.onmf.rank_generator`) and the
-    inner steps sum their statistics over the group.
+    inner steps sum their statistics over the group. ``capture=False``:
+    the rounds in a Python loop, as on the CPU.
     """
     if sampler not in _SAMPLERS:
         raise ValueError(f"sampler must be one of {_SAMPLERS}, got {sampler!r}")
@@ -93,47 +103,65 @@ def ising_trajectory_learning(
     k, n = patch_size, lattice.shape[0]
     stop = stopping_diff if use_stopping else None
     gen = rank_generator(gen, group)
+    nsweeps = max(1, -(-nsteps // (n * n)))
 
-    def train_round(st, lat, rnd):
-        if draws is not None:
-            corners, inner = draws[rnd]
+    def train_round(rb, gen, ctx, advance):
+        lat = rb.carry["lattice"]
+        if advance and update_lattice:
+            if sampler == "exact":
+                lat.copy_(metropolis_chain(gen, lat, nsteps, J, H_field,
+                                           T)[0])
+            else:
+                # the seed stays on the device: the kernel reads it there
+                seed = torch.randint(0, 2**31 - 1, (1,), generator=gen,
+                                     device=gen.device)
+                lat.copy_(checkerboard_sweeps(seed, lat, nsweeps, J,
+                                              H_field, T))
+        if ctx.draw is not None:
             corners = tuple(torch.as_tensor(c, device=lat.device)
-                            for c in corners)
+                            for c in ctx.draw[0])
         else:
             corners = random_patch_corners(gen, lat.shape, k, num_patches,
                                            device=lat.device)
-            inner = None
-        X = extract_patches(lat.to(st.W.dtype), corners, k)
-        st, _, _ = _train_loop(
-            st, X, None, alpha, beta, stop, inner_iterations, batch_size,
-            subsample, sub_iter, False, "stale", backend=backend,
-            draws=inner, coder=coder, group=group)
-        return st
+        lp = rb.loop
+        ctx.steps(extract_patches(lat.to(lp.W.dtype), corners, k))
+        rb.outs["W"].index_copy_(0, rb.rnd, lp.W[None])
+        rb.outs["errors"].index_copy_(0, rb.rnd, surrogate_error(
+            lp.W, lp.A, lp.B, lp.C).reshape(1))
+        if keep_trajectory and advance:
+            rb.outs["trajectory"].index_copy_(0, rb.rnd, lat[None])
 
-    def advance(lat):
-        if not update_lattice:
-            return lat
-        if sampler == "exact":
-            return metropolis_chain(gen, lat, nsteps, J, H_field, T)[0]
-        nsweeps = max(1, -(-nsteps // (n * n)))
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
-                                 device=gen.device))
-        return checkerboard_sweeps(seed, lat, nsweeps, J, H_field, T)
-
-    state = train_round(state, lattice, 0)
-    Ws = [state.W]
-    errors = [surrogate_error(state.W, state.A, state.B, state.C)]
-    traj = []
-    for rnd in range(1, ising_iterations + 1):
-        lattice = advance(lattice)
-        state = train_round(state, lattice, rnd)
-        Ws.append(state.W)
-        errors.append(surrogate_error(state.W, state.A, state.B, state.C))
-        if keep_trajectory:
-            traj.append(lattice)
-    trajectory = (torch.stack(traj) if traj else
-                  lattice.new_zeros((ising_iterations, 0, 0)))
-    return state, torch.stack(Ws), torch.stack(errors), lattice, trajectory
+    if update_lattice:
+        lattice = lattice.to(torch.int8)
+    spec = _round_spec(num_patches, inner_iterations, batch_size, subsample,
+                       alpha, sub_iter, stop, False, "stale", backend, coder,
+                       group)
+    dtype = state.W.dtype
+    outs = {"W": (tuple(state.W.shape), dtype), "errors": ((), dtype)}
+    kw = dict(iterations=inner_iterations, beta=beta, gen=gen,
+              app=("ising", k, num_patches, n, nsweeps, nsteps, float(J),
+                   float(H_field), float(T), sampler, update_lattice,
+                   keep_trajectory), capture=capture)
+    # the initial round, outside the scan as the JAX learner runs it: on
+    # the per-round route (its steps replay the step graph)
+    state, _, carry, first = _run_rounds(
+        state, None, spec, rounds=1, round_fn=functools.partial(
+            train_round, advance=False), carry={"lattice": lattice},
+        outs=outs, host_read=True,
+        draws=None if draws is None else draws[:1], **kw)
+    if keep_trajectory:
+        outs["trajectory"] = ((n, n), lattice.dtype)
+    state, _, carry, rest = _run_rounds(
+        state, None, spec, rounds=ising_iterations,
+        round_fn=functools.partial(train_round, advance=True), carry=carry,
+        outs=outs, host_read=draws is not None or (
+            update_lattice and sampler == "exact"),
+        draws=None if draws is None else draws[1:], **kw)
+    trajectory = rest.get("trajectory", lattice.new_zeros(
+        (ising_iterations, 0, 0)))
+    return (state, torch.cat([first["W"], rest["W"]]),
+            torch.cat([first["errors"], rest["errors"]]), carry["lattice"],
+            trajectory)
 
 
 class IsingReconstructor:

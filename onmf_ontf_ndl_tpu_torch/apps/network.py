@@ -5,9 +5,10 @@ Counterpart of ``onmf_ontf_ndl_tpu/apps/network.py`` (the reference's
 
 - training (``train_dict``): per MCMC iteration a chain ensemble emits
   ``sample_size`` k x k motif patches, then ``sub_iterations`` online-NMF
-  steps run on them through ``models/onmf.py::_train_loop`` (code tracked,
-  ``dict_from="stale"``), the state threading across iterations; the code
-  of the first iteration is discarded, as the reference does;
+  steps run on them (code tracked, ``dict_from="stale"``), the state
+  threading across iterations, one round of ``models/onmf.py::
+  _run_rounds`` an iteration; the code of the first iteration is
+  discarded, as the reference does;
 - reconstruction: fresh chains from uniform pivots emit patches, every
   patch is coded against W with fixed sweeps (``stopping_diff=None``) and
   its ``W @ H`` values are painted onto the node pairs of its embedding;
@@ -21,9 +22,10 @@ On a CUDA graph and state, the coder and dictionary kernels of
 default, fixed sweeps with ``fast=True`` and in reconstruction, FISTA
 with ``coder="fista"``. The chains, the patches and the grouping are
 plain PyTorch on the same device, apart from the chains' moves: on the
-card each block of chain moves is a replay of one captured CUDA graph that
-launches the chain kernel once (``samplers/motif.py::run_chains``), and
-each training round's steps replays of another (``_train_loop``).
+card each block of a reconstruction's chain moves is a replay of one
+captured CUDA graph that launches the chain kernel once
+(``samplers/motif.py::run_chains``), and each training round (its
+chains' blocks, patches and steps) a replay of another.
 
 The grouping of the paints by pair is one int64 key sort (``i * n + j``:
 no wrap at any n) and a sorted segment sum, which adds each pair's paints
@@ -56,15 +58,16 @@ import torch
 from onmf_ontf_ndl_tpu_torch.data.graphs import (
     BitsetGraph, CsrGraph, Graph, graph_from_adjacency, host_csr,
     load_edgelist)
-from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _train_loop,
-                                                 rank_generator)
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _round_spec,
+                                                 _run_rounds, rank_generator)
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import nonneg_code
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.samplers.motif import (
-    _has_edges, pair_matrices_T, path_adj, run_chains,
-    sample_patches_ensemble, tree_parents, tree_sample)
+    _chain_baked, _chain_block_moves, _chain_blocks, _chain_kind,
+    _chain_reads, _has_edges, _pair_tables, pair_matrices_T, path_adj,
+    run_chains, tree_parents, tree_sample)
 
 __all__ = ["NetworkReconstructor", "ndl_train", "reconstruct_network",
            "reconstruct_network_sparse", "reconstruct_network_sparse_chunked"]
@@ -105,14 +108,21 @@ def ndl_train(
     ``num_chains > 1`` each iteration's patches come from the ensemble,
     ``ceil(sample_size / num_chains)`` moves per chain, and
     ``sample_size`` rounds up to a multiple of ``num_chains``.
+    One iteration is a round of ``models/onmf.py::_run_rounds``: the
+    chains' blocks (``run_chains``), their patches, the inner steps with
+    the code tracked and, at round 0 with ``discard_first``, the code
+    reset on the device (the JAX scan's ``where(i == 0, code,
+    code_new)``); on the card it is captured once as a CUDA graph, the
+    chains' blocks unrolled in it, and replayed a round at a time.
     ``draws`` (tests): per iteration ``(X, inner)``, the (k^2,
     sample_size) patch matrix in place of the chains' and the inner
     steps' ``(idx, H0)`` draws for ``_train_loop`` (None: drawn).
     ``group``: a process group; each rank runs its own chains, drawn from
     its rank generator, and the statistics are summed over the group.
-    ``capture=False`` (tests and the card's comparisons) runs the chains
-    and the training steps in Python loops where on the card they would
-    replay captured graphs; both routes draw the same numbers."""
+    ``capture=False`` (tests and the card's comparisons) runs the rounds,
+    the chains and the training steps in Python loops where on the card
+    they would replay captured graphs; both routes draw the same
+    numbers."""
     _check_modes("stale", coder)
     backend = resolve_backend(backend, state.W)
     k = B.shape[0]
@@ -125,21 +135,46 @@ def ndl_train(
     code = torch.zeros((state.r, sample_size), dtype=dtype,
                        device=state.W.device)
     stop = stopping_diff if use_stopping else None
-    chain_gen = rank_generator(state.gen, group) if draws is None else None
-    for i in range(mcmc_iterations):
-        inner = None
-        if draws is not None:
-            X, inner = draws[i]
+    chain_gen = rank_generator(state.gen, group) if draws is None \
+        else state.gen
+    if mcmc_iterations <= 0:
+        return state, code, emb0
+
+    def round_fn(rb, gen, ctx):
+        if ctx.draw is not None:
+            X = ctx.draw[0]
         else:
-            X, chains = sample_patches_ensemble(
-                chain_gen, g, chains, B, per, use_glauber=use_glauber,
-                weighted=weighted, capture=capture)
-        state, code, _ = _train_loop(
-            state, X.to(dtype), code, alpha, beta, stop, inner_iterations,
-            batch_size, subsample, sub_iter,
-            not (discard_first and i == 0), "stale", backend=backend,
-            draws=inner, coder=coder, group=group, capture=capture)
-    return state, code, chains.reshape(emb0.shape)
+            emb = rb.carry["chains"]
+            trail = run_chains(gen, g, emb, B, per, use_glauber=use_glauber,
+                               capture=ctx.graphs)
+            X = pair_matrices_T(g, trail.reshape(-1, k), weighted=weighted)
+            emb.copy_(trail[:, -1])
+        ctx.steps(X.to(dtype))
+        if discard_first:
+            rb.loop.code.copy_(torch.where(rb.rnd == 0, 0.0, rb.loop.code))
+
+    kind = _chain_kind(use_glauber, k)
+    roots = sum(p < 0 for p in tree_parents(B))
+    blocks = sum(times for _, times in _chain_blocks(
+        per, _chain_block_moves(chains.shape[0], k, kind, per, roots)))
+    reads = _chain_reads(g, B, kind, state.W.device)
+    if weighted and getattr(g, "weight", None) is not None:
+        reads += (g.weight,)
+    elif not weighted:          # pair_matrices_T's index tables
+        reads += _pair_tables(k, state.W.device)
+    spec = _round_spec(sample_size, inner_iterations, batch_size, subsample,
+                       alpha, sub_iter, stop, True, "stale", backend, coder,
+                       group)
+    state, code, carry, _ = _run_rounds(
+        state, code, spec, rounds=mcmc_iterations,
+        iterations=inner_iterations, beta=beta, round_fn=round_fn,
+        gen=chain_gen, app=("network", per, weighted, discard_first,
+                            *_chain_baked(g, B, use_glauber,
+                                          state.W.device.type)),
+        reads=reads, carry={"chains": chains.to(torch.int64)},
+        blocks=blocks, host_read=draws is not None, draws=draws,
+        capture=capture)
+    return state, code, carry["chains"].reshape(emb0.shape)
 
 
 def _recon_sample_vals(W, g, gen, B, *, recons_iter: int, alpha=0.0,

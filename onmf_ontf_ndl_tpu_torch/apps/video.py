@@ -4,11 +4,13 @@ Counterpart of ``onmf_ontf_ndl_tpu/apps/video.py``. Frames arrive as a
 stream; each frame gives ``num_patches`` random patches and one
 warm-started round of the online-NMF loop (the Markovian-data setting),
 the state threading from frame to frame. The JAX package's ``lax.scan``
-over frames is a Python loop here around the inner loop, whose step is
-captured as a CUDA graph on the card (``models/onmf.py::_train_loop``);
-every step runs the coder kernel (the early stop, or fixed sweeps with
-``use_stopping=False``) and the dictionary kernel. ``ImageReconstructor(is_stack=True)`` trains
-through :func:`train_video_dict` too.
+over frames becomes one round function (the visited frame, its corners,
+its patches, the inner steps), captured once as a CUDA graph on the card
+and replayed a frame at a time (``models/onmf.py::_run_rounds``); every
+step runs the coder kernel (the early stop, or fixed sweeps with
+``use_stopping=False``) and the dictionary kernel.
+``ImageReconstructor(is_stack=True)`` trains through
+:func:`train_video_dict` too.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from onmf_ontf_ndl_tpu_torch.data.video import load_video_frames
-from onmf_ontf_ndl_tpu_torch.models.onmf import _check_modes, _train_loop
+from onmf_ontf_ndl_tpu_torch.models.onmf import (_check_modes, _round_spec,
+                                                 _run_rounds)
 from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
@@ -44,37 +47,43 @@ def train_video_dict(
     subsample: bool = False,
     coder: str = "bcd",
     draws=None,
+    capture: bool = True,
 ) -> OnmfState:
     """Stream over the frames (F, H, W[, C]) in order, ``epochs`` passes,
     one warm-started online-NMF round per frame: ``num_patches`` corners
     from the state's generator, then ``inner_iterations`` steps of the
-    shared loop with ``dict_from="stale"`` and no code tracking.
+    shared loop with ``dict_from="stale"`` and no code tracking. Visit v
+    takes frame ``v % F``, picked on the device by the round counter.
 
     ``draws`` (tests): per visited frame, in the order of the visits, a
     pair ``(corners, inner)`` as in ``apps.image.train_image_dict``:
     ``corners = (a, b)`` and ``inner`` the inner loop's ``(idx, H0)``
     draws (``idx`` the batch indices with ``subsample``, else None).
+    ``capture=False``: the rounds in a Python loop, as on the CPU.
     """
     _check_modes("stale", coder)
     backend = resolve_backend(backend, frames)
     k = patch_size
-    stop = stopping_diff if use_stopping else None
-    visits = [f for _ in range(epochs) for f in range(frames.shape[0])]
-    for visit, f in enumerate(visits):
-        if draws is not None:
-            corners, inner = draws[visit]
+    F = frames.shape[0]
+
+    def round_fn(rb, gen, ctx):
+        frame = frames.index_select(0, rb.rnd % F)[0]
+        if ctx.draw is not None:
             corners = tuple(torch.as_tensor(c, device=frames.device)
-                            for c in corners)
+                            for c in ctx.draw[0])
         else:
-            corners = random_patch_corners(state.gen, frames.shape[1:3], k,
-                                           num_patches,
-                                           device=frames.device)
-            inner = None
-        X = extract_patches(frames[f], corners, k)
-        state, _, _ = _train_loop(
-            state, X, None, alpha, beta, stop, inner_iterations, batch_size,
-            subsample, sub_iter, False, "stale", backend=backend,
-            draws=inner, coder=coder)
+            corners = random_patch_corners(gen, frames.shape[1:3], k,
+                                           num_patches, device=frames.device)
+        ctx.steps(extract_patches(frame, corners, k))
+
+    spec = _round_spec(num_patches, inner_iterations, batch_size, subsample,
+                       alpha, sub_iter, stopping_diff if use_stopping
+                       else None, False, "stale", backend, coder)
+    state, _, _, _ = _run_rounds(
+        state, None, spec, rounds=epochs * F, iterations=inner_iterations,
+        beta=beta, round_fn=round_fn, gen=state.gen,
+        app=("video", k, num_patches), reads=(frames,),
+        host_read=draws is not None, draws=draws, capture=capture)
     return state
 
 

@@ -9,7 +9,10 @@ to XLA). The JAX ``jit`` of ``lax.scan`` becomes one step function on
 static buffers (``_loop_step``): on a CUDA tensor it is captured once as a
 CUDA graph and replayed for every step, its draws from a generator
 registered with the graph; on the CPU, and under ``debug_nans``, it runs in
-a Python loop (``_train_route``).
+a Python loop (``_train_route``). The JAX apps' outer ``lax.scan`` over
+rounds becomes one round function on static buffers (``_run_rounds``:
+an app's sampler, its patches and the inner steps), captured once per key
+and replayed a round at a time on the card (``_round_route``).
 
 Semantics kept from the JAX module:
 
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 
 import torch
 
@@ -49,7 +53,8 @@ from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
 from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import MAX_RANK
-from onmf_ontf_ndl_tpu_torch.utils.capture import capture_step, replay
+from onmf_ontf_ndl_tpu_torch.utils.capture import (capture_step, replay,
+                                                   tensor_at)
 
 __all__ = ["OnlineNMF", "onmf_step", "train_dict", "rank_generator"]
 
@@ -307,10 +312,10 @@ class _StepSpec:
 
 def _graph_key(X, state, spec: _StepSpec) -> tuple:
     """The cache key of the graph that runs ``spec`` on data like ``X``
-    (its device, dtype and shape, not its values) from a state like
-    ``state`` (rank, dtype, whether it tracks X Xᵀ)."""
-    return (X.device, X.dtype, tuple(X.shape), state.W.dtype, state.r,
-            state.tracks_xxt, spec)
+    (its device, dtype, shape and strides, not its values) from a state
+    like ``state`` (rank, dtype, whether it tracks X Xᵀ)."""
+    return (X.device, X.dtype, tuple(X.shape), X.stride(), state.W.dtype,
+            state.r, state.tracks_xxt, spec)
 
 
 def _train_route(device_type: str, backend: str, group_backend, r: int,
@@ -388,9 +393,11 @@ class _Loop:
 def _new_loop(state, X, code, spec: _StepSpec, tables: dict,
               owns_x: bool) -> _Loop:
     """Buffers for a run like this call's, filled from it; ``X`` itself,
-    or with ``owns_x`` a buffer of its shape. ``tables`` holds ``perm``,
-    ``idx`` and ``H0``, and on the captured route ``w`` and ``omw``; each
-    may be None."""
+    or with ``owns_x`` a buffer of its shape and layout (an app's patches
+    are a transposed view, and the products must see the strides that the
+    eager route sees: cuBLAS rounds another layout otherwise). ``tables``
+    holds ``perm``, ``idx`` and ``H0``, and on the captured route ``w``
+    and ``omw``; each may be None."""
     dev = X.device
 
     def like(t):        # the weight table comes from the host
@@ -398,8 +405,8 @@ def _new_loop(state, X, code, spec: _StepSpec, tables: dict,
                                                   device=dev)
 
     lp = _Loop(
-        X=like(X) if owns_x else X, W=like(state.W), A=like(state.A),
-        B=like(state.B), C=like(state.C),
+        X=torch.empty_like(X) if owns_x else X, W=like(state.W),
+        A=like(state.A), B=like(state.B), C=like(state.C),
         code=like(code) if spec.track_code else None,
         step=torch.zeros(1, dtype=torch.long, device=dev),
         w=like(tables.get("w")), omw=like(tables.get("omw")),
@@ -481,12 +488,12 @@ def _loop_step(lp: _Loop, spec: _StepSpec, gen, weights=None
 @dataclasses.dataclass
 class _Captured:
     """A captured step: its graph, its buffers, the generator registered
-    with it, the kernel launches of one replay, and where the graph reads
-    the caller's X in place, X's address (:func:`_address`)."""
+    with it (a 1-tuple), the kernel launches of one replay, and where the
+    graph reads the caller's X in place, X's address (:func:`_address`)."""
 
     graph: object
     loop: _Loop
-    gen: torch.Generator
+    gens: tuple
     launches: dict
     x_at: tuple | None
 
@@ -501,12 +508,12 @@ def _capture(lp: _Loop, spec: _StepSpec, gen) -> _Captured:
     """Run the first step from ``gen``, then capture the next
     (:func:`~onmf_ontf_ndl_tpu_torch.utils.capture.capture_step`). A graph
     that reads the caller's X keeps its address, not the tensor."""
-    graph, own, launches = capture_step(
-        lambda g: _loop_step(lp, spec, g), gen, lp.X.device)
+    graph, owns, launches = capture_step(
+        lambda g: _loop_step(lp, spec, g), (gen,), lp.X.device)
     x_at = None
     if not lp.owns_x:
         x_at, lp.X = _address(lp.X), None
-    return _Captured(graph, lp, own, launches, x_at)
+    return _Captured(graph, lp, owns, launches, x_at)
 
 
 def _run_captured(state, X, code, spec: _StepSpec, tables: dict, gen,
@@ -532,17 +539,19 @@ def _run_captured(state, X, code, spec: _StepSpec, tables: dict, gen,
     else:
         _refill(entry.loop, state, X, code, tables)
     _GRAPHS[key] = entry
-    replay(entry.graph, entry.gen, gen, steps - done, entry.launches)
+    replay(entry.graph, entry.gens, (gen,), steps - done, entry.launches)
     return entry.loop
 
 
 def _clear_graphs() -> None:
-    """Drop every captured step, with its buffers and memory pool: before
-    the process group goes (a graph holds its all-reduce's communicator),
-    and where ``debug_nans`` turns training to the eager route."""
+    """Drop every captured step and round, with its buffers and memory
+    pool: before the process group goes (a graph holds its all-reduce's
+    communicator), and where ``debug_nans`` turns training to the eager
+    route."""
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()        # no replay in flight
     _GRAPHS.clear()
+    _ROUND_GRAPHS.clear()
 
 
 def _train_loop(
@@ -635,6 +644,325 @@ def _train_loop(
     metrics = take(lp.metrics[:steps]) if track_metrics \
         else torch.zeros((0,), dtype=X.dtype, device=X.device)
     return st, take(lp.code) if track_code else code, metrics
+
+
+# -------------------------------------------------------------- the rounds:
+# one round of an app (its sampler, its patches, its inner steps) on static
+# buffers, called in a Python loop (eager) or captured once as a CUDA graph
+# and replayed a round at a time (captured), the counterpart of the JAX
+# apps' outer lax.scan over rounds.
+
+# Round graphs kept at once, the least recently used dropped first: each
+# holds the state's buffers, the app's, a weight table of its capacity and a
+# memory pool of one round's intermediates.
+_ROUND_CACHE_SIZE = 8
+_ROUND_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# The most inner steps (with a network round's chain blocks) that a round
+# graph holds; a longer round runs on the per-round route. A capture costs
+# two to three rounds of work at every size measured (chip_profile.py
+# capture), but its instantiation (~10 us a device operation, ~20 of them
+# a step) and the host memory it holds grow with the steps: 512 keeps a
+# graph near 0.1 s and 20 MB, 5x NetworkReconstructor's default.
+_MAX_ROUND_STEPS = 512
+
+
+@dataclasses.dataclass
+class _Round:
+    """The buffers a round reads and writes in place: the step's
+    (``loop``: the state, the code, the step counter and, on the captured
+    route, the weight table of every step of the run), the round
+    counter ``rnd`` that indexes the app's tables, the app's carried
+    tensors ``carry`` (filled at the start of a run) and its per-round
+    outputs ``outs`` (written at the round counter)."""
+
+    loop: _Loop
+    rnd: torch.Tensor
+    carry: dict
+    outs: dict
+
+
+@dataclasses.dataclass
+class _RoundCtx:
+    """What a round function is handed besides its buffers and generator:
+    ``steps(X)`` runs the round's inner steps on its data X; ``draw`` is
+    the round's given draws (``(app's part, inner draws)``) or None;
+    ``graphs`` says whether a part of the round (the chains) may replay
+    graphs of its own, which only the per-round route allows, and there
+    not with ``capture=False``."""
+
+    steps: object
+    draw: object
+    graphs: bool
+
+
+@dataclasses.dataclass
+class _RoundGraph:
+    """A captured round: its graph, its buffers, the generators registered
+    with it, the kernel launches of one replay, the tensors the round reads
+    in place (held so that no replay reads freed memory) and the replays
+    made."""
+
+    graph: object
+    rounds: _Round
+    gens: tuple
+    launches: dict
+    reads: tuple
+    replays: int = 0
+
+
+def _round_route(device_type: str, backend: str, group_backend, world: int,
+                 r: int, debug_nans: bool, steps: int, host_read: bool,
+                 capture: bool = True) -> str:
+    """How :func:`_run_rounds` runs an app's rounds, from these arguments
+    alone: ``"captured"`` (one round captured as a CUDA graph and replayed
+    a round at a time) where :func:`_train_route` would capture the steps
+    (not with ``capture=False``), the round holds no host read
+    (``host_read``: a sampler on the host, given draws), one rank draws
+    (``world`` 1: several draw a rank generator every round) and its
+    ``steps`` (inner steps and chain blocks) are at most
+    :data:`_MAX_ROUND_STEPS`; else ``"per_round"`` (the round function in
+    a Python loop, its inner steps through :func:`_train_loop`, which
+    replays its step graph on the card and runs eagerly on the CPU and
+    with ``capture=False``)."""
+    if (not host_read and world == 1 and steps <= _MAX_ROUND_STEPS
+            and _train_route(device_type, backend, group_backend, r,
+                             debug_nans, capture) == "captured"):
+        return "captured"
+    return "per_round"
+
+
+def _round_capacity(rounds: int) -> int:
+    """The rounds a captured round's tables hold: ``rounds`` rounded up to
+    a power of two, so that runs of a few lengths share a graph."""
+    return 1 << max(rounds - 1, 0).bit_length()
+
+
+def _round_weights(t0: float, rounds: int, iterations: int, steps: int,
+                   beta: float, dtype):
+    """``(w, 1 - w)``, (rounds * steps,): round j's step i (from 1) at
+    ``t = t_j + i``, ``t_j`` the counter after j rounds (from ``t0``, each
+    round adding ``iterations`` as :func:`_train_loop` adds it); computed
+    as :func:`_step_weights` computes them, each equal to the Python float
+    of :func:`_step_inner`."""
+    ts, t = [], t0
+    for _ in range(rounds):
+        ts += [t + i for i in range(1, steps + 1)]
+        t = t + float(iterations)
+    w = [v ** (-float(beta)) for v in ts]
+    return (torch.tensor(w, dtype=torch.float64).to(dtype),
+            torch.tensor([1.0 - v for v in w], dtype=torch.float64).to(dtype))
+
+
+def _round_key(state, code, spec: _StepSpec, app: tuple, reads: tuple,
+               carry: dict, outs: dict, cap: int, generators: int) -> tuple:
+    """The cache key of a round graph: all that a capture bakes in. The
+    app's round parameters ``app`` (its name first), the step's spec, the
+    state's device, dtype, shape and whether it tracks X Xᵀ, the code's
+    shape, the address, shape, strides and dtype of every tensor the round
+    reads in place (``reads``: the image, the frames, the graph's tensors
+    and the motif's tables), the shape and dtype of the carried tensors and
+    of the outputs, the capacity in rounds and the number of generators
+    the round draws from. Not the run's exact number of rounds, ``beta``,
+    the counter ``t``, the generators themselves or any value."""
+    return (app, spec, state.W.device, state.W.dtype, tuple(state.W.shape),
+            state.tracks_xxt, None if code is None else tuple(code.shape),
+            tuple(tensor_at(t) for t in reads),
+            tuple((name, tuple(v.shape), v.dtype)
+                  for name, v in carry.items()),
+            tuple((name, tuple(shape), dtype)
+                  for name, (shape, dtype) in outs.items()), cap, generators)
+
+
+def _new_round(state, code, spec: _StepSpec, cap: int, carry: dict,
+               outs: dict) -> _Round:
+    """Buffers for runs of up to ``cap`` rounds like this one, the weight
+    table not among them; not filled."""
+    dev = state.W.device
+
+    def like(t):
+        return None if t is None else torch.empty(t.shape, dtype=t.dtype,
+                                                  device=dev)
+
+    lp = _Loop(X=None, W=like(state.W), A=like(state.A), B=like(state.B),
+               C=like(state.C), code=like(code) if spec.track_code else None,
+               step=torch.zeros(1, dtype=torch.long, device=dev),
+               w=None, omw=None,
+               perm=None, offsets=None, idx=None, H0=None, metrics=None,
+               owns_x=False)
+    return _Round(
+        loop=lp, rnd=torch.zeros(1, dtype=torch.long, device=dev),
+        carry={name: like(v) for name, v in carry.items()},
+        outs={name: torch.empty((cap,) + tuple(shape), dtype=dtype,
+                                device=dev)
+              for name, (shape, dtype) in outs.items()})
+
+
+def _fill_round(rb: _Round, state, code, carry: dict,
+                weights=None) -> None:
+    """Copy a run's state, code, carried tensors and, where given, its
+    weight table (a prefix of the buffer) into the buffers; set both
+    counters to 0."""
+    lp = rb.loop
+    pairs = [(lp.W, state.W), (lp.A, state.A), (lp.B, state.B),
+             (lp.C, state.C), (lp.code, code)]
+    pairs += [(rb.carry[name], v) for name, v in carry.items()]
+    if weights is not None:
+        pairs += [(lp.w[:len(weights[0])], weights[0]),
+                  (lp.omw[:len(weights[1])], weights[1])]
+    for dst, src in pairs:
+        if dst is not None:
+            dst.copy_(src)
+    lp.step.zero_()
+    rb.rnd.zero_()
+
+
+def _round_steps(lp: _Loop, spec: _StepSpec, gen, X) -> None:
+    """A round's inner steps on the buffers (the captured route):
+    ``spec.steps`` calls of :func:`_loop_step` on the round's data
+    ``X``, their weights from the table at the step counter, which runs on
+    over the rounds."""
+    lp.X = X
+    for _ in range(spec.steps):
+        _loop_step(lp, spec, gen)
+
+
+def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
+                iterations: int, beta: float, round_fn, gen, app: tuple,
+                reads: tuple = (), carry: dict | None = None,
+                outs: dict | None = None, blocks: int = 0,
+                host_read: bool = False, draws=None, capture: bool = True):
+    """``rounds`` rounds of an app, each ``round_fn(rb, gen, ctx)`` on the
+    buffers ``rb`` (:class:`_Round`), with ``ctx.steps(X)`` running its
+    ``iterations - 1`` inner steps (``spec``) on its data X; the round
+    counter advances after each. ``gen`` draws the round's own numbers,
+    ``state.gen`` the steps' (they may be one generator). ``carry``: the
+    app's tensors that the rounds read and write (copied, not written);
+    ``outs``: ``{name: (shape, dtype)}`` of what each round writes at the
+    round counter; ``reads``: the tensors the round reads in place;
+    ``app``: its round parameters (the key's); ``blocks``: the chain
+    blocks of a round; ``draws``: per round ``(app's part, inner draws)``,
+    given (tests).
+
+    :func:`_round_route` picks the route. On the captured route one round
+    is captured once per :func:`_round_key` (its first round run as it is
+    captured) and replayed for the rest, its generators taking the
+    callers' states before and giving them back after; state and carried
+    tensors are copied into its buffers once at the start and cloned out
+    once at the end. On the per-round route (the CPU, ``capture=False``
+    and what a graph cannot take) the round function runs in a Python
+    loop, its inner steps a call of :func:`_train_loop` with ``capture``.
+    A capture or replay that fails raises; no round falls back to the
+    per-round loop. Returns ``(state, code, carry, outs)``, the outputs'
+    first ``rounds`` rows."""
+    carry, outs = carry or {}, outs or {}
+    if rounds <= 0:
+        return state, code, dict(carry), {
+            name: torch.empty((0,) + tuple(shape), dtype=dtype,
+                              device=state.W.device)
+            for name, (shape, dtype) in outs.items()}
+    steps_gen = state.gen
+    gens = (steps_gen,) if gen is steps_gen else (steps_gen, gen)
+    group_backend, world = None, 1
+    if spec.group is not None:
+        import torch.distributed as dist
+
+        group_backend = str(dist.get_backend(spec.group))
+        world = dist.get_world_size(spec.group)
+    route = _round_route(state.W.device.type, spec.backend, group_backend,
+                         world, state.r, _DEBUG_NANS, spec.steps + blocks,
+                         host_read, capture=capture)
+    t_end = state.t
+    for _ in range(rounds):
+        if spec.steps:                  # as _train_loop advances t
+            t_end = t_end + float(iterations)
+    if route == "captured":
+        dev = state.W.device
+        cap = _round_capacity(rounds)
+        key = _round_key(state, code, spec, app, reads, carry, outs, cap,
+                         len(gens))
+        weights = _round_weights(state.t, rounds, iterations, spec.steps,
+                                 beta, state.W.dtype)
+        with torch.cuda.device(dev):
+            entry = _ROUND_GRAPHS.pop(key, None)
+            done = 0
+            if entry is None:
+                while len(_ROUND_GRAPHS) >= _ROUND_CACHE_SIZE:
+                    _ROUND_GRAPHS.popitem(last=False)
+                rb = _new_round(state, code, spec, cap, carry, outs)
+                rb.loop.w = torch.empty(cap * spec.steps,
+                                        dtype=state.W.dtype, device=dev)
+                rb.loop.omw = torch.empty_like(rb.loop.w)
+                _fill_round(rb, state, code, carry, weights)
+
+                def one(*gs):
+                    round_fn(rb, gs[-1], _RoundCtx(
+                        functools.partial(_round_steps, rb.loop, spec, gs[0]),
+                        None, False))
+                    rb.rnd += 1
+
+                graph, owns, launches = capture_step(one, gens, dev)
+                entry = _RoundGraph(graph, rb, owns, launches, tuple(reads))
+                done = 1
+            else:
+                _fill_round(entry.rounds, state, code, carry, weights)
+            _ROUND_GRAPHS[key] = entry
+            replay(entry.graph, entry.gens, gens, rounds - done,
+                   entry.launches)
+            entry.replays += rounds - done
+        rb = entry.rounds
+    else:
+        rb = _new_round(state, code, spec, rounds, carry, outs)
+        _fill_round(rb, state, code, carry)
+        lp, t = rb.loop, state.t
+
+        def steps(inner, X):            # the steps through _train_loop
+            nonlocal t
+            st = dataclasses.replace(state, W=lp.W, A=lp.A, B=lp.B, C=lp.C,
+                                     t=t)
+            st, new_code, _ = _train_loop(
+                st, X, lp.code, spec.alpha, beta, spec.stopping_diff,
+                iterations, spec.batch, spec.subsample, spec.sub_iter,
+                spec.track_code, spec.dict_from, backend=spec.backend,
+                draws=inner, coder=spec.coder, group=spec.group,
+                capture=capture)
+            for dst, src in ((lp.W, st.W), (lp.A, st.A), (lp.B, st.B),
+                             (lp.C, st.C), (lp.code, new_code)):
+                if dst is not None and dst is not src:
+                    dst.copy_(src)
+            t = st.t
+
+        for j in range(rounds):
+            draw = None if draws is None else draws[j]
+            round_fn(rb, gens[-1], _RoundCtx(
+                functools.partial(steps, None if draw is None else draw[1]),
+                draw, capture))
+            rb.rnd += 1
+
+    def take(t):            # a graph's buffers outlive the call
+        return t.clone() if route == "captured" else t
+
+    lp = rb.loop
+    st = dataclasses.replace(state, W=take(lp.W), A=take(lp.A),
+                             B=take(lp.B), C=take(lp.C), t=t_end)
+    return (st, take(lp.code) if spec.track_code else code,
+            {name: take(v) for name, v in rb.carry.items()},
+            {name: take(v[:rounds]) for name, v in rb.outs.items()})
+
+
+def _round_spec(width: int, iterations: int, batch_size: int,
+                subsample: bool, alpha: float, sub_iter: int, stopping_diff,
+                track_code: bool, dict_from: str, backend: str, coder: str,
+                group=None) -> _StepSpec:
+    """The inner step of a round on data of ``width`` columns, as
+    :func:`_train_loop` would run it (iid minibatches, no given draws, no
+    metrics)."""
+    return _StepSpec(
+        batch=batch_size if subsample else width,
+        steps=max(iterations, 1) - 1, alpha=float(alpha),
+        sub_iter=int(sub_iter), stopping_diff=stopping_diff,
+        dict_from=dict_from, backend=backend, coder=coder, draws=None,
+        subsample=bool(subsample), sampling="iid",
+        track_code=bool(track_code), track_metrics=False, group=group)
 
 
 def train_dict(

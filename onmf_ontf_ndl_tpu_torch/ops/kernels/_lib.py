@@ -168,6 +168,7 @@ def build() -> dict:
     lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, i, p]
     lib.onmf_checkerboard_sweeps.argtypes = [p, i, i, ctypes.c_uint, p, i,
                                              p]
+    lib.onmf_checkerboard_sweeps_at.argtypes = [p, i, i, p, p, i, p]
     u = ctypes.c_uint
     lib.onmf_checkerboard_band_half.argtypes = [p, p, p, i, i, i, u, u, u, p,
                                                 p]
@@ -183,7 +184,8 @@ def build() -> dict:
     lib.onmf_chain_reset_runs.argtypes = []
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
                lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
-               lib.onmf_checkerboard_sweeps, lib.onmf_checkerboard_band_half,
+               lib.onmf_checkerboard_sweeps, lib.onmf_checkerboard_sweeps_at,
+               lib.onmf_checkerboard_band_half,
                lib.onmf_chain_glauber, lib.onmf_chain_pivot,
                lib.onmf_tile_columns, lib.onmf_read_runs,
                lib.onmf_reset_runs, lib.onmf_chain_read_runs,

@@ -37,6 +37,9 @@
 //       the cluster barrier stands between the colours;
 //     device memory: one launch per colour and sweep over the whole card,
 //       the lattice (inside the 50 MB L2 up to n ~ 5000) updated in place.
+//   * a device-seed entry (onmf_checkerboard_sweeps_at) takes the seed as
+//     a device int64 that each kernel reads as it starts, so a CUDA graph
+//     replays it with a seed drawn on the device;
 //   * a banded entry (onmf_checkerboard_band_half) runs the device-memory
 //     kernel on one row band of a lattice sharded over processes, with the
 //     halo rows that the neighbours sent; the global row index keys the
@@ -336,8 +339,10 @@ __device__ __forceinline__ void resident_barrier() {
 template <int kWords, bool kCluster>
 __global__ void __launch_bounds__(RES_THREADS, 1)
     checkerboard_resident_kernel(int8_t* lat, int n, int band, int nsweeps,
-                                 uint32_t seed, Thresholds thr) {
+                                 uint32_t seed, const long long* seed_at,
+                                 Thresholds thr) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (seed_at) seed = (uint32_t)*seed_at;
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
   int8_t* base = reinterpret_cast<int8_t*>(smem + RES_HEAD_BYTES);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -389,9 +394,11 @@ template <int kWords>
 __global__ void __launch_bounds__(HALF_THREADS)
     checkerboard_half_kernel(int8_t* lat, const int8_t* above,
                              const int8_t* below, int n, int first, int count,
-                             uint32_t seed, uint32_t sweep, uint32_t colour,
+                             uint32_t seed, const long long* seed_at,
+                             uint32_t sweep, uint32_t colour,
                              Thresholds thr) {
   __shared__ uint32_t tab[10];
+  if (seed_at) seed = (uint32_t)*seed_at;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   stage_table(tab, tid, thr);
@@ -423,7 +430,8 @@ dim3 block_shape(int n, int threads) {
 
 template <int kWords>
 int launch_resident(int8_t* lat, int n, int nsweeps, uint32_t seed,
-                    const Thresholds& th, int ctas, cudaStream_t stream) {
+                    const long long* seed_at, const Thresholds& th, int ctas,
+                    cudaStream_t stream) {
   const int band = (n + ctas - 1) / ctas;
   if ((ctas - 1) * band >= n) return (int)cudaErrorInvalidValue;
   const size_t smem = RES_HEAD_BYTES + (size_t)band * n;
@@ -434,7 +442,8 @@ int launch_resident(int8_t* lat, int n, int nsweeps, uint32_t seed,
         (const void*)checkerboard_resident_kernel<kWords, false>, smem);
     if (e) return e;
     checkerboard_resident_kernel<kWords, false>
-        <<<1, block, smem, stream>>>(lat, n, band, nsweeps, seed, th);
+        <<<1, block, smem, stream>>>(lat, n, band, nsweeps, seed, seed_at,
+                                     th);
     return (int)cudaGetLastError();
   }
   int e = launch_smem(
@@ -453,7 +462,7 @@ int launch_resident(int8_t* lat, int n, int nsweeps, uint32_t seed,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = (int)cudaLaunchKernelEx(&cfg, checkerboard_resident_kernel<kWords, true>,
-                              lat, n, band, nsweeps, seed, th);
+                              lat, n, band, nsweeps, seed, seed_at, th);
   if (e) {
     cudaGetLastError();
     return e;
@@ -464,8 +473,9 @@ int launch_resident(int8_t* lat, int n, int nsweeps, uint32_t seed,
 // One launch of checkerboard_half_kernel over `count` rows from `first`.
 template <int kWords>
 int launch_half(int8_t* lat, const int8_t* above, const int8_t* below, int n,
-                int first, int count, uint32_t seed, uint32_t sweep,
-                uint32_t colour, const Thresholds& th, cudaStream_t stream) {
+                int first, int count, uint32_t seed,
+                const long long* seed_at, uint32_t sweep, uint32_t colour,
+                const Thresholds& th, cudaStream_t stream) {
   const dim3 block = block_shape<kWords>(n, HALF_THREADS);
   dim3 grid;
   if (kWords == 0) {
@@ -482,18 +492,19 @@ int launch_half(int8_t* lat, const int8_t* above, const int8_t* below, int n,
                 rows < 65535 ? rows : 65535);
   }
   checkerboard_half_kernel<kWords><<<grid, block, 0, stream>>>(
-      lat, above, below, n, first, count, seed, sweep, colour, th);
+      lat, above, below, n, first, count, seed, seed_at, sweep, colour, th);
   return (int)cudaGetLastError();
 }
 
 template <int kWords>
 int launch_halves(int8_t* lat, int n, int nsweeps, uint32_t seed,
-                  const Thresholds& th, cudaStream_t stream) {
+                  const long long* seed_at, const Thresholds& th,
+                  cudaStream_t stream) {
   for (int sw = 0; sw < nsweeps; ++sw)
     for (uint32_t colour = 0; colour < 2; ++colour) {
       const int e = launch_half<kWords>(lat, lat + (size_t)(n - 1) * n, lat,
-                                        n, 0, n, seed, (uint32_t)sw, colour,
-                                        th, stream);
+                                        n, 0, n, seed, seed_at, (uint32_t)sw,
+                                        colour, th, stream);
       if (e) return e;
     }
   return 0;
@@ -504,6 +515,33 @@ Thresholds kernel_table(const unsigned int* thr) {
   Thresholds th;
   for (int k = 0; k < 10; ++k) th.t[9 - k] = thr[k];
   return th;
+}
+
+// The sweeps of onmf_checkerboard_sweeps and onmf_checkerboard_sweeps_at:
+// the seed is `seed`, or where `seed_at` is given the low 32 bits of the
+// device int64 it points to, read by each kernel as it starts.
+int checkerboard_sweeps(int8_t* lat, int n, int nsweeps, uint32_t seed,
+                        const long long* seed_at, const unsigned int* thr,
+                        int ctas, cudaStream_t s) {
+  if (n < 2 || n % 2 || ctas < 0 || ctas > RES_MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  const Thresholds th = kernel_table(thr);
+  const int words = n % 16 == 0 ? 2 : n % 8 == 0 ? 1 : 0;
+  if (ctas == 0) {
+    if (words == 2)
+      return launch_halves<2>(lat, n, nsweeps, seed, seed_at, th, s);
+    if (words == 1)
+      return launch_halves<1>(lat, n, nsweeps, seed, seed_at, th, s);
+    return launch_halves<0>(lat, n, nsweeps, seed, seed_at, th, s);
+  }
+  // a band with fewer 16-byte items than threads takes 8-byte items: one
+  // Philox call a thread, not two in a row, where latency is the cost
+  if (words == 2 && (long long)((n + ctas - 1) / ctas) * (n / 16) >=
+                        RES_THREADS)
+    return launch_resident<2>(lat, n, nsweeps, seed, seed_at, th, ctas, s);
+  if (words >= 1)
+    return launch_resident<1>(lat, n, nsweeps, seed, seed_at, th, ctas, s);
+  return launch_resident<0>(lat, n, nsweeps, seed, seed_at, th, ctas, s);
 }
 
 }  // namespace
@@ -523,23 +561,19 @@ size_t onmf_checkerboard_smem(int band, int n) {
 int onmf_checkerboard_sweeps(int8_t* lat, int n, int nsweeps,
                              unsigned int seed, const unsigned int* thr,
                              int ctas, void* stream) {
-  if (n < 2 || n % 2 || ctas < 0 || ctas > RES_MAX_CLUSTER)
-    return (int)cudaErrorInvalidValue;
-  const Thresholds th = kernel_table(thr);
-  cudaStream_t s = (cudaStream_t)stream;
-  const int words = n % 16 == 0 ? 2 : n % 8 == 0 ? 1 : 0;
-  if (ctas == 0) {
-    if (words == 2) return launch_halves<2>(lat, n, nsweeps, seed, th, s);
-    if (words == 1) return launch_halves<1>(lat, n, nsweeps, seed, th, s);
-    return launch_halves<0>(lat, n, nsweeps, seed, th, s);
-  }
-  // a band with fewer 16-byte items than threads takes 8-byte items: one
-  // Philox call a thread, not two in a row, where latency is the cost
-  if (words == 2 && (long long)((n + ctas - 1) / ctas) * (n / 16) >=
-                        RES_THREADS)
-    return launch_resident<2>(lat, n, nsweeps, seed, th, ctas, s);
-  if (words >= 1) return launch_resident<1>(lat, n, nsweeps, seed, th, ctas, s);
-  return launch_resident<0>(lat, n, nsweeps, seed, th, ctas, s);
+  return checkerboard_sweeps(lat, n, nsweeps, seed, nullptr, thr, ctas,
+                             (cudaStream_t)stream);
+}
+
+// The same with the seed in device memory: the low 32 bits of the int64 at
+// `seed_at`, read at launch, so that a CUDA graph can replay the call with
+// a seed drawn on the device (the Ising learner's rounds).
+int onmf_checkerboard_sweeps_at(int8_t* lat, int n, int nsweeps,
+                                const long long* seed_at,
+                                const unsigned int* thr, int ctas,
+                                void* stream) {
+  return checkerboard_sweeps(lat, n, nsweeps, 0u, seed_at, thr, ctas,
+                             (cudaStream_t)stream);
 }
 
 // One colour of one sweep on a band of a row-sharded (n, n) lattice, in
@@ -565,13 +599,13 @@ int onmf_checkerboard_band_half(int8_t* band, const int8_t* above,
                     : n % 8 == 0 && any % 8 == 0 ? 1
                                                  : 0;
   if (words == 2)
-    return launch_half<2>(band, above, below, n, first, count, seed, sweep,
-                          colour, th, s);
+    return launch_half<2>(band, above, below, n, first, count, seed,
+                          nullptr, sweep, colour, th, s);
   if (words == 1)
-    return launch_half<1>(band, above, below, n, first, count, seed, sweep,
-                          colour, th, s);
-  return launch_half<0>(band, above, below, n, first, count, seed, sweep,
-                        colour, th, s);
+    return launch_half<1>(band, above, below, n, first, count, seed,
+                          nullptr, sweep, colour, th, s);
+  return launch_half<0>(band, above, below, n, first, count, seed, nullptr,
+                        sweep, colour, th, s);
 }
 
 }  // extern "C"

@@ -41,6 +41,11 @@ equal :func:`checkerboard_sweeps` site for site; where a band starts inside
 a Philox call (``n / 2`` not a multiple of 4) it computes that call too.
 :func:`checkerboard_band_half_plain` is its plain version.
 
+:func:`checkerboard_sweeps` takes its seed as a host int or as a
+one-element int64 tensor on the lattice's device, which the kernels read
+as they start (``onmf_checkerboard_sweeps_at``): the Ising learner's
+captured rounds draw the seed on the device and never read it on the host.
+
 The wrappers run the plain version only for a CPU tensor; for a CUDA
 tensor they launch a kernel or raise, and count each launch in
 ``_lib.LAUNCHES``: ``"checkerboard_sweeps"`` one for a resident call, two a
@@ -175,32 +180,56 @@ def checkerboard_route(n: int, nsweeps: int) -> tuple[str, int]:
     return "global", 0
 
 
-def _launch(out: torch.Tensor, n: int, nsweeps: int, seed: int, thr,
+def _launch(out: torch.Tensor, n: int, nsweeps: int, seed, thr,
             ctas: int) -> int:
     """Run the kernels of one route (``ctas`` as in
-    :func:`checkerboard_route`) in place on ``out``; returns the launches
-    made."""
+    :func:`checkerboard_route`) in place on ``out``, from a host ``seed``
+    or one in device memory (a one-element int64 tensor, read by the
+    kernels as they start); returns the launches made."""
     lib = build()["lib"]
     with torch.cuda.device(out.device):
-        err = lib.onmf_checkerboard_sweeps(out.data_ptr(), n, int(nsweeps),
-                                           seed, thr, ctas, _stream(out))
+        if isinstance(seed, torch.Tensor):
+            err = lib.onmf_checkerboard_sweeps_at(
+                out.data_ptr(), n, int(nsweeps), seed.data_ptr(), thr, ctas,
+                _stream(out))
+        else:
+            err = lib.onmf_checkerboard_sweeps(
+                out.data_ptr(), n, int(nsweeps), seed, thr, ctas,
+                _stream(out))
     _raise_on_error("checkerboard_sweeps", err)
     return 1 if ctas else 2 * int(nsweeps)
 
 
-def checkerboard_sweeps(seed: int, lattice: torch.Tensor, nsweeps: int,
+def _device_seed(seed, device: torch.device):
+    """``seed`` as the kernels take it on ``device``: a checked host int, or
+    a one-element int64 tensor there, left where it lies (no host read)."""
+    if not isinstance(seed, torch.Tensor):
+        return _check_seed(seed)
+    if seed.device != device:
+        return _check_seed(int(seed))
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise TypeError(f"checkerboard_sweeps: a device seed is a "
+                        f"one-element int64 tensor, got {seed.dtype} "
+                        f"{tuple(seed.shape)}")
+    return seed
+
+
+def checkerboard_sweeps(seed, lattice: torch.Tensor, nsweeps: int,
                         J: float = 1.0, H: float = 0.0,
                         T: float = 0.5) -> torch.Tensor:
     """``nsweeps`` red/black heat-bath sweeps of an (n, n) int8 +-1
-    lattice (n even) from the random stream of ``seed`` (32-bit); returns
-    the new lattice."""
+    lattice (n even) from the random stream of ``seed``; returns the new
+    lattice. ``seed`` is a 32-bit int, or a one-element int64 tensor that
+    holds one: on the lattice's device the kernels read it there at launch
+    (a CUDA graph can capture the call), elsewhere it is read on the
+    host."""
     if _on_cpu(lattice):
         return checkerboard_sweeps_plain(seed, lattice, nsweeps, J, H, T)
     n = _check_lattice(lattice, batched=False)
     if lattice.dtype != torch.int8 or not lattice.is_contiguous():
         raise TypeError("checkerboard_sweeps: the lattice must be a "
                         "contiguous int8 tensor")
-    seed = _check_seed(seed)
+    seed = _device_seed(seed, lattice.device)
     thr = (ctypes.c_uint * 10)(*acceptance_thresholds(J, H, T))
     out = lattice.clone()
     if nsweeps <= 0:
@@ -237,15 +266,16 @@ def _flip(lat, s, sn, u24, thr, parity, colour):
     return torch.where(flip, -lat, lat)
 
 
-def checkerboard_sweeps_plain(seed: int, lattice: torch.Tensor,
+def checkerboard_sweeps_plain(seed, lattice: torch.Tensor,
                               nsweeps: int, J: float = 1.0, H: float = 0.0,
                               T: float = 0.5) -> torch.Tensor:
-    """Plain PyTorch :func:`checkerboard_sweeps`, the same bits. Takes
+    """Plain PyTorch :func:`checkerboard_sweeps`, the same bits; ``seed``
+    an int or a one-element tensor holding it (read on the host). Takes
     leading batch dimensions ``(..., n, n)``: chain b (in row-major order
     of the batch) draws with counter word 3 = b, so an (n, n) lattice
     equals chain 0."""
     n = _check_lattice(lattice, batched=True)
-    seed = _check_seed(seed)
+    seed = _check_seed(int(seed))
     thr = torch.tensor(acceptance_thresholds(J, H, T), dtype=torch.int64,
                        device=lattice.device)
     lat = lattice.to(torch.int8)

@@ -159,11 +159,13 @@ def ising_diagnostics(gen: torch.Generator | None, lattice: torch.Tensor,
             torch.tensor(flips, dtype=torch.bool, device=dev))
 
 
-def checkerboard_sweeps(seed: int, lattice: torch.Tensor, nsweeps: int,
+def checkerboard_sweeps(seed, lattice: torch.Tensor, nsweeps: int,
                         J: float = 1.0, H: float = 0.0, T: float = 0.5):
     """Red/black parallel heat-bath sweeps: one sweep flips every
     even-parity site with probability ``1 / (1 + exp(dE/T))``, then every
     odd-parity one. Needs a square lattice with an even side. The kernel
-    runs for a CUDA lattice, the plain version for a CPU one."""
+    runs for a CUDA lattice, the plain version for a CPU one. ``seed``: a
+    32-bit int, or a one-element int64 tensor holding it (on a CUDA
+    lattice's device, read by the kernel there)."""
     lattice = lattice.to(torch.int8).contiguous()
     return ising_kernel.checkerboard_sweeps(seed, lattice, nsweeps, J, H, T)

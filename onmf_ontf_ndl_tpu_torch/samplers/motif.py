@@ -81,7 +81,8 @@ import torch
 from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
 from onmf_ontf_ndl_tpu_torch.ops.kernels.motif_kernel import (
     _device_parents, chain_move_route, chain_moves, chain_moves_plain)
-from onmf_ontf_ndl_tpu_torch.utils.capture import capture_step, replay
+from onmf_ontf_ndl_tpu_torch.utils.capture import (capture_step, replay,
+                                                   tensor_at)
 
 __all__ = ["path_adj", "tree_parents", "tree_sample", "rw_update",
            "glauber_update", "pivot_update", "patch_from_embedding",
@@ -386,16 +387,28 @@ def pair_matrices_T(g, embs: torch.Tensor, *,
         row = eT[:, None, :].expand(k, k, M).reshape(k * k, M)
         col = eT[None, :, :].expand(k, k, M).reshape(k * k, M)
         return g.weight[row, col].float()
-    iu, ju = np.triu_indices(k, 1)
-    P = len(iu)
-    mem = _has_edges(g, eT[torch.as_tensor(iu, device=eT.device)],
-                     eT[torch.as_tensor(ju, device=eT.device)])  # (P, M)
+    iu, ju, pairidx = _pair_tables(k, eT.device)
+    mem = _has_edges(g, eT[iu], eT[ju])                # (P, M)
     stacked = torch.cat([mem.float(),
                          mem.new_zeros((1, M), dtype=torch.float32)])
-    pairidx = np.full((k, k), P, np.int64)             # P: the zero row
+    return stacked[pairidx]
+
+
+@functools.lru_cache(maxsize=16)
+def _pair_tables(k: int, device: torch.device) -> tuple:
+    """The index tables of :func:`pair_matrices_T` on ``device``, copied
+    there once per (k, device) (a copy per batch would wait for the device,
+    and a CUDA graph cannot capture one): the P = k(k-1)/2 unordered pairs'
+    rows ``iu`` and columns ``ju``, and ``pairidx`` (k*k,), each pair
+    (q, r)'s row of the stacked (P + 1, M) indicators, P (the zero row) on
+    the diagonal."""
+    iu, ju = np.triu_indices(k, 1)
+    P = len(iu)
+    pairidx = np.full((k, k), P, np.int64)
     pairidx[iu, ju] = np.arange(P)
     pairidx[ju, iu] = np.arange(P)
-    return stacked[torch.as_tensor(pairidx.reshape(-1), device=eT.device)]
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (iu, ju, pairidx.reshape(-1)))
 
 
 def patch_from_embedding(g, emb: torch.Tensor, *,
@@ -529,38 +542,55 @@ def _graph_tensors(g) -> tuple:
     return g.adj, g.nbr, g.deg
 
 
+def _chain_baked(g, B: np.ndarray, use_glauber: bool, device_type: str,
+                 backend: str = "auto") -> tuple:
+    """What a graph of chain blocks bakes in besides its shapes and the
+    graph tensors' addresses: the motif (which sets its tree), the kind of
+    move, the route of its arithmetic (the kernel or the plain version:
+    :func:`chain_move_route` of the device and ``backend``) and the graph's
+    representation, node count and maximum degree."""
+    B = np.asarray(B, np.int8)
+    return (B.tobytes(), B.shape, bool(use_glauber),
+            chain_move_route(device_type, backend), type(g), g.num_nodes,
+            getattr(g, "max_deg", None))
+
+
+def _chain_reads(g, B: np.ndarray, kind: str, device) -> tuple:
+    """The tensors a block of moves of ``kind`` reads in place: the
+    graph's, and the motif's neighbour table (Glauber) or parent list
+    (pivot)."""
+    reads = _graph_tensors(g)
+    if kind == "glauber":
+        reads += (_neighbor_table_on(B, device),)
+    elif kind == "pivot":
+        reads += (_device_parents(tree_parents(B), torch.device(device)),)
+    return reads
+
+
 def _chain_key(g, emb0: torch.Tensor, B: np.ndarray, use_glauber: bool,
                moves: int, backend: str = "auto") -> tuple:
     """The cache key of the graph of a block like this call's: all that a
-    capture bakes in. The chain count and k, the device, the motif (which
-    sets its tree), the kind of move, the block's moves, the route of its
-    arithmetic (the kernel or the plain version: :func:`chain_move_route`
-    of the device and ``backend``), the graph's representation, node count
-    and maximum degree, and the address, shape, strides and dtype of each
+    capture bakes in. The chain count and k, the device, the block's moves,
+    :func:`_chain_baked`, and the address, shape, strides and dtype of each
     graph tensor the block reads. Not the embeddings' values or dtype
     (they are copied into an int64 buffer), the generator or the run's
     number of moves (only through ``moves``)."""
-    B = np.asarray(B, np.int8)
-    return (tuple(emb0.shape), emb0.device, B.tobytes(), B.shape,
-            bool(use_glauber), int(moves),
-            chain_move_route(emb0.device.type, backend),
-            type(g), g.num_nodes,
-            getattr(g, "max_deg", None),
-            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                  for t in _graph_tensors(g)))
+    return (tuple(emb0.shape), emb0.device, int(moves),
+            *_chain_baked(g, B, use_glauber, emb0.device.type, backend),
+            tuple(tensor_at(t) for t in _graph_tensors(g)))
 
 
 @dataclasses.dataclass
 class _ChainGraph:
     """A captured block: its graph, its buffers, the generator registered
-    with it, the kernel launches of one replay (one ``chain_move`` on the
+    with it (a 1-tuple), the kernel launches of one replay (one ``chain_move`` on the
     kernel's route, none on the plain one), and the tensors it reads that
     its caller owns (the graph's, the motif's neighbour table and parent
     list), held so that no replay reads freed memory."""
 
     graph: object
     chains: _Chains
-    gen: torch.Generator
+    gens: tuple
     launches: dict
     reads: tuple
 
@@ -584,16 +614,12 @@ def _run_captured_block(gen, g, emb: torch.Tensor, B: np.ndarray,
         parents = tree_parents(B)
         kind = _chain_kind(use_glauber, emb.shape[1])
         ch = _new_chains(emb, kind, moves, sum(p < 0 for p in parents))
-        reads = _graph_tensors(g)
-        if kind == "glauber":
-            reads += (_neighbor_table_on(B, emb.device),)
-        elif kind == "pivot":
-            reads += (_device_parents(parents, emb.device),)
-        graph, own, launches = capture_step(
+        reads = _chain_reads(g, B, kind, emb.device)
+        graph, owns, launches = capture_step(
             lambda gn: _chain_block(ch, gn, B, parents, g, use_glauber,
                                     backend),
-            gen, emb.device)
-        entry = _ChainGraph(graph, ch, own, launches, reads)
+            (gen,), emb.device)
+        entry = _ChainGraph(graph, ch, owns, launches, reads)
         trail[:, done:done + moves] = ch.trail
         first = 1
     else:
@@ -605,7 +631,7 @@ def _run_captured_block(gen, g, emb: torch.Tensor, B: np.ndarray,
         at = done + (first + i) * moves
         trail[:, at:at + moves] = block
 
-    replay(entry.graph, entry.gen, gen, times - first, entry.launches,
+    replay(entry.graph, entry.gens, (gen,), times - first, entry.launches,
            each=record)
     return entry.chains
 

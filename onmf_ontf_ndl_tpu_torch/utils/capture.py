@@ -2,16 +2,16 @@
 
 The port's counterpart of a jitted ``lax.scan``: a loop whose step reads
 and writes buffers in place is captured once as a CUDA graph and replayed
-for every step. The training step (``models/onmf.py::_train_loop``) and
-a block of the motif chain's moves (``samplers/motif.py::run_chains``)
-both run through here; each keeps its own cache of graphs and its own
-key.
+for every step. The training step (``models/onmf.py::_train_loop``), a
+block of the motif chain's moves (``samplers/motif.py::run_chains``) and
+an app's whole training round (``models/onmf.py::_run_rounds``) run
+through here; each keeps its own cache of graphs and its own key.
 
 Draws: a capture records the Philox offsets of its random calls, so each
-graph draws from a generator of its own that is registered with it. That
-generator takes the caller's state before the replays and gives it back
-after, so the replays draw what the eager loop draws and leave the
-caller's generator where the eager loop leaves it.
+generator that a step draws from has a generator of the graph's own,
+registered with it. Each takes its caller's state before the replays and
+gives it back after, so the replays draw what the eager loop draws and
+leave the caller's generators where the eager loop leaves them.
 """
 
 from __future__ import annotations
@@ -20,7 +20,13 @@ import functools
 
 import torch
 
-__all__ = ["side_stream", "capture_step", "replay"]
+__all__ = ["side_stream", "capture_step", "replay", "tensor_at"]
+
+
+def tensor_at(t: torch.Tensor) -> tuple:
+    """What a graph that reads ``t`` in place bakes in of it: its address,
+    shape, strides and dtype (a cache key's part)."""
+    return t.data_ptr(), tuple(t.shape), t.stride(), t.dtype
 
 
 @functools.cache
@@ -30,51 +36,55 @@ def side_stream(device: torch.device):
     return torch.cuda.Stream(device)
 
 
-def capture_step(step, gen: torch.Generator, device: torch.device):
-    """Run ``step(gen)`` once on the device's side stream (which also sets
+def capture_step(step, gens: tuple, device: torch.device):
+    """Run ``step(*gens)`` once on the device's side stream (which also sets
     up cuBLAS and the kernels on the stream the capture uses), then
-    capture ``step`` there, drawing from a generator of the graph's own.
-    The captured step does not run until the graph is replayed.
+    capture ``step`` there, drawing from generators of the graph's own, one
+    for each of ``gens`` (distinct generators). The captured step does not
+    run until the graph is replayed.
 
-    Returns ``(graph, generator, launches)``: ``launches`` are the kernel
+    Returns ``(graph, generators, launches)``: ``launches`` are the kernel
     launches one replay makes, as the wrappers of ``ops/kernels`` count
     them (:func:`~onmf_ontf_ndl_tpu_torch.ops.kernels._lib.
     captured_launches`). A capture that fails raises."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
         captured_launches, launch_counts)
 
-    own = torch.Generator(device=device)
+    owns = tuple(torch.Generator(device=device) for _ in gens)
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(own)
+    for own in owns:
+        graph.register_generator_state(own)
     side = side_stream(device)
     side.wait_stream(torch.cuda.current_stream())
     # capture_begin itself, not torch.cuda.graph, whose entry empties the
     # allocator's cache at every capture
     with torch.cuda.stream(side):
-        step(gen)
+        step(*gens)
         before = launch_counts()
         graph.capture_begin()
         try:
-            step(own)
+            step(*owns)
         finally:
             graph.capture_end()
     launches = captured_launches(before)
     torch.cuda.current_stream().wait_stream(side)
-    return graph, own, launches
+    return graph, owns, launches
 
 
-def replay(graph, own: torch.Generator, gen: torch.Generator, times: int,
-           launches: dict, each=None) -> None:
+def replay(graph, owns: tuple, gens: tuple, times: int, launches: dict,
+           each=None) -> None:
     """Replay ``graph`` ``times`` times on the current stream, replay i
-    followed by ``each(i)`` where given, its generator ``own`` taking
-    ``gen``'s state before and giving it back after; count each replay's
-    ``launches``."""
+    followed by ``each(i)`` where given, its generators ``owns`` taking
+    the states of ``gens`` (one each) before and giving them back after;
+    count each replay's ``launches``."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import add_launches
 
-    own.set_state(gen.get_state())
+    for own, gen in zip(owns, gens):
+        own.set_state(gen.get_state())
     for i in range(times):
         graph.replay()
         if each is not None:
             each(i)
     add_launches(launches, times)
-    gen.set_state(own.get_state())
+    for own, gen in zip(owns, gens):
+        gen.set_state(own.get_state())

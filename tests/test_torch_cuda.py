@@ -792,6 +792,27 @@ def test_cuda_captured_training_equals_eager(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("subsample", [True, False])
+def test_cuda_captured_training_equals_eager_on_a_transposed_x(cuda,
+                                                               subsample):
+    """Data in a transposed layout (an app's patches are a transposed
+    view), at the Ising app's patch shape: the captured step's own copy of
+    it keeps that layout, so its products see the strides the eager
+    route's see and round alike; a graph keys on the strides."""
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    X = torch.rand((1000, 400), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).T
+    onmf._GRAPHS.clear()
+    kw = dict(coder="bcd", stop=0.01, subsample=subsample, xxt=True,
+              batch=50, track_code=False)
+    for data in (X, X.contiguous()):
+        _assert_runs_equal(_train(cuda, data, True, **kw),
+                           _train(cuda, data, False, **kw))
+    assert len(onmf._GRAPHS) == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("own", [True, False])
 def test_cuda_captured_graph_takes_new_data(cuda, own, monkeypatch):
     """New data of the same shape replays the graph (an owned buffer takes
@@ -1286,3 +1307,217 @@ def test_cuda_chains_run_no_plain_arithmetic(cuda, monkeypatch):
                 capture=True, use_glauber=use_glauber)
     assert ck.LAUNCHES["chain_move"] == 3 * (1 + 1 + 1 + 1) + 3 * (1 + 1)
     assert device_runs()["chain_move"] == ck.LAUNCHES["chain_move"]
+
+
+# ------------------------------------------------------- the apps' rounds
+# models/onmf.py::_run_rounds: each app's round captured once as a CUDA
+# graph and replayed a round at a time, against the same rounds in a
+# Python loop (capture=False): W, A, B and C, the chains, the lattices,
+# the dictionary stack and the errors equal bit for bit, the code to
+# float32 rounding (index_add_ adds in no fixed order), the generators'
+# next draws equal; one capture per key, one replay per round after the
+# first, and the wrappers' launch counts equal to the kernels' own runs.
+
+def _round_graph(app):
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    entries = [e for key, e in onmf._ROUND_GRAPHS.items()
+               if key[0][0] == app]
+    assert len(entries) == 1, (app, len(entries))
+    return entries[0]
+
+
+def _assert_state_equal(got, want):
+    for f in "WABC":
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.t == want.t
+    assert torch.equal(torch.rand(8, generator=got.gen, device=got.W.device),
+                       torch.rand(8, generator=want.gen,
+                                  device=want.W.device))
+
+
+def _counts_match_runs():
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    torch.cuda.synchronize()
+    runs = _lib.device_runs()
+    assert {k: ck.LAUNCHES[k] for k in runs} == runs
+
+
+@functools.cache
+def _round_inputs(device):
+    """The image, the frames and the graph of ``_app_run``, made once: a
+    round graph reads them in place, so runs on them share it."""
+    g = torch.Generator(device=device).manual_seed(100)
+    return (torch.rand((60, 64, 3), generator=g, device=device),
+            torch.rand((3, 40, 48, 3), generator=g, device=device),
+            _chain_graphs(device)["csr"])
+
+
+def _app_run(cuda, app, capture, seed=0, rounds=5):
+    """(state, the app's other outputs) of a small run of ``app``."""
+    from onmf_ontf_ndl_tpu_torch.apps import (image, image_tensor, ising,
+                                              network, video)
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+    from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
+
+    g = torch.Generator(device=cuda).manual_seed(100 + seed)
+    img, frames, gr = _round_inputs(cuda)
+    if app == "image":
+        st = image.train_image_dict(
+            init_state(seed, 75, 8, device=cuda), img,
+            outer_iterations=rounds, num_patches=300, inner_iterations=6,
+            batch_size=64, patch_size=5, subsample=True, capture=capture)
+        return st, ()
+    if app == "tensor":
+        st = image_tensor._train_tensor(
+            init_state(seed, 48, 8, device=cuda), img,
+            outer_iterations=rounds, num_patches=40, inner_iterations=3,
+            batch_size=40, patch_size=4, mode=2, joint=True, alpha=2.0,
+            beta=1.0, sub_iter=100, coder="fista", capture=capture)
+        return st, ()
+    if app == "video":
+        st = video.train_video_dict(
+            init_state(seed, 75, 8, device=cuda), frames, num_patches=100,
+            inner_iterations=5, batch_size=100, patch_size=5,
+            epochs=-(-rounds // 3), capture=capture)
+        return st, ()
+    if app == "ising":
+        from onmf_ontf_ndl_tpu_torch.samplers.ising import init_lattice
+
+        lat = init_lattice(g, 32)
+        st, stack, errors, lat, traj = ising.ising_trajectory_learning(
+            init_state(seed, 36, 8, device=cuda, track_xxt=True), lat, g,
+            ising_iterations=rounds, nsteps=2000, num_patches=300,
+            inner_iterations=5, batch_size=300, patch_size=6, T=2.5,
+            keep_trajectory=True, capture=capture)
+        return st, (stack, errors, lat, traj, torch.rand(4, generator=g,
+                                                         device=cuda))
+    B = tm.path_adj(0, 2)
+    emb0 = tm.tree_sample(g, tm.tree_parents(B), gr,
+                          torch.arange(8, device=cuda))
+    st, code, emb = network.ndl_train(
+        init_state(seed, 9, 6, device=cuda), gr, emb0, B,
+        mcmc_iterations=rounds, sample_size=64, inner_iterations=6,
+        batch_size=16, alpha=0.1, num_chains=8, subsample=True,
+        capture=capture)
+    return st, (code, emb)
+
+
+ROUND_APPS = ("image", "tensor", "video", "ising", "network")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ROUND_APPS)
+def test_cuda_captured_rounds_equal_eager(cuda, app):
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    onmf._ROUND_GRAPHS.clear()
+    for seed in (0, 1):       # the second run replays the first's graph
+        ck.reset_launches()
+        got = _app_run(cuda, app, True, seed)
+        _counts_match_runs()
+        want = _app_run(cuda, app, False, seed)
+        _assert_state_equal(got[0], want[0])
+        for i, (a, b) in enumerate(zip(got[1], want[1])):
+            if app == "network" and i == 0:           # the code
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                assert a.dtype == b.dtype and torch.equal(a, b), i
+        entry = _round_graph(app)
+        rounds = 6 if app == "video" else 5
+        assert entry.replays == (rounds - 1 if seed == 0 else 2 * rounds - 1)
+    assert len(onmf._ROUND_GRAPHS) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_rounds_replay_a_graph_of_their_capacity(cuda):
+    """Runs of 3 and 4 rounds share a graph of capacity 4 (the chunks of a
+    checkpointed run); 5 rounds capture one of capacity 8; each run equals
+    its eager rounds."""
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    onmf._ROUND_GRAPHS.clear()
+    for rounds, graphs in ((3, 1), (4, 1), (5, 2)):
+        got = _app_run(cuda, "ising", True, rounds=rounds)
+        want = _app_run(cuda, "ising", False, rounds=rounds)
+        _assert_state_equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+        assert len(onmf._ROUND_GRAPHS) == graphs
+    assert sorted(key[-2] for key in onmf._ROUND_GRAPHS) == [4, 8]
+
+
+@pytest.mark.cuda
+def test_cuda_stack_rounds_are_captured(cuda):
+    """``ImageReconstructor(is_stack=True)`` trains through the video
+    rounds: one graph, a replay a matrix after the first."""
+    from onmf_ontf_ndl_tpu_torch.apps.image import ImageReconstructor
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    stack = torch.rand((4, 40, 40), generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    onmf._ROUND_GRAPHS.clear()
+    rec = ImageReconstructor(data=stack, is_stack=True, n_components=6,
+                             iterations=8, sub_iterations=5,
+                             num_patches=200, patch_size=5, device=cuda)
+    W = rec.train_dict()
+    assert _round_graph("video").replays == 2 * 4 - 1
+    assert rec.state.t == 8 * 5 and bool(torch.isfinite(W).all())
+
+
+@pytest.mark.cuda
+def test_cuda_failing_round_capture_raises(cuda, monkeypatch):
+    """A round that fails while it is captured raises out of the app;
+    nothing is cached and no round falls back to the eager loop."""
+    from onmf_ontf_ndl_tpu_torch.apps import image
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+
+    onmf._ROUND_GRAPHS.clear()
+    extract = image.extract_patches
+    calls = []
+
+    def failing(*args):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("refused while capturing")
+        return extract(*args)
+
+    monkeypatch.setattr(image, "extract_patches", failing)
+    with pytest.raises(RuntimeError, match="refused while capturing"):
+        _app_run(cuda, "image", True)
+    assert calls == [False, True]      # one eager round, then the capture
+    assert not onmf._ROUND_GRAPHS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sweeps", [(16, 5), (6, 3), (32, 4), (200, 16),
+                                      (200, 1), (24, 1), (1024, 2)])
+def test_cuda_device_seed_equals_host_seed(cuda, n, sweeps):
+    """The device-seed entry on every route (resident on one CTA, on a
+    cluster, device memory; each vector width) equals the host-seed entry
+    site for site, also replayed from a CUDA graph with the seed written
+    on the device between replays."""
+    rng = np.random.default_rng(n)
+    lat = torch.from_numpy(rng.choice(np.array([1, -1], np.int8),
+                                      (n, n))).to(cuda)
+    seeds = (0, 12345, 2**31 - 2, 2**32 - 1)
+    for seed in seeds:
+        want = ik.checkerboard_sweeps(seed, lat, sweeps, 1.0, 0.1, 2.3)
+        got = ik.checkerboard_sweeps(torch.tensor([seed], device=cuda), lat,
+                                     sweeps, 1.0, 0.1, 2.3)
+        assert torch.equal(got, want), seed
+    buf = torch.zeros(1, dtype=torch.int64, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ik.checkerboard_sweeps(buf, lat, sweeps, 1.0, 0.1, 2.3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ik.checkerboard_sweeps(buf, lat, sweeps, 1.0, 0.1, 2.3)
+    for seed in seeds:
+        buf.fill_(seed)
+        graph.replay()
+        assert torch.equal(out, ik.checkerboard_sweeps(
+            seed, lat, sweeps, 1.0, 0.1, 2.3)), seed

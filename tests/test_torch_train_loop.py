@@ -203,6 +203,7 @@ def test_graph_key_changes_with_each_baked_argument_only():
     for X2, st2 in (
             (torch.rand((30, 40), dtype=torch.float32), st),      # dtype
             (torch.rand((30, 41), dtype=F64), st),                # n
+            (torch.rand((40, 30), dtype=F64).T, st),              # strides
             (torch.rand((30, 40), dtype=F64, device="meta"), st),  # device
             (X, init_state(0, 30, 7, device="cpu", dtype=F64)),   # r
             (X, init_state(0, 30, 6, device="cpu", dtype=F64,
@@ -210,7 +211,7 @@ def test_graph_key_changes_with_each_baked_argument_only():
             (X, init_state(0, 30, 6, device="cpu",
                            dtype=torch.float32))):                # W dtype
         keys.add(tonmf._graph_key(X2, st2, SPEC))
-    assert len(keys) == 1 + len(BAKED) + 6
+    assert len(keys) == 1 + len(BAKED) + 7
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
