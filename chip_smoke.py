@@ -2327,9 +2327,10 @@ def banded_plain(seed, lat, nsweeps, bands, **kw):
 
 
 def phase_parallel(ck, dev, gen):
-    """One rank in an NCCL group: the data-parallel trainers equal the
-    one-process ones (an all-reduce over one rank is the identity), the
-    sharded sampler runs its banded kernel; then the banded sampler in one
+    """One rank in an NCCL group: the data-parallel trainers and
+    ``auto_train_dict`` on a one-rank {"dp": 1, "tp": 1} mesh equal the
+    one-process ones (an all-reduce or all-gather over one rank is the
+    identity), the sharded sampler runs its banded kernel; then the banded sampler in one
     process against the whole-lattice kernel and the plain version.
     Returns the path's launches and the banded entry's summary."""
     import socket
@@ -2341,7 +2342,7 @@ def phase_parallel(ck, dev, gen):
     from onmf_ontf_ndl_tpu_torch.models import onmf
     from onmf_ontf_ndl_tpu_torch.models.state import make_generator
     from onmf_ontf_ndl_tpu_torch.ops.kernels import ising_kernel as ik
-    from onmf_ontf_ndl_tpu_torch.parallel import dp, multihost
+    from onmf_ontf_ndl_tpu_torch.parallel import auto, dp, multihost
     from onmf_ontf_ndl_tpu_torch.parallel.ising_sharded import (
         banded_checkerboard_sweeps, sharded_checkerboard_sweeps)
     from onmf_ontf_ndl_tpu_torch.samplers.ising import init_lattice
@@ -2361,6 +2362,9 @@ def phase_parallel(ck, dev, gen):
         dp.dp_train_dict(lib.init_state(2, 300, 25, device=dev), X,
                          iterations=2, batch_size_per_device=16384)
         steps = 50
+        # the two-axis trainer on a one-rank {"dp": 1, "tp": 1} mesh: its
+        # step gathers over tp and sums over dp, each over one rank
+        mesh = multihost.global_mesh({"dp": 1, "tp": 1})
         for stop in (None, 0.01):
             kw = dict(iterations=steps + 1, stopping_diff=stop)
             runs = {
@@ -2369,7 +2373,13 @@ def phase_parallel(ck, dev, gen):
                     batch_size_per_device=16384, **kw),
                 "one": lambda: lib.train_dict(
                     lib.init_state(2, 300, 25, device=dev), X,
-                    batch_size=16384, track_code=False, **kw)[0]}
+                    batch_size=16384, track_code=False, **kw)[0],
+                "auto": lambda: auto.auto_train_dict(
+                    lib.init_state(2, 300, 25, device=dev), X, mesh=mesh,
+                    dp_axis="dp", tp_axis="tp", batch_size=16384, **kw),
+                "one_code": lambda: lib.train_dict(
+                    lib.init_state(2, 300, 25, device=dev), X,
+                    batch_size=16384, **kw)}
             per_step = {}
             for name, fn in runs.items():
                 fn()                    # captures this run's step
@@ -2385,7 +2395,8 @@ def phase_parallel(ck, dev, gen):
             equal = got.t == want.t and all(
                 torch.equal(getattr(got, f), getattr(want, f)) for f in "WAB")
             # the group's step is captured, its all-reduce in the graph
-            captured = any(key[-1].group is not None for key in onmf._GRAPHS)
+            captured = any(key[-1].group is not None and key[-1].tp is None
+                           for key in onmf._GRAPHS)
             emit("parallel", check="dp_train_dict_vs_train_dict",
                  stopping_diff=stop, d=300, r=25, batch=16384, steps=steps,
                  bitwise_equal=equal, dp_captured=captured,
@@ -2394,6 +2405,32 @@ def phase_parallel(ck, dev, gen):
             if not (equal and captured):
                 raise AssertionError(f"dp_train_dict (stop {stop}) differs "
                                      "from train_dict or was not captured")
+            (got, got_code), (want, want_code) = runs["auto"], \
+                runs["one_code"]
+            got = auto.unshard_state(got)
+            state_equal = got.t == want.t and all(
+                torch.equal(getattr(got, f), getattr(want, f))
+                for f in "WABC")
+            # index_add_ adds a step's duplicate columns in no fixed order
+            # (as phase main's captured_vs_eager holds the code)
+            code_bound = steps * 2.0 ** -23 * float(want_code.abs().max())
+            code_err = float((got_code - want_code).abs().max())
+            captured = any(key[-1].tp is not None
+                           and key[-1].group is not None
+                           for key in onmf._GRAPHS)
+            emit("parallel", check="auto_train_dict_vs_train_dict",
+                 mesh={"dp": 1, "tp": 1}, stopping_diff=stop, d=300, r=25,
+                 batch=16384, steps=steps, state_bitwise_equal=state_equal,
+                 code_bitwise_equal=bool(torch.equal(got_code, want_code)),
+                 code_max_abs_err=code_err, code_bound=code_bound,
+                 auto_captured=captured, auto_step_ms=per_step["auto"],
+                 dp_step_ms=per_step["dp"],
+                 train_dict_step_ms=per_step["one_code"])
+            if not (state_equal and code_err <= code_bound and captured):
+                raise AssertionError(
+                    f"auto_train_dict (stop {stop}) differs from train_dict "
+                    f"(state equal {state_equal}, code {code_err} > "
+                    f"{code_bound}) or was not captured ({captured})")
         # dp_ising_learning from phase 6's construction: phase 6's learner
         rec = IsingReconstructor(**ISING_RUN, device=dev)
         t0 = time.perf_counter()

@@ -37,6 +37,12 @@ aggregates, where the JAX step ``psum``s them over its mesh axis; every
 rank then runs the same dictionary update, so the replicas stay equal. The
 ranks draw their batches and ``H0`` from a rank generator
 (:func:`rank_generator`).
+
+Two axes (``parallel/auto.py::auto_train_dict``): every rank draws one
+global batch from the replicated generator and codes its whole tiles of it
+(:func:`batch_cols`), the statistics summed over ``dp``; with a ``tp``
+group W's columns and B's rows are sharded over it, and the step gathers
+them (:func:`_step_math`). The run is ``train_dict``'s.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from onmf_ontf_ndl_tpu_torch.models.state import (
 from onmf_ontf_ndl_tpu_torch.ops.coder import _code_impl, _fista_impl
 from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
+from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import TN
 from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import MAX_RANK
 from onmf_ontf_ndl_tpu_torch.utils.capture import (capture_step, replay,
                                                    tensor_at)
@@ -83,6 +90,28 @@ def rank_generator(gen: torch.Generator, group) -> torch.Generator:
                              device=gen.device))
     rank = dist.get_rank(group)
     return make_generator((seed + rank * _GOLDEN) % 2**63, gen.device)
+
+
+def batch_cols(batch: int, world: int) -> list[tuple[int, int]]:
+    """Each data-parallel rank's columns ``(start, stop)`` of a global batch
+    of ``batch`` columns: whole tiles of the kernels' ``TN`` columns, dealt
+    as evenly as they go, the last rank's ending at ``batch``. The coder
+    kernels stop per tile (PARITY.md #8), so a rank whose columns start at
+    a tile's start codes them as one process codes the whole batch."""
+    tiles = -(-batch // TN)
+    cuts = [min(batch, (i * tiles // world) * TN) for i in range(world)]
+    return list(zip(cuts, cuts[1:] + [batch]))
+
+
+def _all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``t`` stacked by rows in group order: one collective,
+    whose single output a CUDA graph captures."""
+    import torch.distributed as dist
+
+    out = torch.empty((dist.get_world_size(group) * t.shape[0],)
+                      + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out
 
 
 def _all_reduce(tensors, group) -> list:
@@ -167,10 +196,11 @@ def onmf_step(
 
 
 def _code(gram, proj, H0, alpha, sub_iter: int, stopping_diff, backend: str,
-          coder: str):
+          coder: str, stop_group=None):
     """The batch's code from Gram form: the kernel of ``coder`` on
     backend="cuda" (fixed iterations, or the per-tile stop when
-    ``stopping_diff`` is set), else the plain maths."""
+    ``stopping_diff`` is set), else the plain maths, whose stop is the
+    whole batch's over ``stop_group`` where the batch is split over one."""
     use_stopping = stopping_diff is not None
     fista = coder in ("fista", "fista_bf16")
     if fista and backend == "cuda":
@@ -183,7 +213,8 @@ def _code(gram, proj, H0, alpha, sub_iter: int, stopping_diff, backend: str,
                             bf16_matmul=coder == "fista_bf16")
     if fista:
         return _fista_impl(gram, proj, H0, alpha, stopping_diff, sub_iter,
-                           use_stopping, bf16_matmul=coder == "fista_bf16")
+                           use_stopping, bf16_matmul=coder == "fista_bf16",
+                           group=stop_group)
     if backend == "cuda":
         from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
             coder_sweeps, coder_sweeps_earlystop)
@@ -193,19 +224,20 @@ def _code(gram, proj, H0, alpha, sub_iter: int, stopping_diff, backend: str,
                                           stopping_diff, sub_iter=sub_iter)
         return coder_sweeps(gram, proj, H0, alpha, sub_iter=sub_iter)
     return _code_impl(gram, proj, H0, alpha, stopping_diff, None, sub_iter,
-                      use_stopping, False)
+                      use_stopping, False, group=stop_group)
 
 
 def _step_math(W, A, B, C, Xb, H0, w, omw, alpha, sub_iter: int,
                stopping_diff, dict_from: str, backend: str, coder: str,
-               group):
+               group, tp=None, stop_group=None):
     """One step's maths, on W, A, B and C in place: code ``Xb`` from
     ``H0``, blend the statistics into the aggregates,
     ``M <- omw * M + w * stat``, with the weights ``w`` = t^-beta and
     ``omw`` = 1 - w (Python floats, or (1,) tensors of the state's dtype
     that hold them rounded as such a float is where it multiplies a tensor
     of that dtype), then one BCD pass on W from the pre-step aggregates
-    ("stale") or the new ones ("fresh"). Returns the batch's code H.
+    ("stale") or the new ones ("fresh"). Returns the batch's code H and
+    the new dictionary (all of it).
 
     backend="cuda" runs the coder kernel of ``coder`` and the BCD dictionary
     kernel; the result agrees with the torch path to float32 accumulation
@@ -213,14 +245,36 @@ def _step_math(W, A, B, C, Xb, H0, w, omw, alpha, sub_iter: int,
     batches wider than one tile, PARITY.md #8). ``group``: a process group
     over which ``Xb`` is column-sharded; the statistics are summed over it,
     so the step equals the one-process step on the concatenated batch
-    (with the stop, the stop is shard-local).
+    (with the stop, the stop is shard-local unless ``stop_group`` is the
+    group: then the plain coder's stop is the whole batch's, and the
+    kernels' per-tile stop is the one-process stop where each rank's
+    columns are whole tiles, :func:`batch_cols`).
+
+    ``tp``: a process group over which W's columns and B's rows are
+    sharded (W, B this rank's (d, r / tp) and (r / tp, d)). The step
+    gathers the full W and forms ``Wᵀ W``, forms its rows of ``Wᵀ Xb`` and
+    gathers them, codes all r rows (the Gauss-Seidel coder needs every
+    row), forms ``H Hᵀ`` and its rows of ``H Xbᵀ``, and runs the column
+    BCD (sequential over all r columns) on the full W with B's rows
+    gathered; it keeps its own columns. With one rank in ``tp`` and in
+    ``group`` it calls the products of the step without them on the same
+    shapes.
     """
-    gram = W.T @ W
+    if tp is None:
+        Wf = W
+    else:
+        import torch.distributed as dist
+
+        lo, r_l = dist.get_rank(tp) * W.shape[1], W.shape[1]
+        Wf = _all_gather_rows(W.T, tp).T.contiguous()
+    gram = Wf.T @ Wf
     proj = W.T @ Xb
+    if tp is not None:
+        proj = _all_gather_rows(proj, tp)
     H = _code(gram, proj, H0.contiguous(), alpha, int(sub_iter),
-              stopping_diff, backend, coder)
+              stopping_diff, backend, coder, stop_group)
     hht = H @ H.T
-    hxt = H @ Xb.T
+    hxt = (H if tp is None else H.narrow(0, lo, r_l)) @ Xb.T
     xxt = Xb @ Xb.T if C.numel() else None
     if group is not None:
         if xxt is None:
@@ -232,12 +286,14 @@ def _step_math(W, A, B, C, Xb, H0, w, omw, alpha, sub_iter: int,
         torch.mul(M, omw, out=M).add_(stat.mul_(w))
 
     def update(A_u, B_u):
+        if tp is not None:
+            B_u = _all_gather_rows(B_u, tp)
         if backend == "cuda":
             from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
                 dict_update_sweep)
 
-            return dict_update_sweep(W, A_u.contiguous(), B_u.contiguous())
-        return dict_update_bcd(W, A_u, B_u)
+            return dict_update_sweep(Wf, A_u.contiguous(), B_u.contiguous())
+        return dict_update_bcd(Wf, A_u, B_u)
 
     if dict_from == "stale":
         W1 = update(A, B)        # before the aggregates change
@@ -247,8 +303,8 @@ def _step_math(W, A, B, C, Xb, H0, w, omw, alpha, sub_iter: int,
         blend(C, xxt)
     if dict_from == "fresh":
         W1 = update(A, B)
-    W.copy_(W1)
-    return H
+    W.copy_(W1 if tp is None else W1.narrow(1, lo, r_l))
+    return H, W1
 
 
 def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
@@ -258,8 +314,8 @@ def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
     state): ``(new_state, H)``."""
     w_t = t ** (-float(beta))
     W, A, B, C = (v.clone() for v in (st.W, st.A, st.B, st.C))
-    H = _step_math(W, A, B, C, Xb, H0, w_t, 1.0 - w_t, alpha, sub_iter,
-                   stopping_diff, dict_from, backend, coder, group)
+    H, _ = _step_math(W, A, B, C, Xb, H0, w_t, 1.0 - w_t, alpha, sub_iter,
+                      stopping_diff, dict_from, backend, coder, group)
     st = dataclasses.replace(st, W=W, A=A, B=B, C=C, t=t)
     if _DEBUG_NANS:
         _check_finite(st, H, t)
@@ -292,7 +348,11 @@ class _StepSpec:
     that a captured step bakes in. ``draws``: None (drawn from the
     generator), "idx" (given indices and H0) or "full" (given H0, the whole
     X). ``steps``: the rows of the per-step tables. ``beta`` and the counter
-    ``t`` are not baked: they enter through the weight table."""
+    ``t`` are not baked: they enter through the weight table. ``group``:
+    the data-parallel group; ``tp``: the group over which the state's W
+    and B are sharded; ``cols``: this rank's columns of a global batch
+    split over ``group`` (:func:`batch_cols`), None where each rank draws
+    its own batch."""
 
     batch: int
     steps: int
@@ -308,14 +368,17 @@ class _StepSpec:
     track_code: bool
     track_metrics: bool
     group: object = None
+    tp: object = None
+    cols: tuple | None = None
 
 
 def _graph_key(X, state, spec: _StepSpec) -> tuple:
     """The cache key of the graph that runs ``spec`` on data like ``X``
     (its device, dtype, shape and strides, not its values) from a state
-    like ``state`` (rank, dtype, whether it tracks X Xᵀ)."""
+    like ``state`` (rank, the columns of W that it holds, dtype, whether
+    it tracks X Xᵀ)."""
     return (X.device, X.dtype, tuple(X.shape), X.stride(), state.W.dtype,
-            state.r, state.tracks_xxt, spec)
+            state.A.shape[0], state.r, state.tracks_xxt, spec)
 
 
 def _train_route(device_type: str, backend: str, group_backend, r: int,
@@ -326,8 +389,10 @@ def _train_route(device_type: str, backend: str, group_backend, r: int,
     backend at a rank the coder kernels take: on the plain maths, which
     the coder wrappers also run past ``MAX_RANK`` (``kernel_route``'s
     "unfused"), the early stop reads its test on the host, which a capture
-    cannot. It also takes no group or an NCCL one (a gloo collective is
-    not captured), and no ``debug_nans`` (its check syncs every step).
+    cannot. It also takes no group or NCCL ones (``group_backend``: the
+    backend of the step's groups, "mixed" where they differ; a gloo
+    collective is not captured), and no ``debug_nans`` (its check syncs
+    every step).
     ``capture=False`` asks for eager."""
     if (capture and device_type == "cuda" and backend == "cuda"
             and r <= MAX_RANK and group_backend in (None, "nccl")
@@ -461,25 +526,35 @@ def _loop_step(lp: _Loop, spec: _StepSpec, gen, weights=None
     elif spec.subsample:
         idx = torch.randint(0, n, (spec.batch,), generator=gen,
                             device=X.device)
-    Xb = X if idx is None else X.index_select(1, idx)
     if spec.draws is None:
-        H0 = torch.rand((lp.W.shape[1], Xb.shape[1]), generator=gen,
-                        dtype=X.dtype, device=X.device)
+        H0 = torch.rand((lp.A.shape[0], n if idx is None else len(idx)),
+                        generator=gen, dtype=X.dtype, device=X.device)
+    code = lp.code
+    if spec.cols is not None:       # this rank's columns of the batch
+        lo, hi = spec.cols
+        H0 = H0[:, lo:hi]
+        if idx is None:
+            X = X.narrow(1, lo, hi - lo)
+            code = None if code is None else code.narrow(1, lo, hi - lo)
+        else:
+            idx = idx[lo:hi]
+    Xb = X if idx is None else X.index_select(1, idx)
     if weights is None:
         weights = lp.w.index_select(0, k), lp.omw.index_select(0, k)
-    H = _step_math(
+    H, W = _step_math(
         lp.W, lp.A, lp.B, lp.C, Xb, H0, *weights, spec.alpha, spec.sub_iter,
         spec.stopping_diff, spec.dict_from, spec.backend, spec.coder,
-        spec.group)
+        spec.group, spec.tp, None if spec.cols is None else spec.group)
     if spec.track_code:
         if idx is None:
-            lp.code += H
+            code += H
         else:
-            lp.code.index_add_(1, idx, H)
+            code.index_add_(1, idx, H)
     if spec.track_metrics:
         # the batch objective 0.5|Xb - W H|^2 + alpha|H|_1, post-update W
+        # (this rank's columns of it where the batch is split)
         lp.metrics.index_copy_(0, k, (
-            0.5 * torch.sum((Xb - lp.W @ H) ** 2)
+            0.5 * torch.sum((Xb - W @ H) ** 2)
             + spec.alpha * torch.sum(H)).reshape(1))
     k += 1
     return H
@@ -574,6 +649,8 @@ def _train_loop(
     coder: str = "bcd",
     group=None,
     *,
+    tp=None,
+    global_batch: bool = False,
     capture: bool = True,
 ):
     """``iterations - 1`` steps (the JAX ``_train_scan``); every training
@@ -581,7 +658,12 @@ def _train_loop(
     tensors; ``code`` is not written. With a ``group``, ``X`` is this
     rank's shard: the pool permutation of block sampling is drawn alike on
     every rank (as the JAX scan draws it from the replicated key), the
-    batches and ``H0`` from the rank generator.
+    batches and ``H0`` from the rank generator. With ``global_batch``,
+    ``X`` is whole on every rank instead, which draws the global batch
+    from ``state.gen`` (or takes the given draws, alike on every rank) and
+    codes its columns of it (:func:`batch_cols`); the code and metrics are
+    then this rank's part, to be summed over ``group``. ``tp``: the group
+    over which the state's W and B are sharded (:func:`_step_math`).
 
     :func:`_train_route` picks the route: on a CUDA tensor one step is
     captured as a CUDA graph (once per :func:`_graph_key`) and replayed for
@@ -597,7 +679,7 @@ def _train_loop(
     perm = None
     if subsample and sampling == "block" and draws is None:
         perm = torch.randperm(n, generator=gen, device=X.device)
-    if draws is None:
+    if draws is None and not global_batch:
         gen = rank_generator(gen, group)
     steps = max(iterations, 1) - 1
     if steps == 0:
@@ -609,20 +691,29 @@ def _train_loop(
         batch = n if idx is None else idx.shape[1]
     else:
         batch = batch_size if subsample else n
+    cols = None
+    backends = set()
+    if group is not None or tp is not None:
+        import torch.distributed as dist
+
+        backends = {str(dist.get_backend(g)) for g in (group, tp)
+                    if g is not None}
+        if global_batch and group is not None \
+                and dist.get_world_size(group) > 1:
+            cols = batch_cols(batch, dist.get_world_size(group))[
+                dist.get_rank(group)]
     spec = _StepSpec(
         batch=batch, steps=steps, alpha=float(alpha), sub_iter=int(sub_iter),
         stopping_diff=stopping_diff, dict_from=dict_from, backend=backend,
         coder=coder, draws=mode, subsample=bool(subsample),
         sampling=sampling, track_code=bool(track_code),
-        track_metrics=bool(track_metrics), group=group)
+        track_metrics=bool(track_metrics), group=group, tp=tp, cols=cols)
     tables = dict(perm=perm, idx=idx, H0=H0)
-    group_backend = None
-    if group is not None:
-        import torch.distributed as dist
-
-        group_backend = str(dist.get_backend(group))
-    route = _train_route(X.device.type, backend, group_backend, state.r,
-                         _DEBUG_NANS, capture)
+    # one backend for all the step's groups, else none that captures
+    group_backend = (None if not backends else backends.pop()
+                     if len(backends) == 1 else "mixed")
+    route = _train_route(X.device.type, backend, group_backend,
+                         state.A.shape[0], _DEBUG_NANS, capture)
     if route == "captured":
         tables["w"], tables["omw"] = _step_weights(t0, steps, beta, X.dtype)
         with torch.cuda.device(X.device):

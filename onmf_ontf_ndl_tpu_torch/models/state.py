@@ -37,6 +37,9 @@ class OnmfState:
       C: (d, d) aggregate of X X^T, or a (0, 0) placeholder when untracked.
       t: float iteration counter ("history") driving the t^-beta schedule.
       gen: generator for minibatch subsampling and code initialization.
+      sharding: None, or where W's columns and B's rows are split over a
+        mesh axis (``parallel/auto.py::shard_state``): W and B are then
+        this rank's shard, (d, r / tp) and (r / tp, d).
     """
 
     W: torch.Tensor
@@ -45,6 +48,7 @@ class OnmfState:
     C: torch.Tensor
     t: float
     gen: torch.Generator
+    sharding: object = None
 
     @property
     def d(self) -> int:

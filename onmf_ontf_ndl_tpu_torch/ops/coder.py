@@ -19,6 +19,10 @@ Execution modes, as in the JAX module:
 inputs) solves the same objective by accelerated projected gradient
 (:func:`_fista_impl`), with no radius.
 
+A batch split by columns over a process group (``parallel/auto.py``) keeps
+the whole batch's stop in the plain maths: ``group=`` sums the two r x r
+Grams behind the norms over the group every sweep (:func:`_norm_ratio`).
+
 On a CUDA tensor without a radius, every mode runs the hand-written kernels
 of ``ops/kernels/coder_kernel.py``; the early-stop and FISTA-stop kernels
 apply the rule per column tile (see that module). Everything else is plain
@@ -61,14 +65,15 @@ def _fista_fixed(A, B, H0, alpha, inv_L, sub_iter: int, bf16_matmul: bool):
 
 
 def _fista_impl(A, B, H0, alpha, stopping_diff, sub_iter: int,
-                use_stopping: bool, bf16_matmul: bool = False):
+                use_stopping: bool, bf16_matmul: bool = False, group=None):
     """Accelerated projected-gradient (FISTA) nonnegative LASSO coder.
 
     Step ``1 / L`` with ``L = 1.02 lambda_max(A) + 1e-12`` from 16 power
     steps, Nesterov momentum in the standard t-sequence. With
     ``use_stopping``, iterates until the relative spectral change of the
     whole batch is at most ``stopping_diff`` (the denominator guarded at
-    1e-30, unlike the sweep loop) or ``sub_iter`` iterations pass.
+    1e-30, unlike the sweep loop) or ``sub_iter`` iterations pass; the
+    batch is split over ``group`` where one is given (:func:`_norm_ratio`).
     """
     from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import (
         _inv_lipschitz)
@@ -80,8 +85,7 @@ def _fista_impl(A, B, H0, alpha, stopping_diff, sub_iter: int,
     i, dist = 0, math.inf
     while i < sub_iter and dist > stopping_diff:
         Hn, Y, tt = _fista_step(H, Y, tt, A, B, alpha, inv_L, bf16_matmul)
-        dist = float(_spectral_norm(Hn - H)
-                     / torch.clamp_min(_spectral_norm(H), 1e-30))
+        dist = _norm_ratio(Hn - H, H, group, guard=1e-30)
         H = Hn
         i += 1
     return H
@@ -94,6 +98,28 @@ def _spectral_norm(M: torch.Tensor) -> torch.Tensor:
     G = M @ M.T if r <= n else M.T @ M
     lam = torch.linalg.eigvalsh(G)[-1]
     return torch.sqrt(torch.clamp_min(lam, 0.0))
+
+
+def _norm_ratio(D, H, group, guard=None) -> float:
+    """``|D|_2 / |H|_2`` of the whole batch, the denominator clamped to
+    ``guard`` where given. Without a group, from each matrix's own Gram
+    (:func:`_spectral_norm`); with one, D and H are this rank's columns of
+    the batch, and the ranks sum their r x r Grams (one all-reduce) before
+    each takes the same ``lambda_max``."""
+    if group is None:
+        den = _spectral_norm(H)
+        if guard is not None:
+            den = torch.clamp_min(den, guard)
+        return float(_spectral_norm(D) / den)
+    import torch.distributed as dist
+
+    grams = torch.stack([D @ D.T, H @ H.T])
+    dist.all_reduce(grams, op=dist.ReduceOp.SUM, group=group)
+    num, den = torch.sqrt(torch.clamp_min(
+        torch.linalg.eigvalsh(grams)[:, -1], 0.0))
+    if guard is not None:
+        den = torch.clamp_min(den, guard)
+    return float(num / den)
 
 
 def _sweep(H, A, B, alpha, rsqrt_i):
@@ -125,8 +151,11 @@ def _sweep_radius(H, H_anchor, A, B, alpha, rsqrt_i, radius):
 
 
 def _code_impl(A, B, H0, alpha, stopping_diff, radius, sub_iter: int,
-               use_stopping: bool, use_radius: bool) -> torch.Tensor:
-    """The plain coder: fixed, early-stop and radius paths."""
+               use_stopping: bool, use_radius: bool,
+               group=None) -> torch.Tensor:
+    """The plain coder: fixed, early-stop and radius paths; with the stop,
+    the batch split by columns over ``group`` where one is given
+    (:func:`_norm_ratio`)."""
     H, anchor = H0.clone(), H0
 
     def one_iter(i, H, anchor):
@@ -145,7 +174,7 @@ def _code_impl(A, B, H0, alpha, stopping_diff, radius, sub_iter: int,
     while i < sub_iter and dist > stopping_diff:
         H_old = H.clone()
         H, anchor = one_iter(i, H, anchor)
-        dist = float(_spectral_norm(H - H_old) / _spectral_norm(H_old))
+        dist = _norm_ratio(H - H_old, H_old, group)
         i += 1
     return H
 

@@ -13,6 +13,8 @@ Launch (the same command on every process)::
     multihost.initialize()                    # env:// (torchrun's variables)
     group = multihost.global_mesh()           # the world group
     ... dp_train_dict(state, X, ..., group=group)
+    mesh = multihost.global_mesh({"dp": hosts, "tp": gpus_per_host})
+    ... auto_train_dict(state, X, mesh=mesh, tp_axis="tp", ...)
 
 or explicitly::
 
@@ -106,9 +108,12 @@ def local_device_count() -> int:
 
 
 def global_mesh(axes: dict[str, int] | None = None):
-    """The group over every rank of the job (the world group); ``axes``,
-    as in :func:`~onmf_ontf_ndl_tpu_torch.parallel.mesh.make_mesh`, only
-    checks its size."""
+    """The mesh over every rank of the job
+    (:func:`~onmf_ontf_ndl_tpu_torch.parallel.mesh.make_mesh` over the
+    world): the world group with one axis or none; with two or more a
+    named :class:`~onmf_ontf_ndl_tpu_torch.parallel.mesh.Mesh`, e.g.
+    ``{"dp": hosts, "tp": local_device_count()}``: dp across hosts, tp
+    within a host, the ranks of a host consecutive."""
     from onmf_ontf_ndl_tpu_torch.parallel.mesh import make_mesh
 
     return make_mesh(axes)

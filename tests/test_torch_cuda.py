@@ -706,6 +706,50 @@ def test_cuda_multihost_takes_nccl(cuda, tmp_path):
     assert not multihost.is_initialized()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop", [None, 0.01])
+def test_cuda_auto_train_dict_on_a_one_rank_mesh_equals_train_dict(
+        cuda, tmp_path, stop):
+    # {"dp": 1, "tp": 1} over one NCCL rank: the step gathers over tp and
+    # sums over dp, each the identity, and makes train_dict's products on
+    # its shapes, captured with its collectives: the state equal bit for
+    # bit, the code to index_add_'s float32 rounding (as
+    # _assert_runs_equal holds it), the generators' next draws equal
+    from onmf_ontf_ndl_tpu_torch.models import onmf
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+    from onmf_ontf_ndl_tpu_torch.parallel import auto, multihost
+
+    X = torch.rand((60, 3000), generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    kw = dict(iterations=7, batch_size=512, stopping_diff=stop, alpha=0.1,
+              beta=0.9)
+    multihost.initialize(coordinator_address=f"file://{tmp_path}/pg",
+                         num_processes=1, process_id=0)
+    try:
+        mesh = multihost.global_mesh({"dp": 1, "tp": 1})
+        onmf._GRAPHS.clear()
+        for seed in (3, 5):             # a capture, then a replay
+            got, got_code = auto.auto_train_dict(
+                init_state(seed, 60, 12, device=cuda), X, mesh=mesh,
+                tp_axis="tp", **kw)
+            assert [k[-1].tp is not None for k in onmf._GRAPHS] == [True]
+            want, want_code = onmf.train_dict(
+                init_state(seed, 60, 12, device=cuda), X, **kw)
+            torch.cuda.synchronize()
+            got = auto.unshard_state(got)
+            for f in "WABC":
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+            assert got.t == want.t == 7.0
+            torch.testing.assert_close(got_code, want_code, rtol=1e-5,
+                                       atol=1e-6)
+            assert torch.equal(torch.rand(8, generator=got.gen, device=cuda),
+                               torch.rand(8, generator=want.gen, device=cuda))
+            onmf._GRAPHS.pop(next(k for k in onmf._GRAPHS
+                                  if k[-1].tp is None))
+    finally:
+        multihost.shutdown()
+
+
 # ------------------------------------------- the captured training loop
 # Captured against eager (``_train_loop(capture=False)``) from one state and
 # one generator state: the same kernels on the same inputs in the same

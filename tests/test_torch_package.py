@@ -84,7 +84,8 @@ def _entry_points(tmp_path):
     from onmf_ontf_ndl_tpu_torch.models.ontf import OnlineNTF
     from onmf_ontf_ndl_tpu_torch.models.state import (init_state,
                                                       state_from_numpy)
-    from onmf_ontf_ndl_tpu_torch.parallel import dp, ising_sharded, multihost
+    from onmf_ontf_ndl_tpu_torch.parallel import (auto, dp, ising_sharded,
+                                                  multihost)
     from onmf_ontf_ndl_tpu_torch.utils import config
     from onmf_ontf_ndl_tpu_torch.utils.checkpoint import load_state
 
@@ -171,6 +172,9 @@ def _entry_points(tmp_path):
         dp.dp_train_dict: lambda **kw: dp.dp_train_dict(
             cpu_state(), rng.random((4, 6)), iterations=2,
             batch_size_per_device=3, **kw),
+        auto.auto_train_dict: lambda **kw: auto.auto_train_dict(
+            cpu_state(), rng.random((4, 6)), iterations=2, batch_size=3,
+            **kw),
         dp.dp_train_image_dict: lambda **kw: dp.dp_train_image_dict(
             cpu_state(), rng.random((6, 6)), outer_iterations=1,
             num_patches_per_device=3, inner_iterations=2,
@@ -212,6 +216,7 @@ def _entry_points(tmp_path):
     "VideoDictionaryLearner", "grid_patch_corners", "all_patch_corners",
     "ImageConfig", "TensorConfig", "IsingConfig", "NetworkConfig",
     "VideoConfig", "shard_batch", "dp_onmf_step", "dp_train_dict",
+    "auto_train_dict",
     "dp_train_image_dict", "dp_train_tensor_dict", "dp_ising_learning",
     "dp_ndl_train", "dp_reconstruct_network_sparse",
     "sharded_checkerboard_sweeps", "initialize"])
@@ -234,7 +239,8 @@ def test_entry_point_defaults_to_the_card(name, tmp_path, monkeypatch):
         with pytest.raises(FileNotFoundError):
             call(device="cpu")
         return
-    grouped = name.startswith(("dp_", "shard")) or name == "initialize"
+    grouped = name.startswith(("dp_", "shard", "auto_")) \
+        or name == "initialize"
     if grouped:
         dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                                 world_size=1, rank=0)

@@ -23,6 +23,17 @@ test wrote, and saves its outputs; the tests compare them.
 - The replicas stay equal; ``shard_state`` replicates rank 0's state;
   ``multihost`` reports rank and count; the CLI with ``--distributed``
   writes rank 1's artifacts under ``proc1/``.
+- Two axes: each world also builds the named mesh ``{"dp": world / 2,
+  "tp": 2}`` (``multihost.global_mesh``). ``shard_state(..., tp_axis=)``
+  puts on each rank the W columns and B rows that JAX puts on the device
+  at the same mesh coordinate, exactly; ``auto_train_dict`` on the JAX
+  key's draws equals JAX's ``auto_train_dict`` on the JAX mesh of the same
+  shape (state rtol 1e-8, code rtol 1e-8 / atol 1e-12, as
+  tests/test_torch_onmf.py holds ``train_dict``) and the port's
+  one-process ``train_dict`` at rtol 1e-12 (tests/test_parallel.py's
+  tolerance for JAX's), at fixed sweeps and with the 0.01 stop, on a batch
+  of 16 (one tile: the first dp rank codes no column) and of 300 (tiles
+  dealt 128 / 172 over dp = 2).
 """
 
 import os
@@ -38,6 +49,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from onmf_ontf_ndl_tpu.models.state import init_state as jinit_state
+from onmf_ontf_ndl_tpu.parallel import auto as jauto
 from onmf_ontf_ndl_tpu.parallel import dp as jdp
 from onmf_ontf_ndl_tpu.parallel.mesh import make_mesh as jmake_mesh
 from onmf_ontf_ndl_tpu_torch.apps import network as tnet
@@ -49,6 +61,7 @@ from onmf_ontf_ndl_tpu_torch.ops.kernels.ising_kernel import (
     checkerboard_sweeps_plain)
 from onmf_ontf_ndl_tpu_torch.parallel.dp import merge_recon_shards
 from onmf_ontf_ndl_tpu_torch.samplers.motif import path_adj
+from test_torch_onmf import assert_state_close, replay_draws
 
 torch.set_num_threads(1)
 
@@ -56,6 +69,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
 SIZES = dict(d=12, r=4, m=8, steps=3, b=5, L=12, k=4, R=3, num=6,
              rounds=3, inner=3, S=8, M=10, N=10, ring_r=3)
+# the two-axis runs: a (d, TP_N) batch pool, rank r split over tp = 2,
+# TP_ITERS iterations on global batches of TP_BATCHES columns
+TP_N, TP_ITERS, TP_BATCHES, TP_SEED = 200, 4, (16, 300), 7
+TP_MODES = {"fixed": None, "stop": 0.01}
 
 WORKER = r"""
 import sys
@@ -181,9 +198,44 @@ st = dp.dp_train_tensor_dict(
 out.update(tensor_W=st.W.numpy(), tensor_t=st.t)
 own = init_state(rank, 6, 2, device="cpu", dtype=F64)
 out["shard_state_W"] = auto.shard_state(own).W.numpy()
-st = auto.auto_train_dict(own, inp["train_X"][:6], iterations=3,
-                          batch_size_per_device=4, device="cpu")
+st, _ = auto.auto_train_dict(own, inp["train_X"][:6], iterations=3,
+                             batch_size=4, device="cpu")
 out["auto_W"] = st.W.numpy()
+
+# two axes: dp over world / 2 ranks, the dictionary over tp = 2
+mesh = multihost.global_mesh({"dp": world // 2, "tp": 2})
+out["tp_coord"] = np.array([mesh.coordinate("dp"), mesh.coordinate("tp")])
+r = inp["tp_W"].shape[1]
+tp_state = state_from_numpy(inp["tp_W"], np.zeros((r, r)), inp["tp_B"],
+                            None, 0.0, seed=3, device="cpu", dtype=F64)
+st = auto.shard_state(tp_state, mesh, tp_axis="tp")
+out.update(tp_W=st.W.numpy(), tp_B=st.B.numpy())
+try:
+    auto.shard_state(state(inp["tp_W"][:, :3]), mesh, tp_axis="tp")
+    out["tp_odd_error"] = "no error"
+except ValueError as e:
+    out["tp_odd_error"] = str(e)
+
+
+def tp_save(name, st, code):
+    full = auto.unshard_state(st)
+    out.update({f"{name}_{f}": getattr(full, f).numpy() for f in "WABC"})
+    out.update({f"{name}_code": code.numpy(), f"{name}_t": st.t,
+                f"{name}_shard": st.W.numpy()})
+
+
+for b in (16, 300):
+    draws = [(t(i), t(h)) for i, h in zip(inp[f"tp_idx_{b}"],
+                                          inp[f"tp_H0_{b}"])]
+    for mode, sd in (("fixed", None), ("stop", 0.01)):
+        tp_save(f"tp_{b}_{mode}", *auto.auto_train_dict(
+            tp_state, inp["tp_X"], mesh=mesh, dp_axis="dp", tp_axis="tp",
+            iterations=len(draws) + 1, batch_size=b, stopping_diff=sd,
+            draws=draws, device="cpu"))
+# drawn from the replicated generator: one global batch a step
+tp_save("tp_drawn", *auto.auto_train_dict(
+    tp_state, inp["tp_X"], mesh=mesh, tp_axis="tp", iterations=4,
+    batch_size=300, device="cpu"))
 
 if world == 2:
     from onmf_ontf_ndl_tpu_torch import cli
@@ -236,7 +288,28 @@ def _inputs(world: int) -> dict:
         lattice_32=rng.choice(np.array([1, -1], np.int8), (32, 32)),
         image=rng.random((24, 24)),
         tensor_W=rng.random((4, 2)), tensor_X=rng.random((4, 4, 3, 8)),
+        tp_W=rng.random((d, r)), tp_B=rng.random((r, d)),
+        tp_X=rng.random((d, TP_N)),
+        **_tp_draws(d, r),
     )
+
+
+def _tp_jax_state(inp, r=None):
+    W = inp["tp_W"] if r is None else inp["tp_W"][:, :r]
+    d, r = W.shape
+    return jinit_state(jax.random.key(TP_SEED), d, r, dtype=jnp.float64,
+                       W=W, B=inp["tp_B"][:r])
+
+
+def _tp_draws(d, r):
+    """The JAX key's draws (idx, H0) of each two-axis batch size."""
+    key = jinit_state(jax.random.key(TP_SEED), d, r, dtype=jnp.float64).key
+    out = {}
+    for b in TP_BATCHES:
+        draws = replay_draws(key, TP_N, r, TP_ITERS, b, True)
+        out[f"tp_idx_{b}"] = np.stack([i.numpy() for i, _ in draws])
+        out[f"tp_H0_{b}"] = np.stack([h.numpy() for _, h in draws])
+    return out
 
 
 _RUNS = {}
@@ -495,3 +568,96 @@ def test_cli_distributed_writes_rank_one_apart(tmp_path_factory):
         meta = json.loads((outdir / sub / "run.json").read_text())
         assert meta["cmd"] == "ising" and meta["config"]["device"] == "cpu"
     assert not os.path.exists(outdir / "cli" / "proc0")
+
+
+def _saved_state(o, name):
+    return state_from_numpy(o[f"{name}_W"], o[f"{name}_A"], o[f"{name}_B"],
+                            o[f"{name}_C"], float(o[f"{name}_t"]),
+                            device="cpu", dtype=F64)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_shard_state_puts_the_jax_shard_on_each_rank(world, tmp_path_factory):
+    # rank i sits where JAX's device i sits in a row-major mesh: at
+    # (i // 2, i % 2) of {"dp": world / 2, "tp": 2}, with the columns of
+    # its tp coordinate
+    inp, outs, _ = run_world(world, tmp_path_factory)
+    devices = jax.devices()[:world]
+    mesh = jmake_mesh({"dp": world // 2, "tp": 2}, devices)
+    js = jauto.shard_state(mesh, _tp_jax_state(inp), tp_axis="tp")
+    for name in ("W", "B"):
+        shards = getattr(js, name).addressable_shards
+        assert len(shards) == world
+        for shard in shards:
+            np.testing.assert_array_equal(
+                outs[devices.index(shard.device)][f"tp_{name}"],
+                np.asarray(shard.data))
+    r_l = inp["tp_W"].shape[1] // 2
+    for rank, o in enumerate(outs):
+        assert tuple(o["tp_coord"]) == (rank // 2, rank % 2)
+        cols = slice(rank % 2 * r_l, (rank % 2 + 1) * r_l)
+        np.testing.assert_array_equal(o["tp_W"], inp["tp_W"][:, cols])
+        np.testing.assert_array_equal(o["tp_B"], inp["tp_B"][cols])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_shard_state_rejects_columns_that_do_not_divide(world,
+                                                        tmp_path_factory):
+    inp, outs, _ = run_world(world, tmp_path_factory)
+    for o in outs:
+        assert "should be divisible by 2" in str(o["tp_odd_error"])
+    mesh = jmake_mesh({"dp": world // 2, "tp": 2}, jax.devices()[:world])
+    with pytest.raises(ValueError, match="divisible by 2"):
+        jauto.shard_state(mesh, _tp_jax_state(inp, r=3), tp_axis="tp")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", sorted(TP_MODES))
+def test_auto_train_dict_matches_jax_on_the_same_mesh(world, mode,
+                                                      tmp_path_factory):
+    inp, outs, _ = run_world(world, tmp_path_factory)
+    mesh = jmake_mesh({"dp": world // 2, "tp": 2}, jax.devices()[:world])
+    b = TP_BATCHES[-1]
+    js, jcode = jauto.auto_train_dict(
+        mesh, _tp_jax_state(inp), jnp.asarray(inp["tp_X"]), dp_axis="dp",
+        tp_axis="tp", iterations=TP_ITERS, batch_size=b,
+        stopping_diff=TP_MODES[mode])
+    for o in outs:
+        assert_state_close(_saved_state(o, f"tp_{b}_{mode}"), js)
+        np.testing.assert_allclose(o[f"tp_{b}_{mode}_code"],
+                                   np.asarray(jcode), rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", [f"{b}_{m}" for b in TP_BATCHES
+                                  for m in sorted(TP_MODES)] + ["drawn"])
+def test_auto_train_dict_equals_one_process_train_dict(world, case,
+                                                       tmp_path_factory):
+    inp, outs, _ = run_world(world, tmp_path_factory)
+    r = inp["tp_W"].shape[1]
+    st = state_from_numpy(inp["tp_W"], np.zeros((r, r)), inp["tp_B"], None,
+                          0.0, seed=3, device="cpu", dtype=F64)
+    X = torch.as_tensor(inp["tp_X"])
+    if case == "drawn":             # train_dict's defaults, its generator
+        want = train_dict(st, X, iterations=4, batch_size=300)
+    else:
+        b, mode = case.split("_")
+        draws = [(torch.as_tensor(i), torch.as_tensor(h)) for i, h in
+                 zip(inp[f"tp_idx_{b}"], inp[f"tp_H0_{b}"])]
+        want = train_dict(st, X, iterations=len(draws) + 1,
+                          batch_size=int(b), stopping_diff=TP_MODES[mode],
+                          draws=draws)
+    r_l = r // 2
+    for rank, o in enumerate(outs):
+        name = f"tp_{case}"
+        assert float(o[f"{name}_t"]) == want[0].t
+        for f in "WABC":
+            np.testing.assert_allclose(o[f"{name}_{f}"],
+                                       getattr(want[0], f).numpy(),
+                                       rtol=1e-12, err_msg=f)
+        np.testing.assert_allclose(o[f"{name}_code"], want[1].numpy(),
+                                   rtol=1e-12)
+        # the rank holds its tp coordinate's columns of the whole W
+        np.testing.assert_array_equal(
+            o[f"{name}_shard"],
+            o[f"{name}_W"][:, rank % 2 * r_l:(rank % 2 + 1) * r_l])

@@ -423,7 +423,8 @@ SPEC = tonmf._round_spec(30, 10, 12, True, 0.1, 10, 0.01, False, "stale",
 BAKED = dict(batch=13, steps=10, alpha=0.2, sub_iter=11, stopping_diff=None,
              dict_from="fresh", backend="torch", coder="fista", draws="idx",
              subsample=False, sampling="block", track_code=True,
-             track_metrics=True, group=object())
+             track_metrics=True, group=object(), tp=object(),
+             cols=(0, 128))
 
 
 def test_round_key_changes_with_each_baked_argument_only():

@@ -183,7 +183,7 @@ BAKED = dict(batch=17, steps=9, alpha=0.2, sub_iter=11,
              stopping_diff=None,
              dict_from="fresh", backend="torch", coder="fista", draws="idx",
              subsample=False, sampling="block", track_code=False,
-             track_metrics=True, group=object())
+             track_metrics=True, group=object(), tp=object(), cols=(0, 128))
 
 
 def test_graph_key_changes_with_each_baked_argument_only():
@@ -294,3 +294,101 @@ def test_debug_nans_runs_eager_and_names_the_step():
                               False, "stale", backend="torch")
     assert tonmf._train_route("cuda", "cuda", None, 3, tonmf._DEBUG_NANS) \
         == "captured"
+
+
+def _sharded(st, tp: int, j: int):
+    """Rank j's shard of ``st`` over a tp axis of ``tp`` ranks (W's
+    columns, B's rows), as parallel/auto.py::shard_state keeps it."""
+    r_l = st.r // tp
+    return dataclasses.replace(st, W=st.W[:, j * r_l:(j + 1) * r_l],
+                               B=st.B[j * r_l:(j + 1) * r_l])
+
+
+def test_graph_key_tells_tp_groups_and_shards_apart():
+    X = torch.rand((30, 40), dtype=F64)
+    st = init_state(0, 30, 6, device="cpu", dtype=F64)
+    g1, g2 = object(), object()
+    spec = dataclasses.replace(SPEC, group=g1, tp=g2, cols=(0, 128))
+    key = tonmf._graph_key(X, _sharded(st, 2, 0), spec)
+    # the other shard, and new values: the same key
+    other = init_state(1, 30, 6, device="cpu", dtype=F64, t=3.0)
+    assert tonmf._graph_key(X, _sharded(other, 2, 1), spec) == key
+    keys = {key,
+            # the tp group, the dp group, this rank's columns of the batch
+            tonmf._graph_key(X, _sharded(st, 2, 0),
+                             dataclasses.replace(spec, tp=object())),
+            tonmf._graph_key(X, _sharded(st, 2, 0),
+                             dataclasses.replace(spec, group=object())),
+            tonmf._graph_key(X, _sharded(st, 2, 0),
+                             dataclasses.replace(spec, cols=(128, 200))),
+            # the shard's shape: 3 of 6 columns, 2 of 6, 3 of 3, 6 of 6
+            tonmf._graph_key(X, _sharded(st, 3, 0), spec),
+            tonmf._graph_key(X, init_state(0, 30, 3, device="cpu",
+                                           dtype=F64), spec),
+            tonmf._graph_key(X, st, spec)}
+    assert len(keys) == 7
+
+
+@pytest.mark.parametrize("batch", [1, 127, 128, 129, 16384])
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+def test_batch_cols_deal_whole_tiles(batch, world):
+    cols = tonmf.batch_cols(batch, world)
+    assert len(cols) == world
+    assert cols[0][0] == 0 and cols[-1][1] == batch
+    assert all(a[1] == b[0] for a, b in zip(cols, cols[1:]))
+    tn = _lib.TN
+    assert all(lo % tn == 0 and lo <= hi for lo, hi in cols)
+    # every rank but the last holds whole tiles, the last takes the rest
+    assert all((hi - lo) % tn == 0 for lo, hi in cols[:-1])
+    tiles = [-(-(hi - lo) // tn) for lo, hi in cols]
+    assert sum(tiles) == -(-batch // tn)
+    assert max(tiles) - min(tiles) <= 1
+    if world == 1:
+        assert cols == [(0, batch)]
+
+
+@pytest.fixture
+def one_rank_gloo(tmp_path):
+    """A one-rank gloo process group in this process."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("stop", [None, 0.01])
+@pytest.mark.parametrize("subsample", [True, False])
+def test_one_rank_tp_and_dp_groups_route_eager_and_run_train_dict(
+        one_rank_gloo, monkeypatch, stop, subsample):
+    # a gloo group among the step's groups routes eager; with one rank in
+    # each the step makes the one-process step's products on its shapes:
+    # equal to train_dict bit for bit, the code and objectives too
+    routes = []
+    route = tonmf._train_route
+
+    def spy(*args, **kw):
+        routes.append(args)
+        return route(*args, **kw)
+
+    monkeypatch.setattr(tonmf, "_train_route", spy)
+    d, r, n = 20, 4, 37
+    X = torch.from_numpy(RNG.random((d, n)))
+    kw = dict(iterations=5, batch_size=16, subsample=subsample,
+              stopping_diff=stop, alpha=0.2, beta=0.9, return_metrics=True)
+    want = tonmf.train_dict(init_state(5, d, r, device="cpu", dtype=F64), X,
+                            **kw)
+    st = init_state(5, d, r, device="cpu", dtype=F64)
+    got = tonmf._train_loop(
+        st, X, torch.zeros((r, n), dtype=F64), 0.2, 0.9, stop, 5, 16,
+        subsample, 10, True, "stale", backend="torch", track_metrics=True,
+        group=one_rank_gloo, tp=one_rank_gloo, global_batch=True)
+    assert [a[2] for a in routes] == [None, "gloo"]
+    assert routes[1][3] == r
+    for f in "WABC":
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[0].t == want[0].t == 5.0
