@@ -33,6 +33,7 @@ from onmf_ontf_ndl_tpu_torch.ops.patches import (
     overlap_average_grid,
     random_patch_corners,
 )
+from onmf_ontf_ndl_tpu_torch.utils.profiling import span, spanned
 
 __all__ = ["ImageReconstructor", "train_image_dict", "reconstruct"]
 
@@ -117,17 +118,21 @@ def reconstruct(
     ``full_grid=True`` uses every patch position (the grey path);
     otherwise a strided grid exclusive of the last start. Fixed sweeps by
     default: the batched early stop over the whole patch matrix only ever
-    runs fewer sweeps.
+    runs fewer sweeps. Spans: ``recon.extract``, ``recon.code`` and
+    ``recon.paint`` (W H and the overlap average).
     """
     k = patch_size
-    X = extract_patches_grid(img, k, stride, inclusive=full_grid)
-    H = nonneg_code(
-        X, W, generator=generator, alpha=alpha, sub_iter=sub_iter,
-        stopping_diff=(stopping_diff if use_stopping else None),
-        method=method, backend=backend,
-    )
-    return overlap_average_grid(W @ H, k, stride, tuple(img.shape),
-                                inclusive=full_grid)
+    with span("recon.extract", on=img):
+        X = extract_patches_grid(img, k, stride, inclusive=full_grid)
+    with span("recon.code", on=img):
+        H = nonneg_code(
+            X, W, generator=generator, alpha=alpha, sub_iter=sub_iter,
+            stopping_diff=(stopping_diff if use_stopping else None),
+            method=method, backend=backend,
+        )
+    with span("recon.paint", on=img):
+        return overlap_average_grid(W @ H, k, stride, tuple(img.shape),
+                                    inclusive=full_grid)
 
 
 class ImageReconstructor:
@@ -210,6 +215,7 @@ class ImageReconstructor:
             self.state,
             W=torch.as_tensor(value, dtype=self.dtype, device=self.device))
 
+    @spanned("train.call")
     def train_dict(self, checkpoint_path: str | None = None,
                    checkpoint_every: int = 0, resume: bool = False,
                    draws=None):
@@ -320,6 +326,7 @@ class ImageReconstructor:
             W if W is not None else self.W, self.patch_size,
             is_color=self.is_color, save_path=save_path, show=show)
 
+    @spanned("recon.job")
     def reconstruct_image_color(self, path: str | None = None, data=None,
                                 recons_resolution: int = 1,
                                 alpha: float = 1.0):

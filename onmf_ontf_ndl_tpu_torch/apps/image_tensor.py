@@ -32,6 +32,7 @@ from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.patches import (extract_patches,
                                                  random_patch_corners)
 from onmf_ontf_ndl_tpu_torch.ops.unfold import unfold
+from onmf_ontf_ndl_tpu_torch.utils.profiling import spanned
 
 __all__ = ["ImageReconstructorTensor", "unfolded_dim"]
 
@@ -177,6 +178,7 @@ class ImageReconstructorTensor:
         self.state = None
         self.W = None
 
+    @spanned("train.call")
     def train_dict(self, mode: int, learn_joint_dict: bool | None = None,
                    draws=None):
         """Learn the mode-``mode`` dictionary from a fresh state seeded with

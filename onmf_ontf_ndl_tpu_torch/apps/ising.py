@@ -46,6 +46,7 @@ from onmf_ontf_ndl_tpu_torch.samplers.ising import (checkerboard_sweeps,
                                                     init_lattice,
                                                     metropolis_chain)
 from onmf_ontf_ndl_tpu_torch.utils.metrics import surrogate_error
+from onmf_ontf_ndl_tpu_torch.utils.profiling import spanned
 
 __all__ = ["IsingReconstructor", "ising_trajectory_learning",
            "display_errors"]
@@ -231,6 +232,7 @@ class IsingReconstructor:
         self.errors = None
         self.dict_stack = None
 
+    @spanned("train.call")
     def ising_mcmc_learning(self, initial_lattice=None, keep_trajectory=False,
                             draws=None):
         """Learn along the trajectory; returns ``(trajectory, dict_stack,

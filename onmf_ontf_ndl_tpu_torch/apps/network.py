@@ -68,6 +68,7 @@ from onmf_ontf_ndl_tpu_torch.samplers.motif import (
     _chain_baked, _chain_block_moves, _chain_blocks, _chain_kind,
     _chain_reads, _has_edges, _pair_tables, pair_matrices_T, path_adj,
     run_chains, tree_parents, tree_sample)
+from onmf_ontf_ndl_tpu_torch.utils.profiling import span, spanned
 
 __all__ = ["NetworkReconstructor", "ndl_train", "reconstruct_network",
            "reconstruct_network_sparse", "reconstruct_network_sparse_chunked"]
@@ -190,19 +191,22 @@ def _recon_sample_vals(W, g, gen, B, *, recons_iter: int, alpha=0.0,
     coder's start iterate."""
     k = B.shape[0]
     if embs is None:
-        chains = max(1, num_chains)
-        per = -(-recons_iter // chains)
-        pivots = torch.randint(0, g.num_nodes, (chains,), generator=gen,
-                               device=W.device)
-        emb0 = tree_sample(gen, tree_parents(B), g, pivots)
-        embs = run_chains(gen, g, emb0, B, per,
-                          use_glauber=use_glauber).reshape(-1, k)
+        with span("recon.chains", on=W):
+            chains = max(1, num_chains)
+            per = -(-recons_iter // chains)
+            pivots = torch.randint(0, g.num_nodes, (chains,), generator=gen,
+                                   device=W.device)
+            emb0 = tree_sample(gen, tree_parents(B), g, pivots)
+            embs = run_chains(gen, g, emb0, B, per,
+                              use_glauber=use_glauber).reshape(-1, k)
     if weighted and getattr(g, "weight", None) is None:
         raise ValueError("weighted reconstruction needs a weighted Graph")
-    X = pair_matrices_T(g, embs, weighted=weighted).to(W.dtype)
-    H = nonneg_code(X, W, H0, generator=gen, alpha=alpha, sub_iter=sub_iter,
-                    stopping_diff=None, method=method)
-    return embs, W @ H
+    with span("recon.patches", on=W):
+        X = pair_matrices_T(g, embs, weighted=weighted).to(W.dtype)
+    with span("recon.code", on=W):
+        H = nonneg_code(X, W, H0, generator=gen, alpha=alpha,
+                        sub_iter=sub_iter, stopping_diff=None, method=method)
+        return embs, W @ H
 
 
 def _group_painted(embs, vals_T, n: int, include_self: bool = True):
@@ -236,18 +240,23 @@ def reconstruct_network(W, g, gen, B, *, recons_iter: int, alpha=0.0,
                         num_chains=1, method="bcd", embs=None, H0=None):
     """Dense reconstruction: ``(recon_weights, overlap_count)``, (N, N),
     the mean paint and the paint count of every pair (0 where unpainted).
-    The rounded simple graph is ``(recon.round() > 0) & (count > 0)``."""
+    The rounded simple graph is ``(recon.round() > 0) & (count > 0)``.
+    Spans: those of :func:`_recon_sample_vals` (``recon.chains``,
+    ``recon.patches``, ``recon.code``: the coder and W H), ``recon.group``
+    and ``recon.paint`` (the scatter into the two matrices)."""
     embs, vals_T = _recon_sample_vals(
         W, g, gen, B, recons_iter=recons_iter, alpha=alpha,
         sub_iter=sub_iter, use_glauber=use_glauber, weighted=weighted,
         num_chains=num_chains, method=method, embs=embs, H0=H0)
-    ii, jj, sums, cnt = _group_painted(embs, vals_T, g.num_nodes)
+    with span("recon.group", on=W):
+        ii, jj, sums, cnt = _group_painted(embs, vals_T, g.num_nodes)
     n = g.num_nodes
-    recon = torch.zeros((n, n), dtype=W.dtype, device=W.device)
-    count = torch.zeros_like(recon)
-    recon[ii, jj] = sums / cnt
-    count[ii, jj] = cnt
-    return recon, count
+    with span("recon.paint", on=W):
+        recon = torch.zeros((n, n), dtype=W.dtype, device=W.device)
+        count = torch.zeros_like(recon)
+        recon[ii, jj] = sums / cnt
+        count[ii, jj] = cnt
+        return recon, count
 
 
 def reconstruct_network_sparse(W, g, gen, B, *, recons_iter: int, alpha=0.0,
@@ -262,8 +271,9 @@ def reconstruct_network_sparse(W, g, gen, B, *, recons_iter: int, alpha=0.0,
         W, g, gen, B, recons_iter=recons_iter, alpha=alpha,
         sub_iter=sub_iter, use_glauber=use_glauber, weighted=weighted,
         num_chains=num_chains, method=method, embs=embs, H0=H0)
-    ii, jj, sums, cnt = _group_painted(embs, vals_T, g.num_nodes,
-                                       include_self=include_self)
+    with span("recon.group", on=W):
+        ii, jj, sums, cnt = _group_painted(embs, vals_T, g.num_nodes,
+                                           include_self=include_self)
     return ii, jj, sums / cnt, cnt
 
 
@@ -472,6 +482,7 @@ class NetworkReconstructor:
             subsample=self.subsample, discard_first=discard_first)
         return code_new
 
+    @spanned("train.call")
     def train_dict(self, checkpoint_path: str | None = None,
                    checkpoint_every: int = 0, resume: bool = False):
         """Run NDL training; returns the (k^2, r) dictionary.
@@ -536,6 +547,7 @@ class NetworkReconstructor:
                          if self.code.shape == code_new.shape else code_new)
         return self.state.W
 
+    @spanned("recon.job")
     def reconstruct_network(self, recons_iter: int = 100, alpha: float = 0.0,
                             num_chains: int | None = None,
                             sparse: bool | None = None, chunks: int = 1,

@@ -25,6 +25,7 @@ from onmf_ontf_ndl_tpu_torch.models.state import (
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.patches import (extract_patches,
                                                  random_patch_corners)
+from onmf_ontf_ndl_tpu_torch.utils.profiling import spanned
 
 __all__ = ["VideoDictionaryLearner", "train_video_dict"]
 
@@ -143,6 +144,7 @@ class VideoDictionaryLearner:
     def W(self):
         return self.state.W
 
+    @spanned("train.call")
     def train_dict(self, epochs: int = 1):
         self.state = train_video_dict(
             self.state, self.frames,

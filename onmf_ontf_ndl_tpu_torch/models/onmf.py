@@ -62,6 +62,7 @@ from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import TN
 from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import MAX_RANK
 from onmf_ontf_ndl_tpu_torch.utils.capture import (capture_step, replay,
                                                    tensor_at)
+from onmf_ontf_ndl_tpu_torch.utils.profiling import span
 
 __all__ = ["OnlineNMF", "onmf_step", "train_dict", "rank_generator"]
 
@@ -584,7 +585,7 @@ def _capture(lp: _Loop, spec: _StepSpec, gen) -> _Captured:
     (:func:`~onmf_ontf_ndl_tpu_torch.utils.capture.capture_step`). A graph
     that reads the caller's X keeps its address, not the tensor."""
     graph, owns, launches = capture_step(
-        lambda g: _loop_step(lp, spec, g), (gen,), lp.X.device)
+        lambda g: _loop_step(lp, spec, g), (gen,), lp.X.device, cache="step")
     x_at = None
     if not lp.owns_x:
         x_at, lp.X = _address(lp.X), None
@@ -614,7 +615,8 @@ def _run_captured(state, X, code, spec: _StepSpec, tables: dict, gen,
     else:
         _refill(entry.loop, state, X, code, tables)
     _GRAPHS[key] = entry
-    replay(entry.graph, entry.gens, (gen,), steps - done, entry.launches)
+    replay(entry.graph, entry.gens, (gen,), steps - done, entry.launches,
+           cache="step")
     return entry.loop
 
 
@@ -944,7 +946,14 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
     loop, its inner steps a call of :func:`_train_loop` with ``capture``.
     A capture or replay that fails raises; no round falls back to the
     per-round loop. Returns ``(state, code, carry, outs)``, the outputs'
-    first ``rounds`` rows."""
+    first ``rounds`` rows.
+
+    Spans (``utils/profiling.py``): on the captured route
+    ``train.weights`` (the weight table, made and copied to the card),
+    ``train.fill``, ``train.capture`` (a cache miss), ``train.replay``
+    (with its device time) and ``train.copy_out``; on the per-round route
+    ``train.fill``, ``train.round`` for each round and
+    ``train.copy_out``."""
     carry, outs = carry or {}, outs or {}
     if rounds <= 0:
         return state, code, dict(carry), {
@@ -971,8 +980,10 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
         cap = _round_capacity(rounds)
         key = _round_key(state, code, spec, app, reads, carry, outs, cap,
                          len(gens))
-        weights = _round_weights(state.t, rounds, iterations, spec.steps,
-                                 beta, state.W.dtype)
+        with span("train.weights"):
+            weights = tuple(w.to(dev) for w in _round_weights(
+                state.t, rounds, iterations, spec.steps, beta,
+                state.W.dtype))
         with torch.cuda.device(dev):
             entry = _ROUND_GRAPHS.pop(key, None)
             done = 0
@@ -983,7 +994,11 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
                 rb.loop.w = torch.empty(cap * spec.steps,
                                         dtype=state.W.dtype, device=dev)
                 rb.loop.omw = torch.empty_like(rb.loop.w)
+            else:
+                rb = entry.rounds
+            with span("train.fill"):
                 _fill_round(rb, state, code, carry, weights)
+            if entry is None:
 
                 def one(*gs):
                     round_fn(rb, gs[-1], _RoundCtx(
@@ -991,19 +1006,20 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
                         None, False))
                     rb.rnd += 1
 
-                graph, owns, launches = capture_step(one, gens, dev)
+                with span("train.capture"):
+                    graph, owns, launches = capture_step(one, gens, dev,
+                                                         cache="round")
                 entry = _RoundGraph(graph, rb, owns, launches, tuple(reads))
                 done = 1
-            else:
-                _fill_round(entry.rounds, state, code, carry, weights)
             _ROUND_GRAPHS[key] = entry
-            replay(entry.graph, entry.gens, gens, rounds - done,
-                   entry.launches)
+            with span("train.replay", on=dev):
+                replay(entry.graph, entry.gens, gens, rounds - done,
+                       entry.launches, cache="round")
             entry.replays += rounds - done
-        rb = entry.rounds
     else:
         rb = _new_round(state, code, spec, rounds, carry, outs)
-        _fill_round(rb, state, code, carry)
+        with span("train.fill"):
+            _fill_round(rb, state, code, carry)
         lp, t = rb.loop, state.t
 
         def steps(inner, X):            # the steps through _train_loop
@@ -1024,20 +1040,23 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
 
         for j in range(rounds):
             draw = None if draws is None else draws[j]
-            round_fn(rb, gens[-1], _RoundCtx(
-                functools.partial(steps, None if draw is None else draw[1]),
-                draw, capture))
-            rb.rnd += 1
+            with span("train.round"):
+                round_fn(rb, gens[-1], _RoundCtx(
+                    functools.partial(steps,
+                                      None if draw is None else draw[1]),
+                    draw, capture))
+                rb.rnd += 1
 
     def take(t):            # a graph's buffers outlive the call
         return t.clone() if route == "captured" else t
 
     lp = rb.loop
-    st = dataclasses.replace(state, W=take(lp.W), A=take(lp.A),
-                             B=take(lp.B), C=take(lp.C), t=t_end)
-    return (st, take(lp.code) if spec.track_code else code,
-            {name: take(v) for name, v in rb.carry.items()},
-            {name: take(v[:rounds]) for name, v in rb.outs.items()})
+    with span("train.copy_out"):
+        st = dataclasses.replace(state, W=take(lp.W), A=take(lp.A),
+                                 B=take(lp.B), C=take(lp.C), t=t_end)
+        return (st, take(lp.code) if spec.track_code else code,
+                {name: take(v) for name, v in rb.carry.items()},
+                {name: take(v[:rounds]) for name, v in rb.outs.items()})
 
 
 def _round_spec(width: int, iterations: int, batch_size: int,

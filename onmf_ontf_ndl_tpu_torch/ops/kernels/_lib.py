@@ -22,7 +22,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "LAUNCHES", "reset_launches", "TN", "launch_counts",
-           "captured_launches", "add_launches", "RUN_KERNELS", "device_runs"]
+           "captured_launches", "add_launches", "RUN_KERNELS",
+           "SNAPSHOT_COUNTS", "DEVICE_COUNTS", "device_runs",
+           "snapshot_runs"]
 
 TN = 128                  # early-stop tile: columns per thread block
 
@@ -46,6 +48,18 @@ LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
 RUN_KERNELS = ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
                "dict_update_sweep", "chain_move")
 
+# Every count the kernels keep on the device: those of the library's
+# array (``onmf_read_runs``; :func:`snapshot_runs` copies them), the runs
+# of the first four kernels above, then the work of every kernel that
+# stops early (the Gauss-Seidel coders with the stop, shared-memory and
+# wide, and FISTA with it; replays included): ``coder_es.column_sweeps``,
+# each tile's sweeps times its columns, and ``coder_es.columns``, the
+# columns coded; last the chain's move. The column sweeps over the
+# columns are the mean sweeps a column.
+SNAPSHOT_COUNTS = RUN_KERNELS[:4] + ("coder_es.column_sweeps",
+                                     "coder_es.columns")
+DEVICE_COUNTS = SNAPSHOT_COUNTS + ("chain_move",)
+
 
 def reset_launches() -> None:
     """Zero the counts, and the device's (:func:`device_runs`) where the
@@ -59,18 +73,37 @@ def reset_launches() -> None:
 
 
 def device_runs() -> dict:
-    """Runs of each kernel of :data:`RUN_KERNELS` on the current CUDA device
-    since the last :func:`reset_launches`, as the kernels count them
-    themselves: a run replayed from a CUDA graph counts too. Synchronises
-    the device."""
+    """Each count of :data:`DEVICE_COUNTS` on the current CUDA device since
+    the last :func:`reset_launches`, as the kernels count themselves: the
+    runs of each kernel of :data:`RUN_KERNELS` and the early stop's work;
+    what a graph replays counts too. Synchronises the device."""
     lib = build()["lib"]
-    out = (ctypes.c_ulonglong * len(RUN_KERNELS))()
+    out = (ctypes.c_ulonglong * len(DEVICE_COUNTS))()
     _raise_on_error("onmf_read_runs", lib.onmf_read_runs(out))
     chain = ctypes.c_ulonglong()
     _raise_on_error("onmf_chain_read_runs",
                     lib.onmf_chain_read_runs(ctypes.byref(chain)))
     out[-1] = chain.value
-    return dict(zip(RUN_KERNELS, map(int, out)))
+    return dict(zip(DEVICE_COUNTS, map(int, out)))
+
+
+def snapshot_runs(device: torch.device, address: int, stream: int) -> bool:
+    """Queue a copy of the counts of :data:`SNAPSHOT_COUNTS` on ``device``
+    to ``address`` (pinned host memory, as many int64) on ``stream`` (a
+    raw ``cudaStream_t`` of the device), with no synchronise: they are
+    there once the stream has passed this point. False, and nothing
+    queued, where the library is not loaded (its counts are then all
+    zero)."""
+    if not build.cache_info().currsize:
+        return False
+    lib = build()["lib"]
+    if device.index == torch.cuda.current_device():
+        err = lib.onmf_snapshot_runs(address, stream)
+    else:
+        with torch.cuda.device(device):
+            err = lib.onmf_snapshot_runs(address, stream)
+    _raise_on_error("onmf_snapshot_runs", err)
+    return True
 
 
 # A CUDA graph's capture calls the wrappers, which count, but launches
@@ -180,6 +213,7 @@ def build() -> dict:
                                      p, p, i, *graph]
     lib.onmf_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_chain_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.onmf_snapshot_runs.argtypes = [p, p]
     lib.onmf_reset_runs.argtypes = []
     lib.onmf_chain_reset_runs.argtypes = []
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
@@ -189,9 +223,11 @@ def build() -> dict:
                lib.onmf_chain_glauber, lib.onmf_chain_pivot,
                lib.onmf_tile_columns, lib.onmf_read_runs,
                lib.onmf_reset_runs, lib.onmf_chain_read_runs,
-               lib.onmf_chain_reset_runs):
+               lib.onmf_chain_reset_runs, lib.onmf_snapshot_runs,
+               lib.onmf_run_slots):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
+    lib.onmf_run_slots.argtypes = []
     for fn, args in ((lib.onmf_dict_smem_floats, [i, i]),
                      (lib.onmf_coder_sweeps_smem, [i]),
                      (lib.onmf_fista_sweeps_smem, [i, i]),
@@ -208,6 +244,9 @@ def build() -> dict:
     if lib.onmf_tile_columns() != TN:
         raise RuntimeError(
             f"kernel tile {lib.onmf_tile_columns()} != TN={TN}")
+    if lib.onmf_run_slots() != len(SNAPSHOT_COUNTS):
+        raise RuntimeError(f"kernel counts {lib.onmf_run_slots()} != "
+                           f"{len(SNAPSHOT_COUNTS)} of SNAPSHOT_COUNTS")
     return {"lib": lib, "path": str(so), "seconds": seconds,
             "compiled": compiled}
 

@@ -34,8 +34,10 @@
 // the wrapper from (d, r) alone.
 //
 // Each entry point's main kernel counts its own runs on the device
-// (count_run), so that a run replayed from a CUDA graph counts too:
-// onmf_read_runs and onmf_reset_runs read and zero the counts.
+// (count_run), so that a run replayed from a CUDA graph counts too, and
+// every kernel that stops early counts its work (count_columns,
+// count_sweeps): onmf_read_runs and onmf_reset_runs read and zero the
+// counts, onmf_snapshot_runs queues a copy of them on a stream.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -59,17 +61,43 @@ constexpr int HS = TN + 1;
 // thread per 4 x 8 outputs of a tile is 512 threads at r = 128.
 constexpr int FISTA_MAX_RANK = 128;
 
-// Runs of each entry point's main kernel since onmf_reset_runs, in the
-// order of the entry points: coder_sweeps, coder_sweeps_earlystop,
-// fista_sweeps, dict_update_sweep.
-enum { RUN_CODER, RUN_CODER_ES, RUN_FISTA, RUN_DICT, RUN_KINDS };
+// Counts since onmf_reset_runs: the runs of each entry point's main
+// kernel, in the order of the entry points (coder_sweeps,
+// coder_sweeps_earlystop, fista_sweeps, dict_update_sweep); then the work
+// of the kernels that stop early (the Gauss-Seidel coders with the stop
+// and FISTA with it): each tile's sweeps times its columns, summed
+// (ES_COLUMN_SWEEPS), and the columns coded (ES_COLUMNS).
+enum {
+  RUN_CODER, RUN_CODER_ES, RUN_FISTA, RUN_DICT, ES_COLUMN_SWEEPS,
+  ES_COLUMNS, RUN_KINDS
+};
 __device__ unsigned long long g_runs[RUN_KINDS];
+
+__device__ __forceinline__ bool grid_first_thread() {
+  return (blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+          threadIdx.z) == 0;
+}
 
 // One thread of the grid's first block adds one run of `kind`.
 __device__ __forceinline__ void count_run(int kind) {
-  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
-       threadIdx.z) == 0)
-    atomicAdd(&g_runs[kind], 1ull);
+  if (grid_first_thread()) atomicAdd(&g_runs[kind], 1ull);
+}
+
+// An early-stopping launch's n columns, added by one thread of the grid.
+__device__ __forceinline__ void count_columns(int n) {
+  if (grid_first_thread())
+    atomicAdd(&g_runs[ES_COLUMNS], (unsigned long long)n);
+}
+
+// A tile's sweeps times its columns, added by the block's first thread as
+// the tile leaves its sweep loop (`sweeps` the same in every thread).
+__device__ __forceinline__ void count_sweeps(int sweeps, size_t tile0,
+                                             int n) {
+  if (threadIdx.x == 0) {
+    const size_t left = (size_t)n - tile0;
+    const size_t cols = left < (size_t)TN ? left : (size_t)TN;
+    atomicAdd(&g_runs[ES_COLUMN_SWEEPS], (unsigned long long)sweeps * cols);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -323,6 +351,7 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
                           float* __restrict__ H, int r, int n, float alpha,
                           float stop, int sub_iter, int pi_iters) {
   count_run(RUN_CODER_ES);
+  count_columns(n);
   extern __shared__ float smem[];
   constexpr int C = ES_COLS, RP = L * Q;
   constexpr bool kReform = L * Q > 32;  // g formed anew every sweep
@@ -393,6 +422,7 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
       h[u][q] = k < r ? Hs[k * HS + cc[u]] : 0.f;
     }
   const float stop2 = stop * stop;
+  int swept = sub_iter;
   for (int i = 0; i < sub_iter; ++i) {
     if (kReform || i == 0) {
 #pragma unroll
@@ -454,11 +484,15 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
     __syncthreads();
     const int cv = es_stop_decision(Gd, Gh, vd, vh, Os, Os + r, xch, r,
                                     stop2, pi_iters);
-    if (cv) break;  // the same in every thread
+    if (cv) {  // the same in every thread
+      swept = i + 1;
+      break;
+    }
     for (int k = t; k < r; k += blockDim.x)
       step[k] = 1.0f / sqrtf((float)i + 11.0f) / (At[k * RP + k] + 1.0f);
     __syncthreads();  // the steps, and xch, Os and the vectors next sweep
   }
+  count_sweeps(swept, (size_t)blockIdx.x * TN, n);
   __syncthreads();
   for (int x = t; x < r * TN; x += blockDim.x) {
     const int k = x / TN, col = x % TN, cl = blockIdx.x * TN + col;
@@ -1005,6 +1039,7 @@ __global__ void __launch_bounds__(512)
                        float stop, int sub_iter, int use_stopping,
                        int pi_iters) {
   count_run(RUN_FISTA);
+  if (use_stopping) count_columns(n);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int R4 = (r + 3) & ~3, RS = ft_row_stride(r), nb = R4 >> 2;
@@ -1088,6 +1123,7 @@ __global__ void __launch_bounds__(512)
   float tmom = 1.f;
   __syncthreads();
 
+  int swept = sub_iter;
   for (int it = 0; it < sub_iter; ++it) {
     const float tn = 0.5f * (1.f + sqrtf(1.f + 4.f * tmom * tmom));
     const float mom = (tmom - 1.f) / tn;
@@ -1171,8 +1207,12 @@ __global__ void __launch_bounds__(512)
       }
     }
     __syncthreads();
-    if (cv) break;  // the same in every thread
+    if (cv) {  // the same in every thread
+      swept = it + 1;
+      break;
+    }
   }
+  if (use_stopping) count_sweeps(swept, tile0, n);
   for (int x = t; x < r * TN; x += blockDim.x) {
     const int k = x / TN, c = x % TN;
     if (tile0 + c < (size_t)n) H[(size_t)k * n + tile0 + c] = Ht[c * RS + k];
@@ -1473,6 +1513,7 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
                       float stop, int sub_iter, int pi_iters,
                       float* __restrict__ ws) {
   count_run(RUN_FISTA);
+  if constexpr (kStop) count_columns(n);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int use_stopping = kStop;
@@ -1545,6 +1586,7 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
     float tmom = 1.f;
     __syncthreads();
 
+    int swept = sub_iter;
     for (int it = 0; it < sub_iter; ++it) {
       const float tn = 0.5f * (1.f + sqrtf(1.f + 4.f * tmom * tmom));
       const float mom = (tmom - 1.f) / tn;
@@ -1649,8 +1691,12 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
         }
       }
       __syncthreads();
-      if (cv) break;  // the same in every thread
+      if (cv) {  // the same in every thread
+        swept = it + 1;
+        break;
+      }
     }
+    if constexpr (kStop) count_sweeps(swept, tile0, n);
     for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
       float h[8];
 #pragma unroll
@@ -1967,6 +2013,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
                       int r, int n, float alpha, float stop, int sub_iter,
                       int pi_iters, float* __restrict__ ws) {
   count_run(kStop ? RUN_CODER_ES : RUN_CODER);
+  if constexpr (kStop) count_columns(n);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int G = CW_THREADS / L;  // column groups: a pass's columns / C
@@ -2041,7 +2088,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
       for (int k = t; k < r; k += blockDim.x)
         vd[k] = vh[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
       __syncthreads();
-      int cur = 0;
+      int cur = 0, swept = sub_iter;
       for (int i = 0; i < sub_iter; ++i) {
         for (int p = 0; p < cfg.passes; ++p) {
           const size_t col0 = tile0 + (size_t)p * PC;
@@ -2070,8 +2117,12 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
         const int cv = ft_stop_decision(Gd, Gh, vd, vh, wd, wh, ad, ah, xch,
                                         r, RG, stop2, pi_iters);
         cur ^= 1;  // the swept iterate, in the sweep that converges too
-        if (cv) break;  // the same in every thread
+        if (cv) {  // the same in every thread
+          swept = i + 1;
+          break;
+        }
       }
+      count_sweeps(swept, tile0, n);
       for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
         float v[8];
 #pragma unroll
@@ -2510,13 +2561,24 @@ void onmf_coder_wide_config(int r, int use_stopping, int* out) {
 
 int onmf_tile_columns(void) { return TN; }
 
-// The main kernels' runs (g_runs) into out[0..3], after every launch before
-// it on any stream has finished; onmf_reset_runs zeroes them.
+// The counts (g_runs) into out[0..RUN_KINDS - 1], after every launch
+// before it on any stream has finished; onmf_reset_runs zeroes them.
 int onmf_read_runs(unsigned long long* out) {
   int e = (int)cudaDeviceSynchronize();
   if (e) return e;
   return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }
+
+// A copy of the counts into out[0..RUN_KINDS - 1] (host memory, pinned
+// for the copy to be asynchronous), queued on `stream` behind the work
+// already queued there; nothing waits for it.
+int onmf_snapshot_runs(unsigned long long* out, void* stream) {
+  return (int)cudaMemcpyFromSymbolAsync(out, g_runs, sizeof(g_runs), 0,
+                                        cudaMemcpyDeviceToHost,
+                                        (cudaStream_t)stream);
+}
+
+int onmf_run_slots(void) { return RUN_KINDS; }
 
 int onmf_reset_runs(void) {
   int e = (int)cudaDeviceSynchronize();

@@ -618,7 +618,7 @@ def _run_captured_block(gen, g, emb: torch.Tensor, B: np.ndarray,
         graph, owns, launches = capture_step(
             lambda gn: _chain_block(ch, gn, B, parents, g, use_glauber,
                                     backend),
-            (gen,), emb.device)
+            (gen,), emb.device, cache="chain")
         entry = _ChainGraph(graph, ch, owns, launches, reads)
         trail[:, done:done + moves] = ch.trail
         first = 1
@@ -632,7 +632,7 @@ def _run_captured_block(gen, g, emb: torch.Tensor, B: np.ndarray,
         trail[:, at:at + moves] = block
 
     replay(entry.graph, entry.gens, (gen,), times - first, entry.launches,
-           each=record)
+           each=record, cache="chain")
     return entry.chains
 
 

@@ -12,6 +12,12 @@ generator that a step draws from has a generator of the graph's own,
 registered with it. Each takes its caller's state before the replays and
 gives it back after, so the replays draw what the eager loop draws and
 leave the caller's generators where the eager loop leaves them.
+
+Each capture and replay is counted by its cache (``"step"``, ``"round"``,
+``"chain"``) in the program's trace record while a profiler session is
+active (``utils/profiling.py::count``: ``graph.<cache>.captures``,
+``graph.<cache>.replays``), beside the kernel launches that every replay
+adds to ``_lib.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from onmf_ontf_ndl_tpu_torch.utils import profiling
 
 __all__ = ["side_stream", "capture_step", "replay", "tensor_at"]
 
@@ -36,7 +44,8 @@ def side_stream(device: torch.device):
     return torch.cuda.Stream(device)
 
 
-def capture_step(step, gens: tuple, device: torch.device):
+def capture_step(step, gens: tuple, device: torch.device,
+                 cache: str = "step"):
     """Run ``step(*gens)`` once on the device's side stream (which also sets
     up cuBLAS and the kernels on the stream the capture uses), then
     capture ``step`` there, drawing from generators of the graph's own, one
@@ -68,15 +77,16 @@ def capture_step(step, gens: tuple, device: torch.device):
             graph.capture_end()
     launches = captured_launches(before)
     torch.cuda.current_stream().wait_stream(side)
+    profiling.count(f"graph.{cache}.captures")
     return graph, owns, launches
 
 
 def replay(graph, owns: tuple, gens: tuple, times: int, launches: dict,
-           each=None) -> None:
+           each=None, cache: str = "step") -> None:
     """Replay ``graph`` ``times`` times on the current stream, replay i
     followed by ``each(i)`` where given, its generators ``owns`` taking
     the states of ``gens`` (one each) before and giving them back after;
-    count each replay's ``launches``."""
+    count each replay's ``launches``, and the replays of ``cache``."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import add_launches
 
     for own, gen in zip(owns, gens):
@@ -86,5 +96,6 @@ def replay(graph, owns: tuple, gens: tuple, times: int, launches: dict,
         if each is not None:
             each(i)
     add_launches(launches, times)
+    profiling.count(f"graph.{cache}.replays", times)
     for own, gen in zip(owns, gens):
         gen.set_state(own.get_state())

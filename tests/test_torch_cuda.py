@@ -868,7 +868,8 @@ def test_cuda_captured_graph_takes_new_data(cuda, own, monkeypatch):
     import weakref
 
     from onmf_ontf_ndl_tpu_torch.models import onmf
-    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import device_runs
+    from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (RUN_KERNELS,
+                                                          device_runs)
     from onmf_ontf_ndl_tpu_torch.utils.profiling import Throughput
 
     if not own:
@@ -894,7 +895,9 @@ def test_cuda_captured_graph_takes_new_data(cuda, own, monkeypatch):
     assert ck.LAUNCHES["coder_sweeps_earlystop"] == 6
     assert ck.LAUNCHES["dict_update_sweep"] == 6
     assert ck.LAUNCHES["coder_sweeps"] == ck.LAUNCHES["fista_sweeps"] == 0
-    assert device_runs() == {k: ck.LAUNCHES[k] for k in device_runs()}
+    runs = device_runs()
+    assert {k: runs[k] for k in RUN_KERNELS} \
+        == {k: ck.LAUNCHES[k] for k in RUN_KERNELS}
     _assert_runs_equal(got, _train(cuda, X2, False, stop=0.01, steps=6))
     ck.reset_launches()
     _train(cuda, X2, True, stop=0.01, steps=6)       # a hit either way
@@ -1385,7 +1388,8 @@ def _counts_match_runs():
 
     torch.cuda.synchronize()
     runs = _lib.device_runs()
-    assert {k: ck.LAUNCHES[k] for k in runs} == runs
+    assert {k: ck.LAUNCHES[k] for k in _lib.RUN_KERNELS} \
+        == {k: runs[k] for k in _lib.RUN_KERNELS}
 
 
 @functools.cache
@@ -1565,3 +1569,167 @@ def test_cuda_device_seed_equals_host_seed(cuda, n, sweeps):
         graph.replay()
         assert torch.equal(out, ik.checkerboard_sweeps(
             seed, lat, sweeps, 1.0, 0.1, 2.3)), seed
+
+
+# ------------------------------------- the program's own trace record
+
+
+def _early_stop(kind, A, B, H0, stop, sub_iter):
+    if kind == "coder":
+        return ck.coder_sweeps_earlystop(A, B, H0, 0.0, stop,
+                                         sub_iter=sub_iter)
+    return ck.fista_sweeps(A, B, H0, 0.0, stop, sub_iter=sub_iter,
+                           use_stopping=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, r", [("coder", 25), ("coder", 128),
+                                     ("fista", 25), ("fista", 128)],
+                         ids=["lanes", "wide", "fista", "fista_wide"])
+def test_cuda_early_stop_counts_its_column_sweeps(cuda, kind, r):
+    """The kernels' own count of the early stop's work: with stop 0 no
+    tile converges, so each runs ``sub_iter`` sweeps; with a stop no tile
+    can miss each stops after its first; the columns once a launch. A
+    replay from a CUDA graph counts as a launch does."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    n, sub_iter = 4 * ck.TN + 37, 7
+    A, B, H0 = (_t(a, cuda) for a in make(300, r, n, r))
+    route = "fista_sweeps_stop" if kind == "fista" \
+        else "coder_sweeps_earlystop"
+    assert ck.kernel_route(route, r) == ("shared" if r <= 100
+                                         else "workspace")
+
+    def counted(fn):
+        _lib.reset_launches()
+        fn()
+        runs = _lib.device_runs()
+        return runs["coder_es.column_sweeps"], runs["coder_es.columns"]
+
+    assert counted(lambda: _early_stop(kind, A, B, H0, 0.0, sub_iter)) \
+        == (sub_iter * n, n)
+    assert counted(lambda: _early_stop(kind, A, B, H0, 1e6, sub_iter)) \
+        == (n, n)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _early_stop(kind, A, B, H0, 0.0, sub_iter)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _early_stop(kind, A, B, H0, 0.0, sub_iter)
+
+    def replays():
+        for _ in range(3):
+            graph.replay()
+
+    assert counted(replays) == (3 * sub_iter * n, 3 * n)
+
+
+@pytest.mark.cuda
+def test_cuda_span_holds_its_kernel_on_the_profilers_clock(cuda, tmp_path):
+    """One clock for the spans and the profiler's device events: a span
+    around a sleeping kernel and a synchronise holds that kernel's
+    interval, ten times out of ten, starting less than 1 ms before it; its
+    CUDA events time the kernel. A first span takes the session's first
+    device activity (the profiler's buffers, 1-2 ms of host on the card)
+    before the ten."""
+    from onmf_ontf_ndl_tpu_torch.utils import profiling
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.span("first", on=cuda):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        for _ in range(10):
+            with profiling.span("probe", on=cuda):
+                torch.cuda._sleep(2_000_000)
+                torch.cuda.synchronize()
+    kernels = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if str(e.device_type()).endswith("CUDA")
+        and e.duration_ns() > 200_000)
+    probes = [s for s in profiling.spans() if s.name == "probe"]
+    assert len(kernels) == len(probes) == 10
+    for (ks, ke), p in zip(kernels, probes):
+        assert p.start_ns <= ks and ke <= p.end_ns, (p, ks, ke)
+        assert ks - p.start_ns < 1_000_000, (p, ks)
+        assert p.device_ms * 1e6 >= 0.95 * (ke - ks), (p, ks, ke)
+
+
+def _card_network(cuda):
+    from onmf_ontf_ndl_tpu_torch.apps.network import NetworkReconstructor
+
+    rng = np.random.default_rng(5)
+    A = np.triu(rng.random((60, 60)) < 0.1, 1)
+    A = (A | A.T).astype(np.float64)
+    for i in range(60):
+        A[i, (i + 1) % 60] = A[(i + 1) % 60, i] = 1.0
+    return NetworkReconstructor(
+        adjacency=A, n_components=5, MCMC_iterations=3, sub_iterations=6,
+        sample_size=300, batch_size=300, k1=0, k2=4, num_chains=4,
+        device=cuda)
+
+
+@pytest.mark.cuda
+def test_cuda_spans_add_no_device_operation(cuda, tmp_path, monkeypatch):
+    """A traced training call and reconstruction job: the spans are
+    recorded with their device times, no device operation of the trace
+    (nor the breakdown the benchmark reduces it to) carries a span's name,
+    the tracer adds no device operation but the counter snapshots' copies
+    (the same run with every span off beside it), and the early stop's
+    counts over the calls equal the kernels' own."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from benchport import tracing
+    from torch.profiler import ProfilerActivity, profile
+
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+    from onmf_ontf_ndl_tpu_torch.utils import profiling
+
+    net = _card_network(cuda)
+
+    def run():
+        with torch.profiler.record_function(tracing.MARK):
+            net.train_dict()
+            net.reconstruct_network(recons_iter=2000, sparse=False)
+            torch.cuda.synchronize()
+
+    run()
+    _lib.reset_launches()
+    with profiling.trace(str(tmp_path)) as prof:
+        run()
+    counts, runs = profiling.counters(), _lib.device_runs()
+    reduced = tracing.reduce(prof, 1, 2)
+    spans = profiling.spans()
+    names = {s.name for s in spans}
+    assert names >= {"train.call", "train.weights", "train.fill",
+                     "train.replay", "train.copy_out", "recon.job",
+                     "recon.chains", "recon.patches", "recon.code",
+                     "recon.group", "recon.paint"}
+    assert not {n for n, _, _ in reduced.device} & names
+    assert not {n for n, _ in reduced.breakdown["device_ops"]} & names
+    timed = {s.name: s.device_ms for s in spans if s.device_ms is not None}
+    assert set(timed) >= {"train.replay", "recon.job", "recon.group"}
+    assert all(v > 0 for v in timed.values())
+    assert counts["coder_es.columns"] == runs["coder_es.columns"] > 0
+    assert counts["coder_es.column_sweeps"] \
+        == runs["coder_es.column_sweeps"]
+    assert 1 <= counts["coder_es.column_sweeps"] \
+        / counts["coder_es.columns"] <= 10
+    assert counts["graph.round.replays"] == 3
+    monkeypatch.setattr(profiling, "_torch_profiler",
+                        SimpleNamespace(_is_profiler_enabled=False))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as bare:
+        run()
+    on = Counter(n for n, _, _ in reduced.device)
+    off = Counter(n for n, _, _ in tracing.reduce(bare, 1, 2).device)
+    added = on - off
+    assert not off - on, off - on
+    assert all("Memcpy DtoH" in n for n in added), added
+    assert sum(added.values()) == 2 * 2      # 2 calls, start and end

@@ -59,7 +59,7 @@ class EagerGraph:
         self.step(*self.owns)
 
 
-def eager_capture(step, gens, device):
+def eager_capture(step, gens, device, cache="step"):
     """``capture_step`` with an :class:`EagerGraph`: the first round run
     from ``gens``, nothing recorded, no launches."""
     owns = tuple(torch.Generator(device=device) for _ in gens)
