@@ -23,7 +23,9 @@ Phases, each printing its findings on a line of its own:
              version site for site on every route and vector width (at the
              paths' shapes from a host seed and from a device seed, the
              entry the Ising round graphs launch), and two
-             physics checks at n = 4096. Kernel times are device times: a
+             physics checks at n = 4096; the grouping at the dense
+             network reconstruction's shape, dense and sparse, against
+             its plain version. Kernel times are device times: a
              CUDA graph of 20 calls (5 of the larger ones), replayed; the
              plain versions (host loops that synchronise) are timed by CUDA
              events around a few calls.
@@ -159,6 +161,10 @@ KERNELS = {
     # scan (a lax.scan over the moves, vmapped over the chains)
     "chain_move": ("motif_kernels.cu",
                    "onmf_ontf_ndl_tpu/samplers/motif.py:653", "network"),
+    # the grouping of a reconstruction's paints by pair: no Pallas kernel,
+    # the JAX package's lax.sort and sums
+    "group_pairs": ("group_kernels.cu",
+                    "onmf_ontf_ndl_tpu/apps/network.py:736", "network"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -171,7 +177,7 @@ PATH_KERNELS = {
               "coder_sweeps", "dict_update_sweep"),
     "video": ("coder_sweeps_earlystop", "coder_sweeps", "dict_update_sweep"),
     "network": ("coder_sweeps_earlystop", "coder_sweeps",
-                "dict_update_sweep", "chain_move"),
+                "dict_update_sweep", "chain_move", "group_pairs"),
     "surfaces": ("checkerboard_sweeps", "coder_sweeps_earlystop",
                  "coder_sweeps", "dict_update_sweep", "chain_move"),
     "parallel": ("coder_sweeps", "coder_sweeps_earlystop",
@@ -621,6 +627,7 @@ def phase_kernels(ck, dev):
     large_rank_kernels(ck, dev, gen)
     path_shape_kernels(ck, dev, gen)
     summary["checkerboard_sweeps"] = checkerboard_kernels(dev, gen)
+    summary["group_pairs"] = group_kernels(dev)
     return summary
 
 
@@ -954,6 +961,92 @@ def checkerboard_kernels(dev, gen):
         if not ok(m):
             raise AssertionError(f"magnetization {m} at T={T}")
     return summary
+
+
+def group_kernels(dev, M=100_096, k=21, n=4039):
+    """The grouping (``group_kernels.cu``) at the dense network
+    reconstruction's shape (``NETWORK_RUNS`` (a): 100,096 pivot samples of
+    the 21-node motif on 4,039 nodes) against its plain version on the
+    same paints: the int64 key sort, segment sum and ``index_put`` into
+    the two canvases. Node draws fall off as a power of the node's rank,
+    as a Barabasi-Albert graph's walks crowd its hubs (runs up to ~10^5
+    paints, over many of the run sum's tiles). The dense form: counts
+    equal, each mean within float32 rounding of the float64 mean (the
+    worst case over any order of the run's c - 1 additions, gamma_(c-1)
+    of the sum, plus the division's rounding), and the plain version's
+    means held to the same bound. The sparse form, with and without the
+    self slots: pairs and counts equal, sums within the same bound.
+    Device times by CUDA events (the plain version synchronises); the
+    bound: the values and embeddings read once, the two canvases written
+    once."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.group_kernel import (
+        group_pairs, group_pairs_plain)
+
+    rng = np.random.default_rng(20)
+    p = 1.0 / np.arange(1, n + 1) ** 0.8
+    embs = torch.as_tensor(rng.choice(n, size=(M, k), p=p / p.sum()),
+                           device=dev)
+    vals = torch.as_tensor(rng.random((k * k, M), dtype=np.float32),
+                           device=dev)
+    canvas = [torch.zeros((n, n), device=dev) for _ in range(2)]
+    plain_canvas = [torch.zeros((n, n), device=dev) for _ in range(2)]
+
+    def plain():
+        ii, jj, sums, cnt = group_pairs_plain(embs, vals, n)
+        plain_canvas[0][ii, jj] = sums / cnt
+        plain_canvas[1][ii, jj] = cnt
+        return plain_canvas
+
+    def sum_bound(exact):
+        c = exact[3]
+        g = (c - 1).clamp(min=0) * 2.0**-24
+        return (g / (1 - g) + c * 2.0**-53) * exact[2]
+
+    recon, count = group_pairs(embs, vals, n, canvas=canvas)
+    want_recon, want_count = plain()
+    exact = group_pairs_plain(embs, vals.double(), n)
+    mean = exact[2] / exact[3]
+    tol = sum_bound(exact) / exact[3] + 2.0**-23 * mean
+    where = exact[0], exact[1]
+    kernel_err = (recon[where].double() - mean).abs()
+    plain_err = (want_recon[where].double() - mean).abs()
+    err = float((recon - want_recon).abs().max())
+    fields = dict(M=M, k=k, n=n, pairs=len(exact[0]),
+                  longest_run=int(exact[3].max()),
+                  count_mismatched=int((count != want_count).sum()),
+                  max_abs_err=err,
+                  max_err_vs_f64=float(kernel_err.max()),
+                  plain_max_err_vs_f64=float(plain_err.max()),
+                  max_tol=float(tol.max()))
+    if fields["count_mismatched"] or not bool((kernel_err <= tol).all()) \
+            or not bool((plain_err <= tol).all()) \
+            or int((count > 0).sum()) != len(exact[0]):
+        raise AssertionError(f"group_pairs dense: {fields}")
+    for include_self in (True, False):
+        got = group_pairs(embs, vals, n, include_self=include_self)
+        want = group_pairs_plain(embs, vals, n, include_self)
+        f64 = group_pairs_plain(embs, vals.double(), n, include_self)
+        same = all(torch.equal(got[i], want[i]) for i in (0, 1, 3))
+        sparse_err = (got[2].double() - f64[2]).abs()
+        emit("kernels", kernel="group_pairs", form="sparse",
+             include_self=include_self, pairs=len(got[0]),
+             pairs_counts_equal=same,
+             max_abs_err=float((got[2] - want[2]).abs().max()),
+             max_err_vs_f64=float(sparse_err.max()))
+        if not same or not bool((sparse_err <= sum_bound(f64)).all()):
+            raise AssertionError(f"group_pairs sparse, include_self="
+                                 f"{include_self}: differs")
+    del exact, f64, want, got
+    ms = cuda_ms(lambda: group_pairs(embs, vals, n, canvas=canvas), 20)
+    sparse_ms = cuda_ms(lambda: group_pairs(embs, vals, n), 20)
+    plain_ms = cuda_ms(plain, 5)
+    nbytes = vals.numel() * 4 + embs.numel() * 8 + 2 * n * n * 4
+    bound_ms, by = bound(nbytes, 0)
+    emit("kernels", kernel="group_pairs", form="dense", **fields, ms=ms,
+         sparse_ms=sparse_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+         bound_by=by, share=bound_ms / ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by)
 
 
 def sparse_dictionary_data(rng, d, r, n):
@@ -2540,7 +2633,8 @@ def main():
     # library_ms: no single PyTorch call computes any of these functions
     # (each is a loop: Gauss-Seidel sweeps, FISTA or column BCD with a
     # per-tile stop, a Philox heat-bath sampler, whole or in bands, a
-    # Glauber or pivot move of a chain)
+    # Glauber or pivot move of a chain; the grouping's plain version is
+    # itself a sort, a run length, a segment sum and a scatter)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": replaces,
                 "launches": launches[path][name],

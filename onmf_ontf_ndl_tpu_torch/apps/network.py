@@ -20,20 +20,21 @@ Counterpart of ``onmf_ontf_ndl_tpu/apps/network.py`` (the reference's
 On a CUDA graph and state, the coder and dictionary kernels of
 ``ops/kernels`` run every coding step: the early stop in training by
 default, fixed sweeps with ``fast=True`` and in reconstruction, FISTA
-with ``coder="fista"``. The chains, the patches and the grouping are
-plain PyTorch on the same device, apart from the chains' moves: on the
-card each block of a reconstruction's chain moves is a replay of one
-captured CUDA graph that launches the chain kernel once
-(``samplers/motif.py::run_chains``), and each training round (its
-chains' blocks, patches and steps) a replay of another.
+with ``coder="fista"``. The chains and the patches are plain PyTorch on
+the same device, apart from the chains' moves: on the card each block of
+a reconstruction's chain moves is a replay of one captured CUDA graph
+that launches the chain kernel once (``samplers/motif.py::run_chains``),
+and each training round (its chains' blocks, patches and steps) a replay
+of another.
 
-The grouping of the paints by pair is one int64 key sort (``i * n + j``:
-no wrap at any n) and a sorted segment sum, which adds each pair's paints
-in key order: the result, and with it the rounding ``round(mean) > 0``,
-does not depend on the order of atomic adds. The dense canvas is filled
-from the same grouping. Randomness: the chains of training draw from the
-state's generator (so a checkpoint carries them), the reconstructor's
-generator draws the initial chains and the reconstruction.
+The grouping of the paints by pair is
+``ops/kernels/group_kernel.py::group_pairs`` (on the card a narrow key, a
+stable radix sort and a run sum in an order the tiling fixes, with no
+atomics; on the CPU the torch sort and segment sum), so the rounding
+``round(mean) > 0`` is the same on every run. Randomness: the chains
+of training draw from the state's generator (so a checkpoint carries
+them), the reconstructor's generator draws the initial chains and the
+reconstruction.
 
 Sample budgets past the card's memory run in chunks
 (:func:`reconstruct_network_sparse_chunked`): each chunk is a sparse
@@ -64,6 +65,7 @@ from onmf_ontf_ndl_tpu_torch.models.state import (
     OnmfState, entry_device, init_state, make_generator)
 from onmf_ontf_ndl_tpu_torch.ops.coder import nonneg_code
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
+from onmf_ontf_ndl_tpu_torch.ops.kernels.group_kernel import group_pairs
 from onmf_ontf_ndl_tpu_torch.samplers.motif import (
     _chain_baked, _chain_block_moves, _chain_blocks, _chain_kind,
     _chain_reads, _has_edges, _pair_tables, pair_matrices_T, path_adj,
@@ -209,30 +211,9 @@ def _recon_sample_vals(W, g, gen, B, *, recons_iter: int, alpha=0.0,
         return embs, W @ H
 
 
-def _group_painted(embs, vals_T, n: int, include_self: bool = True):
-    """Group the painted values by directed node pair (i, j).
-
-    Returns ``(ii, jj, sums, cnt)``, one entry per distinct painted pair
-    in ascending (i, j) order: the sum of its paints and their number.
-    Sums and counts, not means, so groups merge exactly. With
-    ``include_self=False`` the k self-pair slots (q, q) of every sample are
-    dropped first: they only ever paint self-loops, which the simple
-    graph drops."""
-    M, k = embs.shape
-    eT = embs.T
-    if include_self or k == 1:
-        ii = eT[:, None, :].expand(k, k, M).reshape(-1)
-        jj = eT[None, :, :].expand(k, k, M).reshape(-1)
-        vv = vals_T.reshape(-1)
-    else:
-        qs, rs = np.nonzero(~np.eye(k, dtype=bool))
-        ii = eT[torch.as_tensor(qs, device=eT.device)].reshape(-1)
-        jj = eT[torch.as_tensor(rs, device=eT.device)].reshape(-1)
-        vv = vals_T[torch.as_tensor(qs * k + rs, device=eT.device)].reshape(-1)
-    skey, order = torch.sort(ii * n + jj, stable=True)
-    keys, cnt = torch.unique_consecutive(skey, return_counts=True)
-    sums = torch.segment_reduce(vv[order], "sum", lengths=cnt)
-    return keys // n, keys % n, sums, cnt.to(vv.dtype)
+# the grouping of the paints by pair (its one description: ``group_pairs``);
+# the name is the JAX package's, for ``parallel/dp.py`` and the equality tests
+_group_painted = group_pairs
 
 
 def reconstruct_network(W, g, gen, B, *, recons_iter: int, alpha=0.0,
@@ -242,21 +223,19 @@ def reconstruct_network(W, g, gen, B, *, recons_iter: int, alpha=0.0,
     the mean paint and the paint count of every pair (0 where unpainted).
     The rounded simple graph is ``(recon.round() > 0) & (count > 0)``.
     Spans: those of :func:`_recon_sample_vals` (``recon.chains``,
-    ``recon.patches``, ``recon.code``: the coder and W H), ``recon.group``
-    and ``recon.paint`` (the scatter into the two matrices)."""
+    ``recon.patches``, ``recon.code``: the coder and W H), ``recon.paint``
+    (the two matrices, zeroed) and ``recon.group`` (the grouping, which
+    writes the painted pairs into them)."""
     embs, vals_T = _recon_sample_vals(
         W, g, gen, B, recons_iter=recons_iter, alpha=alpha,
         sub_iter=sub_iter, use_glauber=use_glauber, weighted=weighted,
         num_chains=num_chains, method=method, embs=embs, H0=H0)
-    with span("recon.group", on=W):
-        ii, jj, sums, cnt = _group_painted(embs, vals_T, g.num_nodes)
     n = g.num_nodes
     with span("recon.paint", on=W):
-        recon = torch.zeros((n, n), dtype=W.dtype, device=W.device)
-        count = torch.zeros_like(recon)
-        recon[ii, jj] = sums / cnt
-        count[ii, jj] = cnt
-        return recon, count
+        canvas = [torch.zeros((n, n), dtype=W.dtype, device=W.device)
+                  for _ in range(2)]
+    with span("recon.group", on=W):
+        return _group_painted(embs, vals_T, n, canvas=canvas)
 
 
 def reconstruct_network_sparse(W, g, gen, B, *, recons_iter: int, alpha=0.0,

@@ -1,6 +1,6 @@
-"""The kernel library shared by ``coder_kernel.py``, ``ising_kernel.py`` and
-``motif_kernel.py``: its build, its launch counts and the launch helpers of
-the wrappers.
+"""The kernel library shared by ``coder_kernel.py``, ``ising_kernel.py``,
+``motif_kernel.py`` and ``group_kernel.py``: its build, its launch counts
+and the launch helpers of the wrappers.
 
 The sources are ``csrc/*.cu``. :func:`build` compiles each source with its
 own ``nvcc`` for ``sm_90a``, all at once, links them into one shared
@@ -38,7 +38,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
             "fista_sweeps": 0, "dict_update_sweep": 0,
             "checkerboard_sweeps": 0, "checkerboard_sweeps_band": 0,
-            "chain_move": 0}
+            "chain_move": 0, "group_pairs": 0}
 
 
 # The kernels whose main CUDA kernel also counts its own runs on the device
@@ -211,6 +211,14 @@ def build() -> dict:
                                        *graph]
     lib.onmf_chain_pivot.argtypes = [p, i, i, i, i, i, i, i, p, p, p, p, p,
                                      p, p, i, *graph]
+    sz = ctypes.c_size_t
+    lib.onmf_group_sort_bytes.argtypes = [ll, i, i, ctypes.POINTER(sz)]
+    lib.onmf_group_sort.argtypes = [p, p, ll, i, i, ll, i, i, p, p, p, p, p,
+                                    sz, ctypes.POINTER(i), p]
+    lib.onmf_group_heads.argtypes = [p, ll, i, p, p, p]
+    lib.onmf_group_sum.argtypes = [p, p, ll, i, ll, p, p, p, p, p, p, p, p,
+                                   p]
+    lib.onmf_group_tile.argtypes = []
     lib.onmf_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_chain_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_snapshot_runs.argtypes = [p, p]
@@ -224,7 +232,9 @@ def build() -> dict:
                lib.onmf_tile_columns, lib.onmf_read_runs,
                lib.onmf_reset_runs, lib.onmf_chain_read_runs,
                lib.onmf_chain_reset_runs, lib.onmf_snapshot_runs,
-               lib.onmf_run_slots):
+               lib.onmf_run_slots, lib.onmf_group_sort_bytes,
+               lib.onmf_group_sort, lib.onmf_group_heads, lib.onmf_group_sum,
+               lib.onmf_group_tile):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
     lib.onmf_run_slots.argtypes = []

@@ -424,6 +424,192 @@ def test_cuda_chunked_reconstruction_matches_cpu(cuda):
                                 cap=10)
 
 
+# The grouping's cases: (name, M, k, n, include_self, hub). The first
+# `hub` samples sit on node n - 1 alone, so the pair (n - 1, n - 1) gets
+# hub * k * (k or k - 1) paints, a run over many tiles of the run sum.
+GROUP_CASES = [
+    ("k21", 10_000, 21, 4039, True, 0),
+    ("hub", 50_000, 5, 4039, True, 45_000),     # 1,125,000 paints of a pair
+    ("no_self", 10_000, 21, 4039, False, 200),
+    ("k1", 5_000, 1, 4039, False, 0),
+    ("n1", 3_000, 4, 1, True, 0),
+    ("empty", 0, 21, 4039, True, 0),
+    ("wide_key", 20_000, 3, 3_000_000, False, 100),
+]
+
+
+def _paints(M, k, n, hub, seed):
+    """(embs (M, k) int64, vals_T (k^2, M) float32 in [0, 2)): half the
+    samples on all n nodes, half on the first 64 (runs of tens of paints),
+    the first ``hub`` on node n - 1."""
+    rng = np.random.default_rng(seed)
+    embs = rng.integers(0, n, (M, k))
+    embs[M // 2:] = rng.integers(0, min(n, 64), (M - M // 2, k))
+    embs[:hub] = n - 1
+    return embs, (2 * rng.random((k * k, M))).astype(np.float32)
+
+
+def _sum_bound(exact):
+    """How far a float32 sum of a run's c paints may lie from the float64
+    sum ``exact[2]`` (of positive values, so it is also the sum of their
+    magnitudes): any order of c - 1 float32 additions errs by at most
+    gamma_(c-1) = (c - 1) u / (1 - (c - 1) u) times it, u = 2^-24; plus
+    the float64 sum's own rounding, c 2^-53 times it."""
+    c = exact[3].double()
+    g = (c - 1).clamp(min=0) * 2.0**-24
+    return (g / (1 - g) + c * 2.0**-53) * exact[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,M,k,n,include_self,hub", GROUP_CASES,
+                         ids=[c[0] for c in GROUP_CASES])
+def test_cuda_group_pairs_equals_the_torch_grouping(cuda, name, M, k, n,
+                                                    include_self, hub):
+    """The kernels' sparse grouping against the torch grouping on the same
+    CUDA inputs: pairs and counts exactly equal, each sum within float32
+    rounding of the float64 segment sum (:func:`_sum_bound`); a second
+    call equal bit for bit; one launch counted a call on the card, none on
+    the CPU."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.group_kernel import (
+        group_pairs, group_pairs_plain)
+
+    embs, vals = _paints(M, k, n, hub, seed=len(name))
+    e, v = _t(embs, cuda), _t(vals, cuda)
+    _lib.reset_launches()
+    if M:
+        group_pairs(_t(embs, "cpu"), _t(vals, "cpu"), n,
+                    include_self=include_self)
+        assert _lib.LAUNCHES["group_pairs"] == 0
+    got = group_pairs(e, v, n, include_self=include_self)
+    again = group_pairs(e, v, n, include_self=include_self)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["group_pairs"] == (2 if M else 0)
+    assert [t.dtype for t in got] == [torch.int64, torch.int64,
+                                      torch.float32, torch.float32]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if not M:
+        assert all(t.numel() == 0 for t in got)
+        return
+    want = group_pairs_plain(e, v, n, include_self)
+    exact = group_pairs_plain(e, v.double(), n, include_self)
+    for i in (0, 1, 3):
+        assert torch.equal(got[i], want[i]), i
+    err = (got[2].double() - exact[2]).abs()
+    bound = _sum_bound(exact)
+    assert bool((err <= bound).all()), float((err - bound).max())
+    if hub:
+        per = k if include_self or k == 1 else k - 1
+        assert int(got[3].max()) >= hub * k * per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,M,k,n,include_self,hub", [
+    ("hub", 50_000, 5, 4039, True, 45_000),
+    ("hub_no_self", 50_000, 5, 4039, False, 45_000),
+    ("wide_key", 20_000, 3, 3_000_000, True, 10_000)])
+def test_cuda_group_pairs_sums_integer_paints_exactly(cuda, name, M, k, n,
+                                                      include_self, hub):
+    """Paints of whole values 0 to 3: every partial sum of a run is a whole
+    number below 2^24 (the hub's run of over a million paints sums to at
+    most 3.4M), so float32 adds them exactly in any order, and each sum,
+    a hub run over hundreds of tiles included, must equal the float64 sum
+    exactly: a tile's partial lost or counted twice shows. The dense form's
+    means are then the float32 quotient of those exact sums."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.group_kernel import (
+        group_pairs, group_pairs_plain)
+
+    embs, _ = _paints(M, k, n, hub, seed=len(name))
+    vals = np.random.default_rng(M + k).integers(0, 4, (k * k, M))
+    e, v = _t(embs, cuda), _t(vals.astype(np.float32), cuda)
+    ii, jj, sums, cnt = group_pairs(e, v, n, include_self=include_self)
+    exact = group_pairs_plain(e, v.double(), n, include_self)
+    assert torch.equal(ii, exact[0]) and torch.equal(jj, exact[1])
+    assert torch.equal(cnt.double(), exact[3])
+    assert torch.equal(sums.double(), exact[2])
+    per = k if include_self else k - 1
+    assert int(cnt.max()) >= hub * k * per
+    if n * n <= 2**26:
+        canvas = [torch.zeros((n, n), device=cuda) for _ in range(2)]
+        recon, count = group_pairs(e, v, n, include_self=include_self,
+                                   canvas=canvas)
+        assert torch.equal(recon[ii, jj], sums / cnt)
+        assert torch.equal(count[ii, jj], cnt)
+        assert int((count > 0).sum()) == len(ii)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,M,k,n,hub", [
+    ("k21", 10_000, 21, 4039, 0), ("hub", 50_000, 5, 4039, 45_000),
+    ("n1", 3_000, 4, 1, 0), ("empty", 0, 21, 4039, 0)])
+def test_cuda_group_pairs_writes_the_dense_canvas(cuda, name, M, k, n, hub):
+    """The dense form (the canvases ``reconstruct_network`` returns): equal
+    bit for bit to ``recon[ii, jj] = sums / cnt``, ``count[ii, jj] = cnt``
+    of the kernels' own sparse form (the same sums), 0 elsewhere, and a
+    second call equal; against the torch path's scatter, the counts equal
+    and the means within the float32 bound of the float64 sums
+    (:func:`_sum_bound`) over the count, and one rounding of the
+    division."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.group_kernel import (
+        group_pairs, group_pairs_plain)
+
+    embs, vals = _paints(M, k, n, hub, seed=len(name))
+    e, v = _t(embs, cuda), _t(vals, cuda)
+    canvas = [torch.zeros((n, n), device=cuda) for _ in range(2)]
+    recon, count = group_pairs(e, v, n, canvas=canvas)
+    assert recon is canvas[0] and count is canvas[1]
+    again = group_pairs(e, v, n, canvas=[torch.zeros_like(recon)
+                                         for _ in range(2)])
+    assert torch.equal(recon, again[0]) and torch.equal(count, again[1])
+    if not M:
+        assert not recon.any() and not count.any()
+        return
+    ii, jj, sums, cnt = group_pairs(e, v, n)
+    want = torch.zeros_like(recon), torch.zeros_like(count)
+    want[0][ii, jj] = sums / cnt
+    want[1][ii, jj] = cnt
+    assert torch.equal(recon, want[0]) and torch.equal(count, want[1])
+    torch_path = group_pairs_plain(e, v, n)
+    exact = group_pairs_plain(e, v.double(), n)
+    assert torch.equal(count[torch_path[0], torch_path[1]], torch_path[3])
+    mean = exact[2] / exact[3]
+    err = (recon[exact[0], exact[1]].double() - mean).abs()
+    bound = _sum_bound(exact) / exact[3] + 2.0**-23 * mean
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.cuda
+def test_cuda_grouping_reads_back_only_the_sparse_pair_count(cuda,
+                                                            monkeypatch):
+    """On the card neither form runs the torch grouping's operations
+    (sort, run lengths, segment sum, indexed assignment: each made to
+    raise here); with CUDA's sync debug mode set to raise, the dense form
+    runs through, and the sparse form raises at its one host read (the
+    pair count)."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.group_kernel import group_pairs
+
+    embs, vals = _paints(10_000, 21, 4039, 0, seed=3)
+    e, v = _t(embs, cuda), _t(vals, cuda)
+    canvas = [torch.zeros((4039, 4039), device=cuda) for _ in range(2)]
+    group_pairs(e, v, 4039, canvas=canvas)      # the build, outside
+    torch.cuda.synchronize()
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the torch grouping ran on the card")
+
+    for name in ("sort", "unique_consecutive", "segment_reduce"):
+        monkeypatch.setattr(torch, name, refused)
+    monkeypatch.setattr(torch.Tensor, "__setitem__", refused)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        group_pairs(e, v, 4039, canvas=canvas)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            group_pairs(e, v, 4039)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 @pytest.mark.cuda
 def test_cuda_video_path_launches_kernels_and_matches_cpu(cuda):
     # a tiny video run on the card (float32, kernels) against the CPU

@@ -117,8 +117,8 @@ def test_reconstruction_spans_nest_under_their_job():
     assert _children(spans, jobs[0]) == ["recon.extract", "recon.code",
                                          "recon.paint"]
     assert _children(spans, jobs[1]) == ["recon.chains", "recon.patches",
-                                         "recon.code", "recon.group",
-                                         "recon.paint"]
+                                         "recon.code", "recon.paint",
+                                         "recon.group"]
     # a call's counts on the CPU: the host's launch counts alone
     counts = spans[jobs[0]].counts
     assert set(counts) == {f"launches.{k}" for k in LAUNCHES}
