@@ -1,13 +1,16 @@
-"""The harness on the CPU at toy sizes: a cell, a mix and a metric that
-exist only as files are found by name and run; every cell is correct as
-the port stands, comes out not correct with the timed path broken in
-each way its kind of cell can be, and its control (the reference in TF32)
-reads far above the program; the command refuses to run without a card
-and prints no result."""
+"""The harness on the CPU at toy sizes: a configuration, a cell, a mix
+and a metric that exist only as files and entries are found by name and
+run, and the cases below are read from BENCHMARK.json's cells and the
+files they name; every cell is correct as the port stands, comes out not
+correct with the timed path broken in each way its kind of cell can be
+(``faults/``), and its control (the reference in TF32) reads far above
+the program; the command refuses to run without a card and prints no
+result."""
 
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -15,12 +18,16 @@ import sys
 import pytest
 import torch
 
-from toy_root import BENCH, REPO
+import faults
+from toy_root import BENCH, REPO, SPEC, TOYS, make_toy
 
 from benchport import harness
 
 SEED = 2**41 + 17
-CELLS = ["image-train", "ndl-train", "image-recon", "ndl-recon"]
+# the cases, from BENCHMARK.json's cells: each cell's faults are those
+# of its configuration's app for its mix's kind (faults/<app>.py)
+CELLS = [w["name"] for w in harness.load_json(SPEC)["workloads"]]
+CPU_CASES, CARD_CASES = faults.cases(harness.load_json(SPEC), BENCH)
 
 
 def run(spec, root, workload, seed=SEED, trace=False, seconds=0.3):
@@ -43,7 +50,7 @@ def test_cell_runs_correct_with_its_metrics(toy, workload):
         (root / "limits" / f"{workload}.json").read_text()))
 
 
-@pytest.mark.parametrize("workload", ["image-train", "ndl-recon"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_traced_run_reads_per_layer_metrics(toy, workload):
     spec, root = toy
     out = run(spec, root, workload, trace=True, seconds=0.5)
@@ -77,6 +84,77 @@ def test_cell_mix_and_metric_from_files_alone(toy):
     assert out["attempted"] % 2 == 0        # the toy's rounds_per_call
 
 
+def tree(root):
+    """Every file under ``root`` (compiled modules aside) and its bytes."""
+    return {p: p.read_bytes() for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_configuration_from_files_alone(tmp_path):
+    """A second configuration of the image app and a cell on it: its
+    configuration file, toy sizes and limits are new files, its cell and
+    configuration new entries. The toy root and the checkout keep every
+    file they had, byte for byte; the cell runs correct, and the fault
+    cases built from the spec take its faults (its run and control
+    cases are the spec's cell names)."""
+    checkout = tree(BENCH)
+    checkout[SPEC] = SPEC.read_bytes()
+    root, new = tmp_path / "root", tmp_path / "new"
+    root.mkdir()
+    make_toy(root)
+    before = tree(root)
+
+    shutil.copytree(TOYS, new / "toys")
+    (new / "configs").mkdir()
+    cfg = json.loads((BENCH / "configs" / "image-r25.json").read_text())
+    cfg.update(patch_size=8, n_components=16)
+    (new / "configs" / "image-r16.json").write_text(json.dumps(cfg))
+    spec = harness.load_json(SPEC)
+    spec["configs"].append({"name": "image-r16", "source": "toy",
+                            "file": str(new / "configs" / "image-r16.json"),
+                            "reduced": [], "why": "toy"})
+    spec["workloads"].append({"name": "image16-train", "config": "image-r16",
+                              "traffic": "train", "chips": 1, "why": "toy"})
+    toy = new / "toys" / "image-r16.json"
+    with pytest.raises(FileNotFoundError, match=re.escape(str(toy))):
+        make_toy(root, spec, toys=new / "toys")
+    toy.write_text(json.dumps(dict(
+        height=36, width=40, patch_size=3, n_components=4, num_patches=64,
+        sub_iterations=3, rounds_per_call=2, setup_rounds=2,
+        recons_stride=3)))
+    shutil.copy(root / "limits" / "image-train.json",
+                root / "limits" / "image16-train.json")
+    spec = make_toy(root, spec, toys=new / "toys")
+
+    out = run(spec, root, "image16-train")
+    assert out["correct"], out["checks"]
+    cpu, card = faults.cases(spec, root)
+    image = faults.of("image")
+    assert [f for w, f in cpu if w == "image16-train"] \
+        == image.CPU["train"]
+    assert [f for w, f in card if w == "image16-train"] \
+        == image.CPU["train"] + image.CARD["train"]
+    after = tree(root)
+    assert {p: after.get(p) for p in before} == before
+    assert {p: p.read_bytes() for p in checkout} == checkout
+
+
+def test_every_configuration_has_its_toy_and_every_kind_a_fault():
+    """Each configuration of BENCHMARK.json has its toy sizes, and each
+    (app, kind) that a cell runs at least one fault on the CPU; a failure
+    names the file to add."""
+    spec = harness.load_json(SPEC)
+    missing = [f"add {TOYS / c['name']}.json" for c in spec["configs"]
+               if not (TOYS / f"{c['name']}.json").exists()]
+    for w in spec["workloads"]:
+        app, kind = faults.app_and_kind(spec, w["name"], BENCH)
+        mod = faults.of(app)
+        if mod is None or not mod.CPU.get(kind):
+            missing.append(f"add a {kind!r} fault to CPU in "
+                           f"{faults.HERE / app}.py (cell {w['name']})")
+    assert not missing, "\n".join(missing)
+
+
 @pytest.mark.parametrize("checks, ok", [
     ({"a": 1e-5, "b": 0.0}, True), ({"a": 2e-4, "b": 0.0}, False),
     ({"a": float("nan"), "b": 0.0}, False), ({"a": 1e-5}, False),
@@ -98,91 +176,11 @@ def test_sample_keeps_job_zero_and_a_seeded_sample():
     assert len(c.items) == 3
 
 
-# ------------------------------------------------------------- faults:
-# the timed path broken underneath, each way the cell's kind can fail
+def ids(cases):
+    return [f"{w}-{f.__name__}" for w, f in cases]
 
 
-def _unchanged_state(monkeypatch):
-    from onmf_ontf_ndl_tpu_torch.models import onmf
-
-    orig = onmf._step_math
-
-    def step(W, A, B, C, Xb, H0, *a, **k):
-        H, _ = orig(W.clone(), A.clone(), B.clone(), C.clone(), Xb, H0,
-                    *a, **k)
-        return H, W
-
-    monkeypatch.setattr(onmf, "_step_math", step)
-
-
-def _half_batch(monkeypatch):
-    from onmf_ontf_ndl_tpu_torch.models import onmf
-
-    orig = onmf._step_math
-
-    def step(W, A, B, C, Xb, H0, *a, **k):
-        n = Xb.shape[1]
-        keep = torch.arange(n, device=Xb.device) % max(n // 2, 1)
-        return orig(W, A, B, C, Xb[:, keep], H0[:, keep], *a, **k)
-
-    monkeypatch.setattr(onmf, "_step_math", step)
-
-
-def _altered_image(monkeypatch):
-    from onmf_ontf_ndl_tpu_torch.apps import image
-
-    orig = image.overlap_average_grid
-
-    def paint(*a, **k):
-        out = orig(*a, **k)
-        out[5, 5, 0] += 0.25
-        return out
-
-    monkeypatch.setattr(image, "overlap_average_grid", paint)
-
-
-def _altered_graph(monkeypatch):
-    from onmf_ontf_ndl_tpu_torch.apps import network
-
-    orig = network._group_painted
-
-    def group(*a, **k):
-        ii, jj, sums, cnt = orig(*a, **k)
-        sums = sums.clone()
-        sums[len(sums) // 2] += cnt[len(sums) // 2]
-        return ii, jj, sums, cnt
-
-    monkeypatch.setattr(network, "_group_painted", group)
-
-
-def _stale_weights(monkeypatch):
-    """The captured route's cached entry replays its rounds with the
-    first call's weight table (the step weights 1 / t of the rounds that
-    call ran), not the table of the rounds it runs: a fault of the
-    window's calls alone (the card's route; the CPU has no cached
-    entry)."""
-    from onmf_ontf_ndl_tpu_torch.models import onmf
-
-    orig, seen = onmf._fill_round, []
-
-    def fill(rb, state, code, carry, weights=None):
-        if seen:
-            weights = None
-        seen.append(1)
-        orig(rb, state, code, carry, weights)
-
-    monkeypatch.setattr(onmf, "_fill_round", fill)
-
-
-FAULTS = [("image-train", _unchanged_state), ("image-train", _half_batch),
-          ("ndl-train", _unchanged_state), ("ndl-train", _half_batch),
-          ("image-recon", _altered_image), ("ndl-recon", _altered_graph)]
-CARD_FAULTS = FAULTS + [("image-train", _stale_weights),
-                        ("ndl-train", _stale_weights)]
-
-
-@pytest.mark.parametrize("workload, fault", FAULTS,
-                         ids=[f"{w}-{f.__name__[1:]}" for w, f in FAULTS])
+@pytest.mark.parametrize("workload, fault", CPU_CASES, ids=ids(CPU_CASES))
 def test_broken_timed_path_is_not_correct(toy, monkeypatch, workload,
                                           fault):
     spec, root = toy
@@ -209,13 +207,13 @@ def fresh_graphs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload, fault", CARD_FAULTS,
-                         ids=[f"{w}-{f.__name__[1:]}" for w, f in CARD_FAULTS])
+@pytest.mark.parametrize("workload, fault", CARD_CASES,
+                         ids=ids(CARD_CASES))
 def test_cuda_broken_timed_path_is_not_correct(card, fresh_graphs,
                                                monkeypatch, workload, fault):
     """Each fault at the cell's own size on the card, three seeds; the
     readings are printed (``-s``) for the limits' upper ends."""
-    spec = harness.load_json(REPO / "BENCHMARK.json")
+    spec = harness.load_json(SPEC)
     fault(monkeypatch)
     for seed in (2**36 + 1, 2**36 + 3, 2**36 + 5):
         out = harness.run(spec=spec, workload=workload, seed=seed,
@@ -243,7 +241,7 @@ def test_control_reads_far_above_the_program(toy, workload):
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", CELLS)
 def test_cuda_control_fails_the_cells_limits(card, workload):
-    spec = harness.load_json(REPO / "BENCHMARK.json")
+    spec = harness.load_json(SPEC)
     out = harness.control(spec=spec, workload=workload, seed=2**35 + 1)
     assert out["fails"], out
 
@@ -254,7 +252,7 @@ def test_command_without_a_card_prints_no_result(tmp_path):
     for d in (REPO, tmp_path):
         if d is tmp_path:
             shutil.copytree(BENCH, d / "benchport")
-            shutil.copy(REPO / "BENCHMARK.json", d / "BENCHMARK.json")
+            shutil.copy(SPEC, d / "BENCHMARK.json")
         out = subprocess.run(
             [sys.executable, "benchport/run.py", "--workload", "image-train",
              "--seed", str(2**40), "--seconds", "1", "--trace", "0"],

@@ -9,7 +9,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from toy_root import BENCH  # also puts the repository on the path
+from toy_root import BENCH, SPEC  # also puts the repository on the path
 
 from benchport import harness, peaks
 from benchport import spans as record
@@ -137,8 +137,8 @@ def test_union_and_idle():
     assert record.idle_ns(record.busy([]), 0, 5) == 5
 
 
-@pytest.mark.parametrize("workload", ["image-train", "ndl-train",
-                                      "image-recon", "ndl-recon"])
+@pytest.mark.parametrize("workload",
+                         [w["name"] for w in harness.load_json(SPEC)["workloads"]])
 def test_toy_traced_run_reads_none_of_them(toy, workload):
     """On the CPU the record has spans but no device: every new metric is
     left out of the line."""
