@@ -27,6 +27,11 @@ With a process group (``parallel/dp.py::dp_ising_learning``) each rank
 advances its own lattice from its own rank generator and the statistics of
 every inner step are summed over the group, as the JAX learner's
 ``psum_axis`` does.
+
+The record (``utils/profiling.py``, under a profiler session only): the
+span ``ising.initial`` (with CUDA events) around the initial round, and
+the count ``ising.site_updates``, the checkerboard's site updates a call
+made (rounds x sweeps x n^2), added at the call's end.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from onmf_ontf_ndl_tpu_torch.samplers.ising import (checkerboard_sweeps,
                                                     init_lattice,
                                                     metropolis_chain)
 from onmf_ontf_ndl_tpu_torch.utils.metrics import surrogate_error
-from onmf_ontf_ndl_tpu_torch.utils.profiling import spanned
+from onmf_ontf_ndl_tpu_torch.utils.profiling import count, span, spanned
 
 __all__ = ["IsingReconstructor", "ising_trajectory_learning",
            "display_errors"]
@@ -145,11 +150,12 @@ def ising_trajectory_learning(
                    keep_trajectory), capture=capture)
     # the initial round, outside the scan as the JAX learner runs it: on
     # the per-round route (its steps replay the step graph)
-    state, _, carry, first = _run_rounds(
-        state, None, spec, rounds=1, round_fn=functools.partial(
-            train_round, advance=False), carry={"lattice": lattice},
-        outs=outs, host_read=True,
-        draws=None if draws is None else draws[:1], **kw)
+    with span("ising.initial", on=lattice):
+        state, _, carry, first = _run_rounds(
+            state, None, spec, rounds=1, round_fn=functools.partial(
+                train_round, advance=False), carry={"lattice": lattice},
+            outs=outs, host_read=True,
+            draws=None if draws is None else draws[:1], **kw)
     if keep_trajectory:
         outs["trajectory"] = ((n, n), lattice.dtype)
     state, _, carry, rest = _run_rounds(
@@ -158,6 +164,9 @@ def ising_trajectory_learning(
         outs=outs, host_read=draws is not None or (
             update_lattice and sampler == "exact"),
         draws=None if draws is None else draws[1:], **kw)
+    if update_lattice and sampler != "exact":
+        # the sweeps' site updates: the initial round makes none
+        count("ising.site_updates", ising_iterations * nsweeps * n * n)
     trajectory = rest.get("trajectory", lattice.new_zeros(
         (ising_iterations, 0, 0)))
     return (state, torch.cat([first["W"], rest["W"]]),

@@ -16,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from onmf_ontf_ndl_tpu_torch.apps.image import ImageReconstructor
+from onmf_ontf_ndl_tpu_torch.apps.ising import IsingReconstructor
 from onmf_ontf_ndl_tpu_torch.apps.network import NetworkReconstructor
 from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import LAUNCHES
 from onmf_ontf_ndl_tpu_torch.utils import capture, profiling
@@ -134,6 +135,33 @@ def test_network_training_call_holds_its_rounds():
     assert [s.name for s in spans if s.parent is None] == ["train.call"]
     assert _children(spans, 0) == ["train.fill", "train.round",
                                    "train.round", "train.copy_out"]
+
+
+def _ising_app():
+    # 12 x 12 lattice, 288 steps: two sweeps a round
+    return IsingReconstructor(
+        n_components=3, lattice_size=12, ising_iterations=2,
+        temperature=2.0, ising_subsampling_steps=288, sub_iterations=3,
+        num_patches=10, batch_size=10, patch_size=3, seed=4, device="cpu")
+
+
+def test_ising_call_records_its_initial_round_and_site_updates(tmp_path):
+    _empty_record(tmp_path)
+    rec = _ising_app()
+    rec.ising_mcmc_learning()                   # outside a session
+    assert profiling.spans() == [] and profiling.counters() == {}
+    with _profiled():
+        rec.ising_mcmc_learning()
+    spans = profiling.spans()
+    _check_nesting(spans)
+    initial = [s for s in spans if s.name == "ising.initial"]
+    assert len(initial) == 1 and initial[0].call == 1
+    assert spans[initial[0].parent].name == "train.call"
+    # the initial round on the per-round route, inside its span
+    inside = [s.name for s in spans if s.parent == spans.index(initial[0])]
+    assert inside == ["train.fill", "train.round", "train.copy_out"]
+    # 2 rounds x 2 sweeps x 12^2 sites; the initial round advances nothing
+    assert profiling.counters()["ising.site_updates"] == 2 * 2 * 144
 
 
 def test_span_holds_the_profilers_event_of_its_work():
