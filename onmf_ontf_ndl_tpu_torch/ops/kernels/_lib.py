@@ -21,12 +21,22 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "LAUNCHES", "reset_launches", "TN", "launch_counts",
+__all__ = ["build", "LAUNCHES", "reset_launches", "TN", "ES_MAX_CLUSTER",
+           "launch_counts",
            "captured_launches", "add_launches", "RUN_KERNELS",
            "SNAPSHOT_COUNTS", "DEVICE_COUNTS", "device_runs",
            "snapshot_runs"]
 
 TN = 128                  # early-stop tile: columns per thread block
+ES_MAX_CLUSTER = 8        # the early-stop coder's cluster form: most CTAs a tile
+
+
+def _es_cluster_min(r: int) -> int:
+    """The fewest CTAs of a tile in the early-stop coder's cluster form at
+    rank ``r`` (csrc ``es_cluster_min``): 4, and 8 past r = 64; 0 where the
+    form is not built, up to r = 32 and past r = 100. :func:`build` checks
+    it and :data:`ES_MAX_CLUSTER` against the library."""
+    return 0 if r <= 32 or r > 100 else 4 if r <= 64 else 8
 
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD = Path(__file__).parent / "_build"
@@ -54,10 +64,13 @@ RUN_KERNELS = ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
 # stops early (the Gauss-Seidel coders with the stop, shared-memory and
 # wide, and FISTA with it; replays included): ``coder_es.column_sweeps``,
 # each tile's sweeps times its columns, and ``coder_es.columns``, the
-# columns coded; last the chain's move. The column sweeps over the
-# columns are the mean sweeps a column.
+# columns coded; ``coder_es.cluster_columns``, the columns the early-stop
+# coder coded in its cluster form (a tile on a cluster of CTAs); last the
+# chain's move. The column sweeps over the columns are the mean sweeps a
+# column.
 SNAPSHOT_COUNTS = RUN_KERNELS[:4] + ("coder_es.column_sweeps",
-                                     "coder_es.columns")
+                                     "coder_es.columns",
+                                     "coder_es.cluster_columns")
 DEVICE_COUNTS = SNAPSHOT_COUNTS + ("chain_move",)
 
 
@@ -195,7 +208,9 @@ def build() -> dict:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.onmf_coder_sweeps.argtypes = [p, p, p, p, i, i, f, i, p, i, p]
     lib.onmf_coder_sweeps_earlystop.argtypes = [p, p, p, p, i, i, f, f, i,
-                                                i, p, i, p]
+                                                i, i, p, i, p]
+    lib.onmf_coder_es_cluster_min.argtypes = [i]
+    lib.onmf_coder_es_max_cluster.argtypes = []
     lib.onmf_fista_sweeps.argtypes = [p, p, p, p, i, i, f, p, i, f, i, i, i,
                                       i, p, i, p]
     lib.onmf_dict_update_sweep.argtypes = [p, p, p, p, i, i, i, p]
@@ -225,6 +240,7 @@ def build() -> dict:
     lib.onmf_reset_runs.argtypes = []
     lib.onmf_chain_reset_runs.argtypes = []
     for fn in (lib.onmf_coder_sweeps, lib.onmf_coder_sweeps_earlystop,
+               lib.onmf_coder_es_cluster_min, lib.onmf_coder_es_max_cluster,
                lib.onmf_fista_sweeps, lib.onmf_dict_update_sweep,
                lib.onmf_checkerboard_sweeps, lib.onmf_checkerboard_sweeps_at,
                lib.onmf_checkerboard_band_half,
@@ -257,6 +273,11 @@ def build() -> dict:
     if lib.onmf_run_slots() != len(SNAPSHOT_COUNTS):
         raise RuntimeError(f"kernel counts {lib.onmf_run_slots()} != "
                            f"{len(SNAPSHOT_COUNTS)} of SNAPSHOT_COUNTS")
+    if lib.onmf_coder_es_max_cluster() != ES_MAX_CLUSTER or any(
+            lib.onmf_coder_es_cluster_min(r) != _es_cluster_min(r)
+            for r in range(1, 257)):
+        raise RuntimeError("the early-stop coder's cluster sizes differ "
+                           "from the kernel library's")
     return {"lib": lib, "path": str(so), "seconds": seconds,
             "compiled": compiled}
 

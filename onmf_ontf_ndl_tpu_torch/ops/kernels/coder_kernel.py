@@ -44,7 +44,20 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   two warps at once. What bounds it: the r^2 multiply-adds per column and
   sweep, and as many for the Grams, on the CUDA cores, fed by shared
   memory at a quarter of their rate. Shared memory (at r = 100 within
-  3 r^2 + 2 r (TN + 1) + 5 r floats) limits it to r <= 100.
+  3 r^2 + 2 r (TN + 1) + 5 r floats) limits it to r <= 100. Where the
+  tiles are too few to fill the card and r > 32 (:func:`coder_es_cluster`:
+  8 tiles at n = 1000, r = 100, on 132 SMs), each tile runs on a thread
+  block cluster of S = 4 or 8 CTAs (the same kernel, its cluster form):
+  each holds TN / S of the columns, 16 or 32 lanes a pair of them, an
+  owner's block of coordinates first on a copy of its rows and then its
+  deltas to every lane; the decision's products come from the columns,
+  each CTA's part stored in every CTA's shared memory and summed there in
+  rank order, so every CTA decides on the same values; the traces and the
+  largest diagonal entries decide where they can, else the Grams' blocks
+  go to their rows' owners for the Gershgorin bounds. The columns'
+  arithmetic is the one-CTA kernel's, so H is equal bit for bit where the
+  sweeps agree; the sums come in another order, so a tile within rounding
+  of the threshold may stop a sweep apart.
 - :func:`fista_sweeps` replaces ``fista_sweeps`` (``:579``): accelerated
   projected gradient ``H <- max(0, Y - (A Y - B + alpha) / L)`` with
   Nesterov momentum, one block per tile of **TN = 128 columns**. The
@@ -155,14 +168,15 @@ import math
 import torch
 
 from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (
-    LAUNCHES, TN, _on_cpu, _raise_on_error, _sm_count, _stream, build,
-    reset_launches)
+    ES_MAX_CLUSTER, LAUNCHES, TN, _es_cluster_min, _on_cpu, _raise_on_error,
+    _sm_count, _stream, build, reset_launches)
 
 __all__ = ["coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
            "dict_update_sweep", "coder_sweeps_plain",
            "coder_sweeps_earlystop_plain", "fista_sweeps_plain",
            "dict_update_sweep_plain", "build", "LAUNCHES", "reset_launches",
            "TN", "MAX_RANK", "SMEM_MAX_RANK", "kernel_route", "dict_route",
+           "coder_es_cluster", "ES_MAX_CLUSTER",
            "coder_lanes_config", "coder_wide_config", "fista_tile_config",
            "fista_wide_config",
            "FW_RESIDENT_MAX_RANK"]
@@ -205,6 +219,29 @@ def kernel_route(name: str, r: int) -> str:
     if r <= SMEM_MAX_RANK[name]:
         return "shared"
     return "workspace" if r <= MAX_RANK else "unfused"
+
+
+def coder_es_cluster(r: int, n: int, sms: int = 132) -> int:
+    """CTAs a tile of the shared-memory :func:`coder_sweeps_earlystop`
+    kernel takes at rank ``r`` on ``n`` columns and a card of ``sms`` SMs,
+    from those alone: for 32 < r <= 100, the largest power of two S from
+    the form's least (4; 8 past r = 64) to :data:`ES_MAX_CLUSTER` whose
+    clusters take at most 7/8 of the SMs (``tiles * S * 8 <= sms * 7``),
+    each tile's columns then split over a thread block cluster of S CTAs
+    that decide its stop together; else 1 (one CTA a tile). The clusters
+    are meant to be resident at once: on an H100 at r = 100 (one CTA an
+    SM) clusters of 8 hold 120 of its 132 SMs. Up to r = 32 one CTA a tile
+    is the faster: a sweep's two exchanges across the cluster cost more
+    than its short chains and small Grams save (ndl-train, r = 25 on 4
+    tiles, on an H100: 2.45M and 2.39M patches/s on clusters of 4 and 8
+    against 2.59M-2.62M on one CTA a tile)."""
+    tiles = -(-n // TN)
+    S = _es_cluster_min(r)
+    if not S or tiles < 1 or tiles * S * 8 > sms * 7:
+        return 1
+    while 2 * S <= ES_MAX_CLUSTER and tiles * 2 * S * 8 <= sms * 7:
+        S *= 2
+    return S
 
 
 def coder_lanes_config(r: int) -> tuple[int, int, int]:
@@ -482,12 +519,13 @@ def coder_sweeps_earlystop(A: torch.Tensor, B: torch.Tensor,
     if route == "workspace":
         cfg = coder_wide_config(r, True)
         ws, blocks = _workspace(B, cfg[9], cfg[8])
+    cluster = coder_es_cluster(r, n, _sm_count(B.device))
     with torch.cuda.device(B.device):
         err = lib.onmf_coder_sweeps_earlystop(
             A.data_ptr(), B.data_ptr(), H0.data_ptr(), out.data_ptr(), r, n,
             float(alpha), float(stopping_diff), int(sub_iter),
-            int(pi_iters), None if ws is None else ws.data_ptr(), blocks,
-            _stream(B))
+            int(pi_iters), cluster, None if ws is None else ws.data_ptr(),
+            blocks, _stream(B))
     _raise_on_error("coder_sweeps_earlystop", err)
     LAUNCHES["coder_sweeps_earlystop"] += 1
     return out

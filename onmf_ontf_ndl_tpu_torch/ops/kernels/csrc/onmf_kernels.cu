@@ -66,10 +66,12 @@ constexpr int FISTA_MAX_RANK = 128;
 // coder_sweeps_earlystop, fista_sweeps, dict_update_sweep); then the work
 // of the kernels that stop early (the Gauss-Seidel coders with the stop
 // and FISTA with it): each tile's sweeps times its columns, summed
-// (ES_COLUMN_SWEEPS), and the columns coded (ES_COLUMNS).
+// (ES_COLUMN_SWEEPS), and the columns coded (ES_COLUMNS); last the columns
+// that the early-stop coder coded in its cluster form
+// (ES_CLUSTER_COLUMNS).
 enum {
   RUN_CODER, RUN_CODER_ES, RUN_FISTA, RUN_DICT, ES_COLUMN_SWEEPS,
-  ES_COLUMNS, RUN_KINDS
+  ES_COLUMNS, ES_CLUSTER_COLUMNS, RUN_KINDS
 };
 __device__ unsigned long long g_runs[RUN_KINDS];
 
@@ -100,6 +102,15 @@ __device__ __forceinline__ void count_sweeps(int sweeps, size_t tile0,
   }
 }
 
+// A tile's columns coded by a cluster, added by the block's first thread.
+__device__ __forceinline__ void count_cluster_columns(size_t tile0, int n) {
+  if (threadIdx.x == 0) {
+    const size_t left = (size_t)n - tile0;
+    atomicAdd(&g_runs[ES_CLUSTER_COLUMNS],
+              (unsigned long long)(left < (size_t)TN ? left : (size_t)TN));
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
@@ -109,6 +120,16 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int m = 16; m > 0; m >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, m));
   return x;
+}
+
+// The cluster barrier, split in two: arrive (release) and wait (acquire).
+// Every thread of every CTA of the cluster takes both halves, in turn.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -154,12 +175,59 @@ __device__ __forceinline__ float warp_max(float x) {
 //     The decision is the reference's: v += 0.05 v0, one warm power step
 //     for Rayleigh lower bounds, min(trace, Gershgorin) upper bounds, and
 //     pi_iters more steps only in the band between them.
+//   * kCluster, where the tiles are too few to fill the card (the wrapper's
+//     coder_es_cluster: past r = 32, e.g. 8 tiles at n = 1000, r = 100, on
+//     132 SMs): a tile on a thread block cluster of S = 4 or 8 CTAs. One
+//     CTA a tile ran all of its work on one SM (the Grams' 2 r^2
+//     multiply-adds a column alone ~23 us a sweep at r = 100). The tile
+//     still stops as one, on its Grams over all TN columns; only the work
+//     inside it is spread. Every exchange between the CTAs is a store into
+//     another CTA's shared memory (distributed shared memory) before a
+//     cluster barrier, never a load across one: summing rows of the Grams
+//     by remote loads, a round trip each, took ~7 us a sweep.
+//     - each CTA holds TN / S of the columns, 16 or 32 lanes of
+//       ES_CLUSTER_ROWS rows a pair of them (es_cluster_lanes), its tiles
+//       column by column. A block of an owner's coordinates runs on a
+//       copy of the owner's rows of g, then their deltas go to every lane
+//       at once, so the shuffles leave the chain; a lane keeps the steps
+//       of its own rows. Each row's multiply-adds come in the same order,
+//       so H is the one-CTA kernel's bit for bit when the sweeps agree; g
+//       is formed anew every sweep past r = 32, as there;
+//     - the decision's products come from the columns: w = G v is the sum
+//       over the CTAs of D_j (D_j^T v), D_j a CTA's columns (O_j for Gh).
+//       Each CTA stores its part in every CTA, with, at the first product,
+//       its part of both Grams' diagonals; every CTA sums the parts in
+//       rank order and runs the one-CTA decision's arithmetic on them, so
+//       all reach the same decision bit for bit. The traces and the
+//       largest diagonal entries decide where they can; otherwise each
+//       CTA forms the upper 4x4 blocks of both Grams over its columns and
+//       stores each with its block row's owner (es_block_owner), which
+//       sums its rows in rank order, and their absolute sums give the
+//       Gershgorin bounds (es_cluster_decision). Two cluster barriers a
+//       sweep, two more where the bounds need the Grams, one a power step
+//       in the band. The sums come in another order than one CTA's, so a
+//       tile within rounding of the threshold may stop a sweep apart from
+//       the one-CTA kernel;
+//     - a last cluster barrier before any CTA leaves; the tile's counts
+//       once, by rank 0.
 // Shared memory: r RP + 2 Rg (TN + 1) + 2 r^2 + 3 r floats (RP = L Q, Rg =
 // r rounded up to 4): at r = 100 within the old kernel's 3 r^2 +
-// 2 r (TN + 1) + 5 r.
+// 2 r (TN + 1) + 5 r. The cluster form: es_cluster_smem_floats.
 constexpr int ES_COLS = 2;
 constexpr int ES_MAX_RANK = 100;
 constexpr int ES_GRAM_LANES = 4;
+// The cluster form: 4 to ES_MAX_CLUSTER CTAs a tile, the portable cluster
+// size (16 CTAs ran slower than 8 at every shape measured on an H100:
+// at r = 40, n = 293 0.150-0.157 ms a launch against 0.135; at r = 100,
+// n = 1000, where the card holds 7 clusters of 16, 0.288 against 0.152),
+// ES_CLUSTER_ROWS rows a lane and 16 or 32 lanes a pair of columns
+// (es_cluster_lanes), so a CTA of TN / S / ES_COLS times that many
+// threads, at most ES_CLUSTER_THREADS: 8 CTAs past r = 64 (es_cluster_min).
+// At 512 threads a thread has 128 registers and the form spilled; at 1024
+// (S = 2) it ran slower than one CTA.
+constexpr int ES_MAX_CLUSTER = 8;
+constexpr int ES_CLUSTER_ROWS = 4;
+constexpr int ES_CLUSTER_THREADS = 256;
 
 // Lanes per column group and rows per lane at rank r (Q a multiple of 4,
 // read as float4, up to r = 64).
@@ -176,6 +244,45 @@ __host__ __device__ inline size_t es_lanes_smem_floats(int r) {
   const size_t rp = (size_t)es_lanes(r) * es_rows_per_lane(r);
   return (size_t)r * rp + 2 * (size_t)es_tile_rows(r) * HS
          + 2 * (size_t)r * r + 3 * (size_t)r;
+}
+
+// The cluster form: lanes a pair of columns (ES_CLUSTER_ROWS rows each);
+// row blocks of 4 a CTA owns at most; the floats of an exchanged part:
+// both Grams' w, then both Grams' diagonals or rows' absolute sums, each
+// half to a multiple of 4.
+__host__ __device__ inline int es_cluster_lanes(int r) {
+  return r <= 64 ? 16 : 32;
+}
+
+// The fewest CTAs a tile at rank r, as many as keep a CTA within
+// ES_CLUSTER_THREADS (4; 8 past r = 64); 0 where the form is not built: up
+// to r = 32, where one CTA a tile is the faster (its short chains and small
+// Grams save less than a sweep's exchanges across the cluster cost), and
+// past ES_MAX_RANK.
+__host__ __device__ inline int es_cluster_min(int r) {
+  if (r <= 32 || r > ES_MAX_RANK) return 0;
+  return TN / ES_COLS * es_cluster_lanes(r) / ES_CLUSTER_THREADS;
+}
+
+__host__ __device__ inline int es_cluster_blocks(int r, int S) {
+  return ((es_tile_rows(r) >> 2) + S - 1) / S;
+}
+
+__host__ __device__ inline int es_cluster_part(int r) {
+  return 2 * ((2 * r + 3) & ~3);
+}
+
+// A cluster-form CTA's shared floats: At (Rg rows); the tiles of its TN / S
+// columns (column by column, Rg rows); the Gram blocks each CTA stores
+// here and their sums (this CTA's row blocks); vd, vh, the steps; the
+// products' parts each CTA stores here (two parities), this CTA's part,
+// their sum; D^T v and O^T v.
+__host__ __device__ inline size_t es_cluster_smem_floats(int r, int S) {
+  const size_t Rg = es_tile_rows(r), ct = TN / S;
+  const size_t nbl = es_cluster_blocks(r, S), part = es_cluster_part(r);
+  return Rg * es_cluster_lanes(r) * ES_CLUSTER_ROWS
+         + 2 * ct * Rg + 2 * 4 * nbl * Rg * (S + 1) + 3 * Rg
+         + part * (2 * S + 2) + 2 * ct;
 }
 
 // Gd = D D^T and Gh = O O^T over the tile's TN columns, D = P - O (shared
@@ -324,6 +431,366 @@ __device__ int es_stop_decision(const float* Gd, const float* Gh, float* vd,
   return xch[0] <= stop2 * xch[1];
 }
 
+// The cluster barrier for the early-stop coder's cluster form, taken by
+// every thread after code in which the warp's lanes parted.
+__device__ __forceinline__ void es_cluster_sync() {
+  __syncwarp();
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Row k, column col of a tile: row-major at stride HS in one CTA; column by
+// column at stride Rg in a cluster, so that a column's rows are
+// consecutive (float4 loads in the Grams and the products).
+template <bool kCluster>
+__device__ __forceinline__ int es_tix(int k, int col, int Rg) {
+  if constexpr (kCluster)
+    return col * Rg + k;
+  else
+    return k * HS + col;
+}
+
+// The owner of the Grams' row block kb in a cluster of S, and the kbl-th
+// row block of rank `rank`: dealt in rounds of S, every other round in
+// reverse, so that the long rows at the top and the short ones at the
+// bottom even out.
+__device__ __forceinline__ int es_block_owner(int kb, int S) {
+  const int round = kb / S, pos = kb - round * S;
+  return round & 1 ? S - 1 - pos : pos;
+}
+
+__device__ __forceinline__ int es_owned_block(int rank, int kbl, int S) {
+  return kbl * S + (kbl & 1 ? S - 1 - rank : rank);
+}
+
+// A cluster-form CTA's view of its shared memory (es_cluster_smem_floats).
+struct EsCluster {
+  float* Hs;   // (CT, Rg) iterate, column by column
+  float* Os;   // (CT, Rg) iterate before the sweep
+  float* GS;   // [2 Grams][S ranks][nbl][4][Rg]: the blocks each rank stores
+  float* Gm;   // [2][nbl][4][Rg]: their sums, this CTA's row blocks
+  float* vd;   // (Rg) the carried vectors, 0 past r
+  float* vh;
+  float* PV;   // [2 parities][S ranks][part]: the parts each rank stores
+  float* loc;  // (part) this CTA's part
+  float* wf;   // (part) the parts summed: w of both, row sums, traces
+  float* uu;   // (2, CT) D^T v, O^T v
+  int r, Rg, S, rank, CT, nb, nbl, W, part;  // W: half a part
+};
+
+// The upper 4x4 blocks (kb, lb >= kb) of Gd = D D^T and Gh = O O^T over
+// this CTA's columns (D = P - O; rows r..Rg-1 hold 0), one thread a block,
+// the columns in turn; each block's rows stored in the owner of row block
+// kb (es_block_owner: the row blocks dealt in rounds of S, every other
+// round reversed), in its slot for this rank.
+__device__ void es_cluster_blocks(const EsCluster& c) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nb = c.nb, blocks = nb * (nb + 1) / 2;
+  for (int item = threadIdx.x; item < blocks; item += blockDim.x) {
+    int kb = 0, rem = item;
+    while (rem >= nb - kb) { rem -= nb - kb; ++kb; }
+    const int lb = kb + rem;
+    float gd[4][4] = {}, gh[4][4] = {};
+    for (int col = 0; col < c.CT; ++col) {
+      const float* P = c.Hs + col * c.Rg;
+      const float* O = c.Os + col * c.Rg;
+      const float4 pk = *reinterpret_cast<const float4*>(P + 4 * kb);
+      const float4 ok = *reinterpret_cast<const float4*>(O + 4 * kb);
+      const float4 pl = *reinterpret_cast<const float4*>(P + 4 * lb);
+      const float4 ol = *reinterpret_cast<const float4*>(O + 4 * lb);
+      const float okv[4] = {ok.x, ok.y, ok.z, ok.w};
+      const float olv[4] = {ol.x, ol.y, ol.z, ol.w};
+      const float dk[4] = {pk.x - ok.x, pk.y - ok.y, pk.z - ok.z, pk.w - ok.w};
+      const float dl[4] = {pl.x - ol.x, pl.y - ol.y, pl.z - ol.z, pl.w - ol.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          gd[a][b] = fmaf(dk[a], dl[b], gd[a][b]);
+          gh[a][b] = fmaf(okv[a], olv[b], gh[a][b]);
+        }
+    }
+    float* slot = cluster.map_shared_rank(c.GS, es_block_owner(kb, c.S))
+                  + ((c.rank * c.nbl + kb / c.S) * 4) * c.Rg + 4 * lb;
+    const size_t gram = (size_t)c.S * c.nbl * 4 * c.Rg;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      if (4 * kb + a < c.r) {
+        *reinterpret_cast<float4*>(slot + a * c.Rg) =
+            make_float4(gd[a][0], gd[a][1], gd[a][2], gd[a][3]);
+        *reinterpret_cast<float4*>(slot + gram + a * c.Rg) =
+            make_float4(gh[a][0], gh[a][1], gh[a][2], gh[a][3]);
+      }
+  }
+}
+
+// This CTA's rows of both Grams: the blocks (kb, lb >= kb) of its row
+// blocks (es_owned_block), each summed over the ranks' slots in rank
+// order, into Gm.
+__device__ void es_cluster_sum_blocks(const EsCluster& c) {
+  const int rows = 2 * c.nbl * 4;  // (Gram, kbl, a)
+  const int slot4 = c.nbl * c.Rg;  // one rank's slot, in float4
+  for (int x = threadIdx.x; x < rows * c.nb; x += blockDim.x) {
+    const int row = x / c.nb, lb = x - row * c.nb;
+    const int g = row / (4 * c.nbl), kbl = (row >> 2) - g * c.nbl;
+    const int kb = es_owned_block(c.rank, kbl, c.S);
+    if (kb >= c.nb || lb < kb || 4 * kb + (row & 3) >= c.r) continue;
+    const int at = ((kbl * 4) + (row & 3)) * c.Rg + 4 * lb;
+    const float4* src = reinterpret_cast<const float4*>(
+        c.GS + (size_t)g * c.S * c.nbl * 4 * c.Rg + at);
+    float4 v[ES_MAX_CLUSTER];
+#pragma unroll
+    for (int j = 0; j < ES_MAX_CLUSTER; ++j)
+      if (j < c.S) v[j] = src[j * slot4];
+    float4 acc = v[0];
+#pragma unroll
+    for (int j = 1; j < ES_MAX_CLUSTER; ++j)
+      if (j < c.S) {
+        acc.x += v[j].x;
+        acc.y += v[j].y;
+        acc.z += v[j].z;
+        acc.w += v[j].w;
+      }
+    *reinterpret_cast<float4*>(c.Gm + g * c.nbl * 4 * c.Rg + at) = acc;
+  }
+}
+
+// This CTA's part of w = G v for both Grams, D_j (D_j^T v) and
+// O_j (O_j^T v), into loc[0 .. 2 r): D^T v and O^T v by 8 lanes a column
+// (the block's threads, a multiple of 32 dividing 16 CT, in turns), then
+// a thread a row.
+__device__ void es_cluster_part_product(const EsCluster& c) {
+  const int t = threadIdx.x;
+  for (int slot = t; slot < 16 * c.CT; slot += blockDim.x) {
+    const int item = slot >> 3, part = slot & 7;
+    const int g = item >= c.CT, col = item - g * c.CT;
+    const float* v = g ? c.vh : c.vd;
+    const float* P = c.Hs + col * c.Rg;
+    const float* O = c.Os + col * c.Rg;
+    float acc[4] = {};
+    for (int k = 4 * part; k < c.Rg; k += 32) {
+      const float4 o = *reinterpret_cast<const float4*>(O + k);
+      const float4 vv = *reinterpret_cast<const float4*>(v + k);
+      float4 x = o;
+      if (!g) {
+        const float4 p = *reinterpret_cast<const float4*>(P + k);
+        x = make_float4(p.x - o.x, p.y - o.y, p.z - o.z, p.w - o.w);
+      }
+      acc[0] = fmaf(x.x, vv.x, acc[0]);
+      acc[1] = fmaf(x.y, vv.y, acc[1]);
+      acc[2] = fmaf(x.z, vv.z, acc[2]);
+      acc[3] = fmaf(x.w, vv.w, acc[3]);
+    }
+    float u = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    u += __shfl_xor_sync(0xffffffffu, u, 4);
+    u += __shfl_xor_sync(0xffffffffu, u, 2);
+    u += __shfl_xor_sync(0xffffffffu, u, 1);
+    if (part == 0) c.uu[item] = u;
+  }
+  __syncthreads();
+  for (int x = t; x < 2 * c.r; x += blockDim.x) {
+    const int g = x >= c.r, m = x - g * c.r;
+    const float* u = c.uu + g * c.CT;
+    float acc = 0.f;
+    for (int col = 0; col < c.CT; ++col) {
+      const float o = c.Os[col * c.Rg + m];
+      acc = fmaf(g ? o : c.Hs[col * c.Rg + m] - o, u[col], acc);
+    }
+    c.loc[x] = acc;
+  }
+}
+
+// This CTA's part of both Grams' diagonals, into loc[W + g r + k]: each
+// entry as es_cluster_blocks forms it (its columns in turn, fused), so
+// that the summed diagonal is the summed Grams' bit for bit.
+__device__ void es_cluster_part_diag(const EsCluster& c) {
+  for (int x = threadIdx.x; x < 2 * c.r; x += blockDim.x) {
+    const int g = x >= c.r, k = x - g * c.r;
+    float acc = 0.f;
+    for (int col = 0; col < c.CT; ++col) {
+      const float o = c.Os[col * c.Rg + k];
+      const float d = g ? o : c.Hs[col * c.Rg + k] - o;
+      acc = fmaf(d, d, acc);
+    }
+    c.loc[c.W + x] = acc;
+  }
+}
+
+// This CTA's part of each row's absolute sum of both Grams, into
+// loc[W + g r + l]: for its own rows their entries from the diagonal
+// block on, for the others the transposed entries of its blocks above
+// them.
+__device__ void es_cluster_part_bounds(const EsCluster& c) {
+  for (int x = threadIdx.x; x < 2 * c.r; x += blockDim.x) {
+    const int g = x >= c.r, l = x - g * c.r, lb = l >> 2;
+    float acc = 0.f;
+    for (int kbl = 0; kbl < c.nbl; ++kbl) {
+      const int kb = es_owned_block(c.rank, kbl, c.S);
+      if (kb >= c.nb || kb > lb) break;
+      const float* G = c.Gm + (g * c.nbl + kbl) * 4 * c.Rg;
+      if (kb < lb) {
+        for (int a = 0; a < 4 && 4 * kb + a < c.r; ++a)
+          acc += fabsf(G[a * c.Rg + l]);
+      } else {  // its own row, a float4 at a time from the diagonal block
+        const float* row = G + (l - 4 * kb) * c.Rg;
+        float s4[4] = {};
+        for (int m = 4 * kb; m < c.Rg; m += 4) {
+          const float4 e = *reinterpret_cast<const float4*>(row + m);
+          s4[0] += fabsf(e.x);
+          s4[1] += m + 1 < c.r ? fabsf(e.y) : 0.f;
+          s4[2] += m + 2 < c.r ? fabsf(e.z) : 0.f;
+          s4[3] += m + 3 < c.r ? fabsf(e.w) : 0.f;
+        }
+        acc += (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      }
+    }
+    c.loc[c.W + x] = acc;
+  }
+}
+
+// Floats lo..lo+n-1 of this CTA's staged part (multiples of 4) stored in
+// its slot of parity `par` in every CTA of the cluster, then the cluster
+// barrier, then the S parts summed in rank order into wf. A slot is
+// stored again two exchanges later, after the next one's barrier, which
+// every reader of it has passed only once it has summed.
+__device__ void es_cluster_exchange(const EsCluster& c, int par, int lo,
+                                    int n) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __syncthreads();  // loc is staged
+  const int n4 = n >> 2;
+  for (int x = threadIdx.x; x < c.S * n4; x += blockDim.x) {
+    const int dst = x / n4, i = (lo >> 2) + x - dst * n4;
+    float* slot = cluster.map_shared_rank(c.PV, dst)
+                  + (par * c.S + c.rank) * c.part;
+    reinterpret_cast<float4*>(slot)[i] =
+        reinterpret_cast<const float4*>(c.loc)[i];
+  }
+  es_cluster_sync();
+  const float* parts = c.PV + par * c.S * c.part;
+  for (int x = lo + threadIdx.x; x < lo + n; x += blockDim.x) {
+    float p[ES_MAX_CLUSTER];
+#pragma unroll
+    for (int j = 0; j < ES_MAX_CLUSTER; ++j)
+      if (j < c.S) p[j] = parts[j * c.part + x];
+    float acc = p[0];
+#pragma unroll
+    for (int j = 1; j < ES_MAX_CLUSTER; ++j)
+      if (j < c.S) acc += p[j];
+    c.wf[x] = acc;
+  }
+  __syncthreads();
+}
+
+// v = w / |w| by one warp, in warp_power_steps' order.
+__device__ void es_normalise(float* v, const float* w, int r) {
+  const int lane = threadIdx.x & 31;
+  float ss = 0.f;
+  for (int k = lane; k < r; k += 32) ss += w[k] * w[k];
+  const float nrm = fmaxf(sqrtf(warp_sum(ss)), 1e-30f);
+  for (int k = lane; k < r; k += 32) v[k] = w[k] / nrm;
+}
+
+// The Rayleigh quotient v.w / v.v by one warp, in warp_power_steps' order.
+__device__ float es_rayleigh(const float* v, const float* w, int r) {
+  const int lane = threadIdx.x & 31;
+  float q = 0.f, p = 0.f;
+  for (int k = lane; k < r; k += 32) {
+    q += v[k] * w[k];
+    p += v[k] * v[k];
+  }
+  return warp_sum(q) / fmaxf(warp_sum(p), 1e-30f);
+}
+
+// es_stop_decision on the tile's cluster, after its sweep (the tiles
+// written, a block barrier passed). The first product's parts go with the
+// diagonals' (one barrier), the second product's alone (one barrier); v
+// = w / |w| and the Rayleigh quotients in between, warps 0 and 1 a Gram
+// each (one warp both, where the CTA has one). The traces and the largest
+// diagonal entries decide where they can, as the one-CTA decision would:
+// a trace bound at most stop^2 lb_h converges; the Gershgorin bound of Gd
+// is at least its largest diagonal entry (a float sum of nonnegative
+// terms is at least each), so a diagonal entry above stop^2 lb_h with lb_d
+// above stop^2 tr_h is certain not to. Otherwise the Grams' blocks go to
+// their owners (one barrier), and the rows' absolute sums (one barrier)
+// give the Gershgorin bounds; then the one-CTA decision, and in the band
+// one exchange a power step. The same in every thread of every CTA.
+// `products` counts the launch's exchanges (their slots' parity).
+__device__ int es_cluster_decision(const EsCluster& c, float* xch,
+                                   float stop2, int pi_iters,
+                                   int& products) {
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, r = c.r;
+  const int nwarps = blockDim.x >> 5;
+  for (int x = t; x < 2 * r; x += blockDim.x) {
+    const int k = x - (x >= r) * r;
+    (x < r ? c.vd : c.vh)[k] +=
+        0.05f * (0.5f + (float)((k * 40503) % 65536) / 65536.0f);
+  }
+  __syncthreads();
+  es_cluster_part_product(c);
+  es_cluster_part_diag(c);
+  es_cluster_exchange(c, products++ & 1, 0, 2 * c.W);
+  for (int gram = warp; gram < 2; gram += nwarps) {
+    const float* dg = c.wf + c.W + gram * r;
+    float tr = 0.f, md = 0.f;
+    for (int k = lane; k < r; k += 32) {
+      tr += dg[k];
+      md = fmaxf(md, dg[k]);
+    }
+    tr = warp_sum(tr);
+    md = warp_max(md);
+    es_normalise(gram ? c.vh : c.vd, c.wf + gram * r, r);
+    if (lane == 0) {
+      xch[4 + gram] = tr;
+      xch[6 + gram] = md;
+    }
+  }
+  __syncthreads();
+  es_cluster_part_product(c);
+  es_cluster_exchange(c, products++ & 1, 0, c.W);
+  for (int gram = warp; gram < 2; gram += nwarps) {
+    const float lb = es_rayleigh(gram ? c.vh : c.vd, c.wf + gram * r, r);
+    if (lane == 0) xch[2 * gram] = lb;
+  }
+  __syncthreads();
+  const float lb_d = xch[0], lb_h = xch[2], tr_d = xch[4], tr_h = xch[5];
+  if (tr_d <= stop2 * lb_h) return 1;
+  if (xch[6] > stop2 * lb_h && lb_d > stop2 * tr_h) return 0;
+  es_cluster_blocks(c);
+  es_cluster_sync();  // the blocks are stored
+  es_cluster_sum_blocks(c);
+  __syncthreads();
+  es_cluster_part_bounds(c);
+  es_cluster_exchange(c, products++ & 1, c.W, c.W);
+  for (int gram = warp; gram < 2; gram += nwarps) {
+    float rowmax = 0.f;
+    for (int k = lane; k < r; k += 32)
+      rowmax = fmaxf(rowmax, c.wf[c.W + gram * r + k]);
+    rowmax = warp_max(rowmax);
+    if (lane == 0) xch[2 * gram + 1] = fminf(xch[4 + gram], rowmax);
+  }
+  __syncthreads();
+  const float ub_d = xch[1], ub_h = xch[3];
+  const bool conv_certain = ub_d <= stop2 * lb_h;
+  const bool notconv_certain = lb_d > stop2 * ub_h;
+  if (conv_certain || notconv_certain) return conv_certain;
+  __syncthreads();  // every thread has read xch
+  // the band: pi_iters more steps (the first product of the one-CTA
+  // kernel's second call is the last product again, so it is not formed)
+  for (int it = 0; it < pi_iters; ++it) {
+    for (int gram = warp; gram < 2; gram += nwarps)
+      es_normalise(gram ? c.vh : c.vd, c.wf + gram * r, r);
+    __syncthreads();
+    es_cluster_part_product(c);
+    es_cluster_exchange(c, products++ & 1, 0, c.W);
+  }
+  for (int gram = warp; gram < 2; gram += nwarps) {
+    const float lam = es_rayleigh(gram ? c.vh : c.vd, c.wf + gram * r, r);
+    if (lane == 0) xch[gram] = lam;
+  }
+  __syncthreads();
+  return xch[0] <= stop2 * xch[1];
+}
+
 // A lane's Q consecutive rows of a column of At (float4 loads when Q is a
 // multiple of 4; the rows start 16-byte aligned then).
 template <int Q>
@@ -343,8 +810,10 @@ __device__ __forceinline__ void load_rows(const float* a, float* out) {
   }
 }
 
-template <int L, int Q>
-__global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
+template <int L, int Q, bool kCluster>
+__global__ void __launch_bounds__(kCluster ? ES_CLUSTER_THREADS
+                                           : TN / ES_COLS * L,
+                                  kCluster ? 1 : (L == 2 ? 4 : 1))
     coder_es_lanes_kernel(const float* __restrict__ A,
                           const float* __restrict__ B,
                           const float* __restrict__ H0,
@@ -354,61 +823,111 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
   count_columns(n);
   extern __shared__ float smem[];
   constexpr int C = ES_COLS, RP = L * Q;
-  constexpr bool kReform = L * Q > 32;  // g formed anew every sweep
+  constexpr bool kReform = L * Q > 32;  // g formed anew every sweep: r > 32
   const int Rg = es_tile_rows(r);
+  // in a cluster: this CTA's rank of S and its CT of the tile's columns
+  int S = 1, rank = 0;
+  if constexpr (kCluster) {
+    S = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int CT = kCluster ? TN / S : TN;
+  const unsigned tile0 = (kCluster ? blockIdx.x / S : blockIdx.x) * TN;
+  const unsigned c0 = tile0 + rank * CT;  // this CTA's first column
   float* At = smem;             // (r, RP): At[k * RP + i] = A[i, k]; 0 past r
-  float* Hs = At + r * RP;      // (Rg, HS) iterate
-  float* Os = Hs + Rg * HS;     // (Rg, HS) iterate before the sweep; after
-                                // the Grams, the power steps' scratch
-  float* Gd = Os + Rg * HS;     // (r, r) delta Gram
-  float* Gh = Gd + r * r;       // (r, r) iterate Gram
-  float* vd = Gh + r * r;       // (r) carried eigenvector estimates
-  float* vh = vd + r;
-  float* step = vh + r;         // (r) this sweep's rs / (A_kk + 1)
-  __shared__ float xch[4];
+                                // (a cluster: (Rg, RP), rows past r 0)
+  float* Hs = At + (kCluster ? Rg : r) * RP;  // (Rg, HS) iterate (a
+                                // cluster: (CT, Rg))
+  float* Os = Hs + (kCluster ? CT * Rg : Rg * HS);  // iterate before the
+                                // sweep; after the Grams, the power steps'
+                                // scratch (one CTA)
+  float* Gd = nullptr;          // (r, r) delta Gram (one CTA)
+  float* Gh = nullptr;          // (r, r) iterate Gram (one CTA)
+  float* vd;                    // (r) carried eigenvector estimates
+  float* vh;
+  float* step;                  // (r) this sweep's rs / (A_kk + 1)
+  EsCluster ec = {};
+  if constexpr (kCluster) {
+    ec.r = r;
+    ec.Rg = Rg;
+    ec.S = S;
+    ec.rank = rank;
+    ec.CT = CT;
+    ec.nb = Rg >> 2;
+    ec.nbl = es_cluster_blocks(r, S);
+    ec.part = es_cluster_part(r);
+    ec.W = ec.part >> 1;
+    ec.Hs = Hs;
+    ec.Os = Os;
+    ec.GS = Os + CT * Rg;
+    ec.Gm = ec.GS + 2 * S * ec.nbl * 4 * Rg;
+    vd = ec.vd = ec.Gm + 2 * ec.nbl * 4 * Rg;
+    vh = ec.vh = vd + Rg;
+    step = vh + Rg;
+    ec.PV = step + Rg;
+    ec.loc = ec.PV + 2 * S * ec.part;
+    ec.wf = ec.loc + ec.part;
+    ec.uu = ec.wf + ec.part;
+  } else {
+    Gd = Os + Rg * HS;
+    Gh = Gd + r * r;
+    vd = Gh + r * r;
+    vh = vd + r;
+    step = vh + r;
+  }
+  __shared__ float xch[kCluster ? 8 : 4];
 
-  // this thread: lane ell of the group of columns cc[u] = grp + u TN / C
+  // this thread: lane ell of the group of columns cc[u] = grp + u CT / C
   const int t = threadIdx.x, grp = t / L, ell = t % L;
   const int group = (t & 31) & ~(L - 1);  // the group's first lane
   int cc[C];
   bool active[C];
 #pragma unroll
   for (int u = 0; u < C; ++u) {
-    cc[u] = grp + u * (TN / C);
-    active[u] = blockIdx.x * TN + cc[u] < n;
+    cc[u] = grp + u * (CT / C);
+    active[u] = c0 + cc[u] < n;
   }
   // A^T and the tile of H0, eight global loads in flight per thread
-  for (int x0 = t; x0 < r * RP; x0 += 8 * blockDim.x) {
+  const int at_rows = kCluster ? Rg : r;
+  for (int x0 = t; x0 < at_rows * RP; x0 += 8 * blockDim.x) {
     float v[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int x = x0 + q * blockDim.x, k = x / RP, i = x % RP;
-      v[q] = x < r * RP && i < r ? A[i * r + k] : 0.f;
+      v[q] = x < at_rows * RP && i < r && k < r ? A[i * r + k] : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < 8; ++q)
-      if (x0 + q * blockDim.x < r * RP) At[x0 + q * blockDim.x] = v[q];
+      if (x0 + q * blockDim.x < at_rows * RP) At[x0 + q * blockDim.x] = v[q];
   }
-  for (int x0 = t; x0 < Rg * TN; x0 += 8 * blockDim.x) {
+  for (int x0 = t; x0 < Rg * CT; x0 += 8 * blockDim.x) {
     float v[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const int x = x0 + q * blockDim.x, k = x / TN, col = x % TN;
-      const int cl = blockIdx.x * TN + col;
-      v[q] = x < Rg * TN && k < r && cl < n ? H0[(size_t)k * n + cl] : 0.f;
+      const int x = x0 + q * blockDim.x, k = x / CT, col = x % CT;
+      const int cl = c0 + col;
+      v[q] = x < Rg * CT && k < r && cl < n ? H0[(size_t)k * n + cl] : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const int x = x0 + q * blockDim.x, k = x / TN, col = x % TN;
-      if (x < Rg * TN) {
-        Hs[k * HS + col] = v[q];
-        Os[k * HS + col] = 0.f;
+      const int x = x0 + q * blockDim.x, k = x / CT, col = x % CT;
+      if (x < Rg * CT) {
+        Hs[es_tix<kCluster>(k, col, Rg)] = v[q];
+        Os[es_tix<kCluster>(k, col, Rg)] = 0.f;
       }
     }
   }
-  for (int k = t; k < r; k += blockDim.x) {
-    vd[k] = vh[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
-    step[k] = 1.0f / sqrtf(10.0f) / (A[k * r + k] + 1.0f);
+  if constexpr (kCluster) {
+    for (int k = t; k < Rg; k += blockDim.x) {
+      vd[k] = vh[k] = k < r ? 0.5f + (float)((k * 40503) % 65536) / 65536.0f
+                            : 0.f;
+      step[k] = k < r ? 1.0f / sqrtf(10.0f) / (A[k * r + k] + 1.0f) : 0.f;
+    }
+  } else {
+    for (int k = t; k < r; k += blockDim.x) {
+      vd[k] = vh[k] = 0.5f + (float)((k * 40503) % 65536) / 65536.0f;
+      step[k] = 1.0f / sqrtf(10.0f) / (A[k * r + k] + 1.0f);
+    }
   }
   __syncthreads();
 
@@ -419,10 +938,10 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int k = ell * Q + q;
-      h[u][q] = k < r ? Hs[k * HS + cc[u]] : 0.f;
+      h[u][q] = k < r ? Hs[es_tix<kCluster>(k, cc[u], Rg)] : 0.f;
     }
   const float stop2 = stop * stop;
-  int swept = sub_iter;
+  int swept = sub_iter, products = 0;
   for (int i = 0; i < sub_iter; ++i) {
     if (kReform || i == 0) {
 #pragma unroll
@@ -431,44 +950,36 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
         for (int q = 0; q < Q; ++q) {
           const int k = ell * Q + q;
           g[u][q] = k < r && active[u]
-              ? -__ldg(B + (size_t)k * n + blockIdx.x * TN + cc[u]) : 0.f;
+              ? -__ldg(B + (size_t)k * n + c0 + cc[u]) : 0.f;
         }
-      for (int m = 0; m < r; ++m) {
-        float a[Q];
-        load_rows<Q>(At + m * RP + ell * Q, a);
+      if constexpr (kCluster) {  // four h_m a float4; At and h are 0 past r
+        for (int m = 0; m < Rg; m += 4) {
+          float a[4][Q];
 #pragma unroll
-        for (int u = 0; u < C; ++u) {
-          const float hm = Hs[m * HS + cc[u]];
+          for (int j = 0; j < 4; ++j)
+            load_rows<Q>(At + (m + j) * RP + ell * Q, a[j]);
 #pragma unroll
-          for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], hm, g[u][q]);
+          for (int u = 0; u < C; ++u) {
+            const float4 h4 =
+                *reinterpret_cast<const float4*>(Hs + cc[u] * Rg + m);
+            const float hm[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int q = 0; q < Q; ++q)
+                g[u][q] = fmaf(a[j][q], hm[j], g[u][q]);
+          }
         }
-      }
-    }
+      } else {
+        for (int m = 0; m < r; ++m) {
+          float a[Q];
+          load_rows<Q>(At + m * RP + ell * Q, a);
 #pragma unroll
-    for (int u = 0; u < C; ++u)
+          for (int u = 0; u < C; ++u) {
+            const float hm = Hs[m * HS + cc[u]];
 #pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int k = ell * Q + q;
-        if (k < r) Os[k * HS + cc[u]] = h[u][q];
-      }
-    for (int l0 = 0; l0 < L; ++l0) {
-#pragma unroll
-      for (int q0 = 0; q0 < Q; ++q0) {
-        const int k = l0 * Q + q0;
-        if (k >= r) break;
-        const float st = step[k];
-        float a[Q];
-        load_rows<Q>(At + k * RP + ell * Q, a);
-#pragma unroll
-        for (int u = 0; u < C; ++u) {
-          // every lane forms its own row's candidate; the owner's is taken
-          const float hn = fmaxf(h[u][q0] - st * (g[u][q0] + alpha), 0.f);
-          float delta =
-              __shfl_sync(0xffffffffu, hn - h[u][q0], group + l0);
-          if (!active[u]) delta = 0.f;
-          if (ell == l0 && active[u]) h[u][q0] = hn;
-#pragma unroll
-          for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], delta, g[u][q]);
+            for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], hm, g[u][q]);
+          }
         }
       }
     }
@@ -477,14 +988,103 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
         const int k = ell * Q + q;
-        if (k < r) Hs[k * HS + cc[u]] = h[u][q];
+        if (k < r) Os[es_tix<kCluster>(k, cc[u], Rg)] = h[u][q];
+      }
+    if constexpr (kCluster) {
+      // Each owner's Q coordinates first, on a copy of its rows of g (its
+      // own deltas only; every lane forms the same, the owner's are
+      // taken), then their deltas to every lane, all shuffles at once, in
+      // coordinate order: the chain stays within an owner's rows. A lane
+      // keeps the steps of its own rows, the only ones whose candidates are
+      // taken, and 0 for a column past n and a row past r: h, g and b are
+      // 0 there, so the candidate is h again and the delta 0, with no test
+      // in the loop (the tests and a prefetch of the next block's A took
+      // ~40% of the chain); a zero delta and At's zero rows past r add 0.
+      float st[C][Q];
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          st[u][q] = active[u] && ell * Q + q < r ? step[ell * Q + q] : 0.f;
+      for (int l0 = 0; l0 * Q < r; ++l0) {
+        float a[Q][Q];  // a[q0]: A[this lane's rows, coordinate l0 Q + q0]
+#pragma unroll
+        for (int q0 = 0; q0 < Q; ++q0)
+          load_rows<Q>(At + (l0 * Q + q0) * RP + ell * Q, a[q0]);
+        float d[C][Q];
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          float gg[Q];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) gg[q] = g[u][q];
+#pragma unroll
+          for (int q0 = 0; q0 < Q; ++q0) {
+            const float hn =
+                fmaxf(h[u][q0] - st[u][q0] * (gg[q0] + alpha), 0.f);
+            d[u][q0] = hn - h[u][q0];
+            if (ell == l0) h[u][q0] = hn;
+#pragma unroll
+            for (int q = q0 + 1; q < Q; ++q)
+              gg[q] = fmaf(a[q0][q], d[u][q0], gg[q]);
+          }
+        }
+        float delta[C][Q];
+#pragma unroll
+        for (int q0 = 0; q0 < Q; ++q0)
+#pragma unroll
+          for (int u = 0; u < C; ++u)
+            delta[u][q0] = __shfl_sync(0xffffffffu, d[u][q0], group + l0);
+#pragma unroll
+        for (int q0 = 0; q0 < Q; ++q0)
+#pragma unroll
+          for (int u = 0; u < C; ++u)
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              g[u][q] = fmaf(a[q0][q], delta[u][q0], g[u][q]);
+      }
+    } else {
+      for (int l0 = 0; l0 < L; ++l0) {
+#pragma unroll
+        for (int q0 = 0; q0 < Q; ++q0) {
+          const int k = l0 * Q + q0;
+          if (k >= r) break;
+          const float st = step[k];
+          float a[Q];
+          load_rows<Q>(At + k * RP + ell * Q, a);
+#pragma unroll
+          for (int u = 0; u < C; ++u) {
+            // every lane forms its own row's candidate; the owner's is
+            // taken
+            const float hn =
+                fmaxf(h[u][q0] - st * (g[u][q0] + alpha), 0.f);
+            float delta =
+                __shfl_sync(0xffffffffu, hn - h[u][q0], group + l0);
+            if (!active[u]) delta = 0.f;
+            if (ell == l0 && active[u]) h[u][q0] = hn;
+#pragma unroll
+            for (int q = 0; q < Q; ++q) g[u][q] = fmaf(a[q], delta, g[u][q]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int k = ell * Q + q;
+        if (k < r) Hs[es_tix<kCluster>(k, cc[u], Rg)] = h[u][q];
       }
     __syncthreads();
-    es_tile_grams(Hs, Os, Gd, Gh, r);
-    __syncthreads();
-    const int cv = es_stop_decision(Gd, Gh, vd, vh, Os, Os + r, xch, r,
-                                    stop2, pi_iters);
-    if (cv) {  // the same in every thread
+    int cv;
+    if constexpr (kCluster) {
+      cv = es_cluster_decision(ec, xch, stop2, pi_iters, products);
+    } else {
+      es_tile_grams(Hs, Os, Gd, Gh, r);
+      __syncthreads();
+      cv = es_stop_decision(Gd, Gh, vd, vh, Os, Os + r, xch, r, stop2,
+                            pi_iters);
+    }
+    if (cv) {  // the same in every thread (of every CTA of a cluster)
       swept = i + 1;
       break;
     }
@@ -492,12 +1092,22 @@ __global__ void __launch_bounds__(TN / ES_COLS * L, L == 2 ? 4 : 1)
       step[k] = 1.0f / sqrtf((float)i + 11.0f) / (At[k * RP + k] + 1.0f);
     __syncthreads();  // the steps, and xch, Os and the vectors next sweep
   }
-  count_sweeps(swept, (size_t)blockIdx.x * TN, n);
-  __syncthreads();
-  for (int x = t; x < r * TN; x += blockDim.x) {
-    const int k = x / TN, col = x % TN, cl = blockIdx.x * TN + col;
-    if (cl < n) H[(size_t)k * n + cl] = Hs[k * HS + col];
+  if constexpr (kCluster) {
+    cluster_arrive();  // this CTA is done with the others' shared memory
+    if (rank == 0) {   // the tile's counts, once
+      count_sweeps(swept, tile0, n);
+      count_cluster_columns(tile0, n);
+    }
+  } else {
+    count_sweeps(swept, (size_t)blockIdx.x * TN, n);
   }
+  __syncthreads();
+  for (int x = t; x < r * CT; x += blockDim.x) {
+    const int k = x / CT, col = x % CT, cl = c0 + col;
+    if (cl < n) H[(size_t)k * n + cl] = Hs[es_tix<kCluster>(k, col, Rg)];
+  }
+  // no CTA leaves while another may still use its shared memory
+  if constexpr (kCluster) cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -2263,14 +2873,13 @@ __host__ __device__ inline size_t dict_smem_floats(int rows, int r) {
 // the wait (a lone CTA's split barrier measured slower).
 template <bool kCluster>
 __device__ __forceinline__ void column_arrive() {
-  if constexpr (kCluster)
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if constexpr (kCluster) cluster_arrive();
 }
 
 template <bool kCluster>
 __device__ __forceinline__ void column_wait() {
   if constexpr (kCluster)
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    cluster_wait();
   else
     __syncthreads();
 }
@@ -2494,11 +3103,48 @@ int launch_es_lanes(const float* A, const float* B, const float* H0, float* H,
                     int r, int n, float alpha, float stop, int sub_iter,
                     int pi_iters, cudaStream_t stream) {
   const size_t smem = sizeof(float) * es_lanes_smem_floats(r);
-  int e = launch_smem((const void*)coder_es_lanes_kernel<L, Q>, smem);
+  int e = launch_smem((const void*)coder_es_lanes_kernel<L, Q, false>, smem);
   if (e) return e;
-  coder_es_lanes_kernel<L, Q><<<(n + TN - 1) / TN, TN / ES_COLS * L, smem,
-                                stream>>>(A, B, H0, H, r, n, alpha, stop,
-                                          sub_iter, pi_iters);
+  coder_es_lanes_kernel<L, Q, false><<<(n + TN - 1) / TN, TN / ES_COLS * L,
+                                       smem, stream>>>(
+      A, B, H0, H, r, n, alpha, stop, sub_iter, pi_iters);
+  return (int)cudaGetLastError();
+}
+
+// Each tile on a cluster of S CTAs (es_cluster_min(r)..ES_MAX_CLUSTER, a
+// power of two; none up to r = 32), es_cluster_lanes(r) lanes a pair of
+// columns.
+int launch_es_cluster(const float* A, const float* B, const float* H0,
+                      float* H, int r, int n, float alpha, float stop,
+                      int sub_iter, int pi_iters, int S,
+                      cudaStream_t stream) {
+  const int least = es_cluster_min(r);
+  if (!least || S < least || S > ES_MAX_CLUSTER || (S & (S - 1)))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = es_cluster_lanes(r) == 16
+                          ? coder_es_lanes_kernel<16, ES_CLUSTER_ROWS, true>
+                          : coder_es_lanes_kernel<32, ES_CLUSTER_ROWS, true>;
+  const size_t smem = sizeof(float) * es_cluster_smem_floats(r, S);
+  int e = launch_smem((const void*)kernel, smem);
+  if (e) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + TN - 1) / TN * S);
+  cfg.blockDim = dim3(TN / S / ES_COLS * es_cluster_lanes(r));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, kernel, A, B, H0, H, r, n, alpha, stop,
+                              sub_iter, pi_iters);
+  if (e) {
+    cudaGetLastError();
+    return e;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -2514,6 +3160,13 @@ size_t onmf_coder_sweeps_smem(int r) {
 size_t onmf_coder_sweeps_earlystop_smem(int r) {
   return sizeof(float) * es_lanes_smem_floats(r);
 }
+
+// The early-stop coder's cluster form: the fewest CTAs of a tile at rank
+// r (0 where there is none) and the most; the wrapper's route is checked
+// against them when the library is loaded.
+int onmf_coder_es_cluster_min(int r) { return es_cluster_min(r); }
+
+int onmf_coder_es_max_cluster() { return ES_MAX_CLUSTER; }
 
 // Shared floats of one dict_update_kernel CTA of `rows` rows.
 size_t onmf_dict_smem_floats(int rows, int r) {
@@ -2614,20 +3267,24 @@ int onmf_coder_sweeps(const float* A, const float* B, const float* H0,
   return launch_coder_lanes<4, 32>(A, B, H0, H, r, n, alpha, sub_iter, st);
 }
 
-// ws == NULL: the shared-memory kernel, one block per tile; otherwise
-// (past ES_MAX_RANK) the wide kernel on `blocks` blocks, ws holding A's
-// table and one slice per block (onmf_coder_wide_config).
+// ws == NULL: the shared-memory kernel, one block per tile (cluster 1) or
+// a cluster of `cluster` CTAs per tile; otherwise (past ES_MAX_RANK) the
+// wide kernel on `blocks` blocks, ws holding A's table and one slice per
+// block (onmf_coder_wide_config).
 int onmf_coder_sweeps_earlystop(const float* A, const float* B,
                                 const float* H0, float* H, int r, int n,
                                 float alpha, float stop, int sub_iter,
-                                int pi_iters, float* ws, int blocks,
-                                void* stream) {
-  if (ws ? r <= ES_MAX_RANK : r > ES_MAX_RANK)
+                                int pi_iters, int cluster, float* ws,
+                                int blocks, void* stream) {
+  if (ws ? r <= ES_MAX_RANK || cluster != 1 : r > ES_MAX_RANK)
     return (int)cudaErrorInvalidValue;
   if (ws)
     return launch_coder_wide<true>(A, B, H0, H, r, n, alpha, stop, sub_iter,
                                    pi_iters, ws, blocks,
                                    (cudaStream_t)stream);
+  if (cluster != 1)
+    return launch_es_cluster(A, B, H0, H, r, n, alpha, stop, sub_iter,
+                             pi_iters, cluster, (cudaStream_t)stream);
   if (r <= 16)
     return launch_es_lanes<2, 8>(A, B, H0, H, r, n, alpha, stop, sub_iter,
                                  pi_iters, (cudaStream_t)stream);

@@ -1813,6 +1813,116 @@ def test_cuda_early_stop_counts_its_column_sweeps(cuda, kind, r):
     assert counted(replays) == (3 * sub_iter * n, 3 * n)
 
 
+def _es_form(monkeypatch, S):
+    """Force the early-stop coder's form: 1 CTA a tile, or a cluster of
+    S (the route, coder_es_cluster, would pick by shape)."""
+    monkeypatch.setattr(ck, "coder_es_cluster", lambda r, n, sms=132: S)
+
+
+def _es_counted(A, B, H0, stop, sub_iter):
+    """The early-stop coder's code and its own counts of the call."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    _lib.reset_launches()
+    H = ck.coder_sweeps_earlystop(A, B, H0, 0.1, stop, sub_iter=sub_iter)
+    runs = _lib.device_runs()
+    return H, (runs["coder_es.column_sweeps"], runs["coder_es.columns"],
+               runs["coder_es.cluster_columns"])
+
+
+def _es_tile_sweeps(A, B, H0, stop, sub_iter):
+    """Each tile's sweeps, from a launch on its columns alone."""
+    n = B.shape[1]
+    out = []
+    for t0 in range(0, n, ck.TN):
+        c = slice(t0, min(n, t0 + ck.TN))
+        _, (col_sweeps, cols, _) = _es_counted(
+            A, B[:, c].contiguous(), H0[:, c].contiguous(), stop, sub_iter)
+        out.append(col_sweeps // cols)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop,sub_iter", [(0.01, 10), (0.05, 50)])
+@pytest.mark.parametrize("r,n,S", [(100, 1000, 8), (100, 129, 8),
+                                   (40, 2 * ck.TN + 37, 4),
+                                   (40, 2 * ck.TN + 37, 8),
+                                   (64, 504, 4),
+                                   (100, 3 * ck.TN + 37, 8)])
+def test_cuda_earlystop_cluster_equals_one_cta(cuda, monkeypatch, r, n, S,
+                                               stop, sub_iter):
+    """The cluster form (forced) against the one-CTA form of the kernel:
+    the same sweeps a tile, and where they agree the same code bit for bit
+    (the columns' arithmetic is the same; a tile within rounding of the
+    threshold may stop a sweep apart, within the tolerance then); the same
+    counts of sweeps and columns, every column counted as the cluster
+    form's."""
+    A, B, H0 = (_t(a, cuda) for a in make(300, r, n, seed=r + n))
+    _es_form(monkeypatch, 1)
+    one, one_counts = _es_counted(A, B, H0, stop, sub_iter)
+    one_sweeps = _es_tile_sweeps(A, B, H0, stop, sub_iter)
+    _es_form(monkeypatch, S)
+    got, counts = _es_counted(A, B, H0, stop, sub_iter)
+    sweeps = _es_tile_sweeps(A, B, H0, stop, sub_iter)
+    assert one_counts[2] == 0 and counts[2] == n
+    assert counts[:2] == one_counts[:2]
+    assert sweeps == one_sweeps
+    for t, (a, b) in enumerate(zip(sweeps, one_sweeps)):
+        c = slice(t * ck.TN, min(n, (t + 1) * ck.TN))
+        if a == b:
+            assert torch.equal(got[:, c], one[:, c]), t
+        else:
+            torch.testing.assert_close(got[:, c], one[:, c], **TOL)
+    torch.testing.assert_close(
+        got, ck.coder_sweeps_earlystop_plain(A, B, H0, 0.1, stop,
+                                             sub_iter=sub_iter), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_earlystop_cluster_replays_from_a_graph(cuda):
+    """The cluster form captured in a CUDA graph and replayed twice: each
+    replay gives the eager code bit for bit and counts as a launch does."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    r, n = 100, 1000
+    A, B, H0 = (_t(a, cuda) for a in make(300, r, n, seed=7))
+    assert ck.coder_es_cluster(r, n, _lib._sm_count(cuda)) > 1
+    eager, counts = _es_counted(A, B, H0, 0.01, 10)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01)
+    _lib.reset_launches()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    runs = _lib.device_runs()
+    assert (runs["coder_es.column_sweeps"], runs["coder_es.columns"],
+            runs["coder_es.cluster_columns"]) == tuple(2 * c for c in counts)
+    assert counts[2] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,S", [(25, 4), (32, 8), (64, 2), (100, 4),
+                                 (100, 16), (101, 8)])
+def test_cuda_earlystop_cluster_refuses_sizes_it_lacks(cuda, monkeypatch, r,
+                                                       S):
+    """The cluster form is built for 32 < r <= 100 on 4 or 8 CTAs a tile (8
+    past r = 64): a cluster outside that (forced) is refused with an
+    error, not run."""
+    A, B, H0 = (_t(a, cuda) for a in make(300, r, 504, seed=r))
+    _es_form(monkeypatch, S)
+    with pytest.raises(RuntimeError, match="coder_sweeps_earlystop"):
+        ck.coder_sweeps_earlystop(A, B, H0, 0.1, 0.01)
+
+
 @pytest.mark.cuda
 def test_cuda_span_holds_its_kernel_on_the_profilers_clock(cuda, tmp_path):
     """One clock for the spans and the profiler's device events: a span

@@ -174,6 +174,42 @@ def test_kernel_route_by_rank_alone():
         assert ck.kernel_route(name, ck.MAX_RANK + 1) == "unfused"
 
 
+def test_coder_es_cluster_by_shape_alone():
+    # one CTA a tile where the tiles could fill half the card (the large
+    # batches), up to r = 32 and past the shared kernel's ranks; else the
+    # largest power of two from the form's least whose clusters take at
+    # most 7/8 of the SMs, up to the portable cluster size of 8
+    for r in (25, 100):
+        for n in (131109, 16384):
+            assert ck.coder_es_cluster(r, n) == 1
+    assert ck.coder_es_cluster(100, 1000) == 8     # ising-train, 8 tiles
+    assert ck.coder_es_cluster(25, 504) == 1       # ndl-train, 4 tiles
+    assert ck.ES_MAX_CLUSTER == 8
+    assert ck.coder_es_cluster(40, 300) == 8       # 3 tiles
+    assert ck.coder_es_cluster(100, 129) == 8      # 2 tiles
+    assert ck.coder_es_cluster(100, 1000, sms=66) == 1
+    assert ck.coder_es_cluster(64, 1000, sms=66) == 4
+    for sms in (66, 132):
+        for r in (1, 7, 25, 32, 33, 40, 64, 65, 100, 101, 160):
+            for n in (1, 128, 129, 300, 504, 1000, 1920, 3584, 5000,
+                      16384, 131109):
+                S, tiles = ck.coder_es_cluster(r, n, sms), -(-n // ck.TN)
+                if S == 1:
+                    continue
+                assert 33 <= r <= 100 and 2 * tiles <= sms
+                assert S & (S - 1) == 0
+                assert 0 < ck._es_cluster_min(r) <= S <= ck.ES_MAX_CLUSTER
+                assert tiles * S <= sms and 8 * tiles * S <= 7 * sms
+                # the largest such: twice as many would not fit
+                assert (2 * S > ck.ES_MAX_CLUSTER
+                        or 8 * tiles * 2 * S > 7 * sms)
+    # the least: 4, and 8 past r = 64, where 32 lanes a pair of columns
+    # would give a CTA of 4 more than 256 threads; none up to r = 32 and
+    # past r = 100, where the form is not built
+    assert [ck._es_cluster_min(r) for r in (1, 32, 33, 64, 65, 100, 101)] \
+        == [0, 0, 4, 4, 8, 8, 0]
+
+
 @pytest.mark.parametrize("coder", ["earlystop", "fista_stop"])
 def test_stopping_plain_two_tiles_at_rank_160_matches_pallas(coder):
     # r = 160 is past the shared-memory kernels; the Pallas tile is set to
@@ -247,24 +283,80 @@ def _power(G, v, iters):
     return float(v @ (G @ v)) / max(float(v @ v), 1e-30), v
 
 
+def _cluster_power(parts, v, iters):
+    """_power on G = sum_j X_j X_j^T, its products formed from the CTAs'
+    columns in rank order: w = sum_j X_j (X_j^T v)."""
+    def product(v):
+        w = parts[0] @ (parts[0].T @ v)
+        for X in parts[1:]:
+            w = w + X @ (X.T @ v)
+        return w
+
+    for _ in range(iters):
+        w = product(v)
+        v = w / max(np.linalg.norm(w), 1e-30)
+    w = product(v)
+    return float(v @ w) / max(float(v @ v), 1e-30), v
+
+
+def _cluster_decision(D, o, vd, vh, v0, stop, pi_iters, S):
+    """coder_es_lanes_kernel's decision on a cluster of S CTAs, each with
+    TN / S of the tile's columns: the products from the columns, summed in
+    rank order; the diagonals summed in rank order give the traces and
+    the largest diagonal entry, which decide where they can; else the
+    Grams summed in rank order give the Gershgorin bounds."""
+    ct = ck.TN // S
+    Dp = [D[:, j * ct:(j + 1) * ct] for j in range(S)]
+    Op = [o[:, j * ct:(j + 1) * ct] for j in range(S)]
+
+    def ranked(fn, parts):
+        out = fn(parts[0])
+        for X in parts[1:]:
+            out = out + fn(X)
+        return out
+
+    s2 = stop * stop
+    diag_d = ranked(lambda X: np.sum(X * X, axis=1), Dp)
+    diag_h = ranked(lambda X: np.sum(X * X, axis=1), Op)
+    tr_d, tr_h = float(diag_d.sum()), float(diag_h.sum())
+    lb_d, vd = _cluster_power(Dp, vd + 0.05 * v0, 1)
+    lb_h, vh = _cluster_power(Op, vh + 0.05 * v0, 1)
+    if tr_d <= s2 * lb_h:
+        return True, vd, vh
+    if diag_d.max() > s2 * lb_h and lb_d > s2 * tr_h:
+        return False, vd, vh
+    Gd, Gh = ranked(lambda X: X @ X.T, Dp), ranked(lambda X: X @ X.T, Op)
+    ub_d = min(tr_d, np.abs(Gd).sum(1).max())
+    ub_h = min(tr_h, np.abs(Gh).sum(1).max())
+    conv = ub_d <= s2 * lb_h
+    if not conv and not lb_d > s2 * ub_h:
+        num, vd = _cluster_power(Dp, vd, pi_iters)
+        den, vh = _cluster_power(Op, vh, pi_iters)
+        conv = num <= s2 * den
+    return conv, vd, vh
+
+
 def _emulate_earlystop_lanes(A, B, H0, alpha, stop, sub_iter=10,
-                             pi_iters=12):
-    """coder_es_lanes_kernel: per tile of TN columns, L lanes of Q rows
-    (L = 2 up to r = 32, else 4) hold the residual g = A h - b, formed once
-    per tile up to r = 32 and anew every sweep past it; at coordinate k the
-    owner's delta updates every lane's rows; then the Grams of the delta
-    and the old iterate and the stop decision (certified bounds, warm power
-    steps only in the band)."""
+                             pi_iters=12, S=1, with_sweeps=False):
+    """coder_es_lanes_kernel: per tile of TN columns, lanes of rows hold
+    the residual g = A h - b, formed once per tile up to r = 32 and anew
+    every sweep past it; at coordinate k the owner's delta updates every
+    lane's rows (each row's multiply-add is the same whichever lane holds
+    it, so all rows at once here); then the stop decision on the Grams of
+    the delta and the old iterate: with S = 1 one CTA's (certified bounds,
+    warm power steps only in the band), else a cluster's of S CTAs
+    (:func:`_cluster_decision`). ``with_sweeps`` also returns each tile's
+    sweeps."""
     r, n = B.shape
-    L = 2 if r <= 32 else 4
-    Q = -(-r // L)
     v0 = 0.5 + ((np.arange(r) * 40503) % 65536) / 65536.0
     out = H0.copy()
+    sweeps = []
     for t0 in range(0, n, ck.TN):
         cols = slice(t0, min(n, t0 + ck.TN))
         h, b = H0[:, cols].copy(), B[:, cols]
         vd, vh = v0.copy(), v0.copy()
         g = None
+        swept = sub_iter
         for i in range(sub_iter):
             if r > 32 or i == 0:
                 g = A @ h - b
@@ -274,25 +366,29 @@ def _emulate_earlystop_lanes(A, B, H0, alpha, stop, sub_iter=10,
                 hn = np.maximum(h[k] - step[k] * (g[k] + alpha), 0.0)
                 delta = hn - h[k]
                 h[k] = hn
-                for lane in range(L):
-                    rows = slice(lane * Q, min(r, (lane + 1) * Q))
-                    g[rows] += np.outer(A[rows, k], delta)
+                g += np.outer(A[:, k], delta)
             D = h - o
-            Gd, Gh = D @ D.T, o @ o.T
-            vd, vh = vd + 0.05 * v0, vh + 0.05 * v0
-            lb_d, vd = _power(Gd, vd, 1)
-            lb_h, vh = _power(Gh, vh, 1)
-            ub_d = min(np.trace(Gd), np.abs(Gd).sum(1).max())
-            ub_h = min(np.trace(Gh), np.abs(Gh).sum(1).max())
-            conv = ub_d <= stop * stop * lb_h
-            if not conv and not lb_d > stop * stop * ub_h:
-                num, vd = _power(Gd, vd, pi_iters)
-                den, vh = _power(Gh, vh, pi_iters)
-                conv = num <= stop * stop * den
+            if S > 1:
+                conv, vd, vh = _cluster_decision(D, o, vd, vh, v0, stop,
+                                                 pi_iters, S)
+            else:
+                Gd, Gh = D @ D.T, o @ o.T
+                vd, vh = vd + 0.05 * v0, vh + 0.05 * v0
+                lb_d, vd = _power(Gd, vd, 1)
+                lb_h, vh = _power(Gh, vh, 1)
+                ub_d = min(np.trace(Gd), np.abs(Gd).sum(1).max())
+                ub_h = min(np.trace(Gh), np.abs(Gh).sum(1).max())
+                conv = ub_d <= stop * stop * lb_h
+                if not conv and not lb_d > stop * stop * ub_h:
+                    num, vd = _power(Gd, vd, pi_iters)
+                    den, vh = _power(Gh, vh, pi_iters)
+                    conv = num <= stop * stop * den
             if conv:
+                swept = i + 1
                 break
         out[:, cols] = h
-    return out
+        sweeps.append(swept)
+    return (out, sweeps) if with_sweeps else out
 
 
 @pytest.mark.parametrize("r,stop", [(7, 0.01), (25, 0.01), (25, 0.05),
@@ -314,6 +410,36 @@ def test_lane_earlystop_emulation_matches_jax_code_impl(r, stop):
     plain = ck.coder_sweeps_earlystop_plain(_t(A), _t(B), _t(H0), 0.1,
                                             stop).numpy()
     np.testing.assert_allclose(got, plain, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("stop,sub_iter", [(0.01, 10), (0.05, 50)])
+@pytest.mark.parametrize("r,n,S", [(7, 300, 4), (25, 504, 8),
+                                   (40, 2 * ck.TN + 37, 8), (100, 1000, 16)])
+def test_cluster_earlystop_emulation_matches_one_cta(r, n, S, stop,
+                                                     sub_iter):
+    # the cluster form's decision (products from the CTAs' columns, the
+    # diagonals' bounds first, the Grams summed in rank order) stops each
+    # tile at the one-CTA kernel's sweep, and its columns' arithmetic is
+    # the same, so the code is equal; and both are the plain version's.
+    # This holds for any split of a tile's columns, so the cases also split
+    # where the kernel keeps one CTA (r <= 32) and finer than its 8 CTAs
+    A, B, H0, _, _ = make(d=300, r=r, n=n, seed=r + n)
+    A, B, H0 = (x.astype(np.float64) for x in (A, B, H0))
+    one, one_sweeps = _emulate_earlystop_lanes(A, B, H0, 0.1, stop,
+                                               sub_iter=sub_iter,
+                                               with_sweeps=True)
+    got, sweeps = _emulate_earlystop_lanes(A, B, H0, 0.1, stop,
+                                           sub_iter=sub_iter, S=S,
+                                           with_sweeps=True)
+    assert sweeps == one_sweeps
+    assert np.array_equal(got, one)
+    plain, plain_sweeps = ck.coder_sweeps_earlystop_plain(
+        _t(A), _t(B), _t(H0), 0.1, stop, sub_iter=sub_iter,
+        with_sweeps=True)
+    assert sweeps == plain_sweeps.tolist()
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-12, atol=1e-12)
+    if (r, stop) == (40, 0.05):   # tiles that stop at different sweeps
+        assert sweeps == [10, 11, 12]
 
 
 def test_dict_route_by_shape_alone():

@@ -254,7 +254,8 @@ def test_launch_bookkeeping(monkeypatch):
 
 def test_device_run_counts_follow_the_kernel_source():
     """The kinds of the kernels' own counts (``count_run``, then the early
-    stop's ``count_sweeps`` and ``count_columns``) are
+    stop's ``count_sweeps`` and ``count_columns``, then the early-stop
+    coder's cluster form's ``count_cluster_columns``) are
     ``_lib.DEVICE_COUNTS`` in order, the runs ``_lib.RUN_KERNELS``, each
     with a launch count; with no library loaded, a reset touches no
     device."""
@@ -265,12 +266,14 @@ def test_device_run_counts_follow_the_kernel_source():
     kinds = [k.strip() for k in re.search(r"enum \{([^}]*)\}", src)[1]
              .split(",")]
     assert kinds == ["RUN_CODER", "RUN_CODER_ES", "RUN_FISTA", "RUN_DICT",
-                     "ES_COLUMN_SWEEPS", "ES_COLUMNS", "RUN_KINDS"]
+                     "ES_COLUMN_SWEEPS", "ES_COLUMNS", "ES_CLUSTER_COLUMNS",
+                     "RUN_KINDS"]
     assert _lib.RUN_KERNELS == ("coder_sweeps", "coder_sweeps_earlystop",
                                 "fista_sweeps", "dict_update_sweep",
                                 "chain_move")
     assert _lib.DEVICE_COUNTS == _lib.RUN_KERNELS[:4] + (
-        "coder_es.column_sweeps", "coder_es.columns", "chain_move")
+        "coder_es.column_sweeps", "coder_es.columns",
+        "coder_es.cluster_columns", "chain_move")
     assert set(_lib.RUN_KERNELS) <= set(_lib.LAUNCHES)
     # every main kernel counts one kind; no other kernel counts
     counted = re.findall(r"count_run\(([^)]*)\);", src)
@@ -279,9 +282,12 @@ def test_device_run_counts_follow_the_kernel_source():
         "kStop ? RUN_CODER_ES : RUN_CODER", "RUN_DICT", "RUN_DICT"])
     # the four kernels that stop early (the shared and wide Gauss-Seidel
     # coders with the stop, FISTA's two) count their columns once a launch
-    # and each tile's sweeps as it leaves its sweep loop
+    # and each tile's sweeps as it leaves its sweep loop: the shared
+    # coder in each of its forms (a CTA a tile; a cluster, whose rank 0
+    # also counts the tile's columns as the cluster form's)
     assert len(re.findall(r"count_columns\(n\);", src)) == 4
-    assert len(re.findall(r"count_sweeps\(swept, ", src)) == 4
+    assert len(re.findall(r"count_sweeps\(swept, ", src)) == 5
+    assert len(re.findall(r"count_cluster_columns\(tile0, n\);", src)) == 1
     # the chain's move: its source's own counter, in both of its kernels
     chain = (Path(_lib.__file__).parent / "csrc" /
              "motif_kernels.cu").read_text()
