@@ -192,17 +192,19 @@ def capture_runs(dev):
     samples of one chain, batch 10), 8 rounds on NETWORK_RUNS (a)'s graph,
     at each of ``CAPTURE_ITERATIONS`` inner iterations, with the bound on a
     round's steps lifted. One line each: the steps and chain blocks a round
-    holds; in the run that captures, ``capture_step`` (its eager first
-    round, the recording and the instantiation) and the instantiation
-    alone (``capture_end``) on the host clock, the device memory reserved
-    and the host memory resident that the run added; the wall of a run
-    that replays and of one on the per-round route (its steps a step graph
-    replayed; least of three each, after one that captures); the device
-    operations of a replay under ``torch.profiler``."""
+    holds; in the run that captures, the round cache's ``capture_step``
+    (its eager first round, the recording and the instantiation) and the
+    instantiation alone (``capture_end``) on the host clock, the device
+    memory reserved and the host memory resident that the run added; the
+    wall of a run that replays and of one on the per-round route (its
+    steps a step graph replayed; least of three each, after one that
+    captures); the device operations of a replay under
+    ``torch.profiler``."""
     from chip_smoke import NETWORK_RUNS
     from onmf_ontf_ndl_tpu_torch.apps.network import NetworkReconstructor
     from onmf_ontf_ndl_tpu_torch.data.graphs import graph_from_edgelist
     from onmf_ontf_ndl_tpu_torch.models import onmf
+    from onmf_ontf_ndl_tpu_torch.utils import capture as graphs
     from torch.profiler import ProfilerActivity, profile
 
     g = graph_from_edgelist(NETWORK_RUNS["a"][0](), device=dev)
@@ -227,18 +229,19 @@ def capture_runs(dev):
             super().capture_end()
             timed["instantiate_s"] += time.perf_counter() - t0
 
-    def capture_step(*args):
+    def capture_step(*args, cache="step"):
         t0 = time.perf_counter()
-        out = capture(*args)
+        out = capture(*args, cache=cache)
         torch.cuda.synchronize()
-        timed["capture_s"] += time.perf_counter() - t0
+        if cache == "round":
+            timed["capture_s"] += time.perf_counter() - t0
         return out
 
     def resident():
         return int(Path("/proc/self/statm").read_text().split()[1]) \
             * os.sysconf("SC_PAGE_SIZE")
 
-    capture, route, bound = onmf.capture_step, onmf._round_route, \
+    capture, route, bound = graphs.capture_step, onmf._round_route, \
         onmf._MAX_ROUND_STEPS
     graph_class, steps = torch.cuda.CUDAGraph, []
     onmf._MAX_ROUND_STEPS = 1 << 30
@@ -247,7 +250,7 @@ def capture_runs(dev):
         steps.append(args[6])
         return route(*args, **kw)
 
-    onmf._round_route, onmf.capture_step = spy, capture_step
+    onmf._round_route, graphs.capture_step = spy, capture_step
     torch.cuda.CUDAGraph = Graph
     try:
         for sub in CAPTURE_ITERATIONS:
@@ -281,7 +284,7 @@ def capture_runs(dev):
                               f"sub_iterations={sub}, {rounds} rounds",
                               **out}), flush=True)
     finally:
-        onmf._round_route, onmf.capture_step = route, capture
+        onmf._round_route, graphs.capture_step = route, capture
         onmf._MAX_ROUND_STEPS = bound
         torch.cuda.CUDAGraph = graph_class
         onmf._clear_graphs()

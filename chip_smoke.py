@@ -1985,9 +1985,9 @@ def chain_graph_bytes(g, B, chains, steps, use_glauber, dev):
     for key in chain_keys(g, B, chains, steps, use_glauber, dev):
         entry = motif._CHAIN_GRAPHS[key]
         pool = tuple(entry.graph.pool())
-        out["chain_graph_emb_bytes"] += nbytes(entry.chains.emb)
-        out["chain_graph_draw_bytes"] += nbytes(*entry.chains.draws)
-        out["chain_graph_trail_bytes"] += nbytes(entry.chains.trail)
+        out["chain_graph_emb_bytes"] += nbytes(entry.buffers.emb)
+        out["chain_graph_draw_bytes"] += nbytes(*entry.buffers.draws)
+        out["chain_graph_trail_bytes"] += nbytes(entry.buffers.trail)
         out["chain_graph_pool_bytes"] += sum(
             seg["total_size"] for seg in segments
             if tuple(seg.get("segment_pool_id", ())) == pool)
@@ -1996,15 +1996,16 @@ def chain_graph_bytes(g, B, chains, steps, use_glauber, dev):
 
 def chain_cache_bytes():
     """The chain graphs cached at the end of phase 8 (at most
-    ``_CHAIN_CACHE_SIZE``), and the device bytes their buffers hold."""
+    the chain cache's ``size``), and the device bytes their buffers
+    hold."""
     from onmf_ontf_ndl_tpu_torch.samplers import motif
 
     held = sum(t.numel() * t.element_size()
                for entry in motif._CHAIN_GRAPHS.values()
-               for t in (entry.chains.emb, entry.chains.trail,
-                         *entry.chains.draws))
+               for t in (entry.buffers.emb, entry.buffers.trail,
+                         *entry.buffers.draws))
     return dict(chain_graphs=len(motif._CHAIN_GRAPHS),
-                chain_cache_size=motif._CHAIN_CACHE_SIZE,
+                chain_cache_size=motif._CHAIN_GRAPHS.size,
                 chain_graph_buffer_bytes=held)
 
 

@@ -47,7 +47,6 @@ them (:func:`_step_math`). The run is ``train_dict``'s.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 
@@ -60,8 +59,7 @@ from onmf_ontf_ndl_tpu_torch.ops.dict_update import dict_update_bcd
 from onmf_ontf_ndl_tpu_torch.ops.kernels import resolve_backend
 from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import TN
 from onmf_ontf_ndl_tpu_torch.ops.kernels.coder_kernel import MAX_RANK
-from onmf_ontf_ndl_tpu_torch.utils.capture import (capture_step, replay,
-                                                   tensor_at)
+from onmf_ontf_ndl_tpu_torch.utils.capture import GraphCache, tensor_at
 from onmf_ontf_ndl_tpu_torch.utils.profiling import span
 
 __all__ = ["OnlineNMF", "onmf_step", "train_dict", "rank_generator"]
@@ -328,17 +326,15 @@ def _step_inner(st, Xb, t: float, H0, alpha, beta, sub_iter: int,
 # (eager) or captured once as a CUDA graph and replayed (captured), the
 # counterpart of the JAX package's jitted lax.scan.
 
-# Graphs kept at once, the least recently used dropped first: each holds
-# its static buffers and a memory pool of its step's intermediates, so an
-# app's outer loop replays one graph call after call.
-_GRAPH_CACHE_SIZE = 4
-_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# Step graphs kept at once (utils/capture.py): an app's outer loop replays
+# one graph call after call.
+_GRAPHS = GraphCache("step", 4)
 # Data of up to this many bytes is copied into the graph's own buffer on
 # every call (an app's patches, new at every outer iteration); a larger X
-# (the headline pool, 157 MB) is read in place, so that no second copy of
-# it is kept. The graph then keeps X's address, not the tensor, so the
-# caller's X is freed when the caller drops it: an X at the same address
-# and strides replays the graph, another one is captured anew.
+# (the headline pool, 157 MB) is read in place and not held, so that no
+# second copy of it is kept and the caller's X is freed when the caller
+# drops it: an X at the same address and strides replays the graph,
+# another one is captured anew.
 _OWN_X_BYTES = 1 << 26
 
 
@@ -402,16 +398,6 @@ def _train_route(device_type: str, backend: str, group_backend, r: int,
     return "eager"
 
 
-def _step_weights(t0: float, steps: int, beta: float, dtype):
-    """``(w, 1 - w)`` with ``w = t^-beta`` at t = t0 + 1, ..., t0 + steps:
-    each computed on the host in float64 as :func:`_step_inner` computes
-    its Python floats, then rounded once to ``dtype``, as such a float is
-    where it multiplies a tensor of that dtype."""
-    w = [(t0 + i) ** (-float(beta)) for i in range(1, steps + 1)]
-    return (torch.tensor(w, dtype=torch.float64).to(dtype),
-            torch.tensor([1.0 - v for v in w], dtype=torch.float64).to(dtype))
-
-
 def _stack_draws(draws, steps: int, X):
     """Given per-step ``(idx, H0)`` draws as tables that the step counter
     indexes: ``(mode, idx (steps, batch) or None, H0 (steps, r, batch))``,
@@ -456,46 +442,58 @@ class _Loop:
     owns_x: bool
 
 
+_TABLES = ("w", "omw", "perm", "idx", "H0")
+
+
+def _like(t, device):
+    """An empty buffer of ``t``'s shape and dtype on ``device`` (a table
+    may come from the host), or None for None."""
+    return None if t is None else torch.empty(t.shape, dtype=t.dtype,
+                                              device=device)
+
+
+def _take(captured: bool, t):
+    """``t`` handed out of a run: a copy where it is a graph's buffer
+    (``captured``), which the next call of its key overwrites."""
+    return t.clone() if captured else t
+
+
 def _new_loop(state, X, code, spec: _StepSpec, tables: dict,
-              owns_x: bool) -> _Loop:
-    """Buffers for a run like this call's, filled from it; ``X`` itself,
-    or with ``owns_x`` a buffer of its shape and layout (an app's patches
-    are a transposed view, and the products must see the strides that the
-    eager route sees: cuBLAS rounds another layout otherwise). ``tables``
-    holds ``perm``, ``idx`` and ``H0``, and on the captured route ``w``
-    and ``omw``; each may be None."""
-    dev = X.device
-
-    def like(t):        # the weight table comes from the host
-        return None if t is None else torch.empty(t.shape, dtype=t.dtype,
-                                                  device=dev)
-
-    lp = _Loop(
-        X=torch.empty_like(X) if owns_x else X, W=like(state.W),
-        A=like(state.A), B=like(state.B), C=like(state.C),
-        code=like(code) if spec.track_code else None,
+              owns_x: bool = False) -> _Loop:
+    """Buffers for a run like this call's, not filled (:func:`_refill`);
+    ``X`` itself, or with ``owns_x`` a buffer of its shape and layout (an
+    app's patches are a transposed view, and the products must see the
+    strides that the eager route sees: cuBLAS rounds another layout
+    otherwise). ``tables`` may hold ``perm``, ``idx`` and ``H0``, and on
+    the captured route ``w`` and ``omw``."""
+    dev = state.W.device
+    perm = tables.get("perm")
+    return _Loop(
+        X=torch.empty_like(X) if owns_x else X, W=_like(state.W, dev),
+        A=_like(state.A, dev), B=_like(state.B, dev), C=_like(state.C, dev),
+        code=_like(code, dev) if spec.track_code else None,
         step=torch.zeros(1, dtype=torch.long, device=dev),
-        w=like(tables.get("w")), omw=like(tables.get("omw")),
-        perm=like(tables["perm"]),
-        offsets=None if tables["perm"] is None
+        **{name: _like(tables.get(name), dev) for name in _TABLES},
+        offsets=None if perm is None
         else torch.arange(spec.batch, device=dev),
-        idx=like(tables["idx"]), H0=like(tables["H0"]),
         metrics=torch.zeros(spec.steps, dtype=X.dtype, device=dev)
         if spec.track_metrics else None,
         owns_x=owns_x)
-    _refill(lp, state, X, code, tables)
-    return lp
 
 
 def _refill(lp: _Loop, state, X, code, tables: dict) -> None:
-    """Copy a call's state, code, data and tables into the buffers, and
-    set the step counter to 0."""
+    """Copy a call's state, code, tables (each into the start of its
+    buffer: a round's weight table holds the steps of its capacity) and,
+    where the buffers own theirs, data into the buffers, else point them
+    at the call's data; set the step counter to 0."""
     pairs = [(lp.W, state.W), (lp.A, state.A), (lp.B, state.B),
-             (lp.C, state.C), (lp.code, code), (lp.w, tables.get("w")),
-             (lp.omw, tables.get("omw")), (lp.perm, tables["perm"]),
-             (lp.idx, tables["idx"]), (lp.H0, tables["H0"])]
+             (lp.C, state.C), (lp.code, code)]
+    pairs += [(getattr(lp, name)[:len(tables[name])], tables[name])
+              for name in _TABLES if tables.get(name) is not None]
     if lp.owns_x:
         pairs.append((lp.X, X))
+    else:
+        lp.X = X
     for dst, src in pairs:
         if dst is not None:
             dst.copy_(src)
@@ -561,65 +559,6 @@ def _loop_step(lp: _Loop, spec: _StepSpec, gen, weights=None
     return H
 
 
-@dataclasses.dataclass
-class _Captured:
-    """A captured step: its graph, its buffers, the generator registered
-    with it (a 1-tuple), the kernel launches of one replay, and where the
-    graph reads the caller's X in place, X's address (:func:`_address`)."""
-
-    graph: object
-    loop: _Loop
-    gens: tuple
-    launches: dict
-    x_at: tuple | None
-
-
-def _address(X) -> tuple:
-    """Where a graph that reads ``X`` in place reads it (with the shape
-    and dtype of the graph's key)."""
-    return X.data_ptr(), X.stride()
-
-
-def _capture(lp: _Loop, spec: _StepSpec, gen) -> _Captured:
-    """Run the first step from ``gen``, then capture the next
-    (:func:`~onmf_ontf_ndl_tpu_torch.utils.capture.capture_step`). A graph
-    that reads the caller's X keeps its address, not the tensor."""
-    graph, owns, launches = capture_step(
-        lambda g: _loop_step(lp, spec, g), (gen,), lp.X.device, cache="step")
-    x_at = None
-    if not lp.owns_x:
-        x_at, lp.X = _address(lp.X), None
-    return _Captured(graph, lp, owns, launches, x_at)
-
-
-def _run_captured(state, X, code, spec: _StepSpec, tables: dict, gen,
-                  steps: int):
-    """The captured route: the graph of this key (captured on a miss, with
-    its first step run as it is captured), replayed for the remaining
-    steps. The graph's generator takes ``gen``'s state before the replays
-    and gives it back after, so the replays draw what the eager loop
-    draws and leave ``gen`` where it leaves it. Returns the buffers, which
-    the next call of this key overwrites."""
-    key = _graph_key(X, state, spec)
-    entry = _GRAPHS.pop(key, None)
-    if entry is not None and entry.x_at not in (None, _address(X)):
-        entry = None           # another large X: capture anew
-    done = 0
-    if entry is None:
-        while len(_GRAPHS) >= _GRAPH_CACHE_SIZE:
-            _GRAPHS.popitem(last=False)
-        owns_x = X.numel() * X.element_size() <= _OWN_X_BYTES
-        entry = _capture(_new_loop(state, X, code, spec, tables, owns_x),
-                         spec, gen)
-        done = 1
-    else:
-        _refill(entry.loop, state, X, code, tables)
-    _GRAPHS[key] = entry
-    replay(entry.graph, entry.gens, (gen,), steps - done, entry.launches,
-           cache="step")
-    return entry.loop
-
-
 def _clear_graphs() -> None:
     """Drop every captured step and round, with its buffers and memory
     pool: before the process group goes (a graph holds its all-reduce's
@@ -668,8 +607,10 @@ def _train_loop(
     over which the state's W and B are sharded (:func:`_step_math`).
 
     :func:`_train_route` picks the route: on a CUDA tensor one step is
-    captured as a CUDA graph (once per :func:`_graph_key`) and replayed for
-    every step; on the CPU, under ``debug_nans``, with a gloo group or with
+    captured as a CUDA graph (once per :func:`_graph_key`, in
+    :data:`_GRAPHS`) and replayed for every step, its generator taking
+    ``gen``'s state before the replays and giving it back after; on the
+    CPU, under ``debug_nans``, with a gloo group or with
     ``capture=False`` (tests and the card's comparisons) the same step
     function runs in a Python loop. A capture or replay that fails raises;
     no step falls back to the eager loop."""
@@ -716,21 +657,31 @@ def _train_loop(
                      if len(backends) == 1 else "mixed")
     route = _train_route(X.device.type, backend, group_backend,
                          state.A.shape[0], _DEBUG_NANS, capture)
+
+    def fill(lp):
+        _refill(lp, state, X, code, tables)
+        return lp
+
     if route == "captured":
-        tables["w"], tables["omw"] = _step_weights(t0, steps, beta, X.dtype)
-        with torch.cuda.device(X.device):
-            lp = _run_captured(state, X, code, spec, tables, gen, steps)
+        tables["w"], tables["omw"] = _round_weights(t0, 1, iterations,
+                                                    steps, beta, X.dtype)
+        owns_x = X.numel() * X.element_size() <= _OWN_X_BYTES
+        lp = _GRAPHS.run(
+            _graph_key(X, state, spec), X.device, (gen,), steps,
+            lambda: fill(_new_loop(state, X, code, spec, tables, owns_x)),
+            fill, lambda lp, g: _loop_step(lp, spec, g),
+            reads=() if owns_x else (X,), hold=False)
+        if not owns_x:
+            lp.X = None         # read in place: not held past the call
     else:
-        lp = _new_loop(state, X, code, spec, tables, owns_x=False)
+        lp = fill(_new_loop(state, X, code, spec, tables))
         for i in range(1, steps + 1):
             w_t = (t0 + i) ** (-float(beta))     # as _step_inner has it
             H = _loop_step(lp, spec, gen, (w_t, 1.0 - w_t))
             if _DEBUG_NANS:
                 _check_finite(lp, H, t0 + i)
 
-    def take(t):            # a graph's buffers outlive the call
-        return t.clone() if route == "captured" else t
-
+    take = functools.partial(_take, route == "captured")
     st = dataclasses.replace(state, W=take(lp.W), A=take(lp.A),
                              B=take(lp.B), C=take(lp.C),
                              t=t0 + float(iterations))
@@ -745,11 +696,9 @@ def _train_loop(
 # and replayed a round at a time (captured), the counterpart of the JAX
 # apps' outer lax.scan over rounds.
 
-# Round graphs kept at once, the least recently used dropped first: each
-# holds the state's buffers, the app's, a weight table of its capacity and a
-# memory pool of one round's intermediates.
-_ROUND_CACHE_SIZE = 8
-_ROUND_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# Round graphs kept at once (utils/capture.py): each holds the state's
+# buffers, the app's and a weight table of its capacity.
+_ROUND_GRAPHS = GraphCache("round", 8, spans="train")
 # The most inner steps (with a network round's chain blocks) that a round
 # graph holds; a longer round runs on the per-round route. A capture costs
 # two to three rounds of work at every size measured (chip_profile.py
@@ -788,21 +737,6 @@ class _RoundCtx:
     graphs: bool
 
 
-@dataclasses.dataclass
-class _RoundGraph:
-    """A captured round: its graph, its buffers, the generators registered
-    with it, the kernel launches of one replay, the tensors the round reads
-    in place (held so that no replay reads freed memory) and the replays
-    made."""
-
-    graph: object
-    rounds: _Round
-    gens: tuple
-    launches: dict
-    reads: tuple
-    replays: int = 0
-
-
 def _round_route(device_type: str, backend: str, group_backend, world: int,
                  r: int, debug_nans: bool, steps: int, host_read: bool,
                  capture: bool = True) -> str:
@@ -834,9 +768,11 @@ def _round_weights(t0: float, rounds: int, iterations: int, steps: int,
                    beta: float, dtype):
     """``(w, 1 - w)``, (rounds * steps,): round j's step i (from 1) at
     ``t = t_j + i``, ``t_j`` the counter after j rounds (from ``t0``, each
-    round adding ``iterations`` as :func:`_train_loop` adds it); computed
-    as :func:`_step_weights` computes them, each equal to the Python float
-    of :func:`_step_inner`."""
+    round adding ``iterations`` as :func:`_train_loop` adds it): each
+    computed on the host in float64 as :func:`_step_inner` computes its
+    Python floats, then rounded once to ``dtype``, as such a float is where
+    it multiplies a tensor of that dtype. One round is the step's table
+    (:func:`_train_loop`)."""
     ts, t = [], t0
     for _ in range(rounds):
         ts += [t + i for i in range(1, steps + 1)]
@@ -871,20 +807,10 @@ def _new_round(state, code, spec: _StepSpec, cap: int, carry: dict,
     """Buffers for runs of up to ``cap`` rounds like this one, the weight
     table not among them; not filled."""
     dev = state.W.device
-
-    def like(t):
-        return None if t is None else torch.empty(t.shape, dtype=t.dtype,
-                                                  device=dev)
-
-    lp = _Loop(X=None, W=like(state.W), A=like(state.A), B=like(state.B),
-               C=like(state.C), code=like(code) if spec.track_code else None,
-               step=torch.zeros(1, dtype=torch.long, device=dev),
-               w=None, omw=None,
-               perm=None, offsets=None, idx=None, H0=None, metrics=None,
-               owns_x=False)
     return _Round(
-        loop=lp, rnd=torch.zeros(1, dtype=torch.long, device=dev),
-        carry={name: like(v) for name, v in carry.items()},
+        loop=_new_loop(state, None, code, spec, {}),
+        rnd=torch.zeros(1, dtype=torch.long, device=dev),
+        carry={name: _like(v, dev) for name, v in carry.items()},
         outs={name: torch.empty((cap,) + tuple(shape), dtype=dtype,
                                 device=dev)
               for name, (shape, dtype) in outs.items()})
@@ -895,17 +821,10 @@ def _fill_round(rb: _Round, state, code, carry: dict,
     """Copy a run's state, code, carried tensors and, where given, its
     weight table (a prefix of the buffer) into the buffers; set both
     counters to 0."""
-    lp = rb.loop
-    pairs = [(lp.W, state.W), (lp.A, state.A), (lp.B, state.B),
-             (lp.C, state.C), (lp.code, code)]
-    pairs += [(rb.carry[name], v) for name, v in carry.items()]
-    if weights is not None:
-        pairs += [(lp.w[:len(weights[0])], weights[0]),
-                  (lp.omw[:len(weights[1])], weights[1])]
-    for dst, src in pairs:
-        if dst is not None:
-            dst.copy_(src)
-    lp.step.zero_()
+    _refill(rb.loop, state, None, code,
+            dict(zip(("w", "omw"), weights or ())))
+    for name, v in carry.items():
+        rb.carry[name].copy_(v)
     rb.rnd.zero_()
 
 
@@ -975,6 +894,13 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
     for _ in range(rounds):
         if spec.steps:                  # as _train_loop advances t
             t_end = t_end + float(iterations)
+    weights = None                      # the captured route's table
+
+    def fill(rb):
+        with span("train.fill"):
+            _fill_round(rb, state, code, carry, weights)
+        return rb
+
     if route == "captured":
         dev = state.W.device
         cap = _round_capacity(rounds)
@@ -984,42 +910,24 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
             weights = tuple(w.to(dev) for w in _round_weights(
                 state.t, rounds, iterations, spec.steps, beta,
                 state.W.dtype))
-        with torch.cuda.device(dev):
-            entry = _ROUND_GRAPHS.pop(key, None)
-            done = 0
-            if entry is None:
-                while len(_ROUND_GRAPHS) >= _ROUND_CACHE_SIZE:
-                    _ROUND_GRAPHS.popitem(last=False)
-                rb = _new_round(state, code, spec, cap, carry, outs)
-                rb.loop.w = torch.empty(cap * spec.steps,
-                                        dtype=state.W.dtype, device=dev)
-                rb.loop.omw = torch.empty_like(rb.loop.w)
-            else:
-                rb = entry.rounds
-            with span("train.fill"):
-                _fill_round(rb, state, code, carry, weights)
-            if entry is None:
 
-                def one(*gs):
-                    round_fn(rb, gs[-1], _RoundCtx(
-                        functools.partial(_round_steps, rb.loop, spec, gs[0]),
-                        None, False))
-                    rb.rnd += 1
+        def new():
+            rb = _new_round(state, code, spec, cap, carry, outs)
+            rb.loop.w = torch.empty(cap * spec.steps, dtype=state.W.dtype,
+                                    device=dev)
+            rb.loop.omw = torch.empty_like(rb.loop.w)
+            return fill(rb)
 
-                with span("train.capture"):
-                    graph, owns, launches = capture_step(one, gens, dev,
-                                                         cache="round")
-                entry = _RoundGraph(graph, rb, owns, launches, tuple(reads))
-                done = 1
-            _ROUND_GRAPHS[key] = entry
-            with span("train.replay", on=dev):
-                replay(entry.graph, entry.gens, gens, rounds - done,
-                       entry.launches, cache="round")
-            entry.replays += rounds - done
+        def one(rb, *gs):
+            round_fn(rb, gs[-1], _RoundCtx(
+                functools.partial(_round_steps, rb.loop, spec, gs[0]),
+                None, False))
+            rb.rnd += 1
+
+        rb = _ROUND_GRAPHS.run(key, dev, gens, rounds, new, fill, one,
+                               reads=reads)
     else:
-        rb = _new_round(state, code, spec, rounds, carry, outs)
-        with span("train.fill"):
-            _fill_round(rb, state, code, carry)
+        rb = fill(_new_round(state, code, spec, rounds, carry, outs))
         lp, t = rb.loop, state.t
 
         def steps(inner, X):            # the steps through _train_loop
@@ -1047,9 +955,7 @@ def _run_rounds(state, code, spec: _StepSpec, *, rounds: int,
                     draw, capture))
                 rb.rnd += 1
 
-    def take(t):            # a graph's buffers outlive the call
-        return t.clone() if route == "captured" else t
-
+    take = functools.partial(_take, route == "captured")
     lp = rb.loop
     with span("train.copy_out"):
         st = dataclasses.replace(state, W=take(lp.W), A=take(lp.A),

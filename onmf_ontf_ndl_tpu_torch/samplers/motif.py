@@ -34,9 +34,10 @@ a last block of the rest), one block function on static buffers
 (``_chain_block``): the M moves' draws into (M, ...) buffers, then one
 call that runs the M moves and writes the block's trail. On a CUDA tensor
 it is captured once as a CUDA graph per cache key (``_chain_key``, which
-holds M; ``_CHAIN_GRAPHS`` holds eight) and replayed for every block, its
-draws from a generator registered with the graph, which hands the
-caller's generator state in and back (``utils/capture.py``); on the CPU,
+holds M; ``_CHAIN_GRAPHS``, a ``utils/capture.py::GraphCache``, holds
+sixteen) and replayed for every block, its draws from a generator
+registered with the graph, which hands the caller's generator state in
+and back; on the CPU,
 and with ``capture=False``, it runs in a Python loop. After each block
 its trail is copied into the run's. All routes draw the same numbers and
 give the same chains as moves run one at a time.
@@ -71,7 +72,6 @@ TPU, not its answer.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 
@@ -81,8 +81,7 @@ import torch
 from onmf_ontf_ndl_tpu_torch.data.graphs import BitsetGraph, CsrGraph
 from onmf_ontf_ndl_tpu_torch.ops.kernels.motif_kernel import (
     _device_parents, chain_move_route, chain_moves, chain_moves_plain)
-from onmf_ontf_ndl_tpu_torch.utils.capture import (capture_step, replay,
-                                                   tensor_at)
+from onmf_ontf_ndl_tpu_torch.utils.capture import GraphCache, tensor_at
 
 __all__ = ["path_adj", "tree_parents", "tree_sample", "rw_update",
            "glauber_update", "pivot_update", "patch_from_embedding",
@@ -431,8 +430,7 @@ def patch_from_embedding(g, emb: torch.Tensor, *,
 # makes up to six (a block and its rest for training, for reconstruction
 # and for a chunked reconstruction's chunks, which share theirs), so
 # sixteen hold the chains of two apps without capturing any again.
-_CHAIN_CACHE_SIZE = 16
-_CHAIN_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_CHAIN_GRAPHS = GraphCache("chain", 16)
 # The bytes of a block's draws and trail at most: they set its moves.
 _BLOCK_BYTES = 16 << 20
 
@@ -580,62 +578,6 @@ def _chain_key(g, emb0: torch.Tensor, B: np.ndarray, use_glauber: bool,
             tuple(tensor_at(t) for t in _graph_tensors(g)))
 
 
-@dataclasses.dataclass
-class _ChainGraph:
-    """A captured block: its graph, its buffers, the generator registered
-    with it (a 1-tuple), the kernel launches of one replay (one ``chain_move`` on the
-    kernel's route, none on the plain one), and the tensors it reads that
-    its caller owns (the graph's, the motif's neighbour table and parent
-    list), held so that no replay reads freed memory."""
-
-    graph: object
-    chains: _Chains
-    gens: tuple
-    launches: dict
-    reads: tuple
-
-
-def _run_captured_block(gen, g, emb: torch.Tensor, B: np.ndarray,
-                        trail: torch.Tensor, done: int, moves: int,
-                        times: int, use_glauber: bool,
-                        backend: str) -> _Chains:
-    """``times`` blocks of ``moves`` moves of the chains ``emb`` on the
-    captured route: the graph of this key (captured on a miss, with its
-    first block run as it is captured) replayed, each block's trail then
-    copied into ``trail`` from move ``done`` on; the graph's generator
-    takes ``gen``'s state before the replays and gives it back after.
-    Returns the graph's buffers (the chains after the last block)."""
-    key = _chain_key(g, emb, B, use_glauber, moves, backend)
-    entry = _CHAIN_GRAPHS.pop(key, None)
-    first = 0
-    if entry is None:
-        while len(_CHAIN_GRAPHS) >= _CHAIN_CACHE_SIZE:
-            _CHAIN_GRAPHS.popitem(last=False)
-        parents = tree_parents(B)
-        kind = _chain_kind(use_glauber, emb.shape[1])
-        ch = _new_chains(emb, kind, moves, sum(p < 0 for p in parents))
-        reads = _chain_reads(g, B, kind, emb.device)
-        graph, owns, launches = capture_step(
-            lambda gn: _chain_block(ch, gn, B, parents, g, use_glauber,
-                                    backend),
-            (gen,), emb.device, cache="chain")
-        entry = _ChainGraph(graph, ch, owns, launches, reads)
-        trail[:, done:done + moves] = ch.trail
-        first = 1
-    else:
-        entry.chains.emb.copy_(emb)
-    _CHAIN_GRAPHS[key] = entry
-    block = entry.chains.trail
-
-    def record(i: int) -> None:
-        at = done + (first + i) * moves
-        trail[:, at:at + moves] = block
-
-    replay(entry.graph, entry.gens, (gen,), times - first, entry.launches,
-           each=record, cache="chain")
-    return entry.chains
-
-
 def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
                use_glauber: bool = True, capture: bool = True,
                backend: str = "auto") -> torch.Tensor:
@@ -662,18 +604,30 @@ def run_chains(gen, g, emb0: torch.Tensor, B: np.ndarray, steps: int, *,
     kind = _chain_kind(use_glauber, k)
     roots = sum(p < 0 for p in parents)
     captured = _chain_route(emb0.device.type, capture) == "captured"
+
+    def block(ch, gn):
+        _chain_block(ch, gn, B, parents, g, use_glauber, backend)
+
     emb, done = emb0, 0
     for moves, times in _chain_blocks(
             steps, _chain_block_moves(C, k, kind, steps, roots)):
+
+        def record(ch, i):          # block i's trail into the run's
+            at = done + i * moves
+            trail[:, at:at + moves] = ch.trail
+
+        new = functools.partial(_new_chains, emb, kind, moves, roots)
         if captured:
-            with torch.cuda.device(emb0.device):
-                ch = _run_captured_block(gen, g, emb, B, trail, done, moves,
-                                         times, use_glauber, backend)
+            ch = _CHAIN_GRAPHS.run(
+                _chain_key(g, emb, B, use_glauber, moves, backend),
+                emb0.device, (gen,), times, new,
+                lambda ch: ch.emb.copy_(emb), block,
+                reads=_chain_reads(g, B, kind, emb0.device), each=record)
         else:
-            ch = _new_chains(emb, kind, moves, roots)
+            ch = new()
             for i in range(times):
-                _chain_block(ch, gen, B, parents, g, use_glauber, backend)
-                trail[:, done + i * moves:done + (i + 1) * moves] = ch.trail
+                block(ch, gen)
+                record(ch, i)
         emb, done = ch.emb, done + moves * times
     return trail
 

@@ -1056,6 +1056,7 @@ def test_cuda_captured_graph_takes_new_data(cuda, own, monkeypatch):
     from onmf_ontf_ndl_tpu_torch.models import onmf
     from onmf_ontf_ndl_tpu_torch.ops.kernels._lib import (RUN_KERNELS,
                                                           device_runs)
+    from onmf_ontf_ndl_tpu_torch.utils.capture import tensor_at
     from onmf_ontf_ndl_tpu_torch.utils.profiling import Throughput
 
     if not own:
@@ -1066,9 +1067,9 @@ def test_cuda_captured_graph_takes_new_data(cuda, own, monkeypatch):
               for _ in range(2))
     _train(cuda, X1, True, stop=0.01)
     entry = next(iter(onmf._GRAPHS.values()))
-    assert entry.loop.owns_x is own
-    assert (entry.loop.X is None) is not own
-    assert entry.x_at == (None if own else (X1.data_ptr(), X1.stride()))
+    assert entry.buffers.owns_x is own
+    assert (entry.buffers.X is None) is not own
+    assert entry.reads == (() if own else (tensor_at(X1),))
     x1 = weakref.ref(X1)
     del X1
     gc.collect()
@@ -1108,7 +1109,7 @@ def test_cuda_graph_cache_stays_small(cuda):
     X = torch.rand((60, 3000), device=cuda)
     for batch in (128, 256, 384, 512, 640, 768):
         _train(cuda, X, True, batch=batch, steps=2)
-    assert len(onmf._GRAPHS) == onmf._GRAPH_CACHE_SIZE
+    assert len(onmf._GRAPHS) == onmf._GRAPHS.size
 
 
 @pytest.mark.cuda
@@ -1187,7 +1188,7 @@ def test_cuda_captured_chains_equal_eager(cuda, use_glauber, rep, k):
                          _chains(g, B, seed=1, capture=False, **kw))
     assert len(tm._CHAIN_GRAPHS) == 1       # one block of the run's moves
     entry = next(iter(tm._CHAIN_GRAPHS.values()))
-    assert entry.chains.trail.shape == (32, 40, k)
+    assert entry.buffers.trail.shape == (32, 40, k)
     # one launch of the chain kernel a replay, nothing else
     assert entry.launches == {n: int(n == "chain_move")
                               for n in entry.launches}
@@ -1327,12 +1328,13 @@ def test_cuda_chain_cache_stays_within_its_size(cuda):
     g = _chain_graphs(cuda)["csr"]
     B = tm.path_adj(0, 2)
     tm._CHAIN_GRAPHS.clear()
-    for C in range(1, tm._CHAIN_CACHE_SIZE + 3):
+    size = tm._CHAIN_GRAPHS.size
+    for C in range(1, size + 3):
         _chains(g, B, C=C, seed=C, steps=3, capture=True, use_glauber=True)
-        assert len(tm._CHAIN_GRAPHS) == min(C, tm._CHAIN_CACHE_SIZE)
+        assert len(tm._CHAIN_GRAPHS) == min(C, size)
     # the least recently used went first
     assert [key[0][0] for key in tm._CHAIN_GRAPHS] == list(
-        range(3, tm._CHAIN_CACHE_SIZE + 3))
+        range(3, size + 3))
 
 
 @pytest.mark.cuda

@@ -9,12 +9,11 @@ for the CUDA graph (the first round run as ``capture_step`` runs it, a
 replay a call of the round on the graph's own generators; the steps on
 the buffers, their weights from the run's table). And the pure functions
 of the captured route: the route, the round graph's key and the weight
-table; the device-seed entry of the checkerboard sampler's plain version;
+table (at one round the training step's); the device-seed entry of the checkerboard sampler's plain version;
 the cached index tables of ``pair_matrices_T``. Exact comparisons
 throughout: the same operations on the same draws. The captured route on
 a CUDA graph needs a card (tests/test_torch_cuda.py)."""
 
-import collections
 import contextlib
 
 import dataclasses
@@ -39,6 +38,7 @@ from onmf_ontf_ndl_tpu_torch.samplers import motif as tm
 from onmf_ontf_ndl_tpu_torch.samplers.ising import (checkerboard_sweeps,
                                                     init_lattice,
                                                     metropolis_chain)
+from onmf_ontf_ndl_tpu_torch.utils import capture
 from onmf_ontf_ndl_tpu_torch.utils.metrics import surrogate_error
 
 torch.set_num_threads(1)
@@ -71,13 +71,15 @@ def eager_capture(step, gens, device, cache="step"):
 def route(request, monkeypatch):
     """Run ``_run_rounds`` on one route: "per_round" is the CPU's own;
     "captured" runs the captured route's code with
-    :func:`eager_capture` in place of the capture, on an empty cache."""
+    :func:`eager_capture` in place of the graph cache's capture, on an
+    empty cache."""
     name = request.param
     if name == "captured":
+        graphs = tonmf._ROUND_GRAPHS
         monkeypatch.setattr(tonmf, "_round_route", lambda *a, **k: name)
-        monkeypatch.setattr(tonmf, "capture_step", eager_capture)
-        monkeypatch.setattr(tonmf, "_ROUND_GRAPHS",
-                            collections.OrderedDict())
+        monkeypatch.setattr(capture, "capture_step", eager_capture)
+        monkeypatch.setattr(tonmf, "_ROUND_GRAPHS", capture.GraphCache(
+            graphs.name, graphs.size, graphs.spans))
         monkeypatch.setattr(torch.cuda, "device",
                             lambda dev: contextlib.nullcontext())
     return name
@@ -325,13 +327,20 @@ def test_network_rounds_equal_the_per_round_loop(route, rep, num_chains,
 
 # ---------------------------------------------- the captured route's parts
 
+@pytest.mark.parametrize("rounds", [1, 6])
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 @pytest.mark.parametrize("t0,beta,iterations", [
     (0.0, 1.0, 5), (3.0, 0.7, 20), (1234.0, 0.5, 30), (7.5, 2.3, 2),
-    (0.1, 0.9, 3)])
+    (0.1, 0.9, 3), (0.0, 1.0, 41), (3.0, 0.7, 41), (1234.0, 0.5, 41),
+    (7.5, 2.3, 41)])
 def test_round_weights_match_the_python_scalar_arithmetic(dtype, t0, beta,
-                                                          iterations):
-    rounds, steps = 6, iterations - 1
+                                                          iterations,
+                                                          rounds):
+    """The weight table of a run of rounds, and at one round the training
+    step's (``_train_loop``'s captured route): each entry, as a (1,) and
+    as a 0-d tensor, gives the products and the in-place blend that the
+    Python floats of the eager route give."""
+    steps = iterations - 1
     w, omw = tonmf._round_weights(t0, rounds, iterations, steps, beta, dtype)
     assert w.dtype == omw.dtype == dtype and w.shape == (rounds * steps,)
     M = torch.from_numpy(RNG.random((5, 7))).to(dtype)
@@ -341,17 +350,18 @@ def test_round_weights_match_the_python_scalar_arithmetic(dtype, t0, beta,
         for i in range(1, steps + 1):
             w_t = (t + i) ** (-float(beta))        # as _step_inner has it
             at = j * steps + i - 1
-            assert torch.equal(w[at:at + 1] * S + omw[at:at + 1] * M,
-                               w_t * S + (1.0 - w_t) * M)
-            blended = M.clone()          # as _step_math blends in place
-            torch.mul(blended, omw[at:at + 1], out=blended).add_(
-                S.clone().mul_(w[at:at + 1]))
-            assert torch.equal(blended, (1.0 - w_t) * M + w_t * S)
+            eager = (1.0 - w_t) * M + w_t * S
+            for wi, oi in ((w[at:at + 1], omw[at:at + 1]), (w[at], omw[at]),
+                           (w_t, 1.0 - w_t)):
+                assert torch.equal(oi * M + wi * S, eager)
+                blended = M.clone()          # as _step_math blends in place
+                torch.mul(blended, oi, out=blended).add_(S.clone().mul_(wi))
+                assert torch.equal(blended, eager)
         t = t + float(iterations)        # as _train_loop leaves the counter
-    # row j is _step_weights from the counter after j rounds
+    # row j is the one-round table from the counter after j rounds
     t = t0
     for j in range(rounds):
-        row = tonmf._step_weights(t, steps, beta, dtype)
+        row = tonmf._round_weights(t, 1, iterations, steps, beta, dtype)
         assert torch.equal(w[j * steps:(j + 1) * steps], row[0])
         assert torch.equal(omw[j * steps:(j + 1) * steps], row[1])
         t = t + float(iterations)

@@ -3,8 +3,8 @@ CPU in float64) against the JAX ``_train_scan`` through ``draws=``, for
 every case that a captured graph's key tells apart; block and iid
 sampling from the generator against the one-step loop of ``_step_inner``
 on the same stream; and the pure functions of the captured route: the
-route, the graph cache key, the step weight table and the launch
-bookkeeping. Tolerance against JAX: rtol 1e-8 (float64, the same
+route, the graph cache key and the launch bookkeeping (the step's
+weight table is the one-round case of tests/test_torch_rounds.py's). Tolerance against JAX: rtol 1e-8 (float64, the same
 operations up to BLAS sums); FISTA rtol 1e-6 / atol 1e-7, as
 tests/test_torch_fista.py holds it (its step 1 / L comes from float32
 power steps, which the frameworks sum in another order: one float32 ulp).
@@ -212,28 +212,6 @@ def test_graph_key_changes_with_each_baked_argument_only():
                            dtype=torch.float32))):                # W dtype
         keys.add(tonmf._graph_key(X2, st2, SPEC))
     assert len(keys) == 1 + len(BAKED) + 7
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("t0,beta", [(0.0, 1.0), (3.0, 0.7), (1234.0, 0.5),
-                                     (7.5, 2.3)])
-def test_step_weights_match_the_python_scalar_arithmetic(dtype, t0, beta):
-    steps = 40
-    w, omw = tonmf._step_weights(t0, steps, beta, dtype)
-    assert w.dtype == omw.dtype == dtype and w.shape == (steps,)
-    M = torch.from_numpy(RNG.random((5, 7))).to(dtype)
-    S = torch.from_numpy(RNG.random((5, 7))).to(dtype)
-    for i in range(steps):
-        w_t = (t0 + i + 1) ** (-float(beta))        # as _step_inner has it
-        eager = (1.0 - w_t) * M + w_t * S
-        # the table's (1,) entries, and as 0-d tensors, give the products
-        # that the Python floats give
-        for wi, oi in ((w[i:i + 1], omw[i:i + 1]), (w[i], omw[i]),
-                       (w_t, 1.0 - w_t)):
-            assert torch.equal(oi * M + wi * S, eager)
-            blended = M.clone()          # as _step_math blends in place
-            torch.mul(blended, oi, out=blended).add_(S.clone().mul_(wi))
-            assert torch.equal(blended, eager)
 
 
 def test_launch_bookkeeping(monkeypatch):
