@@ -65,12 +65,16 @@ RUN_KERNELS = ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
 # wide, and FISTA with it; replays included): ``coder_es.column_sweeps``,
 # each tile's sweeps times its columns, and ``coder_es.columns``, the
 # columns coded; ``coder_es.cluster_columns``, the columns the early-stop
-# coder coded in its cluster form (a tile on a cluster of CTAs); last the
+# coder coded in its cluster form (a tile on a cluster of CTAs); then the
+# dictionary update's ``dict.columns``, the columns its column step ran,
+# and ``dict.panel_updates``, the rank-k updates of G that its panel form
+# applied (one after each panel of k columns but the last); last the
 # chain's move. The column sweeps over the columns are the mean sweeps a
 # column.
 SNAPSHOT_COUNTS = RUN_KERNELS[:4] + ("coder_es.column_sweeps",
                                      "coder_es.columns",
-                                     "coder_es.cluster_columns")
+                                     "coder_es.cluster_columns",
+                                     "dict.columns", "dict.panel_updates")
 DEVICE_COUNTS = SNAPSHOT_COUNTS + ("chain_move",)
 
 

@@ -106,15 +106,17 @@ sampler of ``ising_kernel.py``. Nothing is built or loaded at import.
   and power vectors stay in shared memory up to r = 136 and go to the
   slice past it.
 - :func:`dict_update_sweep` replaces ``dict_update_sweep`` (``:629``): one
-  column-BCD pass over W in residual form. ``G = W A - B^T`` is formed
-  once in shared memory; column j then needs ``G[:, j]`` and the input
-  column, one sum of squares over the rows (one barrier), and a rank-1
-  update ``G[i, l] += delta_i A[j, l]`` for ``l > j`` that is parallel over
-  (row, l). Any A, symmetric or not, matches
+  column-BCD pass over W in residual form. ``G = W A`` is formed once in
+  shared memory; the columns then go in panels of :data:`_DICT_PANEL`, one
+  thread a row holding its row's G over the panel (less B's rows), the old
+  columns and A's block in registers, so that a column step is register
+  arithmetic, one warp's shuffle sum and one exchange of the warps' partial
+  sums (a named barrier in one CTA; in a cluster, stores into every CTA
+  that complete its own mbarrier), and after each panel one rank-k update
+  of the rest of G. Any A, symmetric or not, matches
   :func:`~onmf_ontf_ndl_tpu_torch.ops.dict_update.dict_update_bcd`. What
   bounds it: the r sequential column steps, not the roofline. The rows go
-  to one CTA or, for larger ``d * r``, to a thread block cluster of up to
-  8 CTAs sharing the column norms through distributed shared memory
+  to one CTA or to a thread block cluster of up to 8 CTAs
   (:func:`dict_route`); past the cluster's shared memory the single-block
   kernel (W in device memory, threads over the rows) runs.
 
@@ -376,50 +378,56 @@ def fista_wide_config(r: int, use_stopping: bool = False):
             4 * blocks, _FW_CHUNK, side, cols, shared, 4 * floats)
 
 
-# The dictionary kernel (csrc dict_lanes, dict_threads, dict_smem_floats):
-# threads and shared memory of one CTA, the largest cluster, and the G
-# cells per CTA past which more CTAs share the rows.
-_DICT_MAX_THREADS = 1024
+# The dictionary kernel (csrc dict_stride, dict_threads, dict_smem_floats):
+# one thread a row, at most _DICT_MAX_THREADS and at least _DICT_MIN_WARPS
+# warps a CTA, the largest cluster, the slots of the column's partial sums
+# (a warp's each) and the panel width.
+_DICT_MAX_THREADS = 448
+_DICT_MIN_WARPS = 8
 _DICT_MAX_CLUSTER = 8
+_DICT_MAX_PARTS = 128
+_DICT_PANEL = 8
 _DICT_SMEM_BYTES = 232448
-_DICT_CTA_CELLS = 16384
 
 
-def _dict_lanes(rows: int, r: int) -> int:
-    """Lanes per row of W in a dictionary-kernel CTA."""
-    L = 32
-    while L > 1 and (rows * L > _DICT_MAX_THREADS or 16 * L > r):
-        L >>= 1
-    return L
+def _dict_stride(n: int) -> int:
+    """A row stride of at least ``n`` floats, = 4 (mod 32)."""
+    return n + (4 - n) % 32
 
 
 def _dict_threads(rows: int, r: int) -> int:
-    return -(-rows * _dict_lanes(rows, r) // 32) * 32
+    """One thread a row, at least :data:`_DICT_MIN_WARPS` warps."""
+    return 32 * max(-(-rows // 32), _DICT_MIN_WARPS)
 
 
 def _dict_smem_floats(rows: int, r: int) -> int:
-    """Shared floats of a dictionary-kernel CTA of ``rows`` rows: G and the
-    CTA's rows of W at a row stride = L (mod 32), A, two buffers of partial
-    sums and the reciprocals of the diagonal."""
-    L = _dict_lanes(rows, r)
-    return (2 * rows * (r + (L - r) % 32) + r * r
-            + 2 * _DICT_MAX_CLUSTER * 32 + r)
+    """Shared floats of a dictionary-kernel CTA of ``rows`` rows: two
+    buffers of partial sums and two barriers, the reciprocals of A's
+    diagonal, A padded to whole panels, the CTA's rows of W transposed and
+    its rows of G."""
+    ra = -(-r // _DICT_PANEL) * _DICT_PANEL
+    return (2 * _DICT_MAX_PARTS + 4 + ra + ra * ra + r * _dict_stride(rows)
+            + rows * _dict_stride(-(-r // 4) * 4))
 
 
 def dict_route(d: int, r: int) -> tuple[str, int]:
     """How :func:`dict_update_sweep` runs at (d, r), from the shape alone:
     ``("shared", 1)`` (one CTA), ``("cluster", c)`` (the rows split over a
     cluster of c CTAs) or ``("single", 0)`` (past the cluster's shared
-    memory: the single-block kernel). The fewest CTAs whose rows fit and
-    hold at most :data:`_DICT_CTA_CELLS` cells of G each; if none holds so
-    few, the most that fit."""
-    fits = [c for c in (1, 2, 4, _DICT_MAX_CLUSTER)
+    memory: the single-block kernel). One CTA up to 256 rows; past them a
+    cluster of 4 CTAs where r <= 32 and each holds at most 128 rows, else
+    of 8: the fewest CTAs the rule asks for whose rows fit, or the most
+    that fit. Measured on the H100 (PERF.md §6): one CTA fastest at d
+    <= 200 (r <= 25); at (300, 25) and (441, 25) 4 CTAs 8-24% faster than
+    one, 8 no faster; at (400, 100) and (300, 64) 8 CTAs 4-5% faster than
+    4; two CTAs never fastest."""
+    fits = [c for c in (1, 4, _DICT_MAX_CLUSTER)
             if _dict_threads(-(-d // c), r) <= _DICT_MAX_THREADS
             and 4 * _dict_smem_floats(-(-d // c), r) <= _DICT_SMEM_BYTES]
     if not fits:
         return "single", 0
-    c = next((c for c in fits if -(-d // c) * r <= _DICT_CTA_CELLS),
-             fits[-1])
+    want = 1 if d <= 256 else 4 if r <= 32 and d <= 512 else 8
+    c = next((c for c in fits if c >= want), fits[-1])
     return ("shared" if c == 1 else "cluster"), c
 
 

@@ -68,10 +68,12 @@ constexpr int FISTA_MAX_RANK = 128;
 // and FISTA with it): each tile's sweeps times its columns, summed
 // (ES_COLUMN_SWEEPS), and the columns coded (ES_COLUMNS); last the columns
 // that the early-stop coder coded in its cluster form
-// (ES_CLUSTER_COLUMNS).
+// (ES_CLUSTER_COLUMNS); then the columns of the dictionary update's
+// column step (DICT_COLUMNS) and the rank-k updates of G of its panel form
+// (DICT_PANEL_UPDATES).
 enum {
   RUN_CODER, RUN_CODER_ES, RUN_FISTA, RUN_DICT, ES_COLUMN_SWEEPS,
-  ES_COLUMNS, ES_CLUSTER_COLUMNS, RUN_KINDS
+  ES_COLUMNS, ES_CLUSTER_COLUMNS, DICT_COLUMNS, DICT_PANEL_UPDATES, RUN_KINDS
 };
 __device__ unsigned long long g_runs[RUN_KINDS];
 
@@ -108,6 +110,15 @@ __device__ __forceinline__ void count_cluster_columns(size_t tile0, int n) {
     const size_t left = (size_t)n - tile0;
     atomicAdd(&g_runs[ES_CLUSTER_COLUMNS],
               (unsigned long long)(left < (size_t)TN ? left : (size_t)TN));
+  }
+}
+
+// The dictionary update's columns and its rank-k updates of G, added by
+// one thread of the grid.
+__device__ __forceinline__ void count_dict(int columns, int panel_updates) {
+  if (grid_first_thread()) {
+    atomicAdd(&g_runs[DICT_COLUMNS], (unsigned long long)columns);
+    atomicAdd(&g_runs[DICT_PANEL_UPDATES], (unsigned long long)panel_updates);
   }
 }
 
@@ -2763,6 +2774,7 @@ __global__ void dict_update_single_kernel(const float* __restrict__ W_in,
                                           float* __restrict__ W, int d,
                                           int r) {
   count_run(RUN_DICT);
+  count_dict(r, 0);
   __shared__ float red[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = (blockDim.x + 31) >> 5;
@@ -2793,7 +2805,8 @@ __global__ void dict_update_single_kernel(const float* __restrict__ W_in,
 }
 
 // ---------------------------------------------------------------------------
-// dict_update_kernel: one column-BCD pass in residual form.
+// dict_update_kernel: one column-BCD pass in residual form, the columns in
+// panels.
 //
 // Replaces dict_update_sweep (pallas/coder_kernel.py:629): for j = 0..r-1,
 //   col = max(0, W[:, j] - (W A[:, j] - B[j, :]) / (A_jj + 1)),
@@ -2802,123 +2815,146 @@ __global__ void dict_update_single_kernel(const float* __restrict__ W_in,
 // symmetric or not, matches dict_update_bcd. What bounds it: not the
 // roofline (d r^2 multiply-adds and ~100 KB at d = 300, r = 25: tens of
 // nanoseconds) but the r sequential column steps, each needing the whole
-// column's norm. The design keeps one reduction and one barrier per column:
-//   * the CTA's rows of W (a contiguous block of W_in) are copied into
-//     shared memory at entry and back at exit, both coalesced: per-row
-//     loads and stores of one column each (one cache line per lane) cost
-//     more than the whole column step;
-//   * G = W_in A - B^T (d, r) is formed once, in shared memory, parallel
-//     over (row, l). Column j of W is unchanged before step j, so step j
-//     needs only G[i, j] and W[i, j];
-//   * the new column w'_j replaces column j in shared memory and delta =
-//     w'_j - W_in[:, j] updates G[i, l] += delta_i A[j, l] for l > j:
-//     independent multiply-adds over (row, l), no dependent chain;
-//   * one row per L lanes (L = a power of two dividing 32, so a row's
-//     lanes share a warp and a __syncwarp orders them; each lane keeps 16
-//     or more of the r columns): the column step is a latency chain in
-//     each thread, so short threads finish it sooner, but each warp repeats
-//     the chain's scalar work. The row stride of G and W is = L (mod 32),
-//     so that a warp's rows fall on distinct banks;
-//   * G is formed in register blocks of 4 rows by 8 columns, so that each
-//     value read from shared memory feeds 4 or 8 multiply-adds;
-//   * the column chain is kept short: 1 / (A_jj + 1) is formed at entry,
-//     the partial sums (up to 32) are read whole by every thread, the
-//     norm's reciprocal comes from rsqrt, the rank-1 update is unrolled by
-//     eight with its loads ahead of its stores, and the one element of G
-//     that the next column needs is updated first; the copy in keeps eight
-//     global loads in flight per thread. On the H100 a column step still
-//     takes ~1 us, one warp or ten (PERF.md);
-//   * kCluster: the rows split over a thread block cluster of up to
-//     DICT_MAX_CLUSTER CTAs, each holding its rows of G; each warp's partial
-//     sum of squares goes to every CTA's shared memory (distributed shared
-//     memory), with one cluster barrier per column, split: each thread
-//     arrives once its partial sum is posted and does the rest of the
-//     previous column's rank-1 update before it waits. The partial sums
-//     sit in two buffers by column parity: a buffer is written again only
-//     after the next column's wait, and every reader of it has arrived
-//     there after reading.
-// Every thread sums the same partials in the same order, so every CTA
-// takes the same norm. The residual sums in another order than
+// column's norm: one warp's shuffle sum (five shuffles, ~150 cycles on the
+// H100) and one exchange of the warps' partial sums. The residual form
+// before this one spent ~1475 cycles a column at (300, 25) on one CTA:
+// ~640 on the rank-1 update of G before the barrier (dependent
+// shared-memory read-modify-writes), ~320 reading the partial sums behind
+// it, ~210 updating and reading the next column's element of G, 158 on the
+// shuffles; on a cluster of 4 at (400, 100) ~2720, a third of it the
+// cluster barrier's arrival (PERF.md). The design keeps the column step in
+// registers:
+//   * G = W_in A (d, r) is formed once, in shared memory, in register
+//     blocks of 4 rows by 8 columns from W_in staged transposed (a float4
+//     of 4 rows and two of A's row feed 32 multiply-adds); W_in and A come
+//     in by cp.async, all copies in flight at once;
+//   * one thread a row; the columns go in panels of DICT_PANEL. At a
+//     panel's start each thread holds in registers its row's G over the
+//     panel less B's rows there (prefetched a panel ahead), the panel's old
+//     columns of W, the 1 / (A_jj + 1) and the panel's block of A above its
+//     diagonal. A column's delta_i = w'_ij - W_in[i, j] reaches the
+//     panel's later columns by one multiply-add each, in registers, and the
+//     next panel's G by eight more (A's row loaded while the partial sums
+//     travel); after the panel one rank-DICT_PANEL update brings the rest
+//     of the row's G up to date, a float4 of G read and written once a
+//     panel, not once a column;
+//   * the exchange: in a CTA alone each warp writes its partial sum and
+//     the column's warps meet at one named barrier; in a cluster (the rows
+//     split over up to DICT_MAX_CLUSTER CTAs) each warp's partial sum goes
+//     to every CTA by st.async, which completes that CTA's mbarrier (two,
+//     by column parity, each armed for the column after next once waited
+//     on), so a CTA waits on its own barrier alone, with no cluster
+//     barrier a column. Every thread sums the same partial sums in the
+//     same order, so every CTA takes the same norm;
+//   * W stays in shared memory only transposed, for G and the old columns;
+//     the new column replaces the old there and goes out coalesced at the
+//     end. At least DICT_MIN_WARPS warps a CTA form G; past the rows' warps
+//     they wait out the column step.
+// A column step then measured ~900 cycles on 4 CTAs at (300, 25) (shuffles
+// ~150, the mbarrier's wait and the read ~310), a call 15.5 us (33.8
+// before), and 57 us at (400, 100) on 8 CTAs (180 before); dict_route's
+// CTAs come from such timings. The residual sums in another order than
 // dict_update_bcd, and the reciprocals round once more: the kernel matches
 // it to float32 tolerance.
-constexpr int DICT_MAX_THREADS = 1024;
+constexpr int DICT_MAX_THREADS = 448;
+constexpr int DICT_MIN_WARPS = 8;
 constexpr int DICT_MAX_CLUSTER = 8;
+constexpr int DICT_MAX_PARTS = 128;  // past DICT_MAX_CLUSTER CTAs of 14 warps
+constexpr int DICT_PANEL = 8;
 
-// Lanes per row: the largest power of two up to 32 with rows * L <=
-// DICT_MAX_THREADS and 16 L <= r.
-__host__ __device__ inline int dict_lanes(int rows, int r) {
-  int L = 32;
-  while (L > 1 && (rows * L > DICT_MAX_THREADS || 16 * L > r)) L >>= 1;
-  return L;
+__host__ __device__ inline int dict_round(int n, int m) {
+  return (n + m - 1) / m * m;
 }
 
+// A row stride of at least n floats, = 4 (mod 32): a float4 of a warp's
+// rows falls on distinct banks, and every row is 16-byte aligned.
+__host__ __device__ inline int dict_stride(int n) {
+  return n + (((4 - n) % 32) + 32) % 32;
+}
+
+// One thread a row, at least DICT_MIN_WARPS warps.
 __host__ __device__ inline int dict_threads(int rows, int r) {
-  return (rows * dict_lanes(rows, r) + 31) / 32 * 32;
+  const int warps = (rows + 31) / 32;
+  return 32 * (warps > DICT_MIN_WARPS ? warps : DICT_MIN_WARPS);
 }
 
-// Row stride of G and W: at least r, and = L (mod 32).
-__host__ __device__ inline int dict_row_stride(int r, int L) {
-  return r + (((L - r) % 32) + 32) % 32;
-}
-
-// Shared floats of one CTA of `rows` rows: G and W, A, the partial sums and
-// the reciprocals 1 / (A_jj + 1).
+// Shared floats of one CTA of `rows` rows: two buffers of partial sums and
+// two barriers, 1 / (A_jj + 1), A padded to whole panels, the rows of W
+// transposed and the rows of G.
 __host__ __device__ inline size_t dict_smem_floats(int rows, int r) {
-  return 2 * (size_t)rows * dict_row_stride(r, dict_lanes(rows, r))
-         + (size_t)r * r + 2 * DICT_MAX_CLUSTER * 32 + r;
+  const int ra = dict_round(r, DICT_PANEL);
+  return 2 * (size_t)DICT_MAX_PARTS + 4 + ra + (size_t)ra * ra +
+         (size_t)r * dict_stride(rows) +
+         (size_t)rows * dict_stride(dict_round(r, 4));
 }
 
-// The column barrier: in a cluster, the cluster barrier split in two,
-// arrive (release) and wait (acquire); in a CTA alone, one __syncthreads at
-// the wait (a lone CTA's split barrier measured slower).
-template <bool kCluster>
-__device__ __forceinline__ void column_arrive() {
-  if constexpr (kCluster) cluster_arrive();
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-template <bool kCluster>
-__device__ __forceinline__ void column_wait() {
-  if constexpr (kCluster)
-    cluster_wait();
-  else
-    __syncthreads();
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
-// A warp's share of sum(col^2) (one lane per row) into slot warp of every
-// CTA's partial-sum buffer `part` (distributed shared memory past one CTA),
-// then the arrival at the column's barrier.
-template <bool kCluster>
-__device__ __forceinline__ void dict_post(float* part, float col, int ell,
-                                          int lane, int warp, int nwarps,
-                                          int rank, int ctas) {
-  const float ss = warp_sum(ell == 0 ? col * col : 0.f);
-  if (lane < ctas) {
-    float* dst = part;
-    if constexpr (kCluster) dst = cg::this_cluster().map_shared_rank(part, lane);
-    dst[rank * nwarps + warp] = ss;
-  }
-  column_arrive<kCluster>();
+// The barrier's one arrival of its phase, which then waits for `bytes`.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
 }
 
-// The sum of the column's partial sums, the same in every thread: up to 32
-// read whole by every thread (float4 loads, no shuffles on the chain),
-// more spread over the lanes and reduced by shuffles.
-__device__ __forceinline__ float dict_total(const float* part, int parts,
-                                            int lane) {
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// v into `dst` of the cluster's CTA `rank`, completing 4 bytes of that
+// CTA's barrier `bar` (both given by their addresses in this CTA).
+__device__ __forceinline__ void st_async(float* dst, unsigned long long* bar,
+                                         int rank, float v) {
+  unsigned rd, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rd) : "r"(smem_u32(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rb) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(rd), "f"(v), "r"(rb)
+      : "memory");
+}
+
+// x / n for 0 <= x < 2^32 / n, by m = dict_divisor(n) = 2^32 / n rounded
+// up: one multiply.
+__device__ __forceinline__ unsigned long long dict_divisor(unsigned n) {
+  return ((1ull << 32) + n - 1) / n;
+}
+
+__device__ __forceinline__ int dict_div(int x, unsigned long long m) {
+  return (int)(((unsigned long long)(unsigned)x * m) >> 32);
+}
+
+// The column's partial sums read whole, summed in the same order in every
+// thread of every CTA.
+__device__ __forceinline__ float dict_total(const float* part, int parts) {
   float tot = 0.f;
-  if (parts <= 32) {
-    float4 v[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      v[q] = 4 * q < parts ? reinterpret_cast<const float4*>(part)[q]
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      tot += (v[q].x + v[q].y) + (v[q].z + v[q].w);
-    return tot;
+#pragma unroll 4
+  for (int x = 0; x < parts; x += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(part + x);
+    tot += (v.x + v.y) + (v.z + v.w);
   }
-  for (int x = lane; x < parts; x += 32) tot += part[x];
-  return warp_sum(tot);
+  return tot;
 }
 
 template <bool kCluster>
@@ -2927,125 +2963,207 @@ __global__ void __launch_bounds__(DICT_MAX_THREADS)
                        const float* __restrict__ A,
                        const float* __restrict__ B, float* __restrict__ W,
                        int d, int r, int rows) {
+  constexpr int K = DICT_PANEL;
   count_run(RUN_DICT);
-  extern __shared__ float smem[];
-  const int L = dict_lanes(rows, r), GS = dict_row_stride(r, L);
-  float* red = smem;                   // 2 x (DICT_MAX_CLUSTER * 32), 16 B
-                                       // aligned: read as float4
-  float* rinv = red + 2 * DICT_MAX_CLUSTER * 32;  // (r) 1 / (A_jj + 1)
-  float* G = rinv + r;                 // (rows, GS) residual W A - B^T
-  float* Ws = G + (size_t)rows * GS;   // (rows, GS) this CTA's rows of W
-  float* As = Ws + (size_t)rows * GS;  // (r, r)
+  count_dict(r, (r - 1) / K);
+  extern __shared__ __align__(16) float smem[];
+  const int RA = dict_round(r, K), R4 = dict_round(r, 4);
+  const int GS = dict_stride(R4), WTS = dict_stride(rows);
+  float* red = smem;  // 2 x DICT_MAX_PARTS partial sums, by column parity
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(red + 2 * DICT_MAX_PARTS);
+  float* rinv = red + 2 * DICT_MAX_PARTS + 4;  // (RA) 1 / (A_jj + 1)
+  float* As = rinv + RA;                       // (RA, RA) A, zero-padded
+  float* Wt = As + (size_t)RA * RA;            // (r, WTS) the rows of W
+  float* G = Wt + (size_t)r * WTS;             // (rows, GS) W_in A
   int ctas = 1, rank = 0;
   if constexpr (kCluster) {
     ctas = (int)cg::this_cluster().num_blocks();
     rank = (int)cg::this_cluster().block_rank();
   }
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int nwarps = blockDim.x >> 5, parts = ctas * nwarps;
-  const int il = t / L, ell = t & (L - 1);  // local row; lane within it
-  const int own = min(rows, d - rank * rows);  // rows this CTA holds
-  const bool live = il < own;
-  const size_t first = (size_t)rank * rows * r;
-  for (int x = t; x < r * r; x += blockDim.x) As[x] = A[x];
-  for (int x = t; x < r; x += blockDim.x) rinv[x] = 1.0f / (A[x * r + x] + 1.0f);
-  for (int x = t; x < 2 * DICT_MAX_CLUSTER * 32; x += blockDim.x) red[x] = 0.f;
-  // the rows of W, eight loads in flight per thread
-  for (int x0 = t; x0 < own * r; x0 += 8 * blockDim.x) {
-    float v[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int x = x0 + q * blockDim.x;
-      v[q] = x < own * r ? W_in[first + x] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int x = x0 + q * blockDim.x;
-      if (x < own * r) Ws[(x / r) * GS + x % r] = v[q];
-    }
+  const int t = threadIdx.x, T = blockDim.x, lane = t & 31, warp = t >> 5;
+  const int chain = (rows + 31) >> 5, parts = ctas * chain;
+  const int row0 = rank * rows, own = max(0, min(rows, d - row0));
+  const unsigned long long by_r = dict_divisor(r), by_ra = dict_divisor(RA);
+  for (int x = t; x < 2 * DICT_MAX_PARTS; x += T) red[x] = 0.f;
+  if (kCluster && t == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bars, 4 * parts);
+    if (r > 1) mbar_expect(bars + 1, 4 * parts);
   }
+  for (int x = t; x < RA * RA; x += T) {
+    const int m = dict_div(x, by_ra), l = x - m * RA;
+    const bool in = m < r && l < r;
+    cp_async4(As + x, A + (in ? m * r + l : 0), in);
+  }
+  const float* Wr = W_in + (size_t)row0 * r;
+  for (int x = t; x < own * r; x += T) {
+    const int i = dict_div(x, by_r);
+    cp_async4(Wt + (x - i * r) * WTS + i, Wr + x, true);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  // G = W_in A - B^T in blocks of rows 4b..4b+3 by columns 8c..8c+7
-  const int chunks = (r + 7) / 8, items = (own + 3) / 4 * chunks;
-  for (int it = t; it < items; it += blockDim.x) {
-    const int b = it / chunks, l0 = 8 * (it % chunks);
-    float acc[4][8] = {}, bt[4][8];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)  // B^T, loaded ahead of the products
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = 4 * b + k, l = l0 + q;
-        bt[k][q] = row < own && l < r
-            ? __ldg(B + (size_t)l * d + rank * rows + row) : 0.f;
-      }
+  for (int x = t; x < r; x += T) rinv[x] = 1.0f / (As[x * RA + x] + 1.0f);
+  // G = W_in A in blocks of rows 4b..4b+3 by columns l0..l0+7
+  const int nb4 = (own + 3) / 4, items = nb4 * (RA / 8);
+  for (int it = t; it < items; it += T) {
+    const int b = it % nb4, l0 = 8 * (it / nb4);
+    float acc[4][8] = {};
+    const float* wt = Wt + 4 * b;
+    const float* a = As + l0;
+#pragma unroll 4
     for (int m = 0; m < r; ++m) {
-      float a[8], wm[4];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) a[q] = l0 + q < r ? As[m * r + l0 + q] : 0.f;
+      const float4 w4 = *reinterpret_cast<const float4*>(wt + (size_t)m * WTS);
+      const float4 a0 = *reinterpret_cast<const float4*>(a + m * RA);
+      const float4 a1 = *reinterpret_cast<const float4*>(a + m * RA + 4);
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        wm[k] = 4 * b + k < own ? Ws[(4 * b + k) * GS + m] : 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[k][q] = fmaf(wm[k], a[q], acc[k][q]);
+        for (int q = 0; q < 8; ++q) acc[k][q] = fmaf(wv[k], av[q], acc[k][q]);
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = 4 * b + k, l = l0 + q;
-        if (row < own && l < r) G[row * GS + l] = acc[k][q] - bt[k][q];
-      }
+    for (int k = 0; k < 4; ++k) {
+      if (4 * b + k >= own) continue;
+      float* g = G + (size_t)(4 * b + k) * GS + l0;
+      if (l0 < R4)
+        *reinterpret_cast<float4*>(g) =
+            make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+      if (l0 + 4 < R4)
+        *reinterpret_cast<float4*>(g + 4) =
+            make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
+    }
   }
-  column_arrive<kCluster>();  // G, and every CTA runs before remote writes
-  column_wait<kCluster>();
-  float* w = Ws + il * GS;
-  float* gi = G + il * GS;
-
-  // Column j: the partial sums of col_j^2 are written and (in a cluster)
-  // the barrier arrived at; the rank-1 update of column j - 1 (past column
-  // j + 1) runs before the wait; after it the norm gives w'_j, and the one
-  // element of G that column j + 1 needs is updated first.
-  float w_old = live ? w[0] : 0.f;
-  float col = live ? fmaxf(fmaf(-gi[0], rinv[0], w_old), 0.f) : 0.f;
-  dict_post<kCluster>(red, col, ell, lane, warp, nwarps, rank, ctas);
-  float delta_prev = 0.f;
-  for (int j = 0; j < r; ++j) {
-    if (live && j > 0) {
-      const float* a = As + (j - 1) * r;
-      int l = j + 1 + ((ell - j - 1) & (L - 1));
-      for (; l + 7 * L < r; l += 8 * L) {
-        float av[8], gv[8];
+  const bool live = t < own;
+  const float* Bi = B + row0 + t;  // B[l, row0 + t] at Bi[l * d]
+  float bn[K];                     // B's rows of a coming panel at this row
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          av[q] = a[l + q * L];
-          gv[q] = gi[l + q * L];
+  for (int q = 0; q < K; ++q)
+    bn[q] = live && q < r ? __ldg(Bi + (size_t)q * d) : 0.f;
+  if constexpr (kCluster) {
+    cluster_arrive();  // G, and every CTA's barriers before remote stores
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  if (warp < chain) {
+    float* gi = G + (size_t)t * GS;
+    float gp[K], gn[K], wold[K], rv[K], ab[K][K], dl[K];
+#pragma unroll
+    for (int q = 0; q < K; q += 4) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && q < R4) v = *reinterpret_cast<const float4*>(gi + q);
+      gn[q] = v.x - bn[q];
+      gn[q + 1] = v.y - bn[q + 1];
+      gn[q + 2] = v.z - bn[q + 2];
+      gn[q + 3] = v.w - bn[q + 3];
+    }
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      bn[q] = live && K + q < r ? __ldg(Bi + (size_t)(K + q) * d) : 0.f;
+    for (int j0 = 0; j0 < r; j0 += K) {
+      const int j1 = j0 + K;
+      // the panel: its G (less B's rows, plus the last panel's part), the
+      // old columns of W, 1 / (A_jj + 1), A's block above its diagonal
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        gp[q] = gn[q];
+        wold[q] = live && j0 + q < r ? Wt[(j0 + q) * WTS + t] : 0.f;
+        rv[q] = rinv[j0 + q];
+#pragma unroll
+        for (int q2 = 0; q2 < K; q2 += 4) {
+          if (q2 + 3 > q) {
+            const float4 a = *reinterpret_cast<const float4*>(
+                As + (size_t)(j0 + q) * RA + j0 + q2);
+            ab[q][q2] = a.x;
+            ab[q][q2 + 1] = a.y;
+            ab[q][q2 + 2] = a.z;
+            ab[q][q2 + 3] = a.w;
+          }
         }
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          gi[l + q * L] = fmaf(delta_prev, av[q], gv[q]);
       }
-      for (; l < r; l += L) gi[l] = fmaf(delta_prev, a[l], gi[l]);
+      // the next panel's G, which the last panel's rank-K update reached
+#pragma unroll
+      for (int q = 0; q < K; q += 4) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (live && j1 + q < R4)
+          v = *reinterpret_cast<const float4*>(gi + j1 + q);
+        gn[q] = v.x - bn[q];
+        gn[q + 1] = v.y - bn[q + 1];
+        gn[q + 2] = v.z - bn[q + 2];
+        gn[q + 3] = v.w - bn[q + 3];
+      }
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        bn[q] = live && j1 + K + q < r
+                    ? __ldg(Bi + (size_t)(j1 + K + q) * d) : 0.f;
+        dl[q] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const int j = j0 + q;
+        if (j >= r) break;
+        const float col =
+            live ? fmaxf(fmaf(-gp[q], rv[q], wold[q]), 0.f) : 0.f;
+        const float ss = warp_sum(col * col);
+        float* part = red + (j & 1) * DICT_MAX_PARTS;
+        if constexpr (kCluster) {
+          if (lane < ctas)
+            st_async(part + rank * chain + warp, bars + (j & 1), lane, ss);
+        } else {
+          if (lane == 0) part[warp] = ss;
+        }
+        // A's row j over the next panel, while the partial sums travel
+        const float* an = As + (size_t)j * RA + (j1 < RA ? j1 : 0);
+        const float4 an0 = *reinterpret_cast<const float4*>(an);
+        const float4 an1 = *reinterpret_cast<const float4*>(an + 4);
+        if constexpr (kCluster)
+          mbar_wait(bars + (j & 1), (j >> 1) & 1);
+        else
+          asm volatile("bar.sync 1, %0;\n" ::"r"(chain * 32) : "memory");
+        const float tot = dict_total(part, parts);
+        if (kCluster && t == 0 && j + 2 < r)
+          mbar_expect(bars + (j & 1), 4 * parts);
+        const float wn = col * (tot > 1.0f ? rsqrtf(tot) : 1.0f);
+        dl[q] = wn - wold[q];
+        if (live) Wt[j * WTS + t] = wn;
+#pragma unroll
+        for (int q2 = q + 1; q2 < K; ++q2)
+          gp[q2] = fmaf(dl[q], ab[q][q2], gp[q2]);
+        const float av[8] = {an0.x, an0.y, an0.z, an0.w,
+                             an1.x, an1.y, an1.z, an1.w};
+#pragma unroll
+        for (int q2 = 0; q2 < K; ++q2) gn[q2] = fmaf(dl[q], av[q2], gn[q2]);
+      }
+      // the panel's rank-K update of the row's G past the next panel
+      if (live) {
+        const float* ap = As + (size_t)j0 * RA;
+        for (int l = j1 + K; l < R4; l += 4) {
+          float4 g = *reinterpret_cast<const float4*>(gi + l);
+#pragma unroll
+          for (int m = 0; m < K; ++m) {
+            const float4 a = *reinterpret_cast<const float4*>(ap + m * RA + l);
+            g.x = fmaf(dl[m], a.x, g.x);
+            g.y = fmaf(dl[m], a.y, g.y);
+            g.z = fmaf(dl[m], a.z, g.z);
+            g.w = fmaf(dl[m], a.w, g.w);
+          }
+          *reinterpret_cast<float4*>(gi + l) = g;
+        }
+      }
     }
-    column_wait<kCluster>();
-    const float tot =
-        dict_total(red + (j & 1) * (DICT_MAX_CLUSTER * 32), parts, lane);
-    const float wn = col * (tot > 1.0f ? rsqrtf(tot) : 1.0f);
-    if (live && ell == 0) w[j] = wn;
-    delta_prev = wn - w_old;
-    if (j + 1 == r) break;
-    if (live && ell == ((j + 1) & (L - 1)))
-      gi[j + 1] = fmaf(delta_prev, As[j * r + j + 1], gi[j + 1]);
-    __syncwarp();  // G[i, j + 1] is read by the row's lanes
-    w_old = live ? w[j + 1] : 0.f;
-    col = live ? fmaxf(fmaf(-gi[j + 1], rinv[j + 1], w_old), 0.f) : 0.f;
-    dict_post<kCluster>(red + ((j + 1) & 1) * (DICT_MAX_CLUSTER * 32), col,
-                        ell, lane, warp, nwarps, rank, ctas);
   }
+  if constexpr (kCluster) cluster_arrive();  // no store to another CTA left
   __syncthreads();
-  for (int x = t; x < own * r; x += blockDim.x)
-    W[first + x] = Ws[(x / r) * GS + x % r];
+  float* Wo = W + (size_t)row0 * r;
+  for (int x = t; x < own * r; x += T) {
+    const int i = dict_div(x, by_r);
+    Wo[x] = Wt[(x - i * r) * WTS + i];
+  }
+  if constexpr (kCluster) cluster_wait();
 }
 
 template <bool kBf16>
@@ -3359,7 +3477,8 @@ int onmf_dict_update_sweep(const float* W_in, const float* A, const float* B,
   if (ctas > DICT_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   const int rows = (d + ctas - 1) / ctas;
   const int threads = dict_threads(rows, r);
-  if (threads > DICT_MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if (threads > DICT_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * dict_smem_floats(rows, r);
   if (ctas == 1) {
     int e = launch_smem((const void*)dict_update_kernel<false>, smem);

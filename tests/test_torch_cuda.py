@@ -143,24 +143,77 @@ def test_cuda_coder_kernels_match_plain(cuda, r, n):
         got_es, ck.coder_sweeps_earlystop_plain(A, B, H0, 0.1, 0.01), **TOL)
 
 
+def dict_inputs(d, r, psd, device):
+    """(W, A, B) for a dictionary pass: an asymmetric A (any A must
+    match), or A and B as training forms them: H H^T / n and H X^T / n from
+    the code H of 500 columns X on a normalised W, by the coder kernel."""
+    rng = np.random.default_rng(d + 1000 * r)
+    W = rng.random((d, r)).astype(np.float32)
+    if not psd:
+        A = rng.random((r, r)).astype(np.float32)
+        B = rng.random((r, d)).astype(np.float32)
+        return _t(W, device), _t(A, device), _t(B, device)
+    W /= np.linalg.norm(W, axis=0)
+    W, X = _t(W, device), _t(rng.random((d, 500)).astype(np.float32), device)
+    H = ck.coder_sweeps(W.T @ W, W.T @ X,
+                        torch.zeros((r, 500), device=device), 0.1)
+    return W, (H @ H.T) / 500, (H @ X.T) / 500
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("psd", [False, True])
 @pytest.mark.parametrize("d,r", [(300, 25), (2000, 100), (75, 9),
                                  (441, 25), (400, 100), (1200, 100),
-                                 (300, 300)])
-def test_cuda_dict_kernel_matches_plain(cuda, d, r):
+                                 (300, 300),
+                                 # the panel's edges (r = 1, k - 1, k,
+                                 # k + 1, r not a multiple of k) and
+                                 # fewer rows than a warp
+                                 (33, 1), (50, 7), (50, 8), (64, 9),
+                                 (100, 13), (1, 1), (20, 7), (31, 25)])
+def test_cuda_dict_kernel_matches_plain(cuda, d, r, psd):
     # one CTA, a cluster of CTAs ((400, 100), (1200, 100)) and, past the
     # cluster's shared memory, the single-block kernel ((2000, 100),
     # (300, 300))
-    rng = np.random.default_rng(d)
-    W = _t(rng.random((d, r)).astype(np.float32), cuda)
-    A = _t(rng.random((r, r)).astype(np.float32), cuda)   # asymmetric
-    B = _t(rng.random((r, d)).astype(np.float32), cuda)
+    W, A, B = dict_inputs(d, r, psd, cuda)
     ck.reset_launches()
     got = ck.dict_update_sweep(W, A, B)
     torch.cuda.synchronize()
     assert ck.LAUNCHES["dict_update_sweep"] == 1
     torch.testing.assert_close(got, ck.dict_update_sweep_plain(W, A, B),
                                **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,r", [(300, 25), (441, 25), (400, 100),
+                                 (1200, 100), (20, 7), (50, 8), (300, 300)])
+def test_cuda_dict_kernel_counts_its_columns_and_panels(cuda, d, r):
+    """Each call counts one run, its r columns and, in the panel form, its
+    rank-k updates of G (one after each panel but the last), on every
+    route; a replayed graph counts as a launch does."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    W, A, B = dict_inputs(d, r, False, cuda)
+    route, _ = ck.dict_route(d, r)
+    panels = 0 if route == "single" else (r - 1) // ck._DICT_PANEL
+    _lib.reset_launches()
+    eager = ck.dict_update_sweep(W, A, B)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck.dict_update_sweep(W, A, B)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ck.dict_update_sweep(W, A, B)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    runs = _lib.device_runs()
+    calls = 3   # eager, the side stream's, one replay (a capture runs none)
+    assert _lib.LAUNCHES["dict_update_sweep"] == 3   # the replay calls none
+    assert runs["dict_update_sweep"] == calls
+    assert runs["dict.columns"] == calls * r
+    assert runs["dict.panel_updates"] == calls * panels
 
 
 @pytest.mark.cuda

@@ -237,27 +237,44 @@ def test_stopping_plain_two_tiles_at_rank_160_matches_pallas(coder):
 # float64 NumPy emulations of the two kernel designs, held against the JAX
 # functions at 1e-12 (the designs sum in another order; in float64 that is
 # rounding only).
-def _emulate_dict_residual(W, A, B, ctas):
-    """dict_update_kernel: G = W A - B^T once; per column j the new column
-    from G[:, j] and the input column, its norm as the sum of per-CTA
-    partial sums (rows split over ``ctas`` CTAs), then the rank-1 update
-    G[:, l] += delta A[j, l] for l > j."""
+def _emulate_dict_residual(W, A, B, ctas, k=None):
+    """dict_update_kernel's panel form: G = W A once; the columns in panels
+    of ``k`` (the kernel's panel width); at a panel's start its columns of
+    G less B's rows; per column j the new column from that G and the input
+    column, its norm as the sum of the warps' partial sums (32 rows a
+    warp, the rows split over ``ctas`` CTAs, the CTAs' warps in rank
+    order), the column's rank-1 part added to the panel's later columns
+    alone; after the panel one rank-k update of G past it."""
+    k = k or ck._DICT_PANEL
     d, r = W.shape
     rows = -(-d // max(ctas, 1))
-    W = W.copy()
-    G = W @ A - B.T
-    for j in range(r):
-        col = np.maximum(W[:, j] - G[:, j] / (A[j, j] + 1.0), 0.0)
-        tot = sum(float(np.sum(col[c:c + rows] ** 2))
-                  for c in range(0, d, rows))
-        new = col / max(1.0, np.sqrt(tot))
-        G[:, j + 1:] += np.outer(new - W[:, j], A[j, j + 1:])
-        W[:, j] = new
-    return W
+    out = W.copy()
+    G = W @ A
+    for j0 in range(0, r, k):
+        j1 = min(r, j0 + k)
+        Gp = G[:, j0:j1] - B[j0:j1].T
+        delta = np.zeros((d, j1 - j0))
+        for q, j in enumerate(range(j0, j1)):
+            col = np.maximum(W[:, j] - Gp[:, q] / (A[j, j] + 1.0), 0.0)
+            tot = sum(float(np.sum(col[w:min(w + 32, c + rows, d)] ** 2))
+                      for c in range(0, d, rows)
+                      for w in range(c, min(c + rows, d), 32))
+            new = col / max(1.0, np.sqrt(tot))
+            delta[:, q] = new - W[:, j]
+            out[:, j] = new
+            Gp[:, q + 1:] += np.outer(delta[:, q], A[j, j + 1:j1])
+        G[:, j1:] += delta @ A[j0:j1, j1:]
+    return out
 
 
 @pytest.mark.parametrize("d,r,sym", [(40, 9, False), (75, 25, True),
-                                     (400, 100, False), (1200, 30, False)])
+                                     (400, 100, False), (1200, 30, False),
+                                     # the panel's edges: r = 1, k - 1, k,
+                                     # k + 1, r not a multiple of k
+                                     (33, 1, False), (50, 7, True),
+                                     (50, 8, False), (64, 9, True),
+                                     (300, 25, True), (441, 25, False),
+                                     (100, 13, False), (400, 100, True)])
 def test_residual_dict_emulation_matches_jax_dict_update_bcd(d, r, sym):
     rng = np.random.default_rng(d + r)
     W = rng.random((d, r))
@@ -443,11 +460,18 @@ def test_cluster_earlystop_emulation_matches_one_cta(r, n, S, stop,
 
 
 def test_dict_route_by_shape_alone():
-    # the paths' shapes: one CTA at r = 25, a cluster at r = 100; past
-    # the cluster's shared memory the single-block kernel
-    assert ck.dict_route(300, 25) == ("shared", 1)
-    assert ck.dict_route(441, 25) == ("shared", 1)
-    assert ck.dict_route(400, 100) == ("cluster", 4)
+    # the routes measured fastest on the H100: one CTA up to 256 rows, a
+    # cluster of 4 at r = 25 past them (the cells' (300, 25), (441, 25)), of
+    # 8 at r = 100 ((400, 100), (1200, 100)) and past 512 rows; past the
+    # cluster's shared memory the single-block kernel
+    assert ck.dict_route(75, 9) == ("shared", 1)
+    assert ck.dict_route(200, 25) == ("shared", 1)
+    assert ck.dict_route(256, 64) == ("shared", 1)
+    assert ck.dict_route(300, 25) == ("cluster", 4)
+    assert ck.dict_route(441, 25) == ("cluster", 4)
+    assert ck.dict_route(1000, 9) == ("cluster", 8)
+    assert ck.dict_route(300, 64) == ("cluster", 8)
+    assert ck.dict_route(400, 100) == ("cluster", 8)
     assert ck.dict_route(1200, 100) == ("cluster", 8)
     assert ck.dict_route(300, 300) == ("single", 0)
     assert ck.dict_route(8000, 100) == ("single", 0)
@@ -459,9 +483,11 @@ def test_dict_route_by_shape_alone():
                 continue
             rows = -(-d // ctas)
             assert (route == "shared") == (ctas == 1)
-            assert ctas in (1, 2, 4, 8)
-            assert ck._dict_threads(rows, r) <= 1024
+            assert ctas in (1, 4, 8)
+            assert ck._dict_threads(rows, r) <= 448
             assert 4 * ck._dict_smem_floats(rows, r) <= 232448
+            # a column's partial sums, a warp's each, fit their buffer
+            assert ctas * -(-rows // 32) <= ck._DICT_MAX_PARTS
 
 
 # float32 PyTorch emulation of the fixed-sweep lanes kernel's order of

@@ -233,10 +233,10 @@ def test_launch_bookkeeping(monkeypatch):
 def test_device_run_counts_follow_the_kernel_source():
     """The kinds of the kernels' own counts (``count_run``, then the early
     stop's ``count_sweeps`` and ``count_columns``, then the early-stop
-    coder's cluster form's ``count_cluster_columns``) are
-    ``_lib.DEVICE_COUNTS`` in order, the runs ``_lib.RUN_KERNELS``, each
-    with a launch count; with no library loaded, a reset touches no
-    device."""
+    coder's cluster form's ``count_cluster_columns``, then the dictionary
+    update's ``count_dict``) are ``_lib.DEVICE_COUNTS`` in order, the runs
+    ``_lib.RUN_KERNELS``, each with a launch count; with no library
+    loaded, a reset touches no device."""
     import re
     from pathlib import Path
 
@@ -245,13 +245,14 @@ def test_device_run_counts_follow_the_kernel_source():
              .split(",")]
     assert kinds == ["RUN_CODER", "RUN_CODER_ES", "RUN_FISTA", "RUN_DICT",
                      "ES_COLUMN_SWEEPS", "ES_COLUMNS", "ES_CLUSTER_COLUMNS",
-                     "RUN_KINDS"]
+                     "DICT_COLUMNS", "DICT_PANEL_UPDATES", "RUN_KINDS"]
     assert _lib.RUN_KERNELS == ("coder_sweeps", "coder_sweeps_earlystop",
                                 "fista_sweeps", "dict_update_sweep",
                                 "chain_move")
     assert _lib.DEVICE_COUNTS == _lib.RUN_KERNELS[:4] + (
         "coder_es.column_sweeps", "coder_es.columns",
-        "coder_es.cluster_columns", "chain_move")
+        "coder_es.cluster_columns", "dict.columns", "dict.panel_updates",
+        "chain_move")
     assert set(_lib.RUN_KERNELS) <= set(_lib.LAUNCHES)
     # every main kernel counts one kind; no other kernel counts
     counted = re.findall(r"count_run\(([^)]*)\);", src)
@@ -266,6 +267,10 @@ def test_device_run_counts_follow_the_kernel_source():
     assert len(re.findall(r"count_columns\(n\);", src)) == 4
     assert len(re.findall(r"count_sweeps\(swept, ", src)) == 5
     assert len(re.findall(r"count_cluster_columns\(tile0, n\);", src)) == 1
+    # both dictionary kernels count their columns, the panel form also its
+    # rank-k updates of G, once a launch
+    assert sorted(re.findall(r"count_dict\((r, [^;]*)\);", src)) == [
+        "r, (r - 1) / K", "r, 0"]
     # the chain's move: its source's own counter, in both of its kernels
     chain = (Path(_lib.__file__).parent / "csrc" /
              "motif_kernels.cu").read_text()
