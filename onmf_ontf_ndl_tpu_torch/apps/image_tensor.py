@@ -213,6 +213,7 @@ class ImageReconstructorTensor:
                               dtype=self.dtype, device=self.device)
         return torch.as_tensor(data, dtype=self.dtype, device=self.device)
 
+    @spanned("recon.job")
     def reconstruct_image_color(self, path: str | None = None, data=None,
                                 recons_resolution: int = 1,
                                 alpha: float = 1.0):

@@ -60,21 +60,24 @@ RUN_KERNELS = ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
 
 # Every count the kernels keep on the device: those of the library's
 # array (``onmf_read_runs``; :func:`snapshot_runs` copies them), the runs
-# of the first four kernels above, then the work of every kernel that
-# stops early (the Gauss-Seidel coders with the stop, shared-memory and
-# wide, and FISTA with it; replays included): ``coder_es.column_sweeps``,
-# each tile's sweeps times its columns, and ``coder_es.columns``, the
-# columns coded; ``coder_es.cluster_columns``, the columns the early-stop
-# coder coded in its cluster form (a tile on a cluster of CTAs); then the
-# dictionary update's ``dict.columns``, the columns its column step ran,
-# and ``dict.panel_updates``, the rank-k updates of G that its panel form
-# applied (one after each panel of k columns but the last); last the
-# chain's move. The column sweeps over the columns are the mean sweeps a
-# column.
+# of the first four kernels above, then the work of the Gauss-Seidel
+# coders with the stop, shared-memory and wide (replays included):
+# ``coder_es.column_sweeps``, each tile's sweeps times its columns, and
+# ``coder_es.columns``, the columns coded; ``coder_es.cluster_columns``,
+# the columns the early-stop coder coded in its cluster form (a tile on a
+# cluster of CTAs); then the dictionary update's ``dict.columns``, the
+# columns its column step ran, and ``dict.panel_updates``, the rank-k
+# updates of G that its panel form applied (one after each panel of k
+# columns but the last); then FISTA's work in both of its kernels, with
+# the stop and with fixed iterations: ``fista.column_iters``, each tile's
+# iterations times its columns, and ``fista.columns``, the columns coded;
+# last the chain's move. The column sweeps (iterations) over the columns
+# are the mean sweeps (iterations) a column.
 SNAPSHOT_COUNTS = RUN_KERNELS[:4] + ("coder_es.column_sweeps",
                                      "coder_es.columns",
                                      "coder_es.cluster_columns",
-                                     "dict.columns", "dict.panel_updates")
+                                     "dict.columns", "dict.panel_updates",
+                                     "fista.column_iters", "fista.columns")
 DEVICE_COUNTS = SNAPSHOT_COUNTS + ("chain_move",)
 
 
@@ -92,8 +95,9 @@ def reset_launches() -> None:
 def device_runs() -> dict:
     """Each count of :data:`DEVICE_COUNTS` on the current CUDA device since
     the last :func:`reset_launches`, as the kernels count themselves: the
-    runs of each kernel of :data:`RUN_KERNELS` and the early stop's work;
-    what a graph replays counts too. Synchronises the device."""
+    runs of each kernel of :data:`RUN_KERNELS` and the work of the coders
+    and the dictionary update; what a graph replays counts too.
+    Synchronises the device."""
     lib = build()["lib"]
     out = (ctypes.c_ulonglong * len(DEVICE_COUNTS))()
     _raise_on_error("onmf_read_runs", lib.onmf_read_runs(out))

@@ -34,10 +34,11 @@
 // the wrapper from (d, r) alone.
 //
 // Each entry point's main kernel counts its own runs on the device
-// (count_run), so that a run replayed from a CUDA graph counts too, and
-// every kernel that stops early counts its work (count_columns,
-// count_sweeps): onmf_read_runs and onmf_reset_runs read and zero the
-// counts, onmf_snapshot_runs queues a copy of them on a stream.
+// (count_run), so that a run replayed from a CUDA graph counts too; the
+// Gauss-Seidel coders with the stop and FISTA in both of its modes count
+// their work, each into slots of their own (count_columns, count_sweeps):
+// onmf_read_runs and onmf_reset_runs read and zero the counts,
+// onmf_snapshot_runs queues a copy of them on a stream.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -64,16 +65,19 @@ constexpr int FISTA_MAX_RANK = 128;
 // Counts since onmf_reset_runs: the runs of each entry point's main
 // kernel, in the order of the entry points (coder_sweeps,
 // coder_sweeps_earlystop, fista_sweeps, dict_update_sweep); then the work
-// of the kernels that stop early (the Gauss-Seidel coders with the stop
-// and FISTA with it): each tile's sweeps times its columns, summed
-// (ES_COLUMN_SWEEPS), and the columns coded (ES_COLUMNS); last the columns
-// that the early-stop coder coded in its cluster form
-// (ES_CLUSTER_COLUMNS); then the columns of the dictionary update's
-// column step (DICT_COLUMNS) and the rank-k updates of G of its panel form
-// (DICT_PANEL_UPDATES).
+// of the Gauss-Seidel coders with the stop (shared and wide): each tile's
+// sweeps times its columns, summed (ES_COLUMN_SWEEPS), and the columns
+// coded (ES_COLUMNS); last the columns that the early-stop coder coded in
+// its cluster form (ES_CLUSTER_COLUMNS); then the columns of the
+// dictionary update's column step (DICT_COLUMNS) and the rank-k updates of
+// G of its panel form (DICT_PANEL_UPDATES); then FISTA's work, with the
+// stop or fixed iterations, in both of its kernels: each tile's iterations
+// times its columns (FISTA_COLUMN_ITERS) and the columns coded
+// (FISTA_COLUMNS).
 enum {
   RUN_CODER, RUN_CODER_ES, RUN_FISTA, RUN_DICT, ES_COLUMN_SWEEPS,
-  ES_COLUMNS, ES_CLUSTER_COLUMNS, DICT_COLUMNS, DICT_PANEL_UPDATES, RUN_KINDS
+  ES_COLUMNS, ES_CLUSTER_COLUMNS, DICT_COLUMNS, DICT_PANEL_UPDATES,
+  FISTA_COLUMN_ITERS, FISTA_COLUMNS, RUN_KINDS
 };
 __device__ unsigned long long g_runs[RUN_KINDS];
 
@@ -87,20 +91,22 @@ __device__ __forceinline__ void count_run(int kind) {
   if (grid_first_thread()) atomicAdd(&g_runs[kind], 1ull);
 }
 
-// An early-stopping launch's n columns, added by one thread of the grid.
-__device__ __forceinline__ void count_columns(int n) {
+// A launch's n columns into `slot` (ES_COLUMNS, FISTA_COLUMNS), added by
+// one thread of the grid.
+__device__ __forceinline__ void count_columns(int slot, int n) {
   if (grid_first_thread())
-    atomicAdd(&g_runs[ES_COLUMNS], (unsigned long long)n);
+    atomicAdd(&g_runs[slot], (unsigned long long)n);
 }
 
-// A tile's sweeps times its columns, added by the block's first thread as
-// the tile leaves its sweep loop (`sweeps` the same in every thread).
-__device__ __forceinline__ void count_sweeps(int sweeps, size_t tile0,
-                                             int n) {
+// A tile's sweeps (FISTA: iterations) times its columns into `slot`
+// (ES_COLUMN_SWEEPS, FISTA_COLUMN_ITERS), added by the block's first
+// thread as the tile leaves its loop (`sweeps` the same in every thread).
+__device__ __forceinline__ void count_sweeps(int slot, int sweeps,
+                                             size_t tile0, int n) {
   if (threadIdx.x == 0) {
     const size_t left = (size_t)n - tile0;
     const size_t cols = left < (size_t)TN ? left : (size_t)TN;
-    atomicAdd(&g_runs[ES_COLUMN_SWEEPS], (unsigned long long)sweeps * cols);
+    atomicAdd(&g_runs[slot], (unsigned long long)sweeps * cols);
   }
 }
 
@@ -831,7 +837,7 @@ __global__ void __launch_bounds__(kCluster ? ES_CLUSTER_THREADS
                           float* __restrict__ H, int r, int n, float alpha,
                           float stop, int sub_iter, int pi_iters) {
   count_run(RUN_CODER_ES);
-  count_columns(n);
+  count_columns(ES_COLUMNS, n);
   extern __shared__ float smem[];
   constexpr int C = ES_COLS, RP = L * Q;
   constexpr bool kReform = L * Q > 32;  // g formed anew every sweep: r > 32
@@ -1106,11 +1112,11 @@ __global__ void __launch_bounds__(kCluster ? ES_CLUSTER_THREADS
   if constexpr (kCluster) {
     cluster_arrive();  // this CTA is done with the others' shared memory
     if (rank == 0) {   // the tile's counts, once
-      count_sweeps(swept, tile0, n);
+      count_sweeps(ES_COLUMN_SWEEPS, swept, tile0, n);
       count_cluster_columns(tile0, n);
     }
   } else {
-    count_sweeps(swept, (size_t)blockIdx.x * TN, n);
+    count_sweeps(ES_COLUMN_SWEEPS, swept, (size_t)blockIdx.x * TN, n);
   }
   __syncthreads();
   for (int x = t; x < r * CT; x += blockDim.x) {
@@ -1660,7 +1666,7 @@ __global__ void __launch_bounds__(512)
                        float stop, int sub_iter, int use_stopping,
                        int pi_iters) {
   count_run(RUN_FISTA);
-  if (use_stopping) count_columns(n);
+  count_columns(FISTA_COLUMNS, n);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int R4 = (r + 3) & ~3, RS = ft_row_stride(r), nb = R4 >> 2;
@@ -1833,7 +1839,7 @@ __global__ void __launch_bounds__(512)
       break;
     }
   }
-  if (use_stopping) count_sweeps(swept, tile0, n);
+  count_sweeps(FISTA_COLUMN_ITERS, swept, tile0, n);
   for (int x = t; x < r * TN; x += blockDim.x) {
     const int k = x / TN, c = x % TN;
     if (tile0 + c < (size_t)n) H[(size_t)k * n + tile0 + c] = Ht[c * RS + k];
@@ -2134,7 +2140,7 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
                       float stop, int sub_iter, int pi_iters,
                       float* __restrict__ ws) {
   count_run(RUN_FISTA);
-  if constexpr (kStop) count_columns(n);
+  count_columns(FISTA_COLUMNS, n);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int use_stopping = kStop;
@@ -2317,7 +2323,7 @@ __global__ void __launch_bounds__(FW_MAX_THREADS, 1)
         break;
       }
     }
-    if constexpr (kStop) count_sweeps(swept, tile0, n);
+    count_sweeps(FISTA_COLUMN_ITERS, swept, tile0, n);
     for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
       float h[8];
 #pragma unroll
@@ -2634,7 +2640,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
                       int r, int n, float alpha, float stop, int sub_iter,
                       int pi_iters, float* __restrict__ ws) {
   count_run(kStop ? RUN_CODER_ES : RUN_CODER);
-  if constexpr (kStop) count_columns(n);
+  if constexpr (kStop) count_columns(ES_COLUMNS, n);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int G = CW_THREADS / L;  // column groups: a pass's columns / C
@@ -2743,7 +2749,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
           break;
         }
       }
-      count_sweeps(swept, tile0, n);
+      count_sweeps(ES_COLUMN_SWEEPS, swept, tile0, n);
       for (int x0 = t; x0 < r * TN; x0 += 8 * blockDim.x) {
         float v[8];
 #pragma unroll

@@ -1831,7 +1831,9 @@ def test_cuda_early_stop_counts_its_column_sweeps(cuda, kind, r):
     """The kernels' own count of the early stop's work: with stop 0 no
     tile converges, so each runs ``sub_iter`` sweeps; with a stop no tile
     can miss each stops after its first; the columns once a launch. A
-    replay from a CUDA graph counts as a launch does."""
+    replay from a CUDA graph counts as a launch does. FISTA counts into
+    its own slots (``fista.*``) and leaves the Gauss-Seidel coders'
+    (``coder_es.*``) at 0, and they leave FISTA's."""
     from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
 
     n, sub_iter = 4 * ck.TN + 37, 7
@@ -1840,12 +1842,17 @@ def test_cuda_early_stop_counts_its_column_sweeps(cuda, kind, r):
         else "coder_sweeps_earlystop"
     assert ck.kernel_route(route, r) == ("shared" if r <= 100
                                          else "workspace")
+    own, other = ("fista.column_iters", "fista.columns"), (
+        "coder_es.column_sweeps", "coder_es.columns")
+    if kind != "fista":
+        own, other = other, own
 
     def counted(fn):
         _lib.reset_launches()
         fn()
         runs = _lib.device_runs()
-        return runs["coder_es.column_sweeps"], runs["coder_es.columns"]
+        assert (runs[other[0]], runs[other[1]]) == (0, 0)
+        return runs[own[0]], runs[own[1]]
 
     assert counted(lambda: _early_stop(kind, A, B, H0, 0.0, sub_iter)) \
         == (sub_iter * n, n)

@@ -234,9 +234,10 @@ def test_device_run_counts_follow_the_kernel_source():
     """The kinds of the kernels' own counts (``count_run``, then the early
     stop's ``count_sweeps`` and ``count_columns``, then the early-stop
     coder's cluster form's ``count_cluster_columns``, then the dictionary
-    update's ``count_dict``) are ``_lib.DEVICE_COUNTS`` in order, the runs
-    ``_lib.RUN_KERNELS``, each with a launch count; with no library
-    loaded, a reset touches no device."""
+    update's ``count_dict``, then FISTA's ``count_sweeps`` and
+    ``count_columns`` into slots of its own) are ``_lib.DEVICE_COUNTS`` in
+    order, the runs ``_lib.RUN_KERNELS``, each with a launch count; with
+    no library loaded, a reset touches no device."""
     import re
     from pathlib import Path
 
@@ -245,27 +246,34 @@ def test_device_run_counts_follow_the_kernel_source():
              .split(",")]
     assert kinds == ["RUN_CODER", "RUN_CODER_ES", "RUN_FISTA", "RUN_DICT",
                      "ES_COLUMN_SWEEPS", "ES_COLUMNS", "ES_CLUSTER_COLUMNS",
-                     "DICT_COLUMNS", "DICT_PANEL_UPDATES", "RUN_KINDS"]
+                     "DICT_COLUMNS", "DICT_PANEL_UPDATES",
+                     "FISTA_COLUMN_ITERS", "FISTA_COLUMNS", "RUN_KINDS"]
     assert _lib.RUN_KERNELS == ("coder_sweeps", "coder_sweeps_earlystop",
                                 "fista_sweeps", "dict_update_sweep",
                                 "chain_move")
     assert _lib.DEVICE_COUNTS == _lib.RUN_KERNELS[:4] + (
         "coder_es.column_sweeps", "coder_es.columns",
         "coder_es.cluster_columns", "dict.columns", "dict.panel_updates",
-        "chain_move")
+        "fista.column_iters", "fista.columns", "chain_move")
     assert set(_lib.RUN_KERNELS) <= set(_lib.LAUNCHES)
     # every main kernel counts one kind; no other kernel counts
     counted = re.findall(r"count_run\(([^)]*)\);", src)
     assert sorted(counted) == sorted([
         "RUN_CODER_ES", "RUN_CODER", "RUN_FISTA", "RUN_FISTA",
         "kStop ? RUN_CODER_ES : RUN_CODER", "RUN_DICT", "RUN_DICT"])
-    # the four kernels that stop early (the shared and wide Gauss-Seidel
-    # coders with the stop, FISTA's two) count their columns once a launch
-    # and each tile's sweeps as it leaves its sweep loop: the shared
-    # coder in each of its forms (a CTA a tile; a cluster, whose rank 0
-    # also counts the tile's columns as the cluster form's)
-    assert len(re.findall(r"count_columns\(n\);", src)) == 4
-    assert len(re.findall(r"count_sweeps\(swept, ", src)) == 5
+    # the two Gauss-Seidel kernels that stop early (shared and wide, with
+    # the stop) count their columns once a launch and each tile's sweeps as
+    # it leaves its sweep loop: the shared coder in each of its forms (a
+    # CTA a tile; a cluster, whose rank 0 also counts the tile's columns as
+    # the cluster form's); FISTA's two kernels count the same in both
+    # modes into slots of their own
+    assert len(re.findall(r"count_columns\(ES_COLUMNS, n\);", src)) == 2
+    assert len(re.findall(r"count_sweeps\(ES_COLUMN_SWEEPS, swept, ",
+                          src)) == 3
+    assert re.findall(r"(if[^;]*)?count_columns\(FISTA_COLUMNS, n\);",
+                      src) == ["", ""]
+    assert re.findall(r"(if[^;]*)?count_sweeps\(FISTA_COLUMN_ITERS, swept, ",
+                      src) == ["", ""]
     assert len(re.findall(r"count_cluster_columns\(tile0, n\);", src)) == 1
     # both dictionary kernels count their columns, the panel form also its
     # rank-k updates of G, once a launch
