@@ -165,12 +165,16 @@ KERNELS = {
     # the JAX package's lax.sort and sums
     "group_pairs": ("group_kernels.cu",
                     "onmf_ontf_ndl_tpu/apps/network.py:736", "network"),
+    # the overlap average of a reconstruction's paint: no Pallas kernel,
+    # the JAX package's k^2 pads and adds
+    "overlap_average": ("patch_kernels.cu",
+                        "onmf_ontf_ndl_tpu/ops/patches.py:175", "tensor"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
     "main": ("coder_sweeps", "coder_sweeps_earlystop", "fista_sweeps",
              "dict_update_sweep"),
-    "tensor": ("fista_sweeps", "dict_update_sweep"),
+    "tensor": ("fista_sweeps", "dict_update_sweep", "overlap_average"),
     "ising": ("checkerboard_sweeps", "coder_sweeps_earlystop",
               "coder_sweeps", "dict_update_sweep"),
     "stack": ("checkerboard_sweeps", "coder_sweeps_earlystop",
@@ -628,6 +632,7 @@ def phase_kernels(ck, dev):
     path_shape_kernels(ck, dev, gen)
     summary["checkerboard_sweeps"] = checkerboard_kernels(dev, gen)
     summary["group_pairs"] = group_kernels(dev)
+    summary["overlap_average"] = overlap_average_kernels(dev)
     return summary
 
 
@@ -1047,6 +1052,52 @@ def group_kernels(dev, M=100_096, k=21, n=4039):
          bound_by=by, share=bound_ms / ms)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by)
+
+
+# (H, W, C, k, stride) of the reconstruction cells' paints: image-recon's
+# stride-1 grid of 10 x 10 patches and tensor-recon's stride-2 grid of
+# 20 x 20, on 1024 x 1024 colour images
+PAINT_SHAPES = [(1024, 1024, 3, 10, 1), (1024, 1024, 3, 20, 2)]
+
+
+def overlap_average_kernels(dev):
+    """The overlap average (``patch_kernels.cu``) at ``PAINT_SHAPES``
+    against its plain version, the ``F.fold`` form, on the same float32
+    values on the card: within ``TOL``, and the canvas equal from call to
+    call. Device times from a graph of 20 calls; the bound: the values
+    read once and the canvas written once. The summary is the first
+    shape's."""
+    from onmf_ontf_ndl_tpu_torch.ops.kernels.patch_kernel import (
+        overlap_average)
+    from onmf_ontf_ndl_tpu_torch.ops.patches import overlap_average_fold
+
+    summary = None
+    gen = torch.Generator(device=dev).manual_seed(27)
+    for H, W, C, k, stride in PAINT_SHAPES:
+        ni = nj = -(-(H - k) // stride)
+        vals = torch.rand((k * k * C, ni * nj), generator=gen, device=dev)
+
+        def kernel():
+            return overlap_average(vals, k, stride, ni, nj, (H, W, C))
+
+        def plain():
+            return overlap_average_fold(vals, k, stride, ni, nj, (H, W, C))
+
+        got, want = kernel(), plain()
+        err = compare("overlap_average", got, want)
+        if not torch.equal(got, kernel()):
+            raise AssertionError("overlap_average: two calls differ")
+        del got, want
+        ms = graph_ms(kernel, replays=3)
+        plain_ms = cuda_ms(plain, 5)
+        bound_ms, by = bound(vals.numel() * 4 + H * W * C * 4, 0)
+        emit("kernels", kernel="overlap_average", H=H, W=W, C=C, k=k,
+             stride=stride, patches=ni * nj, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+             share=bound_ms / ms)
+        summary = summary or dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=by)
+    return summary
 
 
 def sparse_dictionary_data(rng, d, r, n):
@@ -2635,7 +2686,8 @@ def main():
     # (each is a loop: Gauss-Seidel sweeps, FISTA or column BCD with a
     # per-tile stop, a Philox heat-bath sampler, whole or in bands, a
     # Glauber or pivot move of a chain; the grouping's plain version is
-    # itself a sort, a run length, a segment sum and a scatter)
+    # itself a sort, a run length, a segment sum and a scatter; the
+    # overlap average's two folds, a copy and a division)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src,
                 "replaces": replaces,
                 "launches": launches[path][name],

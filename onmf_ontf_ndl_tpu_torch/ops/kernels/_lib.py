@@ -1,6 +1,6 @@
 """The kernel library shared by ``coder_kernel.py``, ``ising_kernel.py``,
-``motif_kernel.py`` and ``group_kernel.py``: its build, its launch counts
-and the launch helpers of the wrappers.
+``motif_kernel.py``, ``group_kernel.py`` and ``patch_kernel.py``: its
+build, its launch counts and the launch helpers of the wrappers.
 
 The sources are ``csrc/*.cu``. :func:`build` compiles each source with its
 own ``nvcc`` for ``sm_90a``, all at once, links them into one shared
@@ -48,7 +48,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
             "fista_sweeps": 0, "dict_update_sweep": 0,
             "checkerboard_sweeps": 0, "checkerboard_sweeps_band": 0,
-            "chain_move": 0, "group_pairs": 0}
+            "chain_move": 0, "group_pairs": 0, "overlap_average": 0}
 
 
 # The kernels whose main CUDA kernel also counts its own runs on the device
@@ -242,6 +242,7 @@ def build() -> dict:
     lib.onmf_group_sum.argtypes = [p, p, ll, i, ll, p, p, p, p, p, p, p, p,
                                    p]
     lib.onmf_group_tile.argtypes = []
+    lib.onmf_overlap_average.argtypes = [p, p, i, i, i, i, i, i, i, p]
     lib.onmf_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_chain_read_runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.onmf_snapshot_runs.argtypes = [p, p]
@@ -258,7 +259,7 @@ def build() -> dict:
                lib.onmf_chain_reset_runs, lib.onmf_snapshot_runs,
                lib.onmf_run_slots, lib.onmf_group_sort_bytes,
                lib.onmf_group_sort, lib.onmf_group_heads, lib.onmf_group_sum,
-               lib.onmf_group_tile):
+               lib.onmf_group_tile, lib.onmf_overlap_average):
         fn.restype = ctypes.c_int
     lib.onmf_tile_columns.argtypes = []
     lib.onmf_run_slots.argtypes = []

@@ -2,7 +2,8 @@
 
 Counterpart of ``onmf_ontf_ndl_tpu/ops/patches.py``. A data matrix holds one
 k x k patch per column, flattened row-major in (row, col[, channel]) order.
-The regular-grid forms use ``F.unfold``/``F.fold``; the corner-based forms
+The regular-grid forms use ``F.unfold``/``F.fold`` (on a float32 CUDA
+tensor the overlap average is a hand-written kernel); the corner-based forms
 use advanced indexing and ``index_put_(accumulate=True)``;
 :func:`grid_patch_corners` and :func:`all_patch_corners` give the corners
 of the two regular grids, so the corner-based forms reach the same patches.
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from onmf_ontf_ndl_tpu_torch.models.state import entry_device
+from onmf_ontf_ndl_tpu_torch.ops.kernels import patch_kernel
 
 __all__ = [
     "random_patch_corners",
@@ -23,6 +25,7 @@ __all__ = [
     "extract_patches_grid",
     "overlap_average",
     "overlap_average_grid",
+    "overlap_average_fold",
 ]
 
 
@@ -137,17 +140,30 @@ def extract_patches_grid(img: torch.Tensor, k: int, stride: int = 1, *,
 
 def overlap_average_grid(patch_values: torch.Tensor, k: int, stride: int,
                          out_shape, *, inclusive: bool = False) -> torch.Tensor:
-    """Overlap average for a regular patch grid through ``F.fold``; equal
-    to :func:`overlap_average` at the grid's corners."""
+    """Overlap average for a regular patch grid; equal to
+    :func:`overlap_average` at the grid's corners. A float32 CUDA tensor
+    takes the hand-written gather (``ops/kernels/patch_kernel.py``), any
+    other :func:`overlap_average_fold`."""
     if inclusive:
         stride = 1  # must mirror extract_patches_grid
-    H, W = out_shape[0], out_shape[1]
-    C = out_shape[2] if len(out_shape) == 3 else 1
     ni, nj = _grid_counts(out_shape, k, stride, inclusive)
     if patch_values.shape[1] != ni * nj:
         raise ValueError(
             f"expected {ni * nj} patches for this grid, got "
             f"{patch_values.shape[1]}")
+    if patch_values.is_cuda and patch_values.dtype == torch.float32:
+        return patch_kernel.overlap_average(patch_values, k, stride, ni, nj,
+                                            out_shape)
+    return overlap_average_fold(patch_values, k, stride, ni, nj, out_shape)
+
+
+def overlap_average_fold(patch_values: torch.Tensor, k: int, stride: int,
+                         ni: int, nj: int, out_shape) -> torch.Tensor:
+    """The plain overlap average of an ni x nj grid at ``stride`` through
+    ``F.fold``: the values folded from a zeroed full grid, over the fold
+    of its ones."""
+    H, W = out_shape[0], out_shape[1]
+    C = out_shape[2] if len(out_shape) == 3 else 1
     if ni == 0 or nj == 0:
         return patch_values.new_zeros(tuple(out_shape))
     NI, NJ = (H - k) // stride + 1, (W - k) // stride + 1

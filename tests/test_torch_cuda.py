@@ -21,7 +21,10 @@ with the halo rows copied, against the whole lattice. A small network run (20x20
 coder and dictionary kernels, and its training on the card (float32) must
 agree with the CPU (float64) from the same draws within 1e-3 relative; so
 must a tiny video run, and a reconstruction in 2 chunks must give the CPU's
-pairs and counts exactly and its means within rtol 1e-3 / atol 1e-4.
+pairs and counts exactly and its means within rtol 1e-3 / atol 1e-4. The
+overlap average's gather kernel holds the float64 ``F.fold`` form on the
+CPU at the f32 tolerance (float32 sums of at most k^2 values), and so do
+both apps' colour reconstructions on the card against their CPU runs.
 """
 
 import functools
@@ -661,6 +664,141 @@ def test_cuda_grouping_reads_back_only_the_sparse_pair_count(cuda,
             group_pairs(e, v, 4039)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# (name, H, W, C, k, stride, inclusive): every k of {1, 3, 10, 20} at every
+# stride of {1, 2, 3, 5}, grey and colour, on a non-square image; the full
+# grid; k = H - 1; a tall image; an empty grid; the two reconstruction
+# cells' shapes (image-recon: stride 1, k = 10; tensor-recon: stride 2,
+# k = 20)
+PAINT_CASES = [(f"k{k}_s{s}_c{c}", 37, 45, c, k, s, False)
+               for k in (1, 3, 10, 20) for s in (1, 2, 3, 5) for c in (1, 3)]
+PAINT_CASES += [
+    ("inclusive_k1_c1", 37, 45, 1, 1, 1, True),
+    ("inclusive_k3_c1", 37, 45, 1, 3, 1, True),
+    ("inclusive_k10_c3", 37, 45, 3, 10, 1, True),
+    ("inclusive_k20_c3", 37, 45, 3, 20, 1, True),
+    ("k_h_minus_1", 21, 30, 3, 20, 1, False),
+    ("k_h_minus_1_inclusive", 21, 30, 1, 20, 1, True),
+    ("tall_s3", 61, 17, 3, 5, 3, False),
+    ("empty", 10, 12, 3, 10, 1, False),
+    ("image_recon", 1024, 1024, 3, 10, 1, False),
+    ("tensor_recon", 1024, 1024, 3, 20, 2, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,H,W,C,k,stride,inclusive", PAINT_CASES,
+                         ids=[c[0] for c in PAINT_CASES])
+def test_cuda_overlap_average_equals_the_fold(cuda, monkeypatch, name, H, W,
+                                              C, k, stride, inclusive):
+    """The overlap average of a float32 CUDA tensor (the gather kernel)
+    against the ``F.fold`` form in float64 on the CPU: within ``TOL``, the
+    canvas float32 and contiguous, a second call equal bit for bit, one
+    launch counted a call on the card, none on the CPU, and no fold on the
+    card."""
+    from onmf_ontf_ndl_tpu_torch.ops import patches
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    shape = (H, W, C) if C > 1 else (H, W)
+    ni, nj = patches._grid_counts(shape, k, 1 if inclusive else stride,
+                                  inclusive)
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    vals = torch.rand((k * k * C, ni * nj), generator=gen, device=cuda)
+    _lib.reset_launches()
+    want = patches.overlap_average_grid(vals.double().cpu(), k, stride, shape,
+                                        inclusive=inclusive)
+    assert _lib.LAUNCHES["overlap_average"] == 0
+
+    def refused(*args, **kwargs):
+        raise AssertionError("F.fold ran on the card")
+
+    monkeypatch.setattr(patches.F, "fold", refused)
+    got = patches.overlap_average_grid(vals, k, stride, shape,
+                                       inclusive=inclusive)
+    again = patches.overlap_average_grid(vals, k, stride, shape,
+                                         inclusive=inclusive)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["overlap_average"] == 2
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    assert got.is_contiguous() and got.device == vals.device
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.double().cpu(), want, **TOL)
+    if ni * nj == 0:
+        assert not bool(got.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inclusive", [False, True])
+def test_cuda_float64_overlap_average_takes_the_fold(cuda, inclusive):
+    """A float64 CUDA tensor keeps the ``F.fold`` form: nothing launched,
+    and the CPU's fold within float64 rounding."""
+    from onmf_ontf_ndl_tpu_torch.ops import patches
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    shape, k, stride = (37, 45, 3), 5, 2
+    ni, nj = patches._grid_counts(shape, k, 1 if inclusive else stride,
+                                  inclusive)
+    vals = torch.rand((k * k * 3, ni * nj), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(9))
+    _lib.reset_launches()
+    got = patches.overlap_average_grid(vals.to(cuda), k, stride, shape,
+                                       inclusive=inclusive)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["overlap_average"] == 0
+    assert got.dtype == torch.float64 and got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), patches.overlap_average_grid(
+        vals, k, stride, shape, inclusive=inclusive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["image", "tensor"])
+def test_cuda_colour_reconstruction_paints_with_the_kernel(cuda, monkeypatch,
+                                                          app):
+    """A colour reconstruction of each app on the card (float32) against
+    its CPU run (float64) from the same dictionary and initial codes (the
+    coder's H0 drawn with numpy): within ``TOL``, and one launch of the
+    overlap average a job on the card, none on the CPU."""
+    from onmf_ontf_ndl_tpu_torch.apps import image
+    from onmf_ontf_ndl_tpu_torch.apps.image_tensor import (
+        ImageReconstructorTensor)
+    from onmf_ontf_ndl_tpu_torch.models.state import init_state
+    from onmf_ontf_ndl_tpu_torch.ops.kernels import _lib
+
+    rng = np.random.default_rng(27)
+    img = rng.random((48, 56, 3))
+    k, r, stride = (6, 12, 1) if app == "image" else (8, 16, 2)
+    W0 = rng.random((3 * k * k, r)) * (rng.random((3 * k * k, r)) < 0.3)
+    code = image.nonneg_code
+
+    def coded(X, W, *, generator, **kw):
+        H0 = np.random.default_rng(X.shape[1]).random((W.shape[1],
+                                                       X.shape[1]))
+        return code(X, W, torch.as_tensor(H0, dtype=W.dtype,
+                                          device=W.device), **kw)
+
+    monkeypatch.setattr(image, "nonneg_code", coded)
+    out = {}
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        kw = dict(data=img, patch_size=k, n_components=r, device=device,
+                  dtype=dtype)
+        if app == "image":
+            rec = image.ImageReconstructor(**kw)
+            rec.state = init_state(0, 3 * k * k, r, device=device,
+                                   dtype=dtype, W=W0)
+        else:
+            rec = ImageReconstructorTensor(**kw)
+            rec.W = torch.as_tensor(W0, dtype=dtype, device=device)
+        _lib.reset_launches()
+        for _ in range(2):
+            got = rec.reconstruct_image_color(data=img,
+                                              recons_resolution=stride)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["overlap_average"] == (2 if device == cuda
+                                                    else 0)
+        assert tuple(got.shape) == img.shape and got.dtype == dtype
+        out[str(device)] = got.double().cpu()
+    torch.testing.assert_close(out[str(cuda)], out["cpu"], **TOL)
 
 
 @pytest.mark.cuda

@@ -134,11 +134,14 @@ def test_cpu_wrappers_take_the_plain_path_without_launching():
 
     group_pairs(torch.zeros((2, 2), dtype=torch.int64), torch.ones((4, 2)),
                 3, canvas=(torch.empty((3, 3)), torch.empty((3, 3))))
+    from onmf_ontf_ndl_tpu_torch.ops.patches import overlap_average_grid
+
+    overlap_average_grid(torch.ones((12, 4)), 2, 1, (4, 4, 3))
     assert ck.LAUNCHES == {"coder_sweeps": 0, "coder_sweeps_earlystop": 0,
                            "fista_sweeps": 0, "dict_update_sweep": 0,
                            "checkerboard_sweeps": 0,
                            "checkerboard_sweeps_band": 0, "chain_move": 0,
-                           "group_pairs": 0}
+                           "group_pairs": 0, "overlap_average": 0}
 
 
 def test_argument_checks():
